@@ -23,11 +23,31 @@ through the port's user entry points, in six phases:
 5. the HTTP server in-process: two ``/predict`` requests, ``/healthz``,
    ``/shutdown``;
 6. ``torch.profiler`` over one served forward at the top bucket: device
-   time by kernel and the device's idle share.
+   time by kernel and the device's idle share;
 
-Phases 3-5 are the main path: every kernel's launch count is set to 0
-before them and read after them, and a kernel of the path that was not
-launched fails the run. Any failed check exits non-zero. The last lines
+and then trains the same LM, the configuration of the training benchmark
+(``examples/rnn/word_lm/benchmark.py``: batch 32, SGD with lr 1 and
+``clip_gradient`` 0.25, Xavier init), in three more:
+
+7. the training kernels ``fused_lstm_train`` (K2) and
+   ``lstm_bwd_recurrence`` (K3) vs their plain versions, and a
+   ``FusedLSTM`` layer's six gradients vs the plain backward, at T=35,
+   B in {8, 32}, I=H=650 and a ragged shape, with kernel, plain and cuDNN
+   (forward, backward, both; timed as a yardstick only) times;
+8. ``Module`` on ``gpu(0)`` from ``mx.random.seed(0)``: 2 ``_step``s held
+   against the same Module on ``cpu()``, 20 timed steps of
+   ``_step_scan`` after 2 warm-up steps (tokens/s trained) between two
+   halves of 20 timed per-batch ``_step``s (the path ``fit`` takes by
+   default, each batch copied from host memory), ``fit`` for
+   one short epoch of an ``NDArrayIter`` with ``Perplexity`` and
+   ``Speedometer``, and ``score`` on an eval iterator (K1);
+9. ``torch.profiler`` over one train step.
+
+Phases 3-5 are the serving main path and phase 8 the training one: every
+kernel's launch count is set to 0 before each and read after it. The
+serving path must launch K1; the training path must launch K2 and K3
+exactly once per layer and step, and K1 once per layer and eval batch.
+Any failed check exits non-zero. The last lines
 are the card's name and power limit (``nvidia-smi``), one JSON line with
 every ported kernel's numbers, and the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -56,6 +76,18 @@ LSTM_ATOL = 1e-4
 # values near 1/VOCAB
 SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-7
 ENGINE_REQUESTS, ENGINE_CLIENTS, ENGINE_MAX_BATCH = 100, 16, 32
+# training: the benchmark's batch and optimizer (examples/rnn/word_lm/
+# benchmark.py:37,74-76)
+TRAIN_BATCH = 32
+TRAIN_BATCHES = (8, TRAIN_BATCH)
+TRAIN_OPT = {"learning_rate": 1.0, "clip_gradient": 0.25}
+SCAN_STEPS, FIT_BATCHES, EVAL_BATCHES = 20, 6, 2
+# 2 full-width train steps on the card vs the same Module on the CPU, f32
+# both, TF32 off: only summation order differs, in the forward, the
+# gradients and through lr 1 into the next step. Outputs are
+# probabilities near 1/VOCAB; parameters are up to ~0.3.
+TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-7
+PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-6
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and f32
 # FLOP/s outside the tensor cores, at the 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
@@ -363,6 +395,305 @@ def phase_profile(mx, sym_json, params, rng):
                          "share": ms / busy} for k, (c, ms) in top]}))
 
 
+# ---------------------------------------------------------------------------
+# the training slice: K2/K3 and Module training of the same LM
+# ---------------------------------------------------------------------------
+def bound_ms(nbytes, flops):
+    """The larger of bytes over HBM bandwidth and f32 operations over the
+    CUDA cores' peak: (ms, "bytes" | "operations")."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def train_bounds(t, b, i, h):
+    """Bounds of the two timed wrappers, f32, each input read and each
+    output written once.
+
+    K2, ``fused_lstm_train``: reads x, h0, c0, wx, wh, b; writes hseq,
+    cseq and gates; 2·T·B·4H·(I+H) operations (the input projection it
+    runs and the recurrence). K3, ``lstm_bwd_recurrence``: reads dhseq,
+    dh_n, dc_n, gates, cseq, c0, wh; writes dgates, dh0, dc0;
+    2·T·B·4H·H operations (T carry products, the last one dh0)."""
+    bh, g = b * h, 4 * h
+    k2 = bound_ms(4 * (t * b * i + 2 * bh + i * g + h * g + g
+                       + 2 * t * bh + t * b * g),
+                  2 * t * b * g * (i + h))
+    k3 = bound_ms(4 * (t * bh + 2 * bh + t * b * g + t * bh + bh + h * g
+                       + t * b * g + 2 * bh),
+                  2 * t * b * g * h)
+    return k2, k3
+
+
+def cudnn_train(x, h0, c0, wx, wh, b, cots):
+    """torch.nn.LSTM (cuDNN) with the same weights, for the yardstick
+    only: (training forward, backward of one retained forward, forward +
+    backward) as callables."""
+    inp, hid = wx.shape[0], wh.shape[0]
+    lstm = torch.nn.LSTM(inp, hid).to(x.device)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(wx.t())
+        lstm.weight_hh_l0.copy_(wh.t())
+        lstm.bias_ih_l0.copy_(b)
+        lstm.bias_hh_l0.zero_()
+    leaves = [a.detach().requires_grad_(True) for a in (x, h0, c0)]
+    wrt = leaves + list(lstm.parameters())
+
+    def fwd():
+        y, (hn, cn) = lstm(leaves[0], (leaves[1][None], leaves[2][None]))
+        return [y, hn[0], cn[0]]
+    kept = fwd()
+    return (fwd,
+            lambda: torch.autograd.grad(kept, wrt, cots, retain_graph=True),
+            lambda: torch.autograd.grad(fwd(), wrt, cots))
+
+
+def step_us(fn, kernel):
+    """Mean device µs of one launch of ``kernel`` while ``fn`` runs."""
+    _, kern = device_profile(fn)
+    steps = [v for k, v in kern.items() if kernel in k]
+    return steps[0][1] / steps[0][0] * 1e3 if steps else None
+
+
+def max_err(got, want, what, rtol=LSTM_ATOL, atol=LSTM_ATOL):
+    """Max abs difference of two tensor lists; fails unless every pair is
+    within ``atol + rtol * |want|`` and finite."""
+    worst = 0.0
+    for n, (g, w) in enumerate(zip(got, want)):
+        check(bool(torch.isfinite(g).all()), "%s output %d not finite"
+              % (what, n))
+        check(bool(torch.allclose(g, w, rtol=rtol, atol=atol)),
+              "%s output %d differs from the plain version (max abs err "
+              "%.3g)" % (what, n, float((g - w).abs().max())))
+        worst = max(worst, float((g - w).abs().max()))
+    return worst
+
+
+def phase_train_kernels(ops, device):
+    """K2 (fused_lstm_train) and K3 (lstm_bwd_recurrence) against their
+    plain versions, and the six gradients of a FusedLSTM layer against
+    the plain backward, at T=35, B in {8, 32}, I=H=650 and a ragged
+    shape; kernel, plain and cuDNN times with each kernel's bound."""
+    rows = []
+    worst = 0.0
+    shapes = [(SEQ, b, EMBED, HIDDEN) for b in TRAIN_BATCHES] + [RAGGED]
+    for n, (t, b, i, h) in enumerate(shapes):
+        args = lstm_inputs(t, b, i, h, device, SEED + 10 + n)
+        rng = np.random.RandomState(SEED + 20 + n)
+        cots = [torch.from_numpy(rng.randn(*s).astype(np.float32))
+                .to(device) for s in ((t, b, h), (b, h), (b, h))]
+        x, h0, c0, wx, wh, bias = args
+        with torch.no_grad():
+            res = ops.fused_lstm_train_plain(*args)
+            err2 = max_err(ops.fused_lstm_train(*args), res,
+                           "fused_lstm_train %s" % ((t, b, i, h),))
+            bwd_args = (*cots, res[2], res[1], c0, wh)
+            err3 = max_err(ops.lstm_bwd_recurrence(*bwd_args),
+                           ops.lstm_bwd_recurrence_plain(*bwd_args),
+                           "lstm_bwd_recurrence %s" % ((t, b, i, h),))
+            want = ops.fused_lstm_backward_plain(*cots, x, h0, c0, wx, wh,
+                                                 *res)
+        leaves = [a.detach().requires_grad_(True) for a in args]
+        got = torch.autograd.grad(ops.FusedLSTM.apply(*leaves), leaves,
+                                  cots)
+        err_g = max_err(got, want, "FusedLSTM gradients %s"
+                        % ((t, b, i, h),))
+        worst = max(worst, err2, err3, err_g)
+        row = {"T": t, "B": b, "I": i, "H": h, "k2_max_abs_err": err2,
+               "k3_max_abs_err": err3, "grad_max_abs_err": err_g}
+        if (t, b, i, h) != RAGGED:
+            (k2b, k2by), (k3b, k3by) = train_bounds(t, b, i, h)
+            lib_fwd, lib_bwd, lib_both = cudnn_train(*args, cots)
+
+            def layer():
+                return torch.autograd.grad(ops.FusedLSTM.apply(*leaves),
+                                           leaves, cots)
+            with torch.no_grad():
+                row.update(
+                    k2_ms=time_ms(lambda: ops.fused_lstm_train(*args), 20),
+                    k2_plain_ms=time_ms(
+                        lambda: ops.fused_lstm_train_plain(*args), 20),
+                    k2_bound_ms=k2b, k2_bound_by=k2by,
+                    k3_ms=time_ms(lambda: ops.lstm_bwd_recurrence(
+                        *bwd_args), 20),
+                    k3_plain_ms=time_ms(lambda: ops.lstm_bwd_recurrence_plain(
+                        *bwd_args), 20),
+                    k3_bound_ms=k3b, k3_bound_by=k3by,
+                    backward_ms=time_ms(lambda: ops.fused_lstm_backward(
+                        *cots, x, h0, c0, wx, wh, *res), 20),
+                    k2_step_us=step_us(lambda: ops.fused_lstm_train(*args),
+                                       "lstm_train_step"),
+                    k3_step_us=step_us(lambda: ops.lstm_bwd_recurrence(
+                        *bwd_args), "lstm_bwd_step"))
+            row.update(layer_fwd_bwd_ms=time_ms(layer, 20),
+                       cudnn_fwd_ms=time_ms(lib_fwd, 20),
+                       cudnn_bwd_ms=time_ms(lib_bwd, 20),
+                       cudnn_fwd_bwd_ms=time_ms(lib_both, 20))
+        log("phase 7 train kernels %s" % json.dumps(row))
+        rows.append(row)
+    return rows, worst
+
+
+def bench_symbol(mx, reshape_label=False):
+    """The training benchmark's graph (`examples/rnn/word_lm/
+    benchmark.py:52-58`), time-major data (T, B), labels (T*B,). With
+    ``reshape_label`` the label is a (T, B) input reshaped in the graph,
+    the reference word_lm `train.py:74-84` form, so an NDArrayIter that
+    cuts (T, B) batches feeds it."""
+    data = mx.sym.var("data")
+    x = mx.sym.Embedding(data, input_dim=VOCAB, output_dim=EMBED,
+                         name="embed")
+    x = mx.sym.RNN(x, state_size=HIDDEN, num_layers=LAYERS, mode="lstm",
+                   name="lstm")
+    x = mx.sym.FullyConnected(mx.sym.Reshape(x, shape=(-1, HIDDEN)),
+                              num_hidden=VOCAB, name="decoder")
+    if reshape_label:
+        label = mx.sym.Reshape(mx.sym.var("softmax_label"), shape=(-1,))
+        return mx.sym.SoftmaxOutput(x, label, name="softmax")
+    return mx.sym.SoftmaxOutput(x, name="softmax")
+
+
+def train_module(mx, ctx):
+    """bind, seeded Xavier init and SGD (lr 1, clip 0.25), as the
+    benchmark does; rescale_grad is 1/T (data is (T, B))."""
+    mod = mx.mod.Module(bench_symbol(mx), context=ctx)
+    mod.bind(data_shapes=[("data", (SEQ, TRAIN_BATCH))],
+             label_shapes=[("softmax_label", (SEQ * TRAIN_BATCH,))])
+    mx.random.seed(SEED)
+    mod.init_params(initializer=mx.init.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params=TRAIN_OPT)
+    return mod
+
+
+def lm_batches(mx, rng, n):
+    """n batches of random token ids, on the CPU (Module copies them)."""
+    return [mx.io.DataBatch(
+        data=[mx.nd.array(rng.randint(0, VOCAB, (SEQ, TRAIN_BATCH)))],
+        label=[mx.nd.array(rng.randint(0, VOCAB, SEQ * TRAIN_BATCH))])
+        for _ in range(n)]
+
+
+def lm_iter(mx, rng, batches):
+    """NDArrayIter over ``batches`` (T, B) slices of random token ids."""
+    shape = (batches * SEQ, TRAIN_BATCH)
+    return mx.io.NDArrayIter(rng.randint(0, VOCAB, shape).astype(np.float32),
+                             rng.randint(0, VOCAB, shape).astype(np.float32),
+                             batch_size=SEQ)
+
+
+def sync(ctx):
+    if ctx.device_type == "gpu":
+        torch.cuda.synchronize()
+
+
+def phase_train(mx, ctx, rng):
+    """The training main path on ``ctx``: 2 steps held against the same
+    Module on the CPU, 20 timed steps of ``_step_scan`` after 2 warm-up
+    steps, then ``fit`` for one short epoch and ``score``. Returns
+    (module, summary)."""
+    mod = train_module(mx, ctx)
+    ref = train_module(mx, mx.cpu())
+    for name, arr in mod.get_params()[0].items():
+        check(np.array_equal(arr.asnumpy(),
+                             ref.get_params()[0][name].asnumpy()),
+              "seeded init of %s differs between %s and cpu" % (name, ctx))
+    batches = lm_batches(mx, rng, 4 + 2 * SCAN_STEPS)
+    out_err = 0.0
+    for step, batch in enumerate(batches[:2]):
+        mod._step(batch)
+        ref._step(batch)
+        got = mod.get_outputs()[0].asnumpy()
+        want = ref.get_outputs()[0].asnumpy()
+        check(got.shape == (SEQ * TRAIN_BATCH, VOCAB)
+              and bool(np.isfinite(got).all()),
+              "train step %d output %s not finite" % (step, got.shape))
+        check(np.allclose(got, want, rtol=TRAIN_RTOL, atol=TRAIN_ATOL),
+              "train step %d output differs from the CPU module (max abs "
+              "err %.3g)" % (step, float(np.abs(got - want).max())))
+        out_err = max(out_err, float(np.abs(got - want).max()))
+    param_err = {}
+    for name, arr in mod.get_params()[0].items():
+        got, want = arr.asnumpy(), ref.get_params()[0][name].asnumpy()
+        check(np.allclose(got, want, rtol=PARAM_RTOL, atol=PARAM_ATOL),
+              "%s after 2 steps differs from the CPU module (max abs err "
+              "%.3g)" % (name, float(np.abs(got - want).max())))
+        param_err[name] = float(np.abs(got - want).max())
+    del ref
+
+    for batch in batches[2:4]:           # warm-up
+        mod._step(batch)
+
+    def step_loop(group):
+        """Per-batch ``_step``s (the fit loop's path): seconds."""
+        sync(ctx)
+        t = time.perf_counter()
+        for b in group:
+            mod._step(b)
+        sync(ctx)
+        return time.perf_counter() - t
+    half = SCAN_STEPS // 2
+    loop_s = step_loop(batches[4:4 + half])
+    sync(ctx)
+    t0 = time.perf_counter()
+    stacked = mod._step_scan(batches[4 + half:4 + half + SCAN_STEPS])
+    sync(ctx)
+    wall = time.perf_counter() - t0
+    loop_s += step_loop(batches[4 + half + SCAN_STEPS:])
+    outs = stacked[0].data
+    check(tuple(outs.shape) == (SCAN_STEPS, SEQ * TRAIN_BATCH, VOCAB)
+          and bool(torch.isfinite(outs).all()),
+          "_step_scan outputs %s not finite" % (tuple(outs.shape),))
+    del stacked, outs
+
+    fit_mod = mx.mod.Module(bench_symbol(mx, reshape_label=True),
+                            context=ctx)
+    speedo = mx.callback.Speedometer(SEQ * TRAIN_BATCH, frequent=2,
+                                     auto_reset=False)
+    train_ppl = mx.metric.Perplexity()
+    t1 = time.perf_counter()
+    fit_mod.fit(lm_iter(mx, rng, FIT_BATCHES), eval_metric=train_ppl,
+                batch_end_callback=speedo, optimizer="sgd",
+                optimizer_params=TRAIN_OPT, arg_params=mod.get_params()[0],
+                num_epoch=1)
+    sync(ctx)
+    fit_wall = time.perf_counter() - t1
+    k1_before = mx.ops.fused_lstm.launches
+    (_, eval_ppl), = fit_mod.score(lm_iter(mx, rng, EVAL_BATCHES),
+                                   mx.metric.Perplexity())
+    k1_by_score = mx.ops.fused_lstm.launches - k1_before
+    check(np.isfinite(train_ppl.get()[1]) and np.isfinite(eval_ppl),
+          "perplexity not finite: train %s, eval %s"
+          % (train_ppl.get()[1], eval_ppl))
+    check(speedo.history, "Speedometer logged nothing")
+    summary = {
+        "steps_vs_cpu": 2, "output_max_abs_err_vs_cpu": out_err,
+        "param_max_abs_err_vs_cpu": param_err,
+        "scan_steps": SCAN_STEPS, "scan_wall_s": wall,
+        "tokens_per_s": SCAN_STEPS * SEQ * TRAIN_BATCH / wall,
+        "steps_per_s": SCAN_STEPS / wall,
+        "step_loop_steps": 2 * half,
+        "step_loop_tokens_per_s": 2 * half * SEQ * TRAIN_BATCH / loop_s,
+        "fit_batches": FIT_BATCHES, "fit_wall_s": fit_wall,
+        "fit_train_perplexity": train_ppl.get()[1],
+        "speedometer_samples_per_s": [s for _, _, s in speedo.history],
+        "eval_batches": EVAL_BATCHES, "eval_perplexity": eval_ppl,
+        "k1_launches_by_score": k1_by_score}
+    return mod, summary
+
+
+def phase_train_profile(mod, rng, mx):
+    """Where one train step's device time goes."""
+    batch = lm_batches(mx, rng, 1)[0]
+    wall, kern = device_profile(lambda: mod._step(batch))
+    busy = sum(ms for _, ms in kern.values())
+    top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:10]
+    log("phase 9 train profile %s" % json.dumps({
+        "step_wall_ms": wall, "device_busy_ms": busy,
+        "device_idle_share": (1 - busy / wall) if kern else None,
+        "top_kernels": [{"kernel": k, "launches": c, "ms": ms,
+                         "share": ms / busy} for k, (c, ms) in top]}))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs the port on the GPU",
@@ -403,15 +734,50 @@ def main():
     check(launches > 0, "the main path never launched fused_lstm")
     phase_profile(mx, sym_json, gpu_params, rng)
 
+    train_rows, train_worst = phase_train_kernels(mx.ops, device)
+    counters = (mx.ops.fused_lstm, mx.ops.fused_lstm_train,
+                mx.ops.lstm_bwd_recurrence)
+    for c in counters:                        # the training path starts
+        c.launches = 0
+    mod, summary = phase_train(mx, mx.gpu(0), rng)
+    k1, k2, k3 = (c.launches for c in counters)   # ... and ends here
+    steps = 4 + 2 * SCAN_STEPS + FIT_BATCHES
+    summary.update(train_steps=steps, launches={
+        "fused_lstm": k1, "fused_lstm_train": k2, "lstm_bwd_recurrence": k3})
+    log("phase 8 train %s" % json.dumps(summary))
+    check(k2 == LAYERS * steps and k3 == LAYERS * steps,
+          "training launched fused_lstm_train %d and lstm_bwd_recurrence %d "
+          "times, want %d each (%d layers x %d steps)"
+          % (k2, k3, LAYERS * steps, LAYERS, steps))
+    check(summary["k1_launches_by_score"] == LAYERS * EVAL_BATCHES,
+          "score launched fused_lstm %d times, want %d"
+          % (summary["k1_launches_by_score"], LAYERS * EVAL_BATCHES))
+    phase_train_profile(mod, rng, mx)
+
     top = next(r for r in rows if r["B"] == max(SERVED_BATCHES))
+    train = next(r for r in train_rows if r["B"] == TRAIN_BATCH)
+    pallas = "mxnet_tpu/ops/pallas_kernels.py"
+    train_src = "mxnet_tpu_torch/csrc/fused_lstm_train.cu"
     kernels = [{
         "name": "fused_lstm", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/fused_lstm.cu",
-        "replaces": "mxnet_tpu/ops/pallas_kernels.py:295",
+        "replaces": pallas + ":295",
         "launches": launches, "max_abs_err": worst,
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-        "library_ms": top["library_ms"]}]
+        "library_ms": top["library_ms"]}, {
+        "name": "fused_lstm_train", "route": "cuda", "source": train_src,
+        "replaces": pallas + ":348", "launches": k2,
+        "max_abs_err": train_worst, "ms": train["k2_ms"],
+        "plain_ms": train["k2_plain_ms"], "bound_ms": train["k2_bound_ms"],
+        "bound_by": train["k2_bound_by"],
+        "library_ms": train["cudnn_fwd_ms"]}, {
+        "name": "lstm_bwd_recurrence", "route": "cuda", "source": train_src,
+        "replaces": pallas + ":382", "launches": k3,
+        "max_abs_err": train_worst, "ms": train["k3_ms"],
+        "plain_ms": train["k3_plain_ms"], "bound_ms": train["k3_bound_ms"],
+        "bound_by": train["k3_bound_by"],
+        "library_ms": train["cudnn_bwd_ms"]}]
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -2,26 +2,45 @@
 
 A second package beside the JAX one, with the same module names, so an
 ``import mxnet_tpu_torch as mx`` script reads like one written against
-`mxnet_tpu`. It imports neither JAX nor `mxnet_tpu`. This slice holds
-the serving path: ``sym`` -> ``Executor`` -> ``Predictor`` ->
-``serving.InferenceEngine`` -> HTTP, with the LSTM layer on a
-hand-written CUDA kernel (`ops/lstm_kernel.py`, `csrc/fused_lstm.cu`).
+`mxnet_tpu`. It imports neither JAX nor `mxnet_tpu`. It holds two paths
+so far:
+
+- serving: ``sym`` -> ``Executor`` -> ``Predictor`` ->
+  ``serving.InferenceEngine`` -> HTTP, with the LSTM layer on a
+  hand-written CUDA inference kernel (`csrc/fused_lstm.cu`);
+- training: ``sym`` -> ``mod.Module`` (bind, ``init_params``,
+  ``init_optimizer``, ``fit``/``_step``/``_step_scan``, ``score``) with
+  ``io``, ``metric``, ``optimizer``, ``initializer`` and ``callback``,
+  the LSTM layer on hand-written CUDA training kernels
+  (`csrc/fused_lstm_train.cu`; `ops/lstm_kernel.py` binds all three).
 
 Entry points run on ``gpu(0)`` (``cuda:0``) unless the caller passes
 ``cpu()``; without a CUDA device they raise rather than fall back.
 """
 from .base import MXNetError
 from .context import Context, cpu, gpu, current_context, num_gpus
+from . import random
 from . import ndarray
 from . import ndarray as nd
 from . import ops
 from . import symbol
 from . import symbol as sym
 from .executor import Executor
+from . import initializer
+from . import initializer as init
+from . import optimizer
+from . import io
+from . import metric
+from . import module
+from . import module as mod
+from . import model
+from . import callback
 from .predict import Predictor
-from .weights import params_from_numpy
+from .weights import params_from_numpy, params_to_numpy
 from . import serving
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
-           "num_gpus", "nd", "ndarray", "ops", "sym", "symbol", "Executor",
-           "Predictor", "params_from_numpy", "serving"]
+           "num_gpus", "random", "nd", "ndarray", "ops", "sym", "symbol",
+           "Executor", "init", "initializer", "optimizer", "io", "metric",
+           "mod", "module", "model", "callback", "Predictor",
+           "params_from_numpy", "params_to_numpy", "serving"]

@@ -1,0 +1,311 @@
+// Training LSTM layer for Hopper (sm_90a): the hand-written counterparts of
+// two TPU kernels of mxnet_tpu/ops/pallas_kernels.py, the forward and the
+// backward of fused_lstm's custom VJP.
+//
+// K2 fused_lstm_train_forward replaces _lstm_fwd_train_kernel (called from
+// _lstm_vjp_fwd). It runs the inference recurrence of fused_lstm.cu and also
+// keeps the residuals the backward needs, gate order i, f, g, o:
+//   gates_t = [sigmoid(i), sigmoid(f), tanh(g), sigmoid(o)]  (post-activation)
+//   c_t     = f * c_{t-1} + i * g,   h_t = o * tanh(c_t)
+// writing hseq, cseq (T, B, H) and gates (T, B, 4H). xp = x @ Wx + b comes
+// from the caller (one cuBLAS product for all steps, as in the TPU code).
+//
+// K3 fused_lstm_backward replaces _lstm_bwd_kernel (called from
+// _lstm_vjp_bwd). It walks t = T-1 .. 0 with the carries dh and dc:
+//   dh      = dhseq_t + dh_carry            (dh_carry = dh_n at t = T-1)
+//   do      = dh * tanh(c_t)
+//   dc      = dc_carry + dh * o * (1 - tanh(c_t)^2)   (dc_carry = dc_n first)
+//   dgates_t = [dc*g * i(1-i), dc*c_{t-1} * f(1-f), dc*i * (1-g^2), do * o(1-o)]
+//   dh_carry = dgates_t @ Wh^T,   dc_carry = dc * f
+// and returns dgates (T, B, 4H), dh0 = dgates_0 @ Wh^T and dc0. The input and
+// weight gradients are sequence-wide products of dgates that the caller runs
+// outside (dx, dWx, dWh, db), as the TPU code does.
+//
+// Design. The TPU kernels walk t on a sequential grid and carry h, c (and dh,
+// dc) in VMEM scratch. Hopper blocks run in parallel and in no order, so as
+// in fused_lstm.cu each time step is one launch, issued in order on the
+// caller's stream by the host functions below. Because c_t is now stored per
+// step, the forward reads h_{t-1} and c_{t-1} from the outputs of the step
+// before (h0, c0 at t = 0): nothing is updated in place and c0 is not copied.
+//
+// The forward step is fused_lstm.cu's: a block covers 32 hidden units (one
+// per lane) for up to 8 batch rows, its 8 warps split the reduction over
+// k = 0..H-1, and the partial sums meet in shared memory for the cell
+// update, which also stores the four activated gates.
+//
+// The backward step fuses the carry product with the elementwise part. For
+// hidden unit j the elementwise part needs only column j of each gate, so a
+// block that owns units j..j+31 for 8 rows first reduces
+//   dh_carry[b, j] = sum_k dgates_{t+1}[b, k] * WhT[k, j],  k < 4H,
+// and then writes dgates_t[b, j + g*H] for the four gates. WhT (4H, H) is
+// passed contiguous, as the TPU code passes it, so a warp's loads of one row
+// of WhT are coalesced; the 8 warps take k in chunks of 4, read as one float4
+// of each dgates row (4H is a multiple of 4, so the chunks stay aligned).
+// dgates_{t+1} is already in the output buffer from the launch before, and dc
+// is owned in place by the one thread that updates it. One last
+// reduction-only launch gives dh0.
+//
+// What bounds them. Per step a layer reads Wh (H x 4H f32, 6.76 MB at
+// H = 650) once per 8-row batch tile; it fits the 50 MB L2, so after the
+// first step the reads hit L2. The arithmetic is 2*B*H*4H f32 operations per
+// step on the CUDA cores in each direction. At B = 32 that is a few
+// microseconds of either, so the dependent loads of each warp's k loop and
+// the 35 dependent launches set the time. A persistent kernel with a
+// grid-wide barrier, Wh resident in the SMs' shared memory, and wgmma are the
+// later steps.
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int kLanes = 32;  // hidden units per block, one per lane
+constexpr int kWarps = 8;   // warps splitting the reduction over k
+constexpr int kRows = 8;    // batch rows per block
+static_assert(kWarps == kRows, "the cell update maps warp w to row w");
+
+__device__ __forceinline__ float sigmoid_f(float v) {
+  return 1.0f / (1.0f + expf(-v));
+}
+
+__global__ void __launch_bounds__(kLanes * kWarps)
+lstm_train_step(const float* __restrict__ xp_t,    // (B, 4H): x@Wx + b
+                const float* __restrict__ wh,      // (H, 4H)
+                const float* __restrict__ h_prev,  // (B, H)
+                const float* __restrict__ c_prev,  // (B, H)
+                float* __restrict__ h_t,           // (B, H)
+                float* __restrict__ c_t,           // (B, H)
+                float* __restrict__ gates_t,       // (B, 4H), activated
+                int B, int H) {
+  __shared__ float partial[kWarps][4][kRows][kLanes];  // 32 KB
+  const int lane = threadIdx.x % kLanes;
+  const int warp = threadIdx.x / kLanes;
+  const int j = blockIdx.x * kLanes + lane;
+  const int b0 = blockIdx.y * kRows;
+  const int rows = min(kRows, B - b0);
+  const size_t G = 4 * static_cast<size_t>(H);
+
+  float acc[4][kRows];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[g][r] = 0.0f;
+  }
+
+  if (j < H) {
+    const float* hb = h_prev + static_cast<size_t>(b0) * H;
+    for (int k = warp; k < H; k += kWarps) {
+      const float* w = wh + static_cast<size_t>(k) * G + j;
+      const float wi = w[0];
+      const float wf = w[H];
+      const float wg = w[2 * H];
+      const float wo = w[3 * H];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r < rows) {
+          const float hv = hb[static_cast<size_t>(r) * H + k];
+          acc[0][r] = fmaf(hv, wi, acc[0][r]);
+          acc[1][r] = fmaf(hv, wf, acc[1][r]);
+          acc[2][r] = fmaf(hv, wg, acc[2][r]);
+          acc[3][r] = fmaf(hv, wo, acc[3][r]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) partial[warp][g][r][lane] = acc[g][r];
+  }
+  __syncthreads();
+
+  const int r = warp;  // cell update: warp w finishes row b0 + w
+  if (r < rows && j < H) {
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) s[g] += partial[w][g][r][lane];
+    }
+    const size_t row = static_cast<size_t>(b0 + r);
+    const float* x = xp_t + row * G;
+    const float gi = sigmoid_f(s[0] + x[j]);
+    const float gf = sigmoid_f(s[1] + x[H + j]);
+    const float gg = tanhf(s[2] + x[2 * H + j]);
+    const float go = sigmoid_f(s[3] + x[3 * H + j]);
+    const size_t idx = row * H + j;
+    const float cn = gf * c_prev[idx] + gi * gg;
+    c_t[idx] = cn;
+    h_t[idx] = go * tanhf(cn);
+    float* gt = gates_t + row * G;
+    gt[j] = gi;
+    gt[H + j] = gf;
+    gt[2 * H + j] = gg;
+    gt[3 * H + j] = go;
+  }
+}
+
+// The carry product of the backward for this block's 32 units and 8 rows:
+// returns sum_k dg[b0 + warp, k] * whT[k, j] to the thread of (warp, lane);
+// every thread of the block must call it (it synchronises the block).
+__device__ __forceinline__ float carry_product(
+    const float* __restrict__ dg,   // (B, 4H)
+    const float* __restrict__ whT,  // (4H, H)
+    float (*partial)[kRows][kLanes], int b0, int rows, int j, int H) {
+  const int lane = threadIdx.x % kLanes;
+  const int warp = threadIdx.x / kLanes;
+  const size_t G = 4 * static_cast<size_t>(H);
+  float acc[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
+  if (j < H) {
+    const float* dgb = dg + static_cast<size_t>(b0) * G;
+    for (int c = warp; c < H; c += kWarps) {  // chunk c: k = 4c .. 4c+3
+      const size_t k = 4 * static_cast<size_t>(c);
+      const float w0 = whT[k * H + j];
+      const float w1 = whT[(k + 1) * H + j];
+      const float w2 = whT[(k + 2) * H + j];
+      const float w3 = whT[(k + 3) * H + j];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r < rows) {
+          const float4 d =
+              *reinterpret_cast<const float4*>(dgb + r * G + k);
+          acc[r] = fmaf(d.x, w0, acc[r]);
+          acc[r] = fmaf(d.y, w1, acc[r]);
+          acc[r] = fmaf(d.z, w2, acc[r]);
+          acc[r] = fmaf(d.w, w3, acc[r]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) partial[warp][r][lane] = acc[r];
+  __syncthreads();
+  float s = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) s += partial[w][warp][lane];
+  return s;
+}
+
+__global__ void __launch_bounds__(kLanes * kWarps)
+lstm_bwd_step(const float* __restrict__ dg_next,  // (B, 4H) dgates_{t+1},
+                                                  // null at t = T-1
+              const float* __restrict__ dh_last,  // (B, H) dh_n
+              const float* __restrict__ whT,      // (4H, H)
+              const float* __restrict__ dh_out,   // (B, H) dhseq_t
+              const float* __restrict__ gates_t,  // (B, 4H), activated
+              const float* __restrict__ c_t,      // (B, H)
+              const float* __restrict__ c_prev,   // (B, H)
+              float* __restrict__ dc,             // (B, H), in place
+              float* __restrict__ dg_t,           // (B, 4H)
+              int B, int H) {
+  __shared__ float partial[kWarps][kRows][kLanes];  // 8 KB
+  const int lane = threadIdx.x % kLanes;
+  const int warp = threadIdx.x / kLanes;
+  const int j = blockIdx.x * kLanes + lane;
+  const int b0 = blockIdx.y * kRows;
+  const int rows = min(kRows, B - b0);
+  const size_t G = 4 * static_cast<size_t>(H);
+
+  // dg_next is the same for every block: the branch is uniform
+  const float carry = dg_next != nullptr
+      ? carry_product(dg_next, whT, partial, b0, rows, j, H) : 0.0f;
+
+  const int r = warp;  // elementwise part: warp w finishes row b0 + w
+  if (r < rows && j < H) {
+    const size_t row = static_cast<size_t>(b0 + r);
+    const size_t idx = row * H + j;
+    const float dh = dh_out[idx] + (dg_next != nullptr ? carry : dh_last[idx]);
+    const float* gt = gates_t + row * G;
+    const float gi = gt[j];
+    const float gf = gt[H + j];
+    const float gg = gt[2 * H + j];
+    const float go = gt[3 * H + j];
+    const float th = tanhf(c_t[idx]);
+    const float d_o = dh * th;
+    const float dcv = dc[idx] + dh * go * (1.0f - th * th);
+    float* out = dg_t + row * G;
+    out[j] = dcv * gg * gi * (1.0f - gi);
+    out[H + j] = dcv * c_prev[idx] * gf * (1.0f - gf);
+    out[2 * H + j] = dcv * gi * (1.0f - gg * gg);
+    out[3 * H + j] = d_o * go * (1.0f - go);
+    dc[idx] = dcv * gf;
+  }
+}
+
+__global__ void __launch_bounds__(kLanes * kWarps)
+lstm_bwd_dh0(const float* __restrict__ dg0,  // (B, 4H) dgates_0
+             const float* __restrict__ whT,  // (4H, H)
+             float* __restrict__ dh0,        // (B, H)
+             int B, int H) {
+  __shared__ float partial[kWarps][kRows][kLanes];
+  const int lane = threadIdx.x % kLanes;
+  const int warp = threadIdx.x / kLanes;
+  const int j = blockIdx.x * kLanes + lane;
+  const int b0 = blockIdx.y * kRows;
+  const int rows = min(kRows, B - b0);
+  const float s = carry_product(dg0, whT, partial, b0, rows, j, H);
+  if (warp < rows && j < H) dh0[static_cast<size_t>(b0 + warp) * H + j] = s;
+}
+
+dim3 grid_of(int B, int H) {
+  return dim3((H + kLanes - 1) / kLanes, (B + kRows - 1) / kRows);
+}
+
+}  // namespace
+
+// K2: the T-step forward on `stream`. Reads xp (T, B, 4H), wh (H, 4H),
+// h0 and c0 (B, H); writes hseq and cseq (T, B, H) and gates (T, B, 4H).
+// All f32, contiguous, on one device. Returns the first launch error (0 when
+// every launch was accepted); it does not synchronise.
+extern "C" int fused_lstm_train_forward(const float* xp, const float* wh,
+                                        const float* h0, const float* c0,
+                                        float* hseq, float* cseq,
+                                        float* gates, int T, int B, int H,
+                                        void* stream) {
+  const dim3 block(kLanes * kWarps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bh = static_cast<size_t>(B) * H;
+  for (int t = 0; t < T; ++t) {
+    const size_t off = static_cast<size_t>(t) * bh;
+    const float* hp = t == 0 ? h0 : hseq + off - bh;
+    const float* cp = t == 0 ? c0 : cseq + off - bh;
+    lstm_train_step<<<grid_of(B, H), block, 0, s>>>(
+        xp + 4 * off, wh, hp, cp, hseq + off, cseq + off, gates + 4 * off,
+        B, H);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+// K3: the reverse-time backward on `stream`. Reads dhseq (T, B, H), dh_n
+// (B, H), gates (T, B, 4H), cseq (T, B, H), c0 (B, H) and whT (4H, H);
+// dc (B, H) holds dc_n on entry and dc0 on return; writes dgates (T, B, 4H)
+// and dh0 (B, H). All f32, contiguous, on one device; T + 1 launches.
+// Returns the first launch error; it does not synchronise.
+extern "C" int fused_lstm_backward(const float* dhseq, const float* dhn,
+                                   const float* gates, const float* cseq,
+                                   const float* c0, const float* whT,
+                                   float* dc, float* dgates, float* dh0,
+                                   int T, int B, int H, void* stream) {
+  const dim3 block(kLanes * kWarps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bh = static_cast<size_t>(B) * H;
+  for (int t = T - 1; t >= 0; --t) {
+    const size_t off = static_cast<size_t>(t) * bh;
+    const float* dg_next = t == T - 1 ? nullptr : dgates + 4 * (off + bh);
+    const float* cp = t == 0 ? c0 : cseq + off - bh;
+    lstm_bwd_step<<<grid_of(B, H), block, 0, s>>>(
+        dg_next, dhn, whT, dhseq + off, gates + 4 * off, cseq + off, cp, dc,
+        dgates + 4 * off, B, H);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  lstm_bwd_dh0<<<grid_of(B, H), block, 0, s>>>(dgates, whT, dh0, B, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* fused_lstm_train_error_name(int err) {
+  return cudaGetErrorName(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,188 @@
+"""Weight initializers.
+
+Counterpart of `mxnet_tpu/initializer.py` (reference
+`python/mxnet/initializer.py`): ``InitDesc``, the name dispatch of
+``Initializer.__call__``, and ``Zero``, ``One``, ``Constant``,
+``Uniform``, ``Normal``, ``Xavier`` with ``register``/``create``. Values
+are drawn with numpy's global generator in the JAX package's order and
+cast to the array's dtype on the host, then copied to the array's
+device, so one ``np.random`` seed gives bit-identical parameters in both
+packages. ``Orthogonal``, ``MSRAPrelu``, ``Bilinear``, ``LSTMBias``,
+``Mixed`` and ``Load`` wait for a later slice.
+"""
+from __future__ import annotations
+
+import json
+
+import numpy as np
+
+__all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
+           "Normal", "Xavier", "register", "create"]
+
+_INIT_REGISTRY = {}
+
+
+def register(klass):
+    _INIT_REGISTRY[klass.__name__.lower()] = klass
+    return klass
+
+
+class InitDesc(str):
+    """Name + attrs descriptor (reference initializer.py InitDesc)."""
+
+    def __new__(cls, name, attrs=None, global_init=None):
+        ret = super().__new__(cls, name)
+        ret.attrs = attrs or {}
+        ret.global_init = global_init
+        return ret
+
+
+class Initializer:
+    def __init__(self, **kwargs):
+        self._kwargs = kwargs
+
+    def dumps(self):
+        return json.dumps([self.__class__.__name__.lower(), self._kwargs])
+
+    def __call__(self, desc, arr):
+        if not isinstance(desc, str):
+            raise TypeError("desc must be str or InitDesc")
+        if isinstance(desc, InitDesc) and desc.global_init is None:
+            desc.global_init = self
+        init = desc.attrs.get("__init__", "") \
+            if isinstance(desc, InitDesc) else ""
+        if init:
+            klass, kwargs = json.loads(init)
+            _INIT_REGISTRY[klass.lower()](**kwargs)._init_weight(desc, arr)
+            return
+        name = desc.lower()
+        if name.endswith("weight"):
+            self._init_weight(desc, arr)
+        elif name.endswith("bias") or name.endswith("beta"):
+            self._init_zero(desc, arr)
+        elif name.endswith("gamma"):
+            self._init_one(desc, arr)
+        elif name.endswith("min"):
+            self._init_zero(desc, arr)
+        elif name.endswith("max"):
+            self._init_one(desc, arr)
+        elif name.endswith("running_mean") or name.endswith("moving_mean"):
+            self._init_zero(desc, arr)
+        elif name.endswith("running_var") or name.endswith("moving_var"):
+            self._init_one(desc, arr)
+        elif name.endswith("moving_inv_var") or name.endswith("moving_avg"):
+            self._init_zero(desc, arr)
+        elif name.endswith("parameters"):
+            # the RNN op's flat weight+bias blob is 1-D, so shape-aware
+            # initializers (Xavier) cannot apply: a small uniform, the
+            # reference's classic 0.07 RNN default
+            if len(arr.shape) >= 2:
+                self._init_weight(desc, arr)
+            else:
+                self._set(arr, np.random.uniform(-0.07, 0.07, arr.shape))
+        elif name.endswith("state") or name.endswith("state_cell"):
+            # RNN begin states default to zeros
+            self._init_zero(desc, arr)
+        else:
+            raise ValueError(
+                "Unknown initialization pattern for %s." % desc)
+
+    @staticmethod
+    def _set(arr, np_value):
+        arr[:] = np.asarray(np_value).astype(arr.dtype)
+
+    @staticmethod
+    def _init_zero(_, arr):
+        arr[:] = 0.0
+
+    @staticmethod
+    def _init_one(_, arr):
+        arr[:] = 1.0
+
+    def _init_weight(self, name, arr):
+        raise NotImplementedError("Must override it")
+
+
+@register
+class Zero(Initializer):
+    def _init_weight(self, _, arr):
+        arr[:] = 0.0
+
+
+@register
+class One(Initializer):
+    def _init_weight(self, _, arr):
+        arr[:] = 1.0
+
+
+@register
+class Constant(Initializer):
+    def __init__(self, value=0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, _, arr):
+        arr[:] = self.value
+
+
+@register
+class Uniform(Initializer):
+    def __init__(self, scale=0.07):
+        super().__init__(scale=scale)
+        self.scale = scale
+
+    def _init_weight(self, _, arr):
+        self._set(arr, np.random.uniform(-self.scale, self.scale, arr.shape))
+
+
+@register
+class Normal(Initializer):
+    def __init__(self, sigma=0.01):
+        super().__init__(sigma=sigma)
+        self.sigma = sigma
+
+    def _init_weight(self, _, arr):
+        self._set(arr, np.random.normal(0, self.sigma, arr.shape))
+
+
+@register
+class Xavier(Initializer):
+    """Reference initializer.py Xavier (uniform/gaussian; avg/in/out)."""
+
+    def __init__(self, rnd_type="uniform", factor_type="avg", magnitude=3):
+        super().__init__(rnd_type=rnd_type, factor_type=factor_type,
+                         magnitude=magnitude)
+        self.rnd_type = rnd_type
+        self.factor_type = factor_type
+        self.magnitude = float(magnitude)
+
+    def _init_weight(self, name, arr):
+        shape = arr.shape
+        if len(shape) < 2:
+            raise ValueError("Xavier initializer cannot be applied to vector "
+                             "%s. It requires at least 2D." % name)
+        hw_scale = np.prod(shape[2:]) if len(shape) > 2 else 1.0
+        fan_in, fan_out = shape[1] * hw_scale, shape[0] * hw_scale
+        factors = {"avg": (fan_in + fan_out) / 2.0, "in": fan_in,
+                   "out": fan_out}
+        if self.factor_type not in factors:
+            raise ValueError("Incorrect factor type")
+        scale = np.sqrt(self.magnitude / factors[self.factor_type])
+        if self.rnd_type == "uniform":
+            self._set(arr, np.random.uniform(-scale, scale, shape))
+        elif self.rnd_type == "gaussian":
+            self._set(arr, np.random.normal(0, scale, shape))
+        else:
+            raise ValueError("Unknown random type")
+
+
+# reference registers these under plural/alternate names
+_INIT_REGISTRY["zeros"] = Zero
+_INIT_REGISTRY["ones"] = One
+_INIT_REGISTRY["gaussian"] = Normal
+
+
+def create(name, **kwargs):
+    if isinstance(name, Initializer):
+        return name
+    return _INIT_REGISTRY[name.lower()](**kwargs)

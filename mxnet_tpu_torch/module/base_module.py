@@ -1,0 +1,182 @@
+"""BaseModule: the training-loop contract.
+
+Counterpart of `mxnet_tpu/module/base_module.py` (reference
+`python/mxnet/module/base_module.py`): ``forward_backward``, ``_step``,
+``score``, ``fit`` and its loop, cut to what a one-device run without a
+kvstore needs. The loop is the reference's: per batch a train step, then
+``update_metric``, then the batch callbacks; at the end of an epoch the
+epoch callbacks and ``score`` on the eval data. ``fit(...,
+batches_per_dispatch=K)`` hands K batches at a time to ``_step_scan``.
+The JAX package's telemetry, step anatomy, elastic checkpoints and
+flight recorder around the loop are not ported yet.
+"""
+from __future__ import annotations
+
+import logging
+import time
+
+from .. import metric as metric_mod
+
+
+class BatchEndParam:
+    def __init__(self, epoch, nbatch, eval_metric, locals=None):
+        self.epoch = epoch
+        self.nbatch = nbatch
+        self.eval_metric = eval_metric
+        self.locals = locals
+
+
+def _as_list(obj):
+    if obj is None:
+        return []
+    return obj if isinstance(obj, (list, tuple)) else [obj]
+
+
+def _check_input_names(symbol, names, typename, throw):
+    args = symbol.list_arguments()
+    for name in names:
+        if name in args:
+            continue
+        candidates = [arg for arg in args
+                      if not arg.endswith(("_weight", "_bias", "_gamma",
+                                           "_beta"))]
+        msg = ("You created Module with Module(..., %s_names=%s) but input "
+               "with name '%s' is not found in symbol.list_arguments(). Did "
+               "you mean one of:\n\t%s" % (typename, names, name,
+                                           "\n\t".join(candidates)))
+        if throw:
+            raise ValueError(msg)
+        logging.warning(msg)
+
+
+class BaseModule:
+    def __init__(self, logger=logging):
+        self.logger = logger
+        self.binded = False
+        self.for_training = False
+        self.inputs_need_grad = False
+        self.params_initialized = False
+        self.optimizer_initialized = False
+        self._symbol = None
+
+    # -- high level API --------------------------------------------------
+    def forward_backward(self, data_batch):
+        self.forward(data_batch, is_train=True)
+        self.backward()
+
+    def _step(self, data_batch):
+        """One training step of the fit loop."""
+        self.forward_backward(data_batch)
+        self.update()
+
+    def score(self, eval_data, eval_metric, num_batch=None,
+              batch_end_callback=None, score_end_callback=None, reset=True,
+              epoch=0):
+        if not (self.binded and self.params_initialized):
+            raise RuntimeError("score needs a bound, initialized module")
+        if reset:
+            eval_data.reset()
+        eval_metric = metric_mod.create(eval_metric)
+        eval_metric.reset()
+        actual_num_batch = 0
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            self.update_metric(eval_metric, eval_batch.label)
+            for callback in _as_list(batch_end_callback):
+                callback(BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                       eval_metric=eval_metric,
+                                       locals=locals()))
+            actual_num_batch += 1
+        for callback in _as_list(score_end_callback):
+            callback(BatchEndParam(epoch=epoch, nbatch=actual_num_batch,
+                                   eval_metric=eval_metric, locals=locals()))
+        return eval_metric.get_name_value()
+
+    def fit(self, train_data, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None,
+            kvstore="local", optimizer="sgd",
+            optimizer_params=(("learning_rate", 0.01),),
+            eval_end_callback=None, eval_batch_end_callback=None,
+            initializer=None, arg_params=None, aux_params=None,
+            allow_missing=False, force_rebind=False, force_init=False,
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            batches_per_dispatch=1):
+        """Reference base_module.py:395 training loop."""
+        if num_epoch is None:
+            raise ValueError("please specify number of epochs")
+        from ..initializer import Uniform
+        if initializer is None:
+            initializer = Uniform(0.01)
+        self.bind(data_shapes=train_data.provide_data,
+                  label_shapes=train_data.provide_label,
+                  for_training=True, force_rebind=force_rebind)
+        self.init_params(initializer=initializer, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
+        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                            optimizer_params=optimizer_params)
+        if validation_metric is None:
+            validation_metric = eval_metric
+        eval_metric = metric_mod.create(eval_metric)
+        for epoch in range(begin_epoch, num_epoch):
+            tic = time.time()
+            self._fit_epoch(train_data, eval_metric, epoch,
+                            batch_end_callback, batches_per_dispatch)
+            for name, val in eval_metric.get_name_value():
+                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                             time.time() - tic)
+            arg_params_, aux_params_ = self.get_params()
+            self.set_params(arg_params_, aux_params_)
+            for callback in _as_list(epoch_end_callback):
+                callback(epoch, self.symbol, arg_params_, aux_params_)
+            if eval_data:
+                res = self.score(eval_data, validation_metric,
+                                 score_end_callback=eval_end_callback,
+                                 batch_end_callback=eval_batch_end_callback,
+                                 epoch=epoch)
+                for name, val in res:
+                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
+                                     name, val)
+            train_data.reset()
+
+    def _fit_epoch(self, train_data, eval_metric, epoch, batch_end_callback,
+                   batches_per_dispatch):
+        """One epoch of :meth:`fit`: groups of up to ``batches_per_dispatch``
+        batches of one shape, each group one ``_step_scan`` (or ``_step``
+        per batch when the module cannot scan), then the metric and the
+        batch callbacks per batch."""
+        eval_metric.reset()
+        nbatch = 0
+        data_iter = iter(train_data)
+        pending = next(data_iter, None)
+        while pending is not None:
+            group = [pending]
+            pending = next(data_iter, None)
+            while pending is not None and len(group) < batches_per_dispatch \
+                    and pending.data[0].shape == group[0].data[0].shape:
+                group.append(pending)
+                pending = next(data_iter, None)
+            stacked = self._step_scan(group) if len(group) > 1 else False
+            for k, batch in enumerate(group):
+                if stacked is False:
+                    self._step(batch)
+                if stacked:
+                    eval_metric.update_dict(
+                        dict(zip(self.label_names, batch.label or [])),
+                        {name: out[k] for name, out in
+                         zip(self.output_names, stacked)})
+                else:
+                    self.update_metric(eval_metric, batch.label)
+                for callback in _as_list(batch_end_callback):
+                    callback(BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                           eval_metric=eval_metric,
+                                           locals=locals()))
+                nbatch += 1
+
+    # -- symbol/params ---------------------------------------------------
+    @property
+    def symbol(self):
+        return self._symbol

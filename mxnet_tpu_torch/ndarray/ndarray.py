@@ -1,9 +1,10 @@
 """NDArray: a thin handle over a ``torch.Tensor``.
 
 Counterpart of `mxnet_tpu/ndarray/ndarray.py`, cut to what the serving
-path uses: shape/dtype/context, ``asnumpy``, in-place assignment (the
-Predictor feeds inputs with ``arr[:] = value``, `predict.py`), and the
-``zeros``/``array`` constructors. Unlike the JAX package, whose arrays
+and training paths use: shape/size/dtype/context, ``asnumpy``, views by
+basic indexing, in-place assignment (the Predictor and Module feed
+inputs with ``arr[:] = value``), and the ``zeros``/``array``
+constructors. Unlike the JAX package, whose arrays
 are immutable and rebound on assignment, ``arr[:] = value`` here copies
 into the existing tensor, so every executor sharing the buffer sees it.
 """
@@ -40,6 +41,10 @@ class NDArray:
         return tuple(self._data.shape)
 
     @property
+    def size(self):
+        return self._data.numel()
+
+    @property
     def dtype(self):
         """numpy dtype, as in the JAX package (bfloat16 raises)."""
         return numpy_dtype(self._data.dtype)
@@ -56,6 +61,10 @@ class NDArray:
     def asnumpy(self):
         return self._data.detach().cpu().numpy()
 
+    def __getitem__(self, key):
+        """A view (basic indexing), as in the reference."""
+        return NDArray(self._data[key], self._ctx)
+
     def __setitem__(self, key, value):
         if isinstance(value, NDArray):
             src = value._data
@@ -64,7 +73,7 @@ class NDArray:
         else:
             src = _host_tensor(value, self._data.dtype)
         if isinstance(key, slice) and key == slice(None):
-            if tuple(src.shape) != self.shape:
+            if src.dim() and tuple(src.shape) != self.shape:
                 raise MXNetError("cannot assign shape %s to NDArray of shape "
                                  "%s" % (tuple(src.shape), self.shape))
             self._data.copy_(src)

@@ -2,6 +2,12 @@
 from . import registry
 from . import shape_ops  # noqa: F401  (registers ops)
 from . import nn  # noqa: F401  (registers ops)
-from .lstm_kernel import fused_lstm, fused_lstm_plain
+from .lstm_kernel import (FusedLSTM, fused_lstm, fused_lstm_backward,
+                          fused_lstm_backward_plain, fused_lstm_plain,
+                          fused_lstm_train, fused_lstm_train_plain,
+                          lstm_bwd_recurrence, lstm_bwd_recurrence_plain)
 
-__all__ = ["registry", "fused_lstm", "fused_lstm_plain"]
+__all__ = ["registry", "FusedLSTM", "fused_lstm", "fused_lstm_plain",
+           "fused_lstm_train", "fused_lstm_train_plain",
+           "lstm_bwd_recurrence", "lstm_bwd_recurrence_plain",
+           "fused_lstm_backward", "fused_lstm_backward_plain"]

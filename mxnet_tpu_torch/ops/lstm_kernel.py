@@ -1,15 +1,28 @@
-"""The fused LSTM layer: a hand-written CUDA kernel and its plain version.
+"""The fused LSTM layer: hand-written CUDA kernels and their plain versions.
 
-``fused_lstm`` replaces the TPU kernel
-`mxnet_tpu/ops/pallas_kernels.py::fused_lstm` with the same signature
-and layouts. On a CUDA tensor it launches ``csrc/fused_lstm.cu`` (one
-launch per time step; the source says why and what bounds it) or
-raises; on a CPU tensor it runs :func:`fused_lstm_plain`, a loop over
-time with the same math, which is also the kernel's reference on the
-card. ``fused_lstm.launches`` counts the calls that launched the kernel.
+Three TPU kernels of `mxnet_tpu/ops/pallas_kernels.py` have a counterpart
+here, with the same signatures and layouts (gate order i, f, g, o):
 
-As in the JAX package, the input projection ``x @ wx + b`` of every
-step is one matrix product outside the kernel (``torch.matmul``), and
+- ``fused_lstm`` (K1, inference) replaces ``fused_lstm`` / ``_lstm_kernel``
+  and launches ``csrc/fused_lstm.cu``;
+- ``fused_lstm_train`` (K2) replaces ``_lstm_fwd_train_kernel``: the
+  forward that also keeps ``cseq`` and the activated gates;
+- ``lstm_bwd_recurrence`` (K3) replaces ``_lstm_bwd_kernel``: the
+  reverse-time backward that emits ``dgates``, ``dh0`` and ``dc0``.
+
+K2 and K3 launch ``csrc/fused_lstm_train.cu``. Each wrapper runs its plain
+version (``*_plain``, a loop over time with the same math, which is also
+the kernel's reference on the card) on a CPU tensor, launches its kernel
+on a CUDA tensor, and raises on any other device. ``<wrapper>.launches``
+counts the calls that launched a kernel (one call is one layer: T step
+launches).
+
+:class:`FusedLSTM` is the layer's ``torch.autograd.Function`` (the JAX
+package's ``custom_vjp``): forward K2, backward K3 plus the four
+sequence-wide products outside it (``dx``, ``dWx``, ``dWh``, ``db``).
+K1 keeps no residuals and has no gradient: it refuses inputs that need
+one. As in the JAX package, the input projection ``x @ wx + b`` of every
+step is one matrix product outside the kernels (``torch.matmul``), and
 the recurrence works in f32 and returns x's dtype.
 """
 from __future__ import annotations
@@ -22,7 +35,10 @@ import torch
 from ..base import MXNetError
 from . import _build
 
-__all__ = ["fused_lstm", "fused_lstm_plain"]
+__all__ = ["fused_lstm", "fused_lstm_plain", "fused_lstm_train",
+           "fused_lstm_train_plain", "lstm_bwd_recurrence",
+           "lstm_bwd_recurrence_plain", "fused_lstm_backward",
+           "fused_lstm_backward_plain", "FusedLSTM"]
 
 
 def _project(x, wx, b):
@@ -30,42 +46,135 @@ def _project(x, wx, b):
     return torch.matmul(x.float(), wx.float()) + b.float()
 
 
+def _activate(gates, hid):
+    """Pre-activation gates (B, 4H) -> (i, f, g, o), activated."""
+    return (torch.sigmoid(gates[:, :hid]),
+            torch.sigmoid(gates[:, hid:2 * hid]),
+            torch.tanh(gates[:, 2 * hid:3 * hid]),
+            torch.sigmoid(gates[:, 3 * hid:]))
+
+
 def fused_lstm_plain(x, h0, c0, wx, wh, b):
     """Single-layer LSTM over a full sequence, gate order i, f, g, o.
 
     x: [T, B, I]; h0/c0: [B, H]; wx: [I, 4H]; wh: [H, 4H]; b: [4H].
     Returns (h_seq [T,B,H], h_n, c_n) in x's dtype."""
+    hseq, cseq, _ = fused_lstm_train_plain(x, h0, c0, wx, wh, b)
+    return (hseq.to(x.dtype), hseq[-1].to(x.dtype), cseq[-1].to(x.dtype))
+
+
+def fused_lstm_train_plain(x, h0, c0, wx, wh, b):
+    """K2's function: the forward with its residuals, all f32.
+
+    Returns (hseq [T,B,H], cseq [T,B,H], gates [T,B,4H]) with the
+    post-activation gates i, f, g, o; h_n = hseq[-1], c_n = cseq[-1]."""
     hid = wh.shape[0]
     xp = _project(x, wx, b)
     whf = wh.float()
     h, c = h0.float(), c0.float()
-    hs = []
+    hs, cs, gs = [], [], []
     for t in range(x.shape[0]):
-        gates = xp[t] + torch.matmul(h, whf)
-        i = torch.sigmoid(gates[:, :hid])
-        f = torch.sigmoid(gates[:, hid:2 * hid])
-        g = torch.tanh(gates[:, 2 * hid:3 * hid])
-        o = torch.sigmoid(gates[:, 3 * hid:])
+        i, f, g, o = _activate(xp[t] + torch.matmul(h, whf), hid)
         c = f * c + i * g
         h = o * torch.tanh(c)
         hs.append(h)
-    return (torch.stack(hs).to(x.dtype), h.to(x.dtype), c.to(x.dtype))
+        cs.append(c)
+        gs.append(torch.cat([i, f, g, o], dim=1))
+    return torch.stack(hs), torch.stack(cs), torch.stack(gs)
 
 
+def lstm_bwd_recurrence_plain(dhseq, dhn, dcn, gates, cseq, c0, wh):
+    """K3's function: the reverse-time recurrence of the backward, f32.
+
+    dhseq: [T,B,H]; dhn/dcn/c0: [B,H]; gates: [T,B,4H] activated;
+    cseq: [T,B,H]; wh: [H,4H]. Returns (dgates [T,B,4H], dh0, dc0)."""
+    hid = wh.shape[0]
+    whT = wh.float().t()
+    dh_carry, dc = dhn.float(), dcn.float()
+    dgates = [None] * gates.shape[0]
+    for t in range(gates.shape[0] - 1, -1, -1):
+        dh = dhseq[t].float() + dh_carry
+        i, f, g, o = torch.split(gates[t], hid, dim=1)
+        c_prev = cseq[t - 1] if t > 0 else c0.float()
+        tanh_c = torch.tanh(cseq[t])
+        do = dh * tanh_c
+        dc = dc + dh * o * (1.0 - tanh_c * tanh_c)
+        dgates[t] = torch.cat([dc * g * i * (1.0 - i),
+                               dc * c_prev * f * (1.0 - f),
+                               dc * i * (1.0 - g * g),
+                               do * o * (1.0 - o)], dim=1)
+        dh_carry = torch.matmul(dgates[t], whT)
+        dc = dc * f
+    return torch.stack(dgates), dh_carry, dc
+
+
+def _backward_products(dgates, x, h0, hseq, wx):
+    """The four sequence-wide products outside K3 (`_lstm_vjp_bwd`
+    :546-557): dx, dwx, dwh, db, f32."""
+    hprev = torch.cat([h0.float()[None], hseq[:-1]], dim=0)
+    dg2 = dgates.reshape(-1, dgates.shape[-1])
+    dx = torch.matmul(dgates, wx.float().t())
+    dwx = torch.matmul(x.float().reshape(-1, x.shape[-1]).t(), dg2)
+    dwh = torch.matmul(hprev.reshape(-1, hprev.shape[-1]).t(), dg2)
+    return dx, dwx, dwh, dg2.sum(0)
+
+
+def fused_lstm_backward_plain(dhseq, dhn, dcn, x, h0, c0, wx, wh, hseq,
+                              cseq, gates):
+    """The layer's backward in plain PyTorch: K3's function plus the four
+    products. Returns the gradients of (x, h0, c0, wx, wh, b), f32."""
+    dgates, dh0, dc0 = lstm_bwd_recurrence_plain(dhseq, dhn, dcn, gates,
+                                                 cseq, c0, wh)
+    dx, dwx, dwh, db = _backward_products(dgates, x, h0, hseq, wx)
+    return dx, dh0, dc0, dwx, dwh, db
+
+
+def fused_lstm_backward(dhseq, dhn, dcn, x, h0, c0, wx, wh, hseq, cseq,
+                        gates):
+    """The layer's backward: K3 (`lstm_bwd_recurrence`) plus the four
+    products. Returns the gradients of (x, h0, c0, wx, wh, b), f32."""
+    dgates, dh0, dc0 = lstm_bwd_recurrence(dhseq, dhn, dcn, gates, cseq,
+                                           c0, wh)
+    dx, dwx, dwh, db = _backward_products(dgates, x, h0, hseq, wx)
+    return dx, dh0, dc0, dwx, dwh, db
+
+
+# ---------------------------------------------------------------------------
+# ctypes wrappers of the kernels
+# ---------------------------------------------------------------------------
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _count_lock = threading.Lock()
 
 
-def _kernel():
-    lib = _build.library("fused_lstm")
-    fn = lib.fused_lstm_forward
-    if fn.argtypes is None:
-        fn.argtypes = [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP]
-        fn.restype = _INT
-        lib.fused_lstm_error_name.argtypes = [_INT]
-        lib.fused_lstm_error_name.restype = ctypes.c_char_p
+def _library(name, signatures):
+    """The loaded library ``csrc/<name>.cu`` with its functions typed."""
+    lib = _build.library(name)
+    for fn_name, argtypes in signatures.items():
+        fn = getattr(lib, fn_name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = _INT
+    err = getattr(lib, name + "_error_name")
+    if err.argtypes is None:
+        err.argtypes = [_INT]
+        err.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on(lib, name, err):
+    if err:
+        raise MXNetError("%s kernel launch failed: %s (%d)" % (
+            name, getattr(lib, name + "_error_name")(err).decode(), err))
+
+
+def _count(wrapper):
+    with _count_lock:
+        wrapper.launches += 1
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _check(x, h0, c0, wx, wh, b):
@@ -89,24 +198,44 @@ def _check(x, h0, c0, wx, wh, b):
                          % (t, bs, hid))
 
 
+def _on_kernel_device(x, name):
+    """True for a CUDA tensor, False for a CPU one; raises otherwise
+    (``meta`` tensors of shape inference never reach a kernel)."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise MXNetError("%s: no kernel for device %s" % (name, x.device))
+    return True
+
+
+def _f32(t):
+    return t.float().contiguous()
+
+
 def fused_lstm(x, h0, c0, wx, wh, b):
-    """Single-layer LSTM over a full sequence (cuDNN-RNN analog).
+    """Single-layer LSTM over a full sequence (cuDNN-RNN analog), K1.
 
     x: [T, B, I]; h0/c0: [B, H]; wx: [I, 4H]; wh: [H, 4H]; b: [4H].
     Gate order i, f, g, o. Returns (h_seq [T,B,H], h_n, c_n) in x's
-    dtype. CPU tensors take the plain version; CUDA tensors the kernel."""
-    if x.device.type == "cpu":
+    dtype. CPU tensors take the plain version; CUDA tensors the kernel.
+    It computes no gradient: inputs that need one go through
+    :class:`FusedLSTM` instead, and are refused here."""
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (x, h0, c0, wx, wh, b)):
+        raise MXNetError("fused_lstm is the inference kernel and keeps no "
+                         "residuals: inputs that need a gradient go through "
+                         "FusedLSTM")
+    if not _on_kernel_device(x, "fused_lstm"):
         return fused_lstm_plain(x, h0, c0, wx, wh, b)
-    if x.device.type != "cuda":
-        raise MXNetError("fused_lstm: no kernel for device %s" % x.device)
     _check(x, h0, c0, wx, wh, b)
     t, bs, _ = x.shape
     hid = wh.shape[0]
-    lib = _kernel()
+    lib = _library("fused_lstm", {"fused_lstm_forward": [_VP] * 5 + [_INT] * 3
+                                  + [_VP]})
     with torch.cuda.device(x.device):
         xp = _project(x, wx, b).contiguous()
-        whf = wh.float().contiguous()
-        h0f = h0.float().contiguous()
+        whf = _f32(wh)
+        h0f = _f32(h0)
         # the kernel updates c in place: never alias the caller's c0
         c = torch.empty((bs, hid), dtype=torch.float32, device=x.device)
         c.copy_(c0)
@@ -114,15 +243,107 @@ def fused_lstm(x, h0, c0, wx, wh, b):
                            device=x.device)
         err = lib.fused_lstm_forward(
             xp.data_ptr(), whf.data_ptr(), h0f.data_ptr(), c.data_ptr(),
-            hseq.data_ptr(), t, bs, hid,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise MXNetError("fused_lstm kernel launch failed: %s (%d)"
-                         % (lib.fused_lstm_error_name(err).decode(), err))
-    with _count_lock:
-        fused_lstm.launches += 1
+            hseq.data_ptr(), t, bs, hid, _stream(x))
+    _raise_on(lib, "fused_lstm", err)
+    _count(fused_lstm)
     return (hseq.to(x.dtype), hseq[t - 1].to(x.dtype), c.to(x.dtype))
 
 
-#: calls that launched the CUDA kernel (the plain version does not count)
+def fused_lstm_train(x, h0, c0, wx, wh, b):
+    """K2: the forward with its residuals, f32.
+
+    Same inputs as :func:`fused_lstm`. Returns (hseq [T,B,H],
+    cseq [T,B,H], gates [T,B,4H] post-activation). CPU tensors take
+    :func:`fused_lstm_train_plain`; CUDA tensors the kernel."""
+    if not _on_kernel_device(x, "fused_lstm_train"):
+        return fused_lstm_train_plain(x, h0, c0, wx, wh, b)
+    _check(x, h0, c0, wx, wh, b)
+    t, bs, _ = x.shape
+    hid = wh.shape[0]
+    lib = _library("fused_lstm_train", {
+        "fused_lstm_train_forward": [_VP] * 7 + [_INT] * 3 + [_VP]})
+    with torch.cuda.device(x.device):
+        xp = _project(x, wx, b).contiguous()
+        whf, h0f, c0f = _f32(wh), _f32(h0), _f32(c0)
+        hseq = torch.empty((t, bs, hid), dtype=torch.float32,
+                           device=x.device)
+        cseq = torch.empty_like(hseq)
+        gates = torch.empty((t, bs, 4 * hid), dtype=torch.float32,
+                            device=x.device)
+        err = lib.fused_lstm_train_forward(
+            xp.data_ptr(), whf.data_ptr(), h0f.data_ptr(), c0f.data_ptr(),
+            hseq.data_ptr(), cseq.data_ptr(), gates.data_ptr(), t, bs, hid,
+            _stream(x))
+    _raise_on(lib, "fused_lstm_train", err)
+    _count(fused_lstm_train)
+    return hseq, cseq, gates
+
+
+def lstm_bwd_recurrence(dhseq, dhn, dcn, gates, cseq, c0, wh):
+    """K3: the reverse-time recurrence of the backward, f32.
+
+    Same arguments as :func:`lstm_bwd_recurrence_plain`. Returns
+    (dgates [T,B,4H], dh0, dc0). CPU tensors take the plain version;
+    CUDA tensors the kernel (T + 1 launches in one call)."""
+    if not _on_kernel_device(gates, "lstm_bwd_recurrence"):
+        return lstm_bwd_recurrence_plain(dhseq, dhn, dcn, gates, cseq, c0,
+                                         wh)
+    t, bs, g4 = gates.shape
+    hid = wh.shape[0]
+    want = {"dhseq": (t, bs, hid), "dhn": (bs, hid), "dcn": (bs, hid),
+            "gates": (t, bs, 4 * hid), "cseq": (t, bs, hid),
+            "c0": (bs, hid), "wh": (hid, 4 * hid)}
+    for name, arr in zip(want, (dhseq, dhn, dcn, gates, cseq, c0, wh)):
+        if tuple(arr.shape) != want[name] or arr.device != gates.device:
+            raise MXNetError("lstm_bwd_recurrence: %s must be %s on %s, got "
+                             "%s on %s" % (name, want[name], gates.device,
+                                           tuple(arr.shape), arr.device))
+    lib = _library("fused_lstm_train", {
+        "fused_lstm_backward": [_VP] * 9 + [_INT] * 3 + [_VP]})
+    with torch.cuda.device(gates.device):
+        ins = [_f32(a) for a in (dhseq, dhn, gates, cseq, c0)]
+        whT = _f32(wh.t())
+        # the kernel owns dc in place: start it from a copy of dc_n
+        dc = torch.empty((bs, hid), dtype=torch.float32, device=gates.device)
+        dc.copy_(dcn)
+        dgates = torch.empty((t, bs, g4), dtype=torch.float32,
+                             device=gates.device)
+        dh0 = torch.empty_like(dc)
+        err = lib.fused_lstm_backward(
+            *[a.data_ptr() for a in ins], whT.data_ptr(), dc.data_ptr(),
+            dgates.data_ptr(), dh0.data_ptr(), t, bs, hid, _stream(gates))
+    _raise_on(lib, "fused_lstm_train", err)
+    _count(lstm_bwd_recurrence)
+    return dgates, dh0, dc
+
+
+#: calls that launched a CUDA kernel (the plain versions do not count)
 fused_lstm.launches = 0
+fused_lstm_train.launches = 0
+lstm_bwd_recurrence.launches = 0
+
+
+class FusedLSTM(torch.autograd.Function):
+    """One LSTM layer with its gradient: K2 forward, K3 backward.
+
+    ``FusedLSTM.apply(x, h0, c0, wx, wh, b)`` takes and returns what
+    :func:`fused_lstm` does, (h_seq, h_n, c_n) in x's dtype, and
+    differentiates all six inputs, as the JAX package's ``fused_lstm``
+    ``custom_vjp`` (`pallas_kernels.py:434-560`). The residuals are the
+    f32 ``hseq``, ``cseq`` and activated ``gates`` of K2."""
+
+    @staticmethod
+    def forward(ctx, x, h0, c0, wx, wh, b):
+        hseq, cseq, gates = fused_lstm_train(x, h0, c0, wx, wh, b)
+        ctx.save_for_backward(x, h0, c0, wx, wh, b, hseq, cseq, gates)
+        # h_n and c_n are copies: outputs must not be views of each other
+        return (hseq.to(x.dtype), hseq[-1].to(x.dtype, copy=True),
+                cseq[-1].to(x.dtype, copy=True))
+
+    @staticmethod
+    def backward(ctx, dhseq, dhn, dcn):
+        x, h0, c0, wx, wh, b, hseq, cseq, gates = ctx.saved_tensors
+        grads = fused_lstm_backward(dhseq, dhn, dcn, x, h0, c0, wx, wh, hseq,
+                                    cseq, gates)
+        return tuple(g.to(r.dtype)
+                     for g, r in zip(grads, (x, h0, c0, wx, wh, b)))

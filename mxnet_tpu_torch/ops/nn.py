@@ -1,16 +1,18 @@
-"""Neural-network operators (the subset the serving slice uses).
+"""Neural-network operators (the subset the LSTM LM slices use).
 
-Counterpart of `mxnet_tpu/ops/nn.py`: ``FullyConnected``, ``softmax`` and
-the fused multi-layer ``RNN`` op with its cuDNN flat parameter layout.
-On a CUDA tensor an LSTM layer runs the hand-written ``fused_lstm``
-kernel (`ops/lstm_kernel.py`); everywhere else (CPU, and ``meta``
-tensors during shape inference) a layer is a plain loop over time.
+Counterpart of `mxnet_tpu/ops/nn.py`: ``FullyConnected``, ``softmax``,
+the ``SoftmaxOutput`` loss head and the fused multi-layer ``RNN`` op with
+its cuDNN flat parameter layout. An LSTM layer that needs a gradient runs
+``FusedLSTM`` (the hand-written training kernels K2/K3 on a CUDA tensor,
+their plain versions on the CPU); otherwise it runs the inference kernel
+``fused_lstm`` (K1) on a CUDA tensor and a plain loop over time
+everywhere else (CPU, and ``meta`` tensors during shape inference).
 """
 from __future__ import annotations
 
 import torch
 
-from .lstm_kernel import fused_lstm
+from .lstm_kernel import FusedLSTM, fused_lstm
 from .registry import register
 
 
@@ -33,6 +35,78 @@ def _softmax(params, data):
     axis = params.get("axis", -1)
     t = params.get("temperature") or 1.0
     return (torch.softmax(data / t, dim=axis),)
+
+
+# ---------------------------------------------------------------------------
+# SoftmaxOutput (reference softmax_output-inl.h)
+# ---------------------------------------------------------------------------
+def _attr_num(params, key, default):
+    """A numeric attribute; attributes of a graph read from JSON are
+    strings."""
+    try:
+        return float(params.get(key, default))
+    except (TypeError, ValueError):
+        return default
+
+
+def _attr_bool(params, key, default=False):
+    v = params.get(key, default)
+    if isinstance(v, str):
+        return v.strip().lower() in ("1", "true", "yes")
+    return bool(v)
+
+
+def _softmax_output_grad(out, label, params):
+    """(p - onehot(label)), masked and scaled as the attributes say
+    (`mxnet_tpu/ops/nn.py::_so_grad` and ``_normalize_grad``). Labels
+    outside [0, C) give a zero one-hot row, as ``jax.nn.one_hot`` does."""
+    classes = torch.arange(out.shape[-1], device=out.device)
+    onehot = (label.long()[..., None] == classes).to(out.dtype)
+    grad = out - onehot
+    ignore = _attr_num(params, "ignore_label", -1)
+    if _attr_bool(params, "use_ignore"):
+        grad = grad * (label != ignore).to(out.dtype)[..., None]
+    scale = _attr_num(params, "grad_scale", 1.0)
+    norm = params.get("normalization", "null")
+    if norm == "batch":
+        scale = scale / label.shape[0]
+    elif norm == "valid":
+        valid = torch.clamp((label != ignore).sum(), min=1).to(out.dtype)
+        return grad * (scale / valid)
+    return grad * scale
+
+
+class _SoftmaxOutputHead(torch.autograd.Function):
+    """Softmax over the last axis forward; backward (p - y) whatever the
+    incoming gradient, as the reference's loss heads."""
+
+    @staticmethod
+    def forward(ctx, data, label, params):
+        out = torch.softmax(data, dim=-1)
+        ctx.save_for_backward(out, label)
+        ctx.params = params
+        return out
+
+    @staticmethod
+    def backward(ctx, _):
+        out, label = ctx.saved_tensors
+        return _softmax_output_grad(out, label, ctx.params), None, None
+
+
+@register("SoftmaxOutput", aliases=("Softmax",))
+def _softmax_output(params, data, label):
+    """Reference softmax_output-inl.h: forward softmax, backward (p - y)."""
+    attrs = {k: v for k, v in params.items() if not k.startswith("_")}
+    head = _SoftmaxOutputHead.apply
+    if _attr_bool(params, "multi_output"):
+        # data (N, C, d...) label (N, d...): softmax over axis 1
+        perm = (0,) + tuple(range(2, data.dim())) + (1,)
+        inv = (0, data.dim() - 1) + tuple(range(1, data.dim() - 1))
+        return (head(data.permute(*perm), label, attrs).permute(*inv),)
+    if data.dim() > 2:
+        out = head(data.reshape(-1, data.shape[-1]), label.reshape(-1), attrs)
+        return (out.reshape(data.shape),)
+    return (head(data, label, attrs),)
 
 
 # ---------------------------------------------------------------------------
@@ -90,14 +164,26 @@ def _unpack_rnn_params(flat, num_layers, input_size, state_size, bidir, mode):
     return weights, biases
 
 
+def _needs_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _rnn_cell_scan(mode, x_seq, h0, c0, w_i2h, w_h2h, b_i2h, b_h2h,
                    reverse=False):
-    """One direction of one layer. x_seq (T,B,I) -> (T,B,H)."""
-    if mode == "lstm" and x_seq.is_cuda:
+    """One direction of one layer. x_seq (T,B,I) -> (T,B,H).
+
+    An LSTM layer that needs a gradient goes through ``FusedLSTM``
+    (K2 forward, K3 backward; their plain versions on the CPU); one that
+    does not runs K1 on a CUDA tensor and the plain loop below
+    elsewhere."""
+    training = mode == "lstm" and _needs_grad(x_seq, h0, c0, w_i2h, w_h2h,
+                                              b_i2h, b_h2h)
+    if training or (mode == "lstm" and x_seq.is_cuda):
         xs = torch.flip(x_seq, (0,)) if reverse else x_seq
-        # fused_lstm works in f32 internally and returns x's dtype
-        ys, h_f, c_f = fused_lstm(xs, h0, c0, w_i2h.t(), w_h2h.t(),
-                                  b_i2h + b_h2h)
+        layer = FusedLSTM.apply if training else fused_lstm
+        # both work in f32 internally and return x's dtype
+        ys, h_f, c_f = layer(xs, h0, c0, w_i2h.t(), w_h2h.t(),
+                             b_i2h + b_h2h)
         if reverse:
             ys = torch.flip(ys, (0,))
         return ys, h_f, c_f

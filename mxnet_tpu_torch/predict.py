@@ -93,8 +93,8 @@ class Predictor:
         for name in self._symbol.list_arguments():
             if name in self._params and name not in shapes:
                 shapes[name] = self._params[name].shape
-        ex = self._symbol.simple_bind(self._ctx, shared_exec=shared_exec,
-                                      **shapes)
+        ex = self._symbol.simple_bind(self._ctx, grad_req="null",
+                                      shared_exec=shared_exec, **shapes)
         for name, arr in self._params.items():
             dst = ex.arg_dict.get(name)
             if dst is None:

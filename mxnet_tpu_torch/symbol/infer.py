@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..base import MXNetError
-from ..ops.nn import rnn_param_size
+from ..ops.nn import _attr_bool, rnn_param_size
 
 _FILLERS = {}
 
@@ -57,6 +57,19 @@ def _fc(params, shapes):
 def _emb(params, shapes):
     if shapes[1] is None:
         shapes[1] = (params["input_dim"], params["output_dim"])
+    return shapes
+
+
+@filler("SoftmaxOutput", "Softmax")
+def _softmax_output(params, shapes):
+    """The label: the data shape without its class axis (axis 1 with
+    ``multi_output``, else the last)."""
+    data = shapes[0]
+    if shapes[1] is None:
+        if _attr_bool(params, "multi_output"):
+            shapes[1] = (data[0],) + tuple(data[2:])
+        else:
+            shapes[1] = tuple(data[:-1]) if len(data) >= 2 else tuple(data)
     return shapes
 
 

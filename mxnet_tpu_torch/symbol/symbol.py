@@ -18,7 +18,8 @@ from ..name import NameManager
 from ..ops.registry import get_op
 from . import infer as _infer
 
-__all__ = ["Symbol", "var", "Variable", "Group", "load_json", "create"]
+__all__ = ["Symbol", "var", "Variable", "Group", "load_json", "load",
+           "create"]
 
 
 class _Node:
@@ -88,6 +89,20 @@ class Symbol:
     def list_arguments(self):
         return [n.name for n in self._topo_nodes() if n.is_var()]
 
+    def list_auxiliary_states(self):
+        """Always empty: no op of the port has auxiliary states yet."""
+        return []
+
+    def attr_dict(self):
+        """{variable or node name: {attribute: str}} of the attributes set
+        on variables (``__lr_mult__``, ``__wd_mult__``, ``__init__``...)."""
+        ret = {}
+        for n in self._topo_nodes():
+            meta = n.attrs.get("__attrs__", {})
+            if meta:
+                ret[n.name] = {k: str(v) for k, v in meta.items()}
+        return ret
+
     def list_outputs(self):
         outs = []
         for node, idx in self._outputs:
@@ -130,14 +145,20 @@ class Symbol:
                            "attrs": {"mxnet_version": ["int", 10201]}},
                           indent=2)
 
+    def save(self, fname):
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
     def __repr__(self):
         name = self.name
         return "<Symbol %s>" % (name if name else "Grouped")
 
     # -- binding ---------------------------------------------------------
-    def simple_bind(self, ctx, type_dict=None, shared_exec=None, **kwargs):
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    shared_exec=None, **kwargs):
         from ..executor import Executor
-        return Executor.simple_bind(self, ctx, type_dict=type_dict,
+        return Executor.simple_bind(self, ctx, grad_req=grad_req,
+                                    type_dict=type_dict,
                                     shared_exec=shared_exec, **kwargs)
 
 
@@ -165,6 +186,8 @@ def _op_input_names(op_name, attrs):
         if attrs.get("mode") == "lstm":
             names.append("state_cell")
         return names
+    if op_name in ("SoftmaxOutput", "Softmax"):
+        return ["data", "label"]
     return None
 
 
@@ -184,15 +207,23 @@ def create(op_name, input_syms, attrs, name=None):
     return Symbol([(node, i) for i in range(node.num_outputs)])
 
 
-def var(name, attr=None, shape=None, dtype=None, **kwargs):
+def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
+        init=None, **kwargs):
     """Create a free variable (reference symbol.var)."""
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
     meta = dict(attr or {})
     if shape is not None:
         meta["__shape__"] = str(tuple(shape))
+    if lr_mult is not None:
+        meta["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        meta["__wd_mult__"] = str(wd_mult)
     if dtype is not None:
         meta["__dtype__"] = str(dtype)
+    if init is not None:
+        meta["__init__"] = init.dumps() if hasattr(init, "dumps") \
+            else str(init)
     for k, v in kwargs.items():
         if k.startswith("__") and k.endswith("__"):
             meta[k] = str(v)
@@ -227,6 +258,11 @@ def load_json(json_str):
                          [(nodes[i], oi) for i, oi, _ in jn["inputs"]])
         nodes.append(node)
     return Symbol([(nodes[i], oi) for i, oi, _ in data["heads"]])
+
+
+def load(fname):
+    with open(fname) as f:
+        return load_json(f.read())
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, against its plain version.
+"""The port's CUDA kernels on the card, against their plain versions.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs where only
@@ -6,15 +6,20 @@ PyTorch is installed::
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance 1e-4: f32 on both sides, but the kernel sums h @ Wh in
-another order than cuBLAS, and the difference compounds over time.
+Tolerance 1e-4: f32 on both sides, but the kernels sum h @ Wh (and
+dgates @ Wh^T) in another order than cuBLAS, and the difference
+compounds over time. One train step of the LM on the card against the
+same step on the CPU is held to 1e-4 too: both run f32 with TF32 off.
 """
 import numpy as np
 import pytest
 import torch
 
 import mxnet_tpu_torch as mxt
-from mxnet_tpu_torch.ops.lstm_kernel import fused_lstm, fused_lstm_plain
+from mxnet_tpu_torch.ops.lstm_kernel import (
+    FusedLSTM, fused_lstm, fused_lstm_backward_plain, fused_lstm_plain,
+    fused_lstm_train, fused_lstm_train_plain, lstm_bwd_recurrence,
+    lstm_bwd_recurrence_plain)
 from mxnet_tpu_torch.ops.nn import rnn_param_size
 from mxnet_tpu_torch.ops.registry import get_op
 
@@ -78,3 +83,95 @@ def test_rejects_tensors_on_two_devices(cuda):
     args[4] = args[4].cpu()
     with pytest.raises(mxt.MXNetError, match="wh is on cpu"):
         fused_lstm(*args)
+
+
+SHAPES = [(5, 4, 6, 8), (4, 1, 5, 13), (3, 9, 7, 33), (35, 32, 650, 650)]
+
+
+def _cotangents(t, b, h, device, seed):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(device)
+            for s in ((t, b, h), (b, h), (b, h))]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_train_forward_matches_plain(cuda, shape):
+    args = _inputs(*shape, device=cuda)
+    before = fused_lstm_train.launches
+    got = fused_lstm_train(*args)
+    want = fused_lstm_train_plain(*args)
+    torch.cuda.synchronize()
+    assert fused_lstm_train.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_backward_recurrence_matches_plain(cuda, shape):
+    t, b, i, h = shape
+    x, h0, c0, wx, wh, bias = _inputs(*shape, device=cuda)
+    _, cseq, gates = fused_lstm_train_plain(x, h0, c0, wx, wh, bias)
+    dhseq, dhn, dcn = _cotangents(t, b, h, cuda, seed=3)
+    before = lstm_bwd_recurrence.launches
+    got = lstm_bwd_recurrence(dhseq, dhn, dcn, gates, cseq, c0, wh)
+    want = lstm_bwd_recurrence_plain(dhseq, dhn, dcn, gates, cseq, c0, wh)
+    torch.cuda.synchronize()
+    assert lstm_bwd_recurrence.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:3])
+def test_fused_lstm_gradients_match_plain(cuda, shape):
+    t, b, i, h = shape
+    args = [a.requires_grad_(True) for a in _inputs(*shape, device=cuda)]
+    cots = _cotangents(t, b, h, cuda, seed=4)
+    outs = FusedLSTM.apply(*args)
+    got = torch.autograd.grad(outs, args, cots)
+    with torch.no_grad():
+        hseq, cseq, gates = fused_lstm_train_plain(*args)
+        want = fused_lstm_backward_plain(*cots, args[0], args[1], args[2],
+                                         args[3], args[4], hseq, cseq,
+                                         gates)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+
+
+def _lm(mx, ctx, t, b, vocab, hidden):
+    data = mx.sym.var("data")
+    x = mx.sym.Embedding(data, input_dim=vocab, output_dim=hidden,
+                         name="embed")
+    x = mx.sym.RNN(x, state_size=hidden, num_layers=2, mode="lstm",
+                   name="lstm")
+    x = mx.sym.FullyConnected(mx.sym.Reshape(x, shape=(-1, hidden)),
+                              num_hidden=vocab, name="decoder")
+    mod = mx.mod.Module(mx.sym.SoftmaxOutput(x, name="softmax"),
+                        context=ctx)
+    mod.bind(data_shapes=[("data", (t, b))],
+             label_shapes=[("softmax_label", (t * b,))])
+    mx.random.seed(0)
+    mod.init_params(initializer=mx.init.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 1.0, "clip_gradient": 0.25})
+    return mod
+
+
+def test_module_step_on_gpu_matches_cpu(cuda):
+    t, b, vocab, hidden = 6, 5, 40, 24
+    rng = np.random.RandomState(5)
+    batch = mxt.io.DataBatch(
+        data=[mxt.nd.array(rng.randint(0, vocab, (t, b)))],
+        label=[mxt.nd.array(rng.randint(0, vocab, t * b))])
+    mods = [_lm(mxt, ctx, t, b, vocab, hidden)
+            for ctx in (mxt.gpu(0), mxt.cpu())]
+    before = (fused_lstm_train.launches, lstm_bwd_recurrence.launches)
+    for mod in mods:
+        mod._step(batch)
+    assert (fused_lstm_train.launches, lstm_bwd_recurrence.launches) == \
+        (before[0] + 2, before[1] + 2)
+    got, want = (m.get_outputs()[0].asnumpy() for m in mods)
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    for name, arr in mods[0].get_params()[0].items():
+        np.testing.assert_allclose(arr.asnumpy(),
+                                   mods[1].get_params()[0][name].asnumpy(),
+                                   rtol=TOL, atol=TOL, err_msg=name)
