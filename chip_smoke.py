@@ -41,13 +41,38 @@ and then trains the same LM, the configuration of the training benchmark
    default, each batch copied from host memory), ``fit`` for
    one short epoch of an ``NDArrayIter`` with ``Perplexity`` and
    ``Speedometer``, and ``score`` on an eval iterator (K1);
-9. ``torch.profiler`` over one train step.
+9. ``torch.profiler`` over one train step;
 
-Phases 3-5 are the serving main path and phase 8 the training one: every
-kernel's launch count is set to 0 before each and read after it. The
-serving path must launch K1; the training path must launch K2 and K3
-exactly once per layer and step, and K1 once per layer and eval batch.
-Any failed check exits non-zero. The last lines
+and then trains ResNet-50 v1 at the configuration of the image
+benchmark (``tools/bench_all.py:91-97``: NHWC, bf16, batch 128, 1000
+classes, 224x224x3, SGD with lr 0.05 and momentum 0.9, Xavier init)
+through the port's Gluon -> ``_trace_symbol`` -> ``Module`` path
+(``examples/image-classification/benchmark.py:32-62``), full width and
+depth, with ``MXNET_CONV1X1_PALLAS`` on, in three more:
+
+10. ``conv1x1_s2_dgrad`` (K5) vs its plain version at the six stride-2
+    1x1 shapes of the train step, bf16 and f32 (TF32 off), and a ragged
+    shape, with kernel, plain and cuDNN dgrad times and the bound;
+11. the ResNet-50 Module: 2 f32 steps at batch 4 and lr 0.05 on
+    ``gpu(0)`` held against the same Module on ``cpu()`` (outputs, moving
+    statistics, every parameter's gradient and update) with two controls
+    that must fail; at bf16 batch 128, forwards of the bf16 Module
+    against an f32 Module from the same weights on 3 batches, with two
+    controls that must fail, 2 warm-up ``_step``s, 10 timed ``_step``s
+    and one ``_step_scan`` over 10 staged batches (img/s); 10 ``_step``s
+    with the gate off (cuDNN's dgrad);
+12. ``torch.profiler`` over one bf16 batch-128 step: device time by
+    kernel class (cuDNN convolution forward, dgrad and wgrad, K5, GEMMs,
+    BatchNorm, pooling and activation, optimizer, copies) and the idle
+    share.
+
+Phases 3-5 are the serving main path, phase 8 the LM training one and
+phase 11's gate-on steps on the card the ResNet one: every kernel's
+launch count is set to 0 before each and read after it. The serving path
+must launch K1; the LM training path must launch K2 and K3 exactly once
+per layer and step, and K1 once per layer and eval batch; the ResNet path
+must launch K5 exactly 6 times per step with the gate on, and never with
+it off. Any failed check exits non-zero. The last lines
 are the card's name and power limit (``nvidia-smi``), one JSON line with
 every ported kernel's numbers, and the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -56,6 +81,7 @@ repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -88,10 +114,60 @@ SCAN_STEPS, FIT_BATCHES, EVAL_BATCHES = 20, 6, 2
 # probabilities near 1/VOCAB; parameters are up to ~0.3.
 TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-7
 PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-6
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and f32
-# FLOP/s outside the tensor cores, at the 700 W power limit
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
+# outside the tensor cores and dense bf16 tensor-core FLOP/s, at the
+# 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+# ResNet-50 v1 training (tools/bench_all.py:91-97)
+IMAGE = (224, 224, 3)                     # NHWC
+CLASSES, RESNET_BATCH, RESNET_LR = 1000, 128, 0.05
+RESNET_WARMUP, RESNET_STEPS = 2, 10
+RESNET_CHECK_BATCH = 4
+# the six stride-2 1x1 convs of a step, (N, Ho, Wo, K, C): stage 2-4
+# body conv1 (K = C / 2) and downsample (K = 2C); and a shape off every
+# tile size
+K5_SHAPES = [(RESNET_BATCH, ho, ho, k, c) for ho, c in ((28, 256), (14, 512),
+                                                        (7, 1024))
+             for k in (c // 2, 2 * c)]
+K5_RAGGED = (3, 5, 3, 40, 136)
+K5_PER_STEP = 6
+# K5 vs plain: f32 both sides (TF32 off), sums of K <= 2048 products in
+# another order; bf16 outputs are rounded from f32 sums that differ in
+# order, which can move a value by one bf16 step (2^-7 relative) near a
+# rounding boundary
+K5_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# 2 f32 steps of ResNet-50 at batch 4 on the card vs the CPU (TF32 off
+# on the card), at the benchmark's lr 0.05, each from the same weights:
+# only summation order differs, over 53 convolutions and 53 BatchNorm
+# reductions per pass. The forward is well conditioned: outputs and
+# moving statistics are held elementwise to rtol 1e-3, atol 1e-5. The
+# gradient is not: a ReLU net's gradient jumps where an activation
+# crosses zero, and another summation order carries the activations
+# nearest zero across it, each flip moving its layer's gradient by a
+# visible fraction. So each parameter's gradient, and its update, is
+# held by relative norm |g - g_cpu| /
+# |g_cpu| to GRAD_REL, set between the largest reading of sound runs on
+# the card and the readings of two controls that must fail it (K5's dx
+# zeroed; a second update that forgets the momentum), all printed in
+# phase 11. On an H100 (700 W) the sound readings were at most 0.090 and
+# the controls 1.0 and 0.9996: the limit is about their geometric mean.
+RESNET_RTOL, RESNET_ATOL = 1e-3, 1e-5
+GRAD_REL = 0.3
+# bf16 vs f32 forward (batch statistics, same weights) on BF16_BATCHES
+# batches: the row-centred log-probabilities of the bf16 Module against
+# the f32 one, by relative norm. Each of the 53 convolutions, 53
+# BatchNorms and the classifier rounds to bf16 (8 significant bits), and
+# the net amplifies those errors, so the bound is measured: BF16_REL sits
+# between the largest sound reading on the card and the readings of two
+# controls that must fail it (the bf16 log-probabilities at temperature
+# 2, i.e. pulled toward uniform; BatchNorm scaled by 1/var instead of
+# 1/sqrt(var)), all printed in phase 11. On an H100 (700 W) the sound
+# readings were 0.119-0.120 and the controls 0.507 and 6.99: the limit is
+# about the geometric mean of the largest sound and the smallest control.
+BF16_BATCHES = 3
+BF16_REL = 0.25
 
 
 def log(msg):
@@ -694,6 +770,460 @@ def phase_train_profile(mod, rng, mx):
                          "share": ms / busy} for k, (c, ms) in top]}))
 
 
+# ---------------------------------------------------------------------------
+# the ResNet slice: K5 and ResNet-50 v1 training through Gluon and Module
+# ---------------------------------------------------------------------------
+def k5_times(n, ho, wo, k, c, dtype):
+    """The two least times of one K5 call, in ms: its bytes (dy and w2
+    read once, dx, four times the product, written once) at the HBM rate,
+    and its 2·M·K·C operations at the dtype's peak."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    m = n * ho * wo
+    nbytes = item * (m * k + k * c + 4 * m * c)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    return nbytes / PEAK_BYTES_PER_S * 1e3, 2 * m * k * c / peak * 1e3
+
+
+def bound_of(t_bytes, t_ops):
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cudnn_dgrad(dy, w2, h, w):
+    """cuDNN's input gradient of the same NHWC 1x1 stride-2 conv, on
+    channels-last tensors: the yardstick only."""
+    n, _, _, k = dy.shape
+    c = w2.shape[1]
+    w4 = w2.reshape(k, 1, 1, c).permute(0, 3, 1, 2)     # OHWI as OIHW view
+    dyc = dy.permute(0, 3, 1, 2)
+    return lambda: torch.nn.grad.conv2d_input((n, c, h, w), w4, dyc,
+                                              stride=2).permute(0, 2, 3, 1)
+
+
+def phase_k5(ops, device):
+    """K5 vs plain at the train step's six shapes (bf16 and f32) and a
+    ragged one; kernel, plain and cuDNN times at the six."""
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for n_shape, shape in enumerate(K5_SHAPES + [K5_RAGGED]):
+            n, ho, wo, k, c = shape
+            gen = torch.Generator(device=device)
+            gen.manual_seed(SEED + 30 + n_shape)
+            dy = torch.randn((n, ho, wo, k), generator=gen,
+                             device=device).to(dtype)
+            w2 = (torch.randn((k, c), generator=gen, device=device)
+                  / k ** 0.5).to(dtype)
+            got = ops.conv1x1_s2_dgrad(dy, w2, 2 * ho, 2 * wo)
+            want = ops.conv1x1_s2_dgrad_plain(dy, w2, 2 * ho, 2 * wo)
+            torch.cuda.synchronize()
+            tol = K5_TOL[dtype]
+            err = max_err([got.float()], [want.float()],
+                          "conv1x1_s2_dgrad %s %s" % (shape, dtype),
+                          rtol=tol, atol=tol)
+            check(bool((got[:, 1::2] == 0).all())
+                  and bool((got[:, :, 1::2] == 0).all()),
+                  "conv1x1_s2_dgrad %s left a nonzero at an odd position"
+                  % (shape,))
+            row = {"shape": list(shape), "dtype": str(dtype).split(".")[1],
+                   "max_abs_err": err}
+            if shape != K5_RAGGED:
+                lib = cudnn_dgrad(dy, w2, 2 * ho, 2 * wo)
+                # the yardstick must compute the same dx, to K5's tolerance
+                lib_err = max_err([lib().float()], [want.float()],
+                                  "cuDNN dgrad %s %s" % (shape, dtype),
+                                  rtol=tol, atol=tol)
+                t_bytes, t_ops = k5_times(*shape, dtype)
+                bound, by = bound_of(t_bytes, t_ops)
+                row.update(
+                    ms=time_ms(lambda: ops.conv1x1_s2_dgrad(
+                        dy, w2, 2 * ho, 2 * wo), 20),
+                    plain_ms=time_ms(lambda: ops.conv1x1_s2_dgrad_plain(
+                        dy, w2, 2 * ho, 2 * wo), 20),
+                    library_ms=time_ms(lib, 20), library_max_abs_err=lib_err,
+                    bound_ms=bound, bound_by=by, bytes_ms=t_bytes,
+                    operations_ms=t_ops)
+            del dy, w2, got, want
+            log("phase 10 conv1x1_s2_dgrad %s" % json.dumps(row))
+            rows.append(row)
+    return rows
+
+
+def resnet_module(mx, ctx, batch, dtype):
+    """The benchmark's ``build_module``: a Gluon zoo ResNet-50 v1 (NHWC),
+    Xavier on ``ctx``, one eager forward to materialise the deferred
+    parameters, the traced symbol under ``SoftmaxOutput``, a Module bound
+    with the dtype's ``type_dict``, its parameters from the Gluon net,
+    SGD with momentum 0.9."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    net = vision.get_model("resnet50_v1", classes=CLASSES, layout="NHWC")
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net(mx.nd.zeros((batch,) + IMAGE, ctx=ctx))
+    sym = mx.sym.SoftmaxOutput(net._trace_symbol(), name="softmax")
+    mod = mx.mod.Module(sym, context=ctx)
+    type_dict = None
+    if dtype != "float32":
+        type_dict = {"data": dtype}
+        type_dict.update({p: dtype for p in mod._param_names})
+    mod.bind(data_shapes=[("data", (batch,) + IMAGE)],
+             label_shapes=[("softmax_label", (batch,))], type_dict=type_dict)
+    mod.init_params(initializer=mx.init.Xavier(),
+                    arg_params={k: v.data()
+                                for k, v in net.collect_params().items()},
+                    allow_missing=True)
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": RESNET_LR, "momentum": 0.9})
+    return mod
+
+
+def image_batches(mx, rng, ctx, n, batch, dtype):
+    """n batches of uniform [0, 1) images and random labels, on ``ctx``
+    (staged, as the benchmark's ``--prestack`` stages them)."""
+    return [mx.io.DataBatch(
+        data=[mx.nd.array(rng.rand(batch, *IMAGE).astype(np.float32),
+                          ctx=ctx, dtype=dtype)],
+        label=[mx.nd.array(rng.randint(0, CLASSES, batch), ctx=ctx)])
+        for _ in range(n)]
+
+
+def nll(probs, labels):
+    """Mean negative log-likelihood of the labels (the softmax loss)."""
+    p = probs.float().gather(-1, labels.long()[..., None])[..., 0]
+    return (-torch.log(p.clamp_min(1e-30))).mean(-1)
+
+
+def rel_err(got, want):
+    """|got - want| / |want| in the Frobenius norm (0 when both are 0)."""
+    num = float(np.linalg.norm(got - want))
+    den = float(np.linalg.norm(want))
+    return num / den if den else (0.0 if num == 0.0 else float("inf"))
+
+
+def leaf_errs(got, want):
+    """{name: rel_err} of two {name: array} dicts; the largest, its name
+    and the median."""
+    errs = {n: rel_err(got[n], w) for n, w in want.items()}
+    worst = max(errs, key=errs.get)
+    return {"max": errs[worst], "worst": worst,
+            "median": float(np.median(list(errs.values())))}
+
+
+def grads_of(mod):
+    return {n: mod._exec.grad_dict[n].asnumpy() for n in mod._param_names
+            if mod._exec.grad_dict.get(n) is not None}
+
+
+def max_abs(got, want):
+    return max(float(np.abs(g - want[n]).max()) for n, g in got.items())
+
+
+def phase_resnet_check(mx, rng):
+    """Part 1: f32 at batch 4, TF32 off: 2 SGD-momentum steps at the
+    benchmark's lr 0.05 on gpu(0) against the same Module on cpu(), each
+    from the card's weights (the CPU Module takes them before each step).
+    Each step is ``_step``'s two halves: after ``forward_backward`` the
+    outputs and moving statistics are held elementwise to
+    RESNET_RTOL/ATOL and every parameter's gradient by relative norm to
+    GRAD_REL; after ``update`` every parameter's change by relative norm
+    to GRAD_REL. Two controls must fail that limit: the gradients with
+    K5's dx zeroed on the card, and a second update that forgets the
+    momentum. The readings are printed before they are checked."""
+    batch_shape = (RESNET_CHECK_BATCH,) + IMAGE
+    mod = resnet_module(mx, mx.gpu(0), RESNET_CHECK_BATCH, "float32")
+    ref = mx.mod.Module(mod.symbol, context=mx.cpu())
+    ref.bind(data_shapes=[("data", batch_shape)],
+             label_shapes=[("softmax_label", (RESNET_CHECK_BATCH,))])
+    ref.set_params(*[mx.params_to_numpy(d) for d in mod.get_params()])
+    ref.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": RESNET_LR, "momentum": 0.9})
+    batches = image_batches(mx, rng, mx.cpu(), 3, RESNET_CHECK_BATCH,
+                            "float32")
+    steps, fails = [], []
+    for step, batch in enumerate(batches[:2]):
+        ref.set_params(*[mx.params_to_numpy(d) for d in mod.get_params()])
+        for m in (mod, ref):
+            m.forward_backward(batch)
+        got = mod.get_outputs()[0].asnumpy()
+        want = ref.get_outputs()[0].asnumpy()
+        check(got.shape == (RESNET_CHECK_BATCH, CLASSES)
+              and bool(np.isfinite(got).all()),
+              "ResNet step %d output not finite" % step)
+        aux, aux_ref = (mx.params_to_numpy(m.get_params()[1])
+                        for m in (mod, ref))
+        if not np.allclose(got, want, rtol=RESNET_RTOL, atol=RESNET_ATOL):
+            fails.append("step %d outputs" % step)
+        fails += ["step %d moving statistic %s" % (step, n)
+                  for n, v in aux_ref.items()
+                  if not np.allclose(aux[n], v, rtol=RESNET_RTOL,
+                                     atol=RESNET_ATOL)]
+        grads, grads_ref = grads_of(mod), grads_of(ref)
+        before = mx.params_to_numpy(ref.get_params()[0])
+        for m in (mod, ref):
+            m.update()
+        moved, moved_ref = ({n: v - before[n] for n, v in
+                             mx.params_to_numpy(m.get_params()[0]).items()}
+                            for m in (mod, ref))
+        row = {"output_max_abs_err": float(np.abs(got - want).max()),
+               "moving_stat_max_abs_err": max_abs(aux, aux_ref),
+               "grad_rel": leaf_errs(grads, grads_ref),
+               "update_rel": leaf_errs(moved, moved_ref)}
+        if step == 1:       # control: the update without the momentum term
+            plain = {n: -RESNET_LR / RESNET_CHECK_BATCH * g
+                     for n, g in grads.items()}
+            row["control_update_without_momentum_rel"] = leaf_errs(
+                plain, moved_ref)
+        steps.append(row)
+    # control: the gradients with every K5 dx zeroed on the card
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    ref.set_params(*[mx.params_to_numpy(d) for d in mod.get_params()])
+    k5 = nn_ops.conv1x1_s2_dgrad
+    nn_ops.conv1x1_s2_dgrad = lambda dy, w2, h, w: dy.new_zeros(
+        (dy.shape[0], h, w, w2.shape[1]))
+    try:
+        mod.forward_backward(batches[2])
+    finally:
+        nn_ops.conv1x1_s2_dgrad = k5
+    ref.forward_backward(batches[2])
+    control_k5 = leaf_errs(grads_of(mod), grads_of(ref))
+    summary = {"batch": RESNET_CHECK_BATCH, "lr": RESNET_LR,
+               "grad_rel_limit": GRAD_REL, "steps": steps,
+               "control_k5_dx_zeroed_grad_rel": control_k5}
+    log("phase 11 f32 vs cpu %s" % json.dumps(summary))
+    for step, row in enumerate(steps):
+        fails += ["step %d %s of %s: %.3g" % (step, kind, row[kind]["worst"],
+                                              row[kind]["max"])
+                  for kind in ("grad_rel", "update_rel")
+                  if not row[kind]["max"] <= GRAD_REL]
+    for what, reading in (
+            ("K5 dx zeroed", control_k5["max"]),
+            ("update without momentum",
+             steps[1]["control_update_without_momentum_rel"]["max"])):
+        if reading <= GRAD_REL:
+            fails.append("control %s passes the limit: %.3g" % (what,
+                                                                reading))
+    check(not fails, "ResNet f32 card vs cpu: " + "; ".join(fails))
+    return summary
+
+
+def timed_steps(mod, batches):
+    """``_step`` over ``batches``: (host wall s bracketed by synchronize,
+    the output probabilities of every step)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = []
+    for b in batches:
+        mod._step(b)
+        outs.append(mod.get_outputs()[0].data)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, outs
+
+
+def phase_resnet_train(mx, rng):
+    """Part 2: bf16 batch 128, gate on: 2 warm-up steps, 10 timed
+    ``_step``s and one ``_step_scan`` over 10 staged batches."""
+    mod = resnet_module(mx, mx.gpu(0), RESNET_BATCH, "bfloat16")
+    batches = image_batches(mx, rng, mx.gpu(0), RESNET_STEPS, RESNET_BATCH,
+                            "bfloat16")
+    mixed = phase_resnet_bf16_vs_f32(mx, mod, batches[:BF16_BATCHES])
+    for b in batches[:RESNET_WARMUP]:
+        mod._step(b)
+    wall, outs = timed_steps(mod, batches)
+    losses = [float(nll(o, b.label[0].data)) for o, b in zip(outs, batches)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stacked = mod._step_scan(batches)
+    torch.cuda.synchronize()
+    scan_wall = time.perf_counter() - t0
+    labels = torch.stack([b.label[0].data for b in batches])
+    scan_losses = [float(v) for v in nll(stacked[0].data, labels)]
+    check(all(bool(torch.isfinite(o).all()) for o in outs)
+          and bool(torch.isfinite(stacked[0].data).all())
+          and all(np.isfinite(losses + scan_losses)),
+          "ResNet bf16 outputs or losses not finite: %s %s"
+          % (losses, scan_losses))
+    steps = RESNET_WARMUP + 2 * RESNET_STEPS
+    return mod, batches, steps, mixed, {
+        "batch": RESNET_BATCH, "dtype": "bfloat16",
+        "step_s": wall / RESNET_STEPS,
+        "step_imgs_per_s": RESNET_STEPS * RESNET_BATCH / wall,
+        "scan_s": scan_wall / RESNET_STEPS,
+        "scan_imgs_per_s": RESNET_STEPS * RESNET_BATCH / scan_wall,
+        "losses": losses, "scan_losses": scan_losses,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_resnet_gate_off(mod, batches):
+    """Part 3: the same Module with ``MXNET_CONV1X1_PALLAS=0`` (cuDNN's
+    dgrad for the six convs): 10 timed steps."""
+    os.environ["MXNET_CONV1X1_PALLAS"] = "0"
+    try:
+        wall, outs = timed_steps(mod, batches)
+    finally:
+        os.environ["MXNET_CONV1X1_PALLAS"] = "1"
+    losses = [float(nll(o, b.label[0].data)) for o, b in zip(outs, batches)]
+    check(all(np.isfinite(losses)), "gate-off losses not finite")
+    return {"step_s": wall / RESNET_STEPS,
+            "step_imgs_per_s": RESNET_STEPS * RESNET_BATCH / wall,
+            "losses": losses}
+
+
+def centred_logp(probs):
+    """Row-centred log-probabilities of softmax outputs, in f32."""
+    lp = torch.log(probs.float().clamp_min(1e-30))
+    return lp - lp.mean(-1, keepdim=True)
+
+
+def phase_resnet_bf16_vs_f32(mx, mod, batches):
+    """Part 4: one training-mode forward (batch statistics) of the bf16
+    Module and of an f32 Module with the same weights (cast up) on each of
+    ``batches``, before the bf16 Module's first step: the relative norm of
+    the difference of their row-centred log-probabilities, held to
+    BF16_REL. Two controls must fail that limit: the bf16 outputs at
+    temperature 2, and a bf16 forward whose BatchNorm scales by 1/var."""
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    ref = mx.mod.Module(mod.symbol, context=mx.gpu(0))
+    ref.bind(data_shapes=[("data", (RESNET_BATCH,) + IMAGE)],
+             label_shapes=[("softmax_label", (RESNET_BATCH,))],
+             for_training=False)
+    ref.init_params(arg_params=mod.get_params()[0],
+                    aux_params=mod.get_params()[1])
+    readings, spread_err = [], []
+    for batch in batches:
+        f32 = mx.io.DataBatch(data=[mx.nd.NDArray(batch.data[0].data.float(),
+                                                  mx.gpu(0))],
+                              label=batch.label)
+        mod.forward(batch, is_train=True)
+        ref.forward(f32, is_train=True)
+        got = mod.get_outputs()[0].data
+        check(bool(torch.isfinite(got).all()), "bf16 forward not finite")
+        lp_got = centred_logp(got)
+        lp_want = centred_logp(ref.get_outputs()[0].data)
+        readings.append(float((lp_got - lp_want).norm() / lp_want.norm()))
+        spread = lp_want.max(-1).values - lp_want.min(-1).values
+        spread_err.append(float(((lp_got - lp_want).abs().max(-1).values
+                                 / spread).max()))
+    # controls, on the last batch
+    cooled = centred_logp(torch.softmax(lp_got / 2, -1))
+    control_temp = float((cooled - lp_want).norm() / lp_want.norm())
+    apply = nn_ops._bn_apply
+    nn_ops._bn_apply = lambda data, g, beta, mean, inv, bshape: apply(
+        data, g, beta, mean, inv * inv, bshape)
+    try:
+        mod.forward(batch, is_train=True)
+    finally:
+        nn_ops._bn_apply = apply
+    lp_bad = centred_logp(mod.get_outputs()[0].data)
+    control_bn = float((lp_bad - lp_want).norm() / lp_want.norm())
+    summary = {"batches": len(batches), "logp_rel": readings,
+               "logp_rel_limit": BF16_REL,
+               "logp_max_abs_err_over_spread": spread_err,
+               "control_temperature_2": control_temp,
+               "control_bn_inverse_var": control_bn}
+    log("phase 11 bf16 vs f32 %s" % json.dumps(summary))
+    check(max(readings) <= BF16_REL, "bf16 vs f32 log-probabilities differ "
+          "by %.3g relative (limit %.3g)" % (max(readings), BF16_REL))
+    check(not control_temp <= BF16_REL and not control_bn <= BF16_REL,
+          "a bf16-vs-f32 control passes the limit %.3g: temperature %.3g, "
+          "BatchNorm 1/var %.3g" % (BF16_REL, control_temp, control_bn))
+    return summary
+
+
+# kernel classes of a train step, by the op that launched the kernel (the
+# executor's op name in forward, the autograd node in backward) and by
+# the kernel's own name
+def kernel_class(kernel, stack):
+    k = kernel.lower()
+    where = " ".join(stack)
+    if "dgrad_bf16" in k or "dgrad_f32" in k:
+        return "K5 conv1x1_s2_dgrad"
+    if "memcpy" in k or "memset" in k:
+        return "copies"
+    if "op:Convolution" in where or "Convolution" in where \
+            or "Conv1x1S2" in where:
+        if "dgrad" in k:
+            return "conv dgrad (cuDNN)"
+        if "wgrad" in k:
+            return "conv wgrad (cuDNN)"
+        if "evaluate_function" in where and "Conv1x1S2" in where:
+            return "K5 path wgrad GEMM and slice copy"
+        if "evaluate_function" in where:
+            return "conv backward, other"
+        return "conv forward (cuDNN)"
+    if "BatchNorm" in where:
+        return "BatchNorm passes"
+    if "Pooling" in where or "Pool" in where or "Activation" in where \
+            or "Threshold" in where or "Relu" in where or "Mean" in where:
+        return "pooling and activation"
+    if "update" in where:
+        return "optimizer update"
+    if "gemm" in k or "FullyConnected" in where or "Mm" in where:
+        return "classifier GEMM"
+    if "copy" in k or "CopyBackwards" in where or "ToCopyBackward" in where:
+        return "copies"
+    return "other (softmax, residual add, loss head)"
+
+
+def phase_resnet_profile(mx, mod, batch):
+    """One bf16 batch-128 step under torch.profiler, gate on, with each
+    forward op and the optimizer update in a named range."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from mxnet_tpu_torch.ops import registry
+
+    saved = [(op, op.fcompute) for op in
+             {id(op): op for op in registry._OPS.values()}.values()]
+
+    def ranged(name, fn):
+        def run(params, *args):
+            with record_function("op:" + name):
+                return fn(params, *args)
+        return run
+    for op, fn in saved:
+        op.fcompute = ranged(op.name, fn)
+    update = mod.update
+
+    def ranged_update():
+        with record_function("update"):
+            update()
+    mod.update = ranged_update
+    try:
+        mod._step(batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mod._step(batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for op, fn in saved:
+            op.fcompute = fn
+        del mod.update
+    classes = {}
+    launches = 0
+    for evt in prof.events():
+        if not evt.kernels:
+            continue
+        stack, e = [], evt
+        while e is not None:
+            stack.append(e.name)
+            e = e.cpu_parent
+        for kern in evt.kernels:
+            cls = classes.setdefault(kernel_class(kern.name, stack),
+                                     [0, 0.0, {}])
+            cls[0] += 1
+            cls[1] += kern.duration / 1e3
+            cls[2][kern.name[:50]] = cls[2].get(kern.name[:50], 0.0) \
+                + kern.duration / 1e3
+            launches += 1
+    busy = sum(ms for _, ms, _ in classes.values())
+    check(launches > 0, "the profiler saw no device kernel in the step")
+    return {"step_wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall, "kernels": launches,
+            "classes": {k: {"launches": c, "ms": ms, "share": ms / busy,
+                            "top": sorted(names.items(),
+                                          key=lambda kv: -kv[1])[:3]}
+                        for k, (c, ms, names) in sorted(
+                            classes.items(), key=lambda kv: -kv[1][1])}}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs the port on the GPU",
@@ -753,6 +1283,37 @@ def main():
           "score launched fused_lstm %d times, want %d"
           % (summary["k1_launches_by_score"], LAYERS * EVAL_BATCHES))
     phase_train_profile(mod, rng, mx)
+    del mod
+
+    t0 = time.perf_counter()
+    k5_rows = phase_k5(mx.ops, device)
+    log("phase 10 seconds %.1f" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    os.environ["MXNET_CONV1X1_PALLAS"] = "1"
+    k5 = mx.ops.conv1x1_s2_dgrad
+    k5.launches = 0                           # the ResNet path starts here
+    check_summary = phase_resnet_check(mx, rng)
+    k5_check = k5.launches
+    mod, batches, steps, mixed, train_summary = phase_resnet_train(mx, rng)
+    k5_launches = k5.launches                 # ... and ends here
+    check(k5_check == K5_PER_STEP * 2
+          and k5_launches == K5_PER_STEP * (2 + steps),
+          "the ResNet path launched conv1x1_s2_dgrad %d times (%d in the "
+          "2 f32 steps), want %d per step over %d steps"
+          % (k5_launches, k5_check, K5_PER_STEP, 2 + steps))
+    k5.launches = 0
+    off_summary = phase_resnet_gate_off(mod, batches)
+    check(k5.launches == 0, "with the gate off conv1x1_s2_dgrad launched "
+          "%d times" % k5.launches)
+    off_summary["k5_launches"] = k5.launches
+    log("phase 11 resnet50 %s" % json.dumps({
+        "f32_vs_cpu": check_summary, "bf16_gate_on": train_summary,
+        "bf16_gate_off": off_summary, "bf16_vs_f32_forward": mixed,
+        "k5_launches": k5_launches, "k5_launches_f32_check": k5_check,
+        "gate_on_steps_on_card": 2 + steps,
+        "seconds": time.perf_counter() - t0}))
+    log("phase 12 resnet50 profile %s" % json.dumps(
+        phase_resnet_profile(mx, mod, batches[0])))
 
     top = next(r for r in rows if r["B"] == max(SERVED_BATCHES))
     train = next(r for r in train_rows if r["B"] == TRAIN_BATCH)
@@ -778,6 +1339,20 @@ def main():
         "plain_ms": train["k3_plain_ms"], "bound_ms": train["k3_bound_ms"],
         "bound_by": train["k3_bound_by"],
         "library_ms": train["cudnn_bwd_ms"]}]
+    # K5: the six launches of one bf16 batch-128 train step, summed; the
+    # step's bound is the larger of its summed byte and operation times
+    step_rows = [r for r in k5_rows if r["dtype"] == "bfloat16" and "ms" in r]
+    k5_bound, k5_by = bound_of(sum(r["bytes_ms"] for r in step_rows),
+                               sum(r["operations_ms"] for r in step_rows))
+    kernels.append({
+        "name": "conv1x1_s2_dgrad", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/conv1x1_s2_dgrad.cu",
+        "replaces": "mxnet_tpu/ops/conv_kernels.py:66",
+        "launches": k5_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in k5_rows),
+        **{key: sum(r[key] for r in step_rows)
+           for key in ("ms", "plain_ms", "library_ms")},
+        "bound_ms": k5_bound, "bound_by": k5_by})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -2,17 +2,24 @@
 
 A second package beside the JAX one, with the same module names, so an
 ``import mxnet_tpu_torch as mx`` script reads like one written against
-`mxnet_tpu`. It imports neither JAX nor `mxnet_tpu`. It holds two paths
+`mxnet_tpu`. It imports neither JAX nor `mxnet_tpu`. It holds three paths
 so far:
 
 - serving: ``sym`` -> ``Executor`` -> ``Predictor`` ->
   ``serving.InferenceEngine`` -> HTTP, with the LSTM layer on a
   hand-written CUDA inference kernel (`csrc/fused_lstm.cu`);
-- training: ``sym`` -> ``mod.Module`` (bind, ``init_params``,
+- LM training: ``sym`` -> ``mod.Module`` (bind, ``init_params``,
   ``init_optimizer``, ``fit``/``_step``/``_step_scan``, ``score``) with
   ``io``, ``metric``, ``optimizer``, ``initializer`` and ``callback``,
   the LSTM layer on hand-written CUDA training kernels
-  (`csrc/fused_lstm_train.cu`; `ops/lstm_kernel.py` binds all three).
+  (`csrc/fused_lstm_train.cu`; `ops/lstm_kernel.py` binds all three);
+- image-classifier training: a ``gluon.model_zoo.vision`` ResNet built
+  and run eagerly through ``nd``, traced to a Symbol
+  (``HybridBlock._trace_symbol``) and trained by ``mod.Module``, with
+  ``Convolution``, ``BatchNorm``, ``Pooling`` and ``Activation``; with
+  ``MXNET_CONV1X1_PALLAS`` on, the input gradient of every NHWC
+  stride-2 1x1 convolution is a hand-written CUDA kernel
+  (`csrc/conv1x1_s2_dgrad.cu`, bound by `ops/conv_kernel.py`).
 
 Entry points run on ``gpu(0)`` (``cuda:0``) unless the caller passes
 ``cpu()``; without a CUDA device they raise rather than fall back.
@@ -20,6 +27,7 @@ Entry points run on ``gpu(0)`` (``cuda:0``) unless the caller passes
 from .base import MXNetError
 from .context import Context, cpu, gpu, current_context, num_gpus
 from . import random
+from . import autograd
 from . import ndarray
 from . import ndarray as nd
 from . import ops
@@ -35,12 +43,16 @@ from . import module
 from . import module as mod
 from . import model
 from . import callback
+from . import name
+from . import gluon
 from .predict import Predictor
-from .weights import params_from_numpy, params_to_numpy
+from .weights import (params_from_numpy, params_to_numpy,
+                      set_block_params)
 from . import serving
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "random", "nd", "ndarray", "ops", "sym", "symbol",
            "Executor", "init", "initializer", "optimizer", "io", "metric",
-           "mod", "module", "model", "callback", "Predictor",
-           "params_from_numpy", "params_to_numpy", "serving"]
+           "mod", "module", "model", "callback", "name", "gluon",
+           "autograd", "Predictor", "params_from_numpy", "params_to_numpy",
+           "set_block_params", "serving"]

@@ -1,20 +1,27 @@
 """Executor: a Symbol bound to arrays on one device.
 
 Counterpart of `mxnet_tpu/executor.py`: ``simple_bind`` (with
-``grad_req`` and ``shared_exec`` buffer sharing, the reference's
-shared-buffer rebind for bucketing), ``forward``, ``backward``,
-``forward_backward``, ``reshape`` and ``copy_params_from``. The JAX
-package jits the whole graph into one XLA program and differentiates it
-with ``jax.vjp``; the port runs the ops eagerly in topological order, so
-there is no counterpart to `compiled.py` here and each op launches its
-own kernels. A training forward (``is_train=True``) records the graph
-with ``torch.autograd`` from leaf copies of the arguments that take a
-gradient, and the following ``backward`` writes their gradients into
-``grad_dict``; any other forward runs under ``torch.no_grad()``. The
-graph-rewrite folds of the JAX executor, aux states, ``bind`` and the
-monitor belong to later slices.
+``grad_req``, ``type_dict`` and ``shared_exec`` buffer sharing, the
+reference's shared-buffer rebind for bucketing), ``bind``, ``forward``,
+``backward``, ``forward_backward``, ``reshape`` and ``copy_params_from``,
+with auxiliary states (BatchNorm's moving statistics) in ``aux_dict``.
+The JAX package jits the whole graph into one XLA program and
+differentiates it with ``jax.vjp``; the port runs the ops eagerly in
+topological order, so there is no counterpart to `compiled.py` here and
+each op launches its own kernels. A training forward (``is_train=True``)
+records the graph with ``torch.autograd`` from leaf copies of the
+arguments that take a gradient, writes the new aux values back in place,
+and the following ``backward`` writes the gradients into ``grad_dict``;
+any other forward runs under ``torch.no_grad()``.
+
+Two graph passes of the JAX executor run at bind, on by default with the
+same switches, so both packages compute the same graph: the conv-bias ->
+BatchNorm fold (``MXNET_FOLD_CONV_BIAS_BN=0`` skips it) and the relu ->
+max-pool fold (``MXNET_FOLD_RELU_POOL=0``). The monitor is not ported.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -29,18 +36,111 @@ __all__ = ["Executor"]
 _GRAD_REQS = ("write", "add", "null")
 
 
-def _build_eval(sym: Symbol, ctx):
-    """eval_fn(arg_vals, generator, is_train) -> list of output tensors."""
-    nodes = sym._topo_nodes()
-    out_index = [(id(n), i) for n, i in sym._outputs]
+def _truthy(v):
+    return v in (True, 1) or str(v).lower() in ("true", "1")
 
-    def eval_fn(arg_vals, generator, is_train):
+
+def _consumer_map(sym: Symbol, nodes):
+    """(id(node), out_idx) -> list of consuming nodes (None = graph
+    output)."""
+    consumers = {}
+    for n in nodes:
+        for src, oi in n.inputs:
+            consumers.setdefault((id(src), oi), []).append(n)
+    for node, i in sym._outputs:
+        consumers.setdefault((id(node), i), []).append(None)
+    return consumers
+
+
+def _plan_conv_bias_bn_fold(sym: Symbol, nodes):
+    """Elide a conv bias that feeds straight into a BatchNorm over the
+    same channel axis (`mxnet_tpu/executor.py:_plan_conv_bias_bn_fold`).
+
+    BatchNorm's mean subtraction cancels a per-channel offset exactly, so
+    the bias moves to the BatchNorm (``_fold_bias``), which keeps the
+    moving mean in the x + b domain; the bias's gradient is then zero, as
+    it is in real arithmetic. Returns {id(node): action}; the Symbol is
+    not changed. Skips BatchNorms with ``use_global_stats``."""
+    if os.environ.get("MXNET_FOLD_CONV_BIAS_BN", "1") == "0":
+        return {}
+    consumers = _consumer_map(sym, nodes)
+    folds = {}
+    for n in nodes:
+        if n.op not in ("BatchNorm", "BatchNorm_v1") or not n.inputs:
+            continue
+        if _truthy(n.attrs.get("use_global_stats", False)):
+            continue
+        conv, oi = n.inputs[0]
+        if conv.is_var() or conv.op != "Convolution" or oi != 0 \
+                or id(conv) in folds:
+            continue
+        attrs = conv.attrs
+        if _truthy(attrs.get("no_bias", False)) or len(conv.inputs) < 3:
+            continue
+        kernel = tuple(attrs.get("kernel") or ())
+        if not kernel:
+            continue
+        rank = len(kernel) + 2
+        spec = "DHW"[3 - len(kernel):]
+        layout = attrs.get("layout") or ("NC" + spec)
+        if layout in ("None", "NC" + spec):
+            ch_axis = 1
+        elif layout == "N" + spec + "C":
+            ch_axis = rank - 1
+        else:
+            continue
+        if int(n.attrs.get("axis", 1)) % rank != ch_axis:
+            continue
+        if len(consumers.get((id(conv), 0), [])) != 1:
+            continue
+        bias_src, bias_oi = conv.inputs[2]
+        folds[id(conv)] = ("drop_bias",)
+        folds[id(n)] = ("fold_bias", bias_src, bias_oi)
+    return folds
+
+
+def _plan_relu_pool_fold(sym: Symbol, nodes, folds):
+    """Fold a relu into the max-Pooling that is its only consumer
+    (`mxnet_tpu/executor.py:_plan_relu_pool_fold`): ``maxpool(relu(x)) ==
+    max(maxpool(x), 0)``, and the gradients agree up to ties. Only the
+    ``valid`` convention: a ``full`` window can cover padding alone."""
+    if os.environ.get("MXNET_FOLD_RELU_POOL", "1") == "0":
+        return
+    consumers = _consumer_map(sym, nodes)
+    for n in nodes:
+        if n.op != "Pooling" or id(n) in folds or not n.inputs:
+            continue
+        if n.attrs.get("pool_type", "max") != "max" \
+                or n.attrs.get("pooling_convention", "valid") != "valid":
+            continue
+        act, oi = n.inputs[0]
+        if act.is_var() or act.op != "Activation" or oi != 0 \
+                or id(act) in folds or act.attrs.get("act_type") != "relu":
+            continue
+        if len(consumers.get((id(act), 0), [])) != 1:
+            continue
+        folds[id(act)] = ("bypass",)
+        folds[id(n)] = ("fold_relu",)
+
+
+def _build_eval(sym: Symbol, ctx):
+    """eval_fn(arg_vals, aux_vals, generator, is_train) -> (list of output
+    tensors, {aux name: new value})."""
+    nodes = sym._topo_nodes()
+    sym._mark_aux()
+    out_index = [(id(n), i) for n, i in sym._outputs]
+    folds = _plan_conv_bias_bn_fold(sym, nodes)
+    _plan_relu_pool_fold(sym, nodes, folds)
+
+    def eval_fn(arg_vals, aux_vals, generator, is_train):
         env = {}
+        aux_updates = {}
         for n in nodes:
             if n.is_var():
-                if n.name not in arg_vals:
+                val = arg_vals.get(n.name, aux_vals.get(n.name))
+                if val is None:
                     raise MXNetError("unbound variable %s" % n.name)
-                env[id(n)] = [arg_vals[n.name]]
+                env[id(n)] = [val]
                 continue
             op = get_op(n.op)
             params = {k: v for k, v in n.attrs.items() if k != "__attrs__"}
@@ -49,10 +149,27 @@ def _build_eval(sym: Symbol, ctx):
                 params["_is_train"] = is_train
             if op.need_rng:
                 params["_generator"] = generator
+            fold = folds.get(id(n))
+            if fold is not None:
+                if fold[0] == "bypass":
+                    src, oi = n.inputs[0]
+                    env[id(n)] = [env[id(src)][oi]]
+                    continue
+                if fold[0] == "drop_bias":
+                    params["no_bias"] = True
+                elif fold[0] == "fold_bias":
+                    params["_fold_bias"] = env[id(fold[1])][fold[2]]
+                elif fold[0] == "fold_relu":
+                    params["_fold_relu"] = True
             outs = op.fcompute(params, *[env[id(src)][oi]
                                          for src, oi in n.inputs])
-            env[id(n)] = list(outs)
-        return [env[nid][i] for nid, i in out_index]
+            n_out = op.n_out(params)
+            for ai, new in zip(op.mutate_aux, outs[n_out:]):
+                src, _ = n.inputs[ai]
+                if src.is_var():
+                    aux_updates[src.name] = new
+            env[id(n)] = list(outs[:n_out])
+        return [env[nid][i] for nid, i in out_index], aux_updates
 
     return eval_fn
 
@@ -75,14 +192,21 @@ def _norm_req(grad_req, arg_names):
 
 
 class Executor:
-    def __init__(self, symbol, ctx, arg_dict, grad_dict=None, grad_req=None):
+    def __init__(self, symbol, ctx, arg_dict, grad_dict=None, grad_req=None,
+                 aux_dict=None):
         self._symbol = symbol
         self._ctx = ctx
         self._device = ctx.torch_device()
         self._arg_names = symbol.list_arguments()
+        self._aux_names = symbol.list_auxiliary_states()
         self._output_names = symbol.list_outputs()
         self.arg_dict = arg_dict            # name -> NDArray (shared)
         self.grad_dict = grad_dict or {}    # name -> NDArray
+        self.aux_dict = aux_dict or {}      # name -> NDArray (shared)
+        missing = [n for n in self._aux_names if n not in self.aux_dict]
+        if missing:
+            raise MXNetError("unbound auxiliary states %s" % missing)
+        self._type_dict = {}     # simple_bind's, kept for reshape
         self._grad_req = grad_req or {n: "null" for n in self._arg_names}
         self._grad_names = [n for n in self._arg_names
                             if self._grad_req.get(n, "null") != "null"]
@@ -98,10 +222,12 @@ class Executor:
     @staticmethod
     def simple_bind(symbol, ctx, grad_req="write", type_dict=None,
                     shared_exec=None, **kwargs):
-        """Allocate every argument from the given shapes (zeros), and a
-        gradient buffer for each argument whose ``grad_req`` is not
-        ``null``; arguments (and gradients) of ``shared_exec`` with the
-        same name and shape are shared, not copied."""
+        """Allocate every argument and auxiliary state from the given
+        shapes (zeros; ``type_dict`` names dtypes, f32 by default, so the
+        moving statistics stay f32 under bf16 parameters), and a gradient
+        buffer for each argument whose ``grad_req`` is not ``null``;
+        arrays of ``shared_exec`` with the same name and shape are shared,
+        not copied."""
         arg_shapes, _ = _graph_infer(symbol, kwargs, type_dict=type_dict)
         type_dict = type_dict or {}
         req = _norm_req(grad_req, symbol.list_arguments())
@@ -125,13 +251,43 @@ class Executor:
             else:
                 grad_dict[name] = nd_zeros(shape, ctx=ctx,
                                            dtype=type_dict.get(name))
-        return Executor(symbol, ctx, arg_dict, grad_dict, req)
+        aux_dict = {}
+        for name in symbol.list_auxiliary_states():
+            shape = tuple(arg_shapes[name])
+            if shared_exec is not None and name in shared_exec.aux_dict \
+                    and shared_exec.aux_dict[name].shape == shape:
+                aux_dict[name] = shared_exec.aux_dict[name]
+            else:
+                aux_dict[name] = nd_zeros(shape, ctx=ctx,
+                                          dtype=type_dict.get(name))
+        ex = Executor(symbol, ctx, arg_dict, grad_dict, req, aux_dict)
+        ex._type_dict = dict(type_dict)
+        return ex
+
+    @staticmethod
+    def bind(symbol, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None):
+        """Bind given arrays (lists in ``list_arguments`` /
+        ``list_auxiliary_states`` order, or dicts by name); without
+        ``args_grad`` nothing takes a gradient."""
+        arg_names = symbol.list_arguments()
+        arg_dict = _to_dict(args, arg_names, "args")
+        grad_dict = _to_dict(args_grad, arg_names, "args_grad") \
+            if args_grad else {}
+        aux_dict = _to_dict(aux_states, symbol.list_auxiliary_states(),
+                            "aux_states") if aux_states else {}
+        req = _norm_req(grad_req if args_grad else "null", arg_names)
+        for name, r in req.items():
+            if r != "null" and name not in grad_dict:
+                req[name] = "null"
+        return Executor(symbol, ctx, arg_dict, grad_dict, req, aux_dict)
 
     def reshape(self, **kwargs):
         """A new executor for new input shapes, sharing every array whose
         shape is unchanged (reference Executor::Reshape)."""
         return Executor.simple_bind(self._symbol, self._ctx,
                                     grad_req=self._grad_req,
+                                    type_dict=self._type_dict,
                                     shared_exec=self, **kwargs)
 
     def _generator(self):
@@ -143,23 +299,32 @@ class Executor:
         return gen
 
     def forward(self, is_train=False, **kwargs):
+        """Run the graph; a training forward also writes the new values of
+        the auxiliary states (BatchNorm's moving statistics) in place."""
         for k, v in kwargs.items():
             if k in self.arg_dict:
                 self.arg_dict[k][:] = v
         gen = self._generator()
         arg_vals = {n: a.data for n, a in self.arg_dict.items()}
+        aux_vals = {n: a.data for n, a in self.aux_dict.items()}
         self._recorded = None
         if is_train and self._grad_names:
             leaves = {n: arg_vals[n].detach().requires_grad_(True)
                       for n in self._grad_names}
             arg_vals.update(leaves)
             with torch.enable_grad():
-                outs = self._eval_fn(arg_vals, gen, True)
+                outs, aux_up = self._eval_fn(arg_vals, aux_vals, gen, True)
             self._recorded = (outs, leaves)
             outs = [o.detach() for o in outs]
         else:
             with torch.no_grad():
-                outs = self._eval_fn(arg_vals, gen, bool(is_train))
+                outs, aux_up = self._eval_fn(arg_vals, aux_vals, gen,
+                                             bool(is_train))
+        if is_train:
+            with torch.no_grad():
+                for name, val in aux_up.items():
+                    if val is not aux_vals[name]:
+                        aux_vals[name].copy_(val)
         self.outputs = [NDArray(v, self._ctx) for v in outs]
         return self.outputs
 
@@ -216,16 +381,29 @@ class Executor:
     def grad_arrays(self):
         return [self.grad_dict.get(n) for n in self._arg_names]
 
+    @property
+    def aux_arrays(self):
+        return [self.aux_dict[n] for n in self._aux_names]
+
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False):
-        """Copy ``{name: NDArray or numpy}`` into the bound arguments.
-        ``aux_params`` must be empty: the port has no aux states yet."""
-        for name, array in arg_params.items():
-            if name in self.arg_dict:
-                self.arg_dict[name][:] = array
-            elif not allow_extra_params:
-                raise ValueError("Find name \"%s\" that is not in the "
-                                 "arguments" % name)
-        if aux_params and not allow_extra_params:
-            raise ValueError("no auxiliary states in this graph: %s"
-                             % sorted(aux_params))
+        """Copy ``{name: NDArray or numpy}`` into the bound arguments and
+        auxiliary states (cast to their dtypes)."""
+        for src, dst, what in ((arg_params, self.arg_dict, "arguments"),
+                               (aux_params or {}, self.aux_dict,
+                                "auxiliary states")):
+            for name, array in src.items():
+                if name in dst:
+                    dst[name][:] = array
+                elif not allow_extra_params:
+                    raise ValueError("Find name \"%s\" that is not in the "
+                                     "%s" % (name, what))
+
+
+def _to_dict(arrays, names, what):
+    if isinstance(arrays, dict):
+        return dict(arrays)
+    if len(arrays) != len(names):
+        raise MXNetError("Length of %s does not match the number of names"
+                         % what)
+    return dict(zip(names, arrays))

@@ -1,0 +1,110 @@
+"""Gluon convolution and pooling layers (the ones ResNet uses).
+
+Counterpart of `mxnet_tpu/gluon/nn/conv_layers.py` (reference
+`python/mxnet/gluon/nn/conv_layers.py`): ``Conv2D`` (over ``_Conv``;
+channel-last weights are O,kh,kw,I), ``MaxPool2D`` and
+``GlobalAvgPool2D`` (over ``_Pooling``). The 1-D and 3-D layers, the
+transposed convolutions, the other pools and ``ReflectionPad2D`` are not
+ported yet.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..block import HybridBlock
+
+__all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D"]
+
+
+def _to_tuple(v, n):
+    if isinstance(v, (int, np.integer)):
+        return (int(v),) * n
+    return tuple(v)
+
+
+class _Conv(HybridBlock):
+    def __init__(self, channels, kernel_size, strides, padding, dilation,
+                 groups, layout, in_channels=0,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self._channel_last = bool(layout) and layout[-1] == "C"
+            self._kwargs = {
+                "kernel": kernel_size, "stride": strides, "dilate": dilation,
+                "pad": padding, "num_filter": channels, "num_group": groups,
+                "no_bias": not use_bias, "layout": layout}
+            if self._channel_last:
+                wshape = (channels,) + tuple(kernel_size) + \
+                    (in_channels // groups,)
+            else:
+                wshape = (channels, in_channels // groups) + \
+                    tuple(kernel_size)
+            self.weight = self.params.get("weight", shape=wshape,
+                                          init=weight_initializer,
+                                          allow_deferred_init=True)
+            self.bias = self.params.get(
+                "bias", shape=(channels,), init=bias_initializer,
+                allow_deferred_init=True) if use_bias else None
+
+    def _infer_shapes(self, x):
+        in_c = x.shape[-1] if self._channel_last else x.shape[1]
+        w = list(self.weight.shape)
+        iaxis = len(w) - 1 if self._channel_last else 1
+        if w[iaxis] == 0:
+            w[iaxis] = in_c // self._kwargs["num_group"]
+        self.weight.shape = tuple(w)
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        args = (x, weight) if bias is None else (x, weight, bias)
+        return F.Convolution(*args, **self._kwargs)
+
+    def _alias(self):
+        return "conv"
+
+
+class Conv2D(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
+                 dilation=(1, 1), groups=1, layout="NCHW", use_bias=True,
+                 weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        super().__init__(channels, _to_tuple(kernel_size, 2),
+                         _to_tuple(strides, 2), _to_tuple(padding, 2),
+                         _to_tuple(dilation, 2), groups, layout, in_channels,
+                         use_bias, weight_initializer,
+                         bias_initializer, **kwargs)
+
+
+class _Pooling(HybridBlock):
+    def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
+                 pool_type, layout=None, **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {
+            "kernel": pool_size,
+            "stride": pool_size if strides is None else strides,
+            "pad": padding, "global_pool": global_pool,
+            "pool_type": pool_type,
+            "pooling_convention": "full" if ceil_mode else "valid"}
+        if layout is not None:
+            self._kwargs["layout"] = layout
+
+    def _alias(self):
+        return "pool"
+
+    def hybrid_forward(self, F, x):
+        return F.Pooling(x, **self._kwargs)
+
+
+class MaxPool2D(_Pooling):
+    def __init__(self, pool_size=(2, 2), strides=None, padding=0,
+                 layout="NCHW", ceil_mode=False, **kwargs):
+        super().__init__(_to_tuple(pool_size, 2),
+                         None if strides is None else _to_tuple(strides, 2),
+                         _to_tuple(padding, 2), ceil_mode, False, "max",
+                         layout=layout, **kwargs)
+
+
+class GlobalAvgPool2D(_Pooling):
+    def __init__(self, layout="NCHW", **kwargs):
+        super().__init__((1, 1), None, (0, 0), True, True, "avg",
+                         layout=layout, **kwargs)

@@ -1,0 +1,237 @@
+"""Gluon Parameter and ParameterDict.
+
+Counterpart of `mxnet_tpu/gluon/parameter.py` (reference
+`python/mxnet/gluon/parameter.py`), cut to what a Gluon net needs to be
+built, initialised, run eagerly and traced to a Symbol: deferred
+initialisation (a parameter whose shape has unknown dimensions waits for
+the first forward), ``data``/``set_data``, ``var()`` and the prefixed
+``ParameterDict``. A parameter lives on one device: ``gpu(0)``
+unless ``initialize`` is given another context; without that CUDA device
+it raises, as ``Module`` does. Gradient buffers, ``Constant``, multi-device
+contexts and ``save``/``load`` wait for the Gluon training slice.
+"""
+from __future__ import annotations
+
+import warnings
+from collections import OrderedDict
+
+import numpy as np
+
+from ..base import MXNetError
+from ..context import Context, gpu
+from .. import initializer as init_mod
+from ..ndarray.ndarray import array as nd_array, zeros as nd_zeros
+
+__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
+
+
+class DeferredInitializationError(MXNetError):
+    """Error for unfinished deferred initialization."""
+
+
+def _one_context(ctx):
+    """gpu(0) by default; a list must name one device. Checks that the
+    device exists."""
+    if ctx is None:
+        ctx = gpu(0)
+    if isinstance(ctx, (list, tuple)):
+        if len(ctx) != 1:
+            raise MXNetError("a Parameter lives on one device in the port; "
+                             "got %d contexts" % len(ctx))
+        ctx = ctx[0]
+    if not isinstance(ctx, Context):
+        raise MXNetError("ctx must be a Context, got %r" % (ctx,))
+    ctx.torch_device()      # no such CUDA device: raise here
+    return ctx
+
+
+class Parameter:
+    def __init__(self, name, grad_req="write", shape=None, dtype=np.float32,
+                 lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False, differentiable=True):
+        self._var = None
+        self._data = None
+        self._ctx = None
+        self._deferred_init = ()
+        self.name = name
+        self._shape = tuple(shape) if shape is not None else None
+        self.dtype = dtype
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
+        self.grad_req = grad_req if differentiable else "null"
+        self.init = init
+        self.allow_deferred_init = allow_deferred_init
+
+    @property
+    def shape(self):
+        return self._shape
+
+    @shape.setter
+    def shape(self, new_shape):
+        if self._shape is not None and not (
+                len(self._shape) == len(new_shape)
+                and all(j in (0, i) for i, j in zip(new_shape, self._shape))):
+            raise MXNetError("Expected shape %s is incompatible with given "
+                             "shape %s." % (new_shape, self._shape))
+        self._shape = tuple(new_shape)
+
+    def _check_initialized(self):
+        if self._data is not None:
+            return
+        if self._deferred_init:
+            raise DeferredInitializationError(
+                "Parameter '%s' has not been initialized yet because "
+                "initialization was deferred. Actual initialization happens "
+                "during the first forward pass." % self.name)
+        raise RuntimeError("Parameter '%s' has not been initialized"
+                           % self.name)
+
+    def initialize(self, init=None, ctx=None, default_init=None,
+                   force_reinit=False):
+        """Fill the parameter on ``ctx`` (gpu(0) by default) by ``init``,
+        else its own ``init``, else ``default_init``; a shape with unknown
+        dimensions defers this to the first forward."""
+        if default_init is None:
+            default_init = init_mod.Uniform()
+        if self._data is not None and not force_reinit:
+            warnings.warn("Parameter '%s' is already initialized, ignoring. "
+                          "Set force_reinit=True to re-initialize."
+                          % self.name, stacklevel=2)
+            return
+        ctx = _one_context(ctx)
+        self._deferred_init = (init, ctx, default_init, None)
+        if self._shape is None or np.prod(self._shape) <= 0:
+            if self.allow_deferred_init:
+                return
+            raise ValueError("Cannot initialize Parameter '%s' because it "
+                             "has invalid shape: %s." % (self.name,
+                                                         self._shape))
+        self._finish_deferred_init()
+
+    def _finish_deferred_init(self):
+        if not self._deferred_init:
+            return
+        init, ctx, default_init, data = self._deferred_init
+        self._deferred_init = ()
+        if self._shape is None or np.prod(self._shape) <= 0:
+            raise MXNetError("Cannot initialize Parameter '%s' because it "
+                             "has invalid shape: %s." % (self.name,
+                                                         self._shape))
+        if data is None:
+            data = nd_zeros(self._shape, ctx=ctx, dtype=self.dtype)
+            effective = init if init is not None \
+                else (self.init or default_init)
+            init_mod.create(effective)(init_mod.InitDesc(self.name), data)
+        self._data = data
+        self._ctx = ctx
+
+    def set_data(self, data):
+        """Copy ``data`` in; before a deferred initialisation finishes it
+        becomes the initial value."""
+        self.shape = data.shape
+        if self._data is None:
+            if not self._deferred_init:
+                raise MXNetError("Parameter '%s' has not been initialized"
+                                 % self.name)
+            init, ctx, default_init, _ = self._deferred_init
+            self._deferred_init = (init, ctx, default_init,
+                                   nd_array(data, ctx=ctx,
+                                            dtype=self.dtype))
+            self._finish_deferred_init()
+            return
+        self._data[:] = data
+
+    def data(self, ctx=None):
+        self._check_initialized()
+        return self._data
+
+    def var(self):
+        """The Symbol variable of this parameter (its name, shape, dtype,
+        multipliers and initializer as attributes)."""
+        from .. import symbol
+        if self._var is None:
+            self._var = symbol.var(self.name, shape=self.shape,
+                                   dtype=self.dtype, lr_mult=self.lr_mult,
+                                   wd_mult=self.wd_mult, init=self.init)
+        return self._var
+
+class ParameterDict:
+    """Parameters by name, with prefix namespacing (reference
+    ParameterDict)."""
+
+    def __init__(self, prefix="", shared=None):
+        self._prefix = prefix
+        self._params = OrderedDict()
+        self._shared = shared
+
+    def __getitem__(self, key):
+        return self._params[key]
+
+    def __iter__(self):
+        return iter(self._params)
+
+    def __len__(self):
+        return len(self._params)
+
+    def items(self):
+        return self._params.items()
+
+    def keys(self):
+        return self._params.keys()
+
+    def values(self):
+        return self._params.values()
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    def _get_impl(self, name):
+        if name in self._params:
+            return self._params[name]
+        if self._shared is not None and name in self._shared._params:
+            self._params[name] = self._shared._params[name]
+            return self._params[name]
+        return None
+
+    def get(self, name, **kwargs):
+        """The parameter ``prefix + name``, created with ``kwargs`` when it
+        does not exist; an existing one must agree with them (a 0 in a
+        shape is a dimension still unknown)."""
+        name = self._prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            param = Parameter(name, **kwargs)
+            self._params[name] = param
+            return param
+        for k, v in kwargs.items():
+            existing = getattr(param, k, None)
+            if existing is None:
+                setattr(param, k, v)
+            elif k == "shape" and v is not None and len(v) == len(existing) \
+                    and all(a == b or a * b == 0 for a, b in zip(v, existing)):
+                param._shape = tuple(max(a, b) for a, b in zip(v, existing))
+            elif k == "dtype" and np.dtype(v) == np.dtype(existing):
+                continue
+            elif v is not None and str(v) != str(existing):
+                raise MXNetError(
+                    "Cannot retrieve Parameter '%s' because desired "
+                    "attribute does not match with stored for attribute "
+                    "'%s': desired '%s' vs stored '%s'."
+                    % (name, k, v, existing))
+        return param
+
+    def update(self, other):
+        for k, v in other.items():
+            if k in self._params and self._params[k] is not v:
+                raise MXNetError("Cannot update self with other because they "
+                                 "have different Parameters with the same "
+                                 "name '%s'" % k)
+            self._params[k] = v
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
+        if init is None:
+            init = init_mod.Uniform()
+        for param in self.values():
+            param.initialize(None, ctx, init, force_reinit=force_reinit)

@@ -1,10 +1,14 @@
 """Module: symbolic training on one executor.
 
 Counterpart of `mxnet_tpu/module/module.py` (reference
-`python/mxnet/module/module.py`), on one device: ``bind``,
-``init_params``, ``set_params``/``get_params``, ``init_optimizer``,
-``forward``, ``backward``, ``forward_backward``, ``update``, ``_step``,
-``_step_scan``, ``get_outputs``, ``update_metric`` and checkpoints.
+`python/mxnet/module/module.py`), on one device: ``bind`` (with a
+``type_dict``, e.g. bf16 data and parameters), ``init_params``,
+``set_params``/``get_params`` (arguments and auxiliary states),
+``init_optimizer``, ``forward``, ``backward``, ``forward_backward``,
+``update``, ``_step``, ``_step_scan``, ``get_outputs``, ``update_metric``
+and checkpoints. The auxiliary states (BatchNorm's moving statistics)
+live in the executor and are updated in place by every training forward,
+so ``_step`` and ``_step_scan`` carry them from step to step.
 
 The context defaults to ``gpu(0)`` (the JAX package's to ``cpu()``), and
 a module on a GPU context without that CUDA device raises at
@@ -141,7 +145,8 @@ class Module(BaseModule):
             raise MXNetError("call init_optimizer first")
 
     def get_params(self):
-        """({name: NDArray}, {}): the module's own parameter arrays."""
+        """({name: NDArray}, {name: NDArray}): the module's own parameter
+        and auxiliary-state arrays."""
         self._check_ready()
         self._sync_params_from_devices()
         return (self._arg_params, self._aux_params)
@@ -152,7 +157,9 @@ class Module(BaseModule):
         """Fill the parameters: from ``arg_params`` (NDArrays or numpy
         arrays, e.g. a JAX module's ``get_params()`` read back with
         ``asnumpy``) where given, else by ``initializer``, in
-        ``list_arguments`` order as the JAX package does."""
+        ``list_arguments`` order as the JAX package does; then the
+        auxiliary states from ``aux_params``, else by ``initializer``
+        (moving means zero, moving variances one)."""
         if self.params_initialized and not force_init:
             warnings.warn("Parameters already initialized and "
                           "force_init=False. init_params call ignored.",
@@ -160,8 +167,6 @@ class Module(BaseModule):
             return
         if not self.binded:
             raise MXNetError("call bind before initializing the parameters")
-        if aux_params:
-            raise MXNetError("this graph has no auxiliary states")
 
         def _impl(name, arr, cache):
             if cache is not None and name in cache:
@@ -186,6 +191,8 @@ class Module(BaseModule):
                 initializer(InitDesc(name, attrs=desc_attrs), arr)
             else:
                 _impl(name, arr, arg_params)
+        for name in self._aux_names:
+            _impl(name, self._exec.aux_dict[name], aux_params)
         self.params_initialized = True
         self._sync_params_from_devices()
 
@@ -203,16 +210,19 @@ class Module(BaseModule):
                           "force_init=False. set_params call ignored.",
                           stacklevel=2)
             return
-        for name, arr in (arg_params or {}).items():
-            if name in self._exec.arg_dict:
-                self._exec.arg_dict[name][:] = arr
+        for src, dst in ((arg_params, self._exec.arg_dict),
+                         (aux_params, self._exec.aux_dict)):
+            for name, arr in (src or {}).items():
+                if name in dst:
+                    dst[name][:] = arr
         self.params_initialized = True
 
     def _sync_params_from_devices(self):
         if self.binded:
             self._arg_params = {n: self._exec.arg_dict[n]
                                 for n in self._param_names}
-            self._aux_params = {}
+            self._aux_params = {n: self._exec.aux_dict[n]
+                                for n in self._aux_names}
 
     # -- bind ------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
@@ -254,9 +264,10 @@ class Module(BaseModule):
                                            type_dict=type_dict)
         self.binded = True
         # restore parameters held before the bind (e.g. after Module.load)
-        if self._arg_params is not None:
-            for name, arr in self._arg_params.items():
-                dst = self._exec.arg_dict.get(name)
+        for held, dsts in ((self._arg_params, self._exec.arg_dict),
+                           (self._aux_params, self._exec.aux_dict)):
+            for name, arr in (held or {}).items():
+                dst = dsts.get(name)
                 if dst is not None and dst is not arr:
                     dst[:] = arr
         if shared_module is not None and shared_module.params_initialized:

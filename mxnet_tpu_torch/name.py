@@ -1,9 +1,11 @@
-"""Automatic symbol naming (counterpart of `mxnet_tpu/name.py`)."""
+"""Automatic symbol naming (counterpart of `mxnet_tpu/name.py`):
+``NameManager`` numbers nodes per hint; ``Prefix`` puts a Gluon block's
+prefix before every name made inside its ``name_scope()``."""
 from __future__ import annotations
 
 import threading
 
-__all__ = ["NameManager"]
+__all__ = ["NameManager", "Prefix"]
 
 
 class NameManager:
@@ -33,3 +35,12 @@ class NameManager:
         if not hasattr(NameManager._current, "value"):
             NameManager._current.value = NameManager()
         return NameManager._current.value
+
+
+class Prefix(NameManager):
+    def __init__(self, prefix):
+        super().__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        return self._prefix + super().get(name, hint)

@@ -1,5 +1,12 @@
-"""`mx.nd` namespace of the port (reference `python/mxnet/ndarray/`)."""
+"""`mx.nd` namespace of the port (reference `python/mxnet/ndarray/`):
+the NDArray, its constructors, the ``.params`` format and one function
+per registered op."""
+from .. import ops as _ops  # noqa: F401  (registers the operators)
 from .ndarray import NDArray, zeros, array
 from .utils import save, load, load_frombuffer
+from .register import populate as _populate
 
-__all__ = ["NDArray", "zeros", "array", "save", "load", "load_frombuffer"]
+__all__ = ["NDArray", "zeros", "array", "save", "load",
+           "load_frombuffer"]
+
+_populate(globals())

@@ -1,12 +1,13 @@
 """NDArray: a thin handle over a ``torch.Tensor``.
 
-Counterpart of `mxnet_tpu/ndarray/ndarray.py`, cut to what the serving
-and training paths use: shape/size/dtype/context, ``asnumpy``, views by
-basic indexing, in-place assignment (the Predictor and Module feed
-inputs with ``arr[:] = value``), and the ``zeros``/``array``
-constructors. Unlike the JAX package, whose arrays
-are immutable and rebound on assignment, ``arr[:] = value`` here copies
-into the existing tensor, so every executor sharing the buffer sees it.
+Counterpart of `mxnet_tpu/ndarray/ndarray.py`, cut to what the serving,
+training and Gluon paths use: shape/size/dtype/context, ``asnumpy``,
+views by basic indexing, in-place assignment (the Predictor and Module
+feed inputs with ``arr[:] = value``), arithmetic through the registered
+``broadcast_*`` and scalar ops (`ops/invoke.py`), and the ``zeros``/
+``array`` constructors. Unlike the JAX package, whose arrays are
+immutable and rebound on assignment, ``arr[:] = value`` here copies into
+the existing tensor, so every executor sharing the buffer sees it.
 """
 from __future__ import annotations
 
@@ -59,7 +60,44 @@ class NDArray:
         return self._data
 
     def asnumpy(self):
-        return self._data.detach().cpu().numpy()
+        """A numpy copy of the values as they are now; later writes into
+        this NDArray do not show in it."""
+        return self._data.detach().to("cpu", copy=True).numpy()
+
+    # -- arithmetic through the registered ops ---------------------------
+    def _binary(self, other, op, scalar_op):
+        from ..ops.invoke import invoke
+        if isinstance(other, NDArray):
+            return invoke(op, [self, other])
+        if isinstance(other, (int, float)):
+            return invoke(scalar_op, [self], {"scalar": float(other)})
+        return NotImplemented
+
+    def __add__(self, other):
+        return self._binary(other, "broadcast_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary(other, "broadcast_sub", "_minus_scalar")
+
+    def __rsub__(self, other):
+        return self._binary(other, "broadcast_sub", "_rminus_scalar")
+
+    def __mul__(self, other):
+        return self._binary(other, "broadcast_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binary(other, "broadcast_div", "_div_scalar")
+
+    def __rtruediv__(self, other):
+        return self._binary(other, "broadcast_div", "_rdiv_scalar")
+
+    def __neg__(self):
+        from ..ops.invoke import invoke
+        return invoke("negative", [self])
 
     def __getitem__(self, key):
         """A view (basic indexing), as in the reference."""

@@ -1,13 +1,16 @@
 """Operators of the port: importing this package registers them."""
 from . import registry
 from . import shape_ops  # noqa: F401  (registers ops)
+from . import elemwise  # noqa: F401  (registers ops)
 from . import nn  # noqa: F401  (registers ops)
+from .conv_kernel import conv1x1_s2_dgrad, conv1x1_s2_dgrad_plain
 from .lstm_kernel import (FusedLSTM, fused_lstm, fused_lstm_backward,
                           fused_lstm_backward_plain, fused_lstm_plain,
                           fused_lstm_train, fused_lstm_train_plain,
                           lstm_bwd_recurrence, lstm_bwd_recurrence_plain)
 
-__all__ = ["registry", "FusedLSTM", "fused_lstm", "fused_lstm_plain",
+__all__ = ["registry", "conv1x1_s2_dgrad", "conv1x1_s2_dgrad_plain",
+           "FusedLSTM", "fused_lstm", "fused_lstm_plain",
            "fused_lstm_train", "fused_lstm_train_plain",
            "lstm_bwd_recurrence", "lstm_bwd_recurrence_plain",
            "fused_lstm_backward", "fused_lstm_backward_plain"]

@@ -1,17 +1,30 @@
-"""Neural-network operators (the subset the LSTM LM slices use).
+"""Neural-network operators (the subset the LSTM LM and ResNet slices use).
 
 Counterpart of `mxnet_tpu/ops/nn.py`: ``FullyConnected``, ``softmax``,
-the ``SoftmaxOutput`` loss head and the fused multi-layer ``RNN`` op with
-its cuDNN flat parameter layout. An LSTM layer that needs a gradient runs
-``FusedLSTM`` (the hand-written training kernels K2/K3 on a CUDA tensor,
-their plain versions on the CPU); otherwise it runs the inference kernel
-``fused_lstm`` (K1) on a CUDA tensor and a plain loop over time
-everywhere else (CPU, and ``meta`` tensors during shape inference).
+the ``SoftmaxOutput`` loss head, the fused multi-layer ``RNN`` op with
+its cuDNN flat parameter layout, and ``Convolution``, ``BatchNorm``,
+``Pooling`` and ``Activation`` in channel-first and channel-last layouts.
+
+An LSTM layer that needs a gradient runs ``FusedLSTM`` (the hand-written
+training kernels K2/K3 on a CUDA tensor, their plain versions on the
+CPU); otherwise it runs the inference kernel ``fused_lstm`` (K1) on a
+CUDA tensor and a plain loop over time everywhere else (CPU, and
+``meta`` tensors during shape inference). With ``MXNET_CONV1X1_PALLAS``
+on, an NHWC stride-2 1x1 convolution takes its input gradient from K5
+(`ops/conv_kernel.py`). The JAX package's TPU-only convolution rewrites
+(space-to-depth, ``MXNET_CONV1X1_DOT``, ``MXNET_CONV1X1_S1DOT``,
+``MXNET_CONV1X1_BWD``) and ``MXNET_POOL_SLICES`` are not ported.
 """
 from __future__ import annotations
 
-import torch
+import math
+import os
 
+import torch
+import torch.nn.functional as F
+
+from ..base import MXNetError
+from .conv_kernel import conv1x1_s2_dgrad
 from .lstm_kernel import FusedLSTM, fused_lstm
 from .registry import register
 
@@ -261,3 +274,331 @@ def _rnn(params, data, parameters, state, *state_cell):
         if mode == "lstm":
             outs = outs + (torch.stack(c_finals),)
     return outs
+
+
+# ---------------------------------------------------------------------------
+# Convolution (reference nn/convolution-inl.h)
+# ---------------------------------------------------------------------------
+def _tup(v, n, default):
+    if v is None or v == () or v == []:
+        return (default,) * n
+    if isinstance(v, int):
+        return (v,) * n
+    return tuple(int(x) for x in v)
+
+
+def _channel_last(params, nd):
+    """The ``layout`` attribute: False for NC<spatial> (the default,
+    weights OI<spatial>), True for N<spatial>C (weights O<spatial>I)."""
+    spec = "DHW"[3 - nd:]
+    layout = params.get("layout") or ("NC" + spec)
+    if layout in ("None", "NC" + spec):
+        return False
+    if layout == "N" + spec + "C":
+        return True
+    raise MXNetError("unsupported layout " + str(layout))
+
+
+def _first_channels(x, nd):
+    """A channel-last tensor as a channel-first view (no copy): PyTorch's
+    convolutions and pools read it as channels-last memory."""
+    return x.permute(0, nd + 1, *range(1, nd + 1))
+
+
+def _last_channels(x, nd):
+    return x.permute(0, *range(2, nd + 2), 1)
+
+
+def _env_on(name, default="0"):
+    """Boolean env gate: '0'/''/'false'/'off'/'no' (any case) disable."""
+    return os.environ.get(name, default).lower() not in (
+        "0", "", "false", "off", "no")
+
+
+def _conv(data, weight, stride, pad, dilate, groups, channel_last):
+    nd = data.dim() - 2
+    conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
+    if not channel_last:
+        return conv(data, weight, None, stride, pad, dilate, groups)
+    out = conv(_first_channels(data, nd), _first_channels(weight, nd), None,
+               stride, pad, dilate, groups)
+    return _last_channels(out, nd)
+
+
+def _plain_1x1(kernel, pad, dilate, groups):
+    """Pointwise conv: 1x1 kernel, no padding/dilation/groups."""
+    return (set(kernel) == {1} and set(pad) == {0} and set(dilate) == {1}
+            and groups == 1)
+
+
+def _conv1x1_pallas_wanted(kernel, stride, pad, dilate, groups,
+                           channel_last, nd, dshape):
+    """The JAX package's gate and eligibility test (`nn.py:371-383`):
+    ``MXNET_CONV1X1_PALLAS`` on, an NHWC stride-2 1x1 conv, even input
+    height and width and input channels a multiple of 128."""
+    if not _env_on("MXNET_CONV1X1_PALLAS"):
+        return False
+    if not _plain_1x1(kernel, pad, dilate, groups) or nd != 2 \
+            or not channel_last:
+        return False
+    if stride != (2, 2):
+        return False
+    return dshape[1] % 2 == 0 and dshape[2] % 2 == 0 and dshape[3] % 128 == 0
+
+
+class _Conv1x1S2(torch.autograd.Function):
+    """NHWC stride-2 1x1 conv whose input gradient is K5 (the JAX
+    package's ``_conv1x1_pallas_fn``). Forward is the plain convolution;
+    the one residual is the strided input slice ``x[:, ::2, ::2, :]`` (a
+    view); ``dx`` is ``conv1x1_s2_dgrad`` (the kernel on a CUDA tensor,
+    its plain version on the CPU) and ``dw = dy^T x_strided`` is one
+    matrix product outside the kernel, accumulated in f32 (cuBLAS's
+    compute type for f32 and bf16 products), as in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, data, weight):
+        ctx.save_for_backward(data[:, ::2, ::2, :], weight)
+        ctx.hw = (data.shape[1], data.shape[2])
+        return _conv(data, weight, (2, 2), (0, 0), (1, 1), 1, True)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xs, weight = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = conv1x1_s2_dgrad(dy, weight.reshape(weight.shape[0], -1),
+                                  *ctx.hw)
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(dy.reshape(-1, dy.shape[-1]).t(),
+                              xs.reshape(-1, xs.shape[-1]))
+            dw = dw.reshape(weight.shape).to(weight.dtype)
+        return dx, dw
+
+
+@register("Convolution")
+def _convolution(params, data, weight, *bias):
+    """Reference convolution-inl.h, channel-first or channel-last. A
+    channel-last conv runs on channels-last views of its NHWC tensors, so
+    nothing is copied around cuDNN."""
+    kernel = tuple(int(k) for k in params["kernel"])
+    nd = len(kernel)
+    stride = _tup(params.get("stride"), nd, 1)
+    dilate = _tup(params.get("dilate"), nd, 1)
+    pad = _tup(params.get("pad"), nd, 0)
+    groups = int(params.get("num_group", 1))
+    channel_last = _channel_last(params, nd)
+    if _conv1x1_pallas_wanted(kernel, stride, pad, dilate, groups,
+                              channel_last, nd, data.shape):
+        out = _Conv1x1S2.apply(data, weight)
+    else:
+        out = _conv(data, weight, stride, pad, dilate, groups, channel_last)
+    if not _attr_bool(params, "no_bias") and bias:
+        out = out + (bias[0] if channel_last
+                     else bias[0].reshape((1, -1) + (1,) * nd))
+    return (out,)
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm (reference nn/batch_norm-inl.h)
+# ---------------------------------------------------------------------------
+def _bn_shape(data, axis):
+    return tuple(-1 if i == axis else 1 for i in range(data.dim()))
+
+
+def _bn_apply(data, g, beta, mean, inv, bshape):
+    """One scale/shift multiply-add in the data dtype, from f32 statistics
+    (`nn.py:_bn_apply`); ``addcmul`` rounds once, as a fused XLA
+    multiply-add does."""
+    scale = g.float() * inv
+    shift = beta.float() - mean * scale
+    return torch.addcmul(shift.to(data.dtype).reshape(bshape), data,
+                         scale.to(data.dtype).reshape(bshape))
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Training BatchNorm core with the JAX package's fused backward
+    (`_bn_train_core`, `_bn_core_bwd`). Statistics are single-pass
+    ``E[x^2] - mean^2`` in f32; the residuals are the input, gamma, the
+    mean and ``1/sqrt(var + eps)``, and the backward recomputes ``x_hat``
+    from them. ``mean`` and ``var`` (f32) are statistics and carry no
+    gradient.
+
+    The full-size passes read a bf16 activation as bf16 and do their
+    arithmetic in f32 (reductions with ``dtype=float32`` and mixed-dtype
+    elementwise ops promote on load): the forward reads it twice for the
+    statistics and once for the scale/shift, and writes no f32 copy; the
+    backward writes one f32 ``x - mean`` and forms dx as
+    ``a*dy + b*(x - mean) + c`` with per-channel f32 ``a, b, c``, which is
+    ``coef * (dy - mean(dy) - x_hat * mean(dy * x_hat))`` regrouped."""
+
+    @staticmethod
+    def forward(ctx, data, g, beta, axis, eps):
+        red = tuple(i for i in range(data.dim()) if i != axis)
+        bshape = _bn_shape(data, axis)
+        n = data.numel() // max(data.shape[axis], 1)
+        mean = torch.sum(data, red, dtype=torch.float32) / n
+        norm = torch.linalg.vector_norm(data, 2, red, dtype=torch.float32)
+        var = torch.clamp(norm * norm / n - mean * mean, min=0)
+        inv = torch.rsqrt(var + eps)
+        out = _bn_apply(data, g, beta, mean, inv, bshape)
+        ctx.save_for_backward(data, g, mean, inv)
+        ctx.axis = axis
+        ctx.beta_dtype = beta.dtype
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        data, g, mean, inv = ctx.saved_tensors
+        red = tuple(i for i in range(data.dim()) if i != ctx.axis)
+        bshape = _bn_shape(data, ctx.axis)
+        n = data.numel() // max(data.shape[ctx.axis], 1)
+        # x - mean in f32 (a bf16 x is promoted as it is read), as the
+        # JAX package centres x_hat: sum(dy * x_hat) without cancellation
+        xc = torch.sub(data, mean.reshape(bshape))
+        sum_dy = torch.sum(dy, red, dtype=torch.float32)
+        sum_dy_xhat = torch.sum(dy * xc, red) * inv
+        a = g.float() * inv
+        b = -a * inv * sum_dy_xhat / n
+        c = -a * sum_dy / n
+        dx = torch.addcmul(torch.addcmul(c.reshape(bshape), xc,
+                                         b.reshape(bshape)),
+                           dy, a.reshape(bshape))
+        return (dx.to(data.dtype), sum_dy_xhat.to(g.dtype),
+                sum_dy.to(ctx.beta_dtype), None, None)
+
+
+@register("BatchNorm", aliases=("BatchNorm_v1",), need_train_flag=True,
+          num_outputs=3, mutate_aux=(3, 4), num_visible_outputs=1)
+def _batch_norm(params, data, gamma, beta, moving_mean, moving_var):
+    """Reference nn/batch_norm-inl.h. Outputs (out, mean, var), then the
+    new moving statistics (the aux inputs 3 and 4) in training; mean and
+    var are f32 whatever the data dtype, and the moving statistics keep
+    their own dtype. ``_fold_bias`` is the bias of a producing conv that
+    the executor folded out (`executor._plan_conv_bias_bn_fold`): the
+    input is x where the graph normalised x + b, so only the moving-mean
+    bookkeeping (and the eval-mode shift) sees b."""
+    eps = float(params.get("eps", 1e-3))
+    momentum = float(params.get("momentum", 0.9))
+    axis = int(params.get("axis", 1)) % data.dim()
+    fix_gamma = _attr_bool(params, "fix_gamma", True)
+    use_global = _attr_bool(params, "use_global_stats") \
+        or not params.get("_is_train", False)
+    fold_b = params.get("_fold_bias")
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    bshape = _bn_shape(data, axis)
+    if use_global:
+        m32 = moving_mean.float()
+        if fold_b is not None:
+            m32 = m32 - fold_b.float()
+        inv = torch.rsqrt(moving_var.float() + eps)
+        out = _bn_apply(data, g, beta, m32, inv, bshape)
+        return (out, moving_mean.float(), moving_var.float(), moving_mean,
+                moving_var)
+    out, mean, var = _BatchNormTrain.apply(data, g, beta, axis, eps)
+    with torch.no_grad():
+        if fold_b is not None:
+            mean = mean + fold_b.float()
+        new_mm = momentum * moving_mean \
+            + (1 - momentum) * mean.to(moving_mean.dtype)
+        new_mv = momentum * moving_var \
+            + (1 - momentum) * var.to(moving_var.dtype)
+    return (out, mean, var, new_mm, new_mv)
+
+
+# ---------------------------------------------------------------------------
+# Pooling (reference nn/pooling-inl.h)
+# ---------------------------------------------------------------------------
+def _pad_spatial(x, lo, hi, value):
+    """Pad the trailing spatial axes of a channel-first tensor."""
+    widths = []
+    for a, b in zip(reversed(lo), reversed(hi)):
+        widths += [a, b]
+    return F.pad(x, widths, value=value)
+
+
+@register("Pooling", aliases=("Pooling_v1",))
+def _pooling(params, data):
+    """Max, avg and sum pooling, global or windowed, with symmetric or
+    ``pad_end`` padding and the ``valid``/``full`` conventions of the JAX
+    package: padding never joins a max, and an average divides by the
+    window size unless ``count_include_pad`` is false. ``_fold_relu`` is
+    the executor's relu->maxpool fold: ``max(maxpool(x), 0)``."""
+    pool_type = params.get("pool_type", "max")
+    nd = data.dim() - 2
+    channel_last = _channel_last(params, nd)
+    spatial_axes = tuple(range(1, 1 + nd)) if channel_last \
+        else tuple(range(2, 2 + nd))
+    if _attr_bool(params, "global_pool"):
+        if pool_type == "max":
+            out = data.amax(dim=spatial_axes, keepdim=True)
+        elif pool_type in ("avg", "sum"):
+            out = data.mean(dim=spatial_axes, keepdim=True) \
+                if pool_type == "avg" else data.sum(spatial_axes, keepdim=True)
+        else:
+            raise MXNetError("unsupported pool_type " + pool_type)
+        if pool_type == "max" and params.get("_fold_relu"):
+            out = torch.clamp_min(out, 0)
+        return (out,)
+    x = _first_channels(data, nd) if channel_last else data
+    spatial = tuple(x.shape[2:])
+    kernel = _tup(params["kernel"], nd, 1)
+    stride = _tup(params.get("stride"), nd, 1)
+    lo = _tup(params.get("pad"), nd, 0)
+    hi = _tup(params["pad_end"], nd, 0) if params.get("pad_end") is not None \
+        else lo
+    for k, size, p, pe in zip(kernel, spatial, lo, hi):
+        if k > size + p + pe:
+            raise MXNetError("Pooling kernel %s exceeds padded input %s"
+                             % (kernel, spatial))
+    if params.get("pooling_convention", "valid") == "full":
+        # ceil-mode output: extend the end padding as needed
+        hi = tuple(max((math.ceil((size + p + pe - k) / s)) * s + k - size - p,
+                       pe)
+                   for k, s, size, p, pe in zip(kernel, stride, spatial, lo,
+                                                hi))
+    # PyTorch pads implicitly only symmetrically and by at most half a
+    # window; anything else is padded explicitly
+    native = tuple(lo) == tuple(hi) and all(p <= k // 2
+                                            for p, k in zip(lo, kernel))
+    if pool_type == "max":
+        pool = (F.max_pool1d, F.max_pool2d, F.max_pool3d)[nd - 1]
+        if native:
+            out = pool(x, kernel, stride, lo)
+        else:
+            out = pool(_pad_spatial(x, lo, hi, float("-inf")), kernel, stride)
+        if params.get("_fold_relu"):
+            out = torch.clamp_min(out, 0)
+    elif pool_type in ("avg", "sum"):
+        pool = (F.avg_pool1d, F.avg_pool2d, F.avg_pool3d)[nd - 1]
+        include_pad = _attr_bool(params, "count_include_pad", True)
+        if native and pool_type == "avg" and include_pad:
+            out = pool(x, kernel, stride, lo, count_include_pad=True)
+        else:
+            size = math.prod(kernel)
+            out = pool(_pad_spatial(x, lo, hi, 0.0), kernel, stride)
+            if pool_type == "sum":
+                out = out * size
+            elif not include_pad:
+                ones = _pad_spatial(torch.ones_like(x), lo, hi, 0.0)
+                out = out * size / (pool(ones, kernel, stride) * size)
+    else:
+        raise MXNetError("unsupported pool_type " + pool_type)
+    return (_last_channels(out, nd) if channel_last else out,)
+
+
+# ---------------------------------------------------------------------------
+# Activation (reference nn/activation-inl.h)
+# ---------------------------------------------------------------------------
+_ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
+                "tanh": torch.tanh, "softrelu": F.softplus,
+                "softsign": F.softsign}
+
+
+@register("Activation")
+def _activation(params, data):
+    act = params["act_type"]
+    if act not in _ACTIVATIONS:
+        raise MXNetError("unknown act_type " + act)
+    return (_ACTIVATIONS[act](data),)

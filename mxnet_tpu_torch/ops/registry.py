@@ -11,6 +11,13 @@ declare ``need_rng``, and ``_ctx``, the executor's Context.
 The same fcompute runs eagerly on CUDA or CPU tensors, and on ``meta``
 tensors for shape inference (`symbol/symbol.py`), so an op must not
 launch a hand kernel for a tensor that is not on a CUDA device.
+
+An op that updates some of its inputs (BatchNorm's moving statistics,
+inputs 3 and 4) names their indices in ``mutate_aux`` and returns their
+new values after its ``num_outputs`` regular outputs; the callers
+(`ops/invoke.py`, `executor.py`) write them back. ``num_visible_outputs``
+hides the tail of the regular outputs (BatchNorm's mean and var) from
+symbolic composition and executor outputs.
 """
 from __future__ import annotations
 
@@ -23,13 +30,16 @@ _OPS = {}
 
 class Operator:
     def __init__(self, name, fcompute, num_outputs=1, need_train_flag=False,
-                 need_rng=False, doc=""):
+                 need_rng=False, mutate_aux=None, num_visible_outputs=None,
+                 doc=""):
         self.name = name
         self.fcompute = fcompute
         # int, or callable(params)->int for variable-output ops (RNN)
         self.num_outputs = num_outputs
         self.need_train_flag = need_train_flag
         self.need_rng = need_rng
+        self.mutate_aux = tuple(mutate_aux or ())
+        self.num_visible_outputs = num_visible_outputs
         self.doc = doc
 
     def n_out(self, params):
@@ -37,17 +47,24 @@ class Operator:
             return self.num_outputs(params)
         return self.num_outputs
 
+    def n_visible(self, params):
+        if self.num_visible_outputs is None:
+            return self.n_out(params)
+        return self.num_visible_outputs
+
     def __repr__(self):
         return "Operator(%s)" % self.name
 
 
 def register(name, num_outputs=1, aliases=(), need_train_flag=False,
-             need_rng=False):
+             need_rng=False, mutate_aux=None, num_visible_outputs=None):
     """Decorator registering ``fcompute`` under ``name`` (+aliases)."""
 
     def deco(fcompute):
         op = Operator(name, fcompute, num_outputs=num_outputs,
                       need_train_flag=need_train_flag, need_rng=need_rng,
+                      mutate_aux=mutate_aux,
+                      num_visible_outputs=num_visible_outputs,
                       doc=fcompute.__doc__ or "")
         _OPS[name] = op
         for a in aliases:

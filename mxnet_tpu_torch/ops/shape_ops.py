@@ -1,8 +1,8 @@
-"""Shape and indexing operators (the subset the serving slice uses).
+"""Shape and indexing operators (the subset the port's slices use).
 
 Counterpart of `mxnet_tpu/ops/shape_ops.py`: ``Reshape`` with the
-reference's shape-spec codes, ``transpose``, ``SwapAxis`` and
-``Embedding``.
+reference's shape-spec codes, ``Flatten``, ``transpose``, ``SwapAxis``
+and ``Embedding``.
 """
 from __future__ import annotations
 
@@ -65,6 +65,11 @@ def _reshape(params, x):
     tgt = infer_reshape(x.shape, params.get("shape", ()),
                         params.get("reverse", False))
     return (x.reshape(tgt),)
+
+
+@register("Flatten", aliases=("flatten",))
+def _flatten(params, x):
+    return (x.reshape(x.shape[0], -1),)
 
 
 @register("transpose")

@@ -53,6 +53,34 @@ def _fc(params, shapes):
     return shapes
 
 
+@filler("Convolution")
+def _conv(params, shapes):
+    """Channel-first weights are OI<spatial>, channel-last O<spatial>I."""
+    data = shapes[0]
+    nf = params["num_filter"]
+    g = params.get("num_group", 1)
+    kernel = tuple(params["kernel"])
+    layout = params.get("layout") or ""
+    if shapes[1] is None:
+        if layout.endswith("C") and len(layout) > 2:
+            shapes[1] = (nf,) + kernel + (data[-1] // g,)
+        else:
+            shapes[1] = (nf, data[1] // g) + kernel
+    if len(shapes) > 2 and shapes[2] is None:
+        shapes[2] = (nf,)
+    return shapes
+
+
+@filler("BatchNorm", "BatchNorm_v1")
+def _bn(params, shapes):
+    """gamma, beta and the two moving statistics: one value per channel."""
+    c = shapes[0][params.get("axis", 1)]
+    for i in range(1, len(shapes)):
+        if shapes[i] is None:
+            shapes[i] = (c,)
+    return shapes
+
+
 @filler("Embedding")
 def _emb(params, shapes):
     if shapes[1] is None:

@@ -6,16 +6,21 @@ graph format, so a graph either package writes loads in the other.
 Shape inference runs each op's fcompute on ``meta`` tensors (shapes and
 dtypes, no data) where the JAX package uses ``jax.eval_shape``; a meta
 tensor is not on a CUDA device, so no hand kernel is launched for it.
+Variables consumed at an op's ``mutate_aux`` positions (BatchNorm's moving
+statistics) are auxiliary states, not arguments, and only an op's visible
+outputs take part in composition. Arithmetic operators build
+``broadcast_*`` and scalar nodes.
 """
 from __future__ import annotations
 
 import json
 
+import numpy as np
 import torch
 
 from ..base import MXNetError, torch_dtype
 from ..name import NameManager
-from ..ops.registry import get_op
+from ..ops.registry import _OPS, get_op
 from . import infer as _infer
 
 __all__ = ["Symbol", "var", "Variable", "Group", "load_json", "load",
@@ -23,7 +28,7 @@ __all__ = ["Symbol", "var", "Variable", "Group", "load_json", "load",
 
 
 class _Node:
-    __slots__ = ("op", "name", "attrs", "inputs", "num_outputs")
+    __slots__ = ("op", "name", "attrs", "inputs", "num_outputs", "_aux_mark")
 
     def __init__(self, op, name, attrs, inputs):
         self.op = op                    # op name or None for variable
@@ -32,6 +37,7 @@ class _Node:
         self.inputs = inputs            # list[(node, out_idx)]
         self.num_outputs = 1 if op is None else \
             get_op(op).n_out(attrs or {})
+        self._aux_mark = False
 
     def is_var(self):
         return self.op is None
@@ -62,6 +68,9 @@ class Symbol:
             return Symbol(self._outputs[index])
         return Symbol([self._outputs[index]])
 
+    def __len__(self):
+        return len(self._outputs)
+
     def get_internals(self):
         return Symbol([(n, i) for n in self._topo_nodes()
                        for i in range(n.num_outputs)])
@@ -86,12 +95,25 @@ class Symbol:
                         stack.append((inp, False))
         return order
 
+    def _mark_aux(self):
+        """Variables consumed at an op's ``mutate_aux`` positions are
+        auxiliary states (reference ListAuxiliaryStates)."""
+        for n in self._topo_nodes():
+            if n.is_var() or n.op not in _OPS:
+                continue
+            for ai in get_op(n.op).mutate_aux:
+                if ai < len(n.inputs) and n.inputs[ai][0].is_var():
+                    n.inputs[ai][0]._aux_mark = True
+
     def list_arguments(self):
-        return [n.name for n in self._topo_nodes() if n.is_var()]
+        self._mark_aux()
+        return [n.name for n in self._topo_nodes()
+                if n.is_var() and not n._aux_mark]
 
     def list_auxiliary_states(self):
-        """Always empty: no op of the port has auxiliary states yet."""
-        return []
+        self._mark_aux()
+        return [n.name for n in self._topo_nodes()
+                if n.is_var() and n._aux_mark]
 
     def attr_dict(self):
         """{variable or node name: {attribute: str}} of the attributes set
@@ -117,15 +139,15 @@ class Symbol:
     # -- shape inference ------------------------------------------------
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes) from the given argument
-        shapes, by name or in ``list_arguments()`` order. aux_shapes is
-        always empty: no op of the port has auxiliary states yet."""
+        shapes, by name or in ``list_arguments()`` order."""
         arg_names = self.list_arguments()
         known = dict(kwargs)
         for n, s in zip(arg_names, args):
             if s is not None:
                 known[n] = s
         shapes, out_shapes = _graph_infer(self, known)
-        return [shapes.get(n) for n in arg_names], out_shapes, []
+        return ([shapes.get(n) for n in arg_names], out_shapes,
+                [shapes.get(n) for n in self.list_auxiliary_states()])
 
     # -- serialization (reference JSON graph format) --------------------
     def tojson(self):
@@ -153,6 +175,32 @@ class Symbol:
         name = self.name
         return "<Symbol %s>" % (name if name else "Grouped")
 
+    # -- arithmetic ------------------------------------------------------
+    def __add__(self, other):
+        return _sym_binary(self, other, "broadcast_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return _sym_binary(self, other, "broadcast_sub", "_minus_scalar")
+
+    def __rsub__(self, other):
+        return _sym_binary(self, other, "broadcast_sub", "_rminus_scalar")
+
+    def __mul__(self, other):
+        return _sym_binary(self, other, "broadcast_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return _sym_binary(self, other, "broadcast_div", "_div_scalar")
+
+    def __rtruediv__(self, other):
+        return _sym_binary(self, other, "broadcast_div", "_rdiv_scalar")
+
+    def __neg__(self):
+        return create("negative", [self], {})
+
     # -- binding ---------------------------------------------------------
     def simple_bind(self, ctx, grad_req="write", type_dict=None,
                     shared_exec=None, **kwargs):
@@ -161,10 +209,25 @@ class Symbol:
                                     type_dict=type_dict,
                                     shared_exec=shared_exec, **kwargs)
 
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None, shared_exec=None):
+        from ..executor import Executor
+        return Executor.bind(self, ctx, args, args_grad=args_grad,
+                             grad_req=grad_req, aux_states=aux_states)
+
 
 def _output_name(node, idx):
     # multi-output ops name their outputs <name><index>, as the JAX package
     return "%s%d" % (node.name, idx)
+
+
+def _sym_binary(lhs, rhs, op, scalar_op):
+    """``lhs <op> rhs`` (the reversed scalar ops put the scalar first)."""
+    if isinstance(rhs, Symbol):
+        return create(op, [lhs, rhs], {})
+    if isinstance(rhs, (int, float)):
+        return create(scalar_op, [lhs], {"scalar": float(rhs)})
+    raise TypeError("type %s not supported" % str(type(rhs)))
 
 
 def _json_attrs(attrs):
@@ -176,9 +239,11 @@ def _op_input_names(op_name, attrs):
     """Per-op input names, used to create missing weight/bias/state
     variables at compose time (``{name}_weight`` ...), as the reference
     does."""
-    if op_name == "FullyConnected":
+    if op_name in ("FullyConnected", "Convolution"):
         return ["data", "weight"] + \
             ([] if attrs.get("no_bias", False) else ["bias"])
+    if op_name in ("BatchNorm", "BatchNorm_v1"):
+        return ["data", "gamma", "beta", "moving_mean", "moving_var"]
     if op_name == "Embedding":
         return ["data", "weight"]
     if op_name == "RNN":
@@ -204,7 +269,9 @@ def create(op_name, input_syms, attrs, name=None):
         for missing in arg_names[len(inputs):]:
             inputs.append((_Node(None, "%s_%s" % (name, missing), {}, []), 0))
     node = _Node(op_name, name, dict(attrs), inputs)
-    return Symbol([(node, i) for i in range(node.num_outputs)])
+    # only the visible outputs compose (BatchNorm's mean/var are hidden)
+    n_vis = get_op(op_name).n_visible(node.attrs)
+    return Symbol([(node, i) for i in range(n_vis)])
 
 
 def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
@@ -220,7 +287,8 @@ def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
     if wd_mult is not None:
         meta["__wd_mult__"] = str(wd_mult)
     if dtype is not None:
-        meta["__dtype__"] = str(dtype)
+        meta["__dtype__"] = "bfloat16" if str(dtype).endswith("bfloat16") \
+            else str(np.dtype(dtype))
     if init is not None:
         meta["__init__"] = init.dumps() if hasattr(init, "dumps") \
             else str(init)
@@ -286,6 +354,8 @@ def _graph_infer(sym, known_shapes, type_dict=None):
             if s is None and "__shape__" in meta:
                 s = tuple(int(x) for x in meta["__shape__"].strip("()")
                           .split(",") if x.strip())
+                if 0 in s:      # a deferred Gluon shape: still unknown
+                    s = None
             dt = type_dict.get(n.name) or meta.get("__dtype__")
             var_dtype[n.name] = torch_dtype(dt) if dt else None
             var_shape[n.name] = tuple(s) if s is not None else None

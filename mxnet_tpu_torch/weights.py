@@ -6,9 +6,12 @@ typed copy onto a device. ``params_to_numpy`` reads either package's
 ``{name: NDArray}`` (a ``Module.get_params()`` half, say) back to the
 host; ``params_from_numpy`` puts such a dict on a device of the port, and
 the port's ``Module.set_params`` / ``init_params(arg_params=...)`` also
-take the numpy dict as it is. Both packages read and write the same
-``.params`` container (`ndarray/utils.py`), which is the other way
-across.
+take the numpy dict as it is. A Gluon net's parameters cross the same
+way: ``params_to_numpy({k: v.data() for k, v in
+net.collect_params().items()})`` reads either package's net, and
+``set_block_params`` fills a port net from such a dict, deferred
+parameters included. Both packages read and write the same ``.params``
+container (`ndarray/utils.py`), which is the other way across.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import numpy as np
 from .context import Context
 from .ndarray.ndarray import array
 
-__all__ = ["params_from_numpy", "params_to_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy", "set_block_params"]
 
 
 def params_from_numpy(arrays, device: Context):
@@ -32,3 +35,14 @@ def params_from_numpy(arrays, device: Context):
 def params_to_numpy(arrays):
     """``{name: NDArray}`` of either package -> ``{name: np.ndarray}``."""
     return {name: np.asarray(a.asnumpy()) for name, a in arrays.items()}
+
+
+def set_block_params(block, arrays):
+    """Copy ``{name: array}`` into every parameter of a Gluon ``block``
+    of the port (names as ``collect_params()`` gives them); a parameter
+    whose initialisation is still deferred takes the array as its
+    initial value. Raises on a missing name."""
+    for name, param in block.collect_params().items():
+        if name not in arrays:
+            raise KeyError("no array for parameter %s" % name)
+        param.set_data(np.asarray(arrays[name]))

@@ -175,3 +175,133 @@ def test_module_step_on_gpu_matches_cpu(cuda):
         np.testing.assert_allclose(arr.asnumpy(),
                                    mods[1].get_params()[0][name].asnumpy(),
                                    rtol=TOL, atol=TOL, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# K5 (conv1x1_s2_dgrad) and the ResNet path on the card
+# ---------------------------------------------------------------------------
+# gradients and updates, card vs CPU, by relative norm (see the test): on
+# an H100 the readings were at most 0.0375, and a zeroed gradient or
+# update reads 1.0; the limit is about their geometric mean
+SMALL_RESNET_REL = 0.2
+K5_SHAPES = [(2, 3, 5, 128, 256), (3, 5, 3, 40, 136), (2, 7, 7, 512, 128),
+             (1, 1, 1, 8, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K5_SHAPES)
+def test_k5_matches_plain(cuda, shape, dtype):
+    from mxnet_tpu_torch.ops.conv_kernel import (conv1x1_s2_dgrad,
+                                                 conv1x1_s2_dgrad_plain)
+    n, ho, wo, k, c = shape
+    rng = np.random.RandomState(7)
+    dy = torch.from_numpy(rng.randn(n, ho, wo, k).astype(np.float32)) \
+        .to(cuda, dtype)
+    w2 = torch.from_numpy((rng.randn(k, c) / np.sqrt(k)).astype(np.float32)) \
+        .to(cuda, dtype)
+    before = conv1x1_s2_dgrad.launches
+    got = conv1x1_s2_dgrad(dy, w2, 2 * ho, 2 * wo)
+    want = conv1x1_s2_dgrad_plain(dy, w2, 2 * ho, 2 * wo)
+    torch.cuda.synchronize()
+    assert conv1x1_s2_dgrad.launches == before + 1
+    # bf16: both round an f32 sum, in another order, to 8 significant bits
+    tol = TOL if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert bool((got[:, 1::2] == 0).all()) and \
+        bool((got[:, :, 1::2] == 0).all())
+
+
+def test_k5_refuses_what_it_cannot_launch(cuda):
+    from mxnet_tpu_torch.ops.conv_kernel import conv1x1_s2_dgrad
+    dy = torch.zeros(1, 2, 2, 8, device=cuda, dtype=torch.float16)
+    with pytest.raises(mxt.MXNetError, match="f32 or bf16"):
+        conv1x1_s2_dgrad(dy, torch.zeros(8, 4, device=cuda,
+                                          dtype=torch.float16), 4, 4)
+    with pytest.raises(mxt.MXNetError, match="w2 is on cpu"):
+        conv1x1_s2_dgrad(dy.float(), torch.zeros(8, 4), 4, 4)
+
+
+def _small_resnet_module(ctx, weights):
+    from mxnet_tpu_torch.gluon.model_zoo.vision import (BottleneckV1,
+                                                        ResNetV1)
+    net = ResNetV1(BottleneckV1, [1, 1, 1, 1], [16, 128, 256, 384, 512],
+                   classes=10, layout="NHWC", prefix="net_")
+    net.initialize(mxt.init.Xavier(), ctx=ctx)
+    net(mxt.nd.zeros((2, 64, 64, 3), ctx=ctx))
+    sym = mxt.sym.SoftmaxOutput(net._trace_symbol(), name="softmax")
+    mod = mxt.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=[("data", (2, 64, 64, 3))],
+             label_shapes=[("softmax_label", (2,))])
+    if weights is None:     # He-normal weights, seeded
+        rng = np.random.RandomState(3)
+        weights = {}
+        shapes = dict(zip(sym.list_arguments(),
+                          sym.infer_shape(data=(2, 64, 64, 3))[0]))
+        for name in mod._param_names:
+            s = shapes[name]
+            weights[name] = (rng.randn(*s) * np.sqrt(2.0 / np.prod(s[1:]))
+                             if name.endswith("weight") else
+                             rng.uniform(0.5, 1.5, s) if name.endswith("gamma")
+                             else rng.randn(*s) * 0.1).astype(np.float32)
+    mod.init_params(arg_params=weights)
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 0.05, "momentum": 0.9})
+    return mod, weights
+
+
+def _worst_rel(got, want):
+    """The largest |got - want| / |want| (Frobenius) over {name: array}."""
+    worst = 0.0
+    for name, w in want.items():
+        num, den = np.linalg.norm(got[name] - w), np.linalg.norm(w)
+        worst = max(worst, num / den if den else (0.0 if num == 0 else np.inf))
+    return float(worst)
+
+
+def test_small_resnet_steps_on_gpu_match_cpu(cuda, monkeypatch):
+    """Two SGD-momentum steps (lr 0.05) of the small NHWC ResNet (the CPU
+    parity test's net) with the gate on: K5 six times a step on the card,
+    the plain version on the CPU. f32 both sides, TF32 off, each step from
+    the card's weights. After ``forward_backward`` the outputs and moving
+    statistics are held elementwise to rtol 1e-4, atol 1e-5; every
+    parameter's gradient, and after ``update`` its change, by relative
+    norm |g - g_cpu| / |g_cpu| to SMALL_RESNET_REL. A ReLU input within
+    ~1e-6 of zero can change sides with the summation order and move its
+    layer's gradient by a few percent; a missing, zeroed or sign-flipped
+    gradient or update reads 1 or more. The readings are printed (``-s``)."""
+    from mxnet_tpu_torch.ops.conv_kernel import conv1x1_s2_dgrad
+    monkeypatch.setenv("MXNET_CONV1X1_PALLAS", "1")
+    torch.backends.cudnn.allow_tf32 = False
+    gpu_mod, weights = _small_resnet_module(mxt.gpu(0), None)
+    cpu_mod, _ = _small_resnet_module(mxt.cpu(), weights)
+    rng = np.random.RandomState(4)
+    before = conv1x1_s2_dgrad.launches
+    readings = []
+    for _ in range(2):
+        batch = mxt.io.DataBatch(
+            data=[mxt.nd.array(rng.rand(2, 64, 64, 3))],
+            label=[mxt.nd.array(rng.randint(0, 10, 2))])
+        cpu_mod.set_params(*[mxt.params_to_numpy(d)
+                             for d in gpu_mod.get_params()])
+        start = mxt.params_to_numpy(cpu_mod.get_params()[0])
+        for mod in (gpu_mod, cpu_mod):
+            mod.forward_backward(batch)
+        got, want = (m.get_outputs()[0].asnumpy() for m in (gpu_mod,
+                                                            cpu_mod))
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=1e-5)
+        for name, arr in cpu_mod.get_params()[1].items():
+            np.testing.assert_allclose(gpu_mod.get_params()[1][name].asnumpy(),
+                                       arr.asnumpy(), rtol=TOL, atol=1e-5,
+                                       err_msg=name)
+        grads = [{n: m._exec.grad_dict[n].asnumpy() for n in m._param_names}
+                 for m in (gpu_mod, cpu_mod)]
+        for mod in (gpu_mod, cpu_mod):
+            mod.update()
+        moved = [{n: v - start[n] for n, v in
+                  mxt.params_to_numpy(m.get_params()[0]).items()}
+                 for m in (gpu_mod, cpu_mod)]
+        readings.append((_worst_rel(*grads), _worst_rel(*moved)))
+    torch.cuda.synchronize()
+    print("small ResNet gradient and update relative errors", readings)
+    assert conv1x1_s2_dgrad.launches == before + 12
+    assert max(max(r) for r in readings) <= SMALL_RESNET_REL, readings

@@ -352,3 +352,21 @@ def test_speedometer_logs_every_frequent_batches(caplog):
             speedo(mxt.model.BatchEndParam(0, n, metric))
     assert [c for _, c, _ in speedo.history] == [2, 4]
     assert "Speed" in caplog.text and "loss" in caplog.text
+
+
+@pytest.mark.parametrize("pkg", [mx, mxt], ids=["jax", "torch"])
+def test_asnumpy_is_a_snapshot(pkg):
+    """``asnumpy`` returns the values as they are when it is called (the
+    reference's docstring: "a copy"): writes into the NDArray afterwards,
+    whole or in part, and the optimizer's in-place update, leave the
+    returned array as it was. Exact."""
+    a = pkg.nd.array(np.arange(6, dtype=np.float32).reshape(2, 3))
+    snap = a.asnumpy()
+    a[:] = 7.0
+    a[0] = np.zeros(3, np.float32)
+    updater = pkg.optimizer.get_updater(
+        pkg.optimizer.create("sgd", learning_rate=0.5, momentum=0.9))
+    updater(0, pkg.nd.array(np.ones((2, 3), np.float32)), a)
+    np.testing.assert_array_equal(
+        snap, np.arange(6, dtype=np.float32).reshape(2, 3))
+    assert not np.array_equal(a.asnumpy(), snap)

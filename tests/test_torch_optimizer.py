@@ -201,3 +201,39 @@ def test_init_attr_and_unknown_names():
         mxt.init.Xavier()(mxt.init.InitDesc("mystery"), mxt.nd.zeros((2,)))
     with pytest.raises(ValueError, match="2D"):
         mxt.init.Xavier()(mxt.init.InitDesc("v_weight"), mxt.nd.zeros((3,)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mults", ["none", "set"])
+def test_sgd_momentum_updater_dtypes_match_jax(dtype, mults):
+    """The ``Updater`` with SGD momentum and no clipping (the ResNet
+    benchmark's optimizer, which ``Module.update`` applies weight by
+    weight) against the JAX package's updater, over 3 steps, on f32 and
+    on bf16 weights with f32 momenta. bf16 weights are rounded once per
+    step on both sides, from f32 values that may differ in their last
+    bit: one bf16 step, 2^-7 relative."""
+    rng = np.random.RandomState(3)
+    shapes = [(3, 4), (3,), (10,)]
+    weights = [_rand(rng, *s) for s in shapes]
+    grads = [[_rand(rng, *s, scale=2.0) for s in shapes] for _ in range(3)]
+    opt_kw = {"learning_rate": 0.05, "momentum": 0.9, "wd": 0.01,
+              "rescale_grad": 0.25, "param_idx2name": dict(enumerate(NAMES))}
+    finals = []
+    for pkg in (mx, mxt):
+        opt = pkg.optimizer.create("sgd", **opt_kw)
+        if mults == "set":
+            opt.set_lr_mult({"fc1_bias": 3.0, 2: 0.1})
+            opt.set_wd_mult({"lstm_parameters": 0.5})
+        updater = pkg.optimizer.get_updater(opt)
+        ws = [pkg.nd.array(w, dtype=dtype) for w in weights]
+        for step in grads:
+            for i, g in enumerate(step):
+                updater(i, pkg.nd.array(g, dtype=dtype), ws[i])
+        assert opt.num_update == len(grads)
+        finals.append([np.asarray(w.asnumpy() if pkg is mx else
+                                  w.data.float().numpy(), np.float32)
+                       for w in ws])
+    tol = TOL if dtype == "float32" else 2.0 ** -7
+    for want, got, name in zip(*finals, NAMES):
+        np.testing.assert_allclose(got, want, rtol=tol, atol=tol,
+                                   err_msg=name)
