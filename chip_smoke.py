@@ -64,15 +64,44 @@ depth, with ``MXNET_CONV1X1_PALLAS`` on, in three more:
 12. ``torch.profiler`` over one bf16 batch-128 step: device time by
     kernel class (cuDNN convolution forward, dgrad and wgrad, K5, GEMMs,
     BatchNorm, pooling and activation, optimizer, copies) and the idle
-    share.
+    share;
 
-Phases 3-5 are the serving main path, phase 8 the LM training one and
-phase 11's gate-on steps on the card the ResNet one: every kernel's
-launch count is set to 0 before each and read after it. The serving path
-must launch K1; the LM training path must launch K2 and K3 exactly once
-per layer and step, and K1 once per layer and eval batch; the ResNet path
-must launch K5 exactly 6 times per step with the gate on, and never with
-it off. Any failed check exits non-zero. The last lines
+and then trains a causal attention LM through ``sym.contrib.
+flash_attention`` (the block structure of
+``examples/long-context/train_long_lm.py``, vocab 256, at the widths of
+``tools/perf/attention_bench.py``: 8 heads of 128, E=1024, 2 layers,
+B=1) and drives ``rtc``, in four more:
+
+13. ``flash_attention`` (K4) vs its plain version at the bench's shapes
+    (bf16, causal, T = 4096, 16384, 32768; at the two long ones on the
+    last 256 query rows of every head), non-causal and f32 at T=4096 and
+    ragged shapes with Tq != Tk both ways, with kernel, plain and
+    ``scaled_dot_product_attention`` times (the yardstick only), TFLOP/s
+    as the bench counts them, and the bound;
+14. the op's entry points on ``gpu(0)``: ``nd.contrib.flash_attention``,
+    and ``sym.contrib.flash_attention`` bound by ``simple_bind`` with a
+    forward and backward, the gradients held against the dense version's
+    autograd;
+15. the attention LM's ``Module``: 2 f32 SGD-momentum steps at T=512 on
+    ``gpu(0)`` held against the same Module on ``cpu()`` (outputs, every
+    parameter's gradient and update) with two controls that must fail;
+    2 warm-up and 10 timed bf16 ``_step``s at T=4096 (tokens/s, the loss
+    must fall), and ``torch.profiler`` over one of them;
+16. ``rtc.CudaModule``: an ``extern "C"`` axpy and a templated row sum
+    found through ``exports``, launched on ``gpu(0)`` and held against
+    ``2*x + y`` (exactly) and ``x.sum(1)``; axpy at 2^26 timed against
+    its bound, ``2*x + y`` and ``torch.add``.
+
+Phases 3-5 are the serving main path, phase 8 the LM training one,
+phase 11's gate-on steps on the card the ResNet one, phase 15's steps on
+the card the attention one and phase 16's first launches the rtc one:
+every kernel's launch count is set to 0 before each and read after it.
+The serving path must launch K1; the LM training path must launch K2 and
+K3 exactly once per layer and step, and K1 once per layer and eval
+batch; the ResNet path must launch K5 exactly 6 times per step with the
+gate on, and never with it off; the attention path must launch K4 once
+per layer and step; the rtc path its two kernels once each. Any failed
+check exits non-zero. The last lines
 are the card's name and power limit (``nvidia-smi``), one JSON line with
 every ported kernel's numbers, and the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -168,6 +197,50 @@ GRAD_REL = 0.3
 # about the geometric mean of the largest sound and the smallest control.
 BF16_BATCHES = 3
 BF16_REL = 0.25
+
+# the attention slice: K4 at the widths of tools/perf/attention_bench.py
+# (B=1, 8 heads of 128, bf16, causal, T = 4096 / 16384 / 32768), plus
+# non-causal and f32 at T=4096 and ragged shapes with Tq != Tk both ways:
+# (B, Tq, Tk, H, D, causal, dtype)
+K4_CASES = ([(1, t, t, 8, 128, True, torch.bfloat16)
+             for t in (4096, 16384, 32768)]
+            + [(1, 4096, 4096, 8, 128, False, torch.bfloat16),
+               (1, 4096, 4096, 8, 128, True, torch.float32),
+               (1, 4096, 4096, 8, 128, False, torch.float32)]
+            + [(1, tq, tk, 8, 64, True, dt) for tq, tk in ((1000, 1500),
+                                                           (1500, 1000))
+               for dt in (torch.bfloat16, torch.float32)])
+# K4 vs plain: f32 both sides (the reference's 2e-5); in bf16 both compute
+# in f32 and round once to bf16, so a value may land one bf16 step (2^-7
+# relative) apart where the two f32 sums straddle a rounding boundary
+K4_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2 ** -7, 1e-5)}
+# the plain version holds 8*Tq*Tk f32 scores a head batch; above this many
+# query rows it runs on the last ATT_SAMPLE rows of every head
+ATT_FULL_ROWS, ATT_SAMPLE = 8192, 256
+# the attention LM: the long-context example's block structure
+# (examples/long-context/train_long_lm.py, vocab 256) at the bench's
+# widths, E = 1024 = 8 heads of 128, 2 layers, B=1, on the example's
+# synthetic sequences; SGD with momentum 0.9 (the example's Adam is not
+# ported) at lr 0.01: at lr 0.05 the loss of this net rises without bound,
+# in f32 on the CPU as in bf16 on the card; at 0.01 it falls
+ATT_VOCAB, ATT_EMBED, ATT_HEADS, ATT_LAYERS = 256, 1024, 8, 2
+ATT_SEQ, ATT_CHECK_SEQ = 4096, 512
+ATT_WARMUP, ATT_STEPS = 2, 10
+ATT_OPT = {"learning_rate": 0.01, "momentum": 0.9}
+# 2 f32 steps at T=512 on the card vs the CPU (TF32 off), each from the
+# card's weights: only summation order differs. Outputs (probabilities
+# near 1/256) elementwise; gradients and updates by relative norm per
+# parameter, as phase 11 holds ResNet-50, to ATT_GRAD_REL, set between
+# the sound readings and two controls that must fail it (K4's output
+# zeroed; a second update without the momentum), all printed in phase 15.
+# On an H100 (700 W) the sound readings were at most 5.6e-4 and the
+# controls 0.768 and 6.10: the limit is about the geometric mean of the
+# largest sound reading and the smallest control.
+ATT_RTOL, ATT_ATOL = 1e-4, 1e-6
+ATT_GRAD_REL = 0.02
+# K6: axpy over 2^26 f32 (768 MiB moved), a row sum over 4096 x 1000
+RTC_N = 1 << 26
+RTC_ROWS = (4096, 1000)
 
 
 def log(msg):
@@ -1224,6 +1297,360 @@ def phase_resnet_profile(mx, mod, batch):
                             classes.items(), key=lambda kv: -kv[1][1])}}
 
 
+# ---------------------------------------------------------------------------
+# the attention slice: K4, the op's entry points, an attention LM through
+# Module; and rtc (K6)
+# ---------------------------------------------------------------------------
+def attention_bound(b, tq, tk, h, d, causal, dtype):
+    """(ms, "bytes" | "operations") of one attention forward: q, k, v read
+    and o written once at the HBM rate, or the operations these inputs
+    need at the dtype's peak, 4*D for every (query, key) pair that is not
+    masked (for causal attention the pairs with kpos <= qpos)."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    nbytes = item * b * h * d * (2 * tq + 2 * tk)
+    if not causal:
+        pairs = tq * tk
+    elif tq <= tk:
+        pairs = tq * (tq + 1) // 2
+    else:
+        pairs = tk * (tk + 1) // 2 + (tq - tk) * tk
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    return bound_of(nbytes / PEAK_BYTES_PER_S * 1e3,
+                    4.0 * b * h * d * pairs / peak * 1e3)
+
+
+def sdpa(q, k, v, causal):
+    """``scaled_dot_product_attention`` on [B, H, T, D] views of the same
+    inputs, back to [B, T, H, D]: the yardstick only (its causal mask is
+    the top-left one too)."""
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal)
+    return out.transpose(1, 2)
+
+
+def phase_k4(ops, device):
+    """K4 against its plain version (on the last ATT_SAMPLE query rows of
+    every head where the whole would not fit), with kernel, plain and
+    library times and the bound."""
+    rows = []
+    for n, (b, tq, tk, h, d, causal, dtype) in enumerate(K4_CASES):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED + 40 + n)
+        q, k, v = (torch.randn((b, t, h, d), generator=gen, device=device)
+                   .to(dtype) for t in (tq, tk, tk))
+        got = ops.flash_attention(q, k, v, causal=causal)
+        start = max(0, tq - ATT_SAMPLE) if tq > ATT_FULL_ROWS else 0
+
+        def plain(start=start):
+            return ops.flash_attention_plain(q[:, start:], k, v,
+                                             causal=causal, q_start=start)
+        want = plain()
+        torch.cuda.synchronize()
+        rtol, atol = K4_TOL[dtype]
+        err = max_err([got[:, start:].float()], [want.float()],
+                      "flash_attention %s" % ((b, tq, tk, h, d, causal,
+                                               str(dtype)),),
+                      rtol=rtol, atol=atol)
+        lib = sdpa(q, k, v, causal)
+        bound, by = attention_bound(b, tq, tk, h, d, causal, dtype)
+        # TFLOP/s as tools/perf/attention_bench.py counts them
+        flops = 4.0 * b * h * tq * tk * d * (0.5 if causal else 1.0)
+        ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal), 20)
+        row = {"B": b, "Tq": tq, "Tk": tk, "H": h, "D": d, "causal": causal,
+               "dtype": str(dtype).split(".")[1], "max_abs_err": err,
+               "checked_rows": tq - start, "ms": ms,
+               "tflops": flops / ms / 1e9, "bound_ms": bound, "bound_by": by,
+               "plain_ms": time_ms(plain, 5),
+               "library_ms": time_ms(lambda: sdpa(q, k, v, causal), 20),
+               "library_max_abs_err": float(
+                   (lib[:, start:].float() - want.float()).abs().max())}
+        del q, k, v, got, want, lib
+        torch.cuda.empty_cache()
+        log("phase 13 flash_attention %s" % json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def phase_attention_op(mx, ops):
+    """``nd.contrib.flash_attention`` on gpu NDArrays, and
+    ``sym.contrib.flash_attention`` bound by an executor on gpu(0):
+    forward and the q, k, v gradients against the dense version's
+    autograd, f32."""
+    b, t, h, d = 2, 256, 4, 64
+    rng = np.random.RandomState(SEED + 50)
+    arrays = [rng.randn(b, t, h, d).astype(np.float32) for _ in range(3)]
+    cot = rng.randn(b, t, h, d).astype(np.float32)
+    ctx = mx.gpu(0)
+    launches = ops.flash_attention.launches
+    out = mx.nd.contrib.flash_attention(
+        *[mx.nd.array(a, ctx=ctx) for a in arrays], causal=True)
+    qkv = [torch.from_numpy(a).to(ctx.torch_device()).requires_grad_(True)
+           for a in arrays]
+    want = ops.flash_attention_plain(*qkv, causal=True)
+    err_nd = max_err([out.data], [want.detach()], "nd.contrib.flash_attention",
+                     rtol=2e-5, atol=2e-5)
+    q, k, v = (mx.sym.var(n) for n in "qkv")
+    sym = mx.sym.contrib.flash_attention(q, k, v, causal=True, name="att")
+    ex = sym.simple_bind(ctx, grad_req="write",
+                         **{n: a.shape for n, a in zip("qkv", arrays)})
+    for n, a in zip("qkv", arrays):
+        ex.arg_dict[n][:] = a
+    ex.forward(is_train=True)
+    ex.backward(mx.nd.array(cot, ctx=ctx))
+    dense = ops.dense_attention_plain(*qkv, causal=True)
+    grads = torch.autograd.grad(dense, qkv, torch.from_numpy(cot).to(
+        ctx.torch_device()))
+    err_fwd = max_err([ex.outputs[0].data], [want.detach()],
+                      "sym.contrib.flash_attention", rtol=2e-5, atol=2e-5)
+    err_grad = max_err([ex.grad_dict[n].data for n in "qkv"], list(grads),
+                       "sym.contrib.flash_attention gradients", rtol=1e-4,
+                       atol=1e-4)
+    launched = ops.flash_attention.launches - launches
+    check(launched == 2, "the op's two entry points launched "
+          "flash_attention %d times, want 2" % launched)
+    return {"shape": [b, t, h, d], "nd_max_abs_err": err_nd,
+            "executor_max_abs_err": err_fwd,
+            "executor_grad_max_abs_err": err_grad, "launches": launched}
+
+
+def attention_lm(mx, seq):
+    """The long-context example's causal LM as a graph, at the attention
+    bench's widths: pre-norm blocks of causal attention and a relu MLP
+    with residual adds, no biases (LayerNorm and relu stand in for the
+    example's RMS norm and gelu), data (1, T) token ids, labels (T,)."""
+    sym = mx.sym
+    x = sym.Embedding(sym.var("data"), input_dim=ATT_VOCAB,
+                      output_dim=ATT_EMBED, name="embed")
+    for i in range(ATT_LAYERS):
+        hid = sym.LayerNorm(x, name="ln%d_att" % i)
+        q, k, v = (sym.Reshape(sym.FullyConnected(
+            hid, num_hidden=ATT_EMBED, flatten=False, no_bias=True,
+            name="%s%d" % (n, i)),
+            shape=(0, 0, ATT_HEADS, ATT_EMBED // ATT_HEADS)) for n in "qkv")
+        att = sym.contrib.flash_attention(q, k, v, causal=True,
+                                          name="att%d" % i)
+        att = sym.FullyConnected(sym.Reshape(att, shape=(0, 0, -1)),
+                                 num_hidden=ATT_EMBED, flatten=False,
+                                 no_bias=True, name="proj%d" % i)
+        x = sym.elemwise_add(x, att, name="res%d_att" % i)
+        hid = sym.LayerNorm(x, name="ln%d_mlp" % i)
+        hid = sym.Activation(sym.FullyConnected(
+            hid, num_hidden=4 * ATT_EMBED, flatten=False, no_bias=True,
+            name="mlp%d_in" % i), act_type="relu", name="relu%d" % i)
+        hid = sym.FullyConnected(hid, num_hidden=ATT_EMBED, flatten=False,
+                                 no_bias=True, name="mlp%d_out" % i)
+        x = sym.elemwise_add(x, hid, name="res%d_mlp" % i)
+    logits = sym.FullyConnected(x, num_hidden=ATT_VOCAB, flatten=False,
+                                no_bias=True, name="head")
+    return sym.SoftmaxOutput(sym.Reshape(logits, shape=(-1, ATT_VOCAB)),
+                             normalization="valid", name="softmax")
+
+
+def attention_module(mx, ctx, seq, dtype):
+    """bind (the dtype's ``type_dict`` on every parameter), Xavier from
+    ``mx.random.seed``, SGD lr 0.05 momentum 0.9."""
+    mod = mx.mod.Module(attention_lm(mx, seq), context=ctx)
+    type_dict = None
+    if dtype != "float32":
+        type_dict = {p: dtype for p in mod._param_names}
+    mod.bind(data_shapes=[("data", (1, seq))],
+             label_shapes=[("softmax_label", (seq,))], type_dict=type_dict)
+    mx.random.seed(SEED)
+    mod.init_params(initializer=mx.init.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params=ATT_OPT)
+    return mod
+
+
+def token_batches(mx, rng, ctx, n, seq):
+    """n batches of the example's synthetic sequences (each token the one
+    before it plus 1, mod the vocabulary, from a random start), with the
+    next tokens as labels, on ``ctx``."""
+    batches = []
+    for _ in range(n):
+        toks = (rng.randint(0, ATT_VOCAB) + np.arange(seq + 1)) % ATT_VOCAB
+        batches.append(mx.io.DataBatch(
+            data=[mx.nd.array(toks[None, :seq], ctx=ctx)],
+            label=[mx.nd.array(toks[1:], ctx=ctx)]))
+    return batches
+
+
+def phase_attention_check(mx, ops, rng):
+    """Part 1: f32 at T=ATT_CHECK_SEQ, TF32 off: 2 SGD-momentum steps on
+    gpu(0) against the same Module on cpu(), each from the card's
+    weights, as phase 11 holds ResNet-50: outputs elementwise, every
+    parameter's gradient and update by relative norm to ATT_GRAD_REL;
+    two controls must fail that limit (K4's output zeroed on the card;
+    a second update without the momentum)."""
+    seq = ATT_CHECK_SEQ
+    mod = attention_module(mx, mx.gpu(0), seq, "float32")
+    ref = mx.mod.Module(mod.symbol, context=mx.cpu())
+    ref.bind(data_shapes=[("data", (1, seq))],
+             label_shapes=[("softmax_label", (seq,))])
+    ref.set_params(*[mx.params_to_numpy(d) for d in mod.get_params()])
+    ref.init_optimizer(optimizer="sgd", optimizer_params=ATT_OPT)
+    batches = token_batches(mx, rng, mx.cpu(), 3, seq)
+    steps, fails = [], []
+    for step, batch in enumerate(batches[:2]):
+        ref.set_params(*[mx.params_to_numpy(d) for d in mod.get_params()])
+        for m in (mod, ref):
+            m.forward_backward(batch)
+        got = mod.get_outputs()[0].asnumpy()
+        want = ref.get_outputs()[0].asnumpy()
+        check(got.shape == (seq, ATT_VOCAB) and bool(np.isfinite(got).all()),
+              "attention LM step %d output not finite" % step)
+        if not np.allclose(got, want, rtol=ATT_RTOL, atol=ATT_ATOL):
+            fails.append("step %d outputs (max abs err %.3g)"
+                         % (step, float(np.abs(got - want).max())))
+        grads, grads_ref = grads_of(mod), grads_of(ref)
+        before = mx.params_to_numpy(ref.get_params()[0])
+        for m in (mod, ref):
+            m.update()
+        moved, moved_ref = ({n: v - before[n] for n, v in
+                             mx.params_to_numpy(m.get_params()[0]).items()}
+                            for m in (mod, ref))
+        row = {"output_max_abs_err": float(np.abs(got - want).max()),
+               "grad_rel": leaf_errs(grads, grads_ref),
+               "update_rel": leaf_errs(moved, moved_ref)}
+        if step == 1:
+            plain = {n: -ATT_OPT["learning_rate"] * g
+                     for n, g in grads.items()}
+            row["control_update_without_momentum_rel"] = leaf_errs(
+                plain, moved_ref)
+        steps.append(row)
+    from mxnet_tpu_torch.ops import attention_kernel
+    ref.set_params(*[mx.params_to_numpy(d) for d in mod.get_params()])
+    k4 = attention_kernel.flash_attention
+    attention_kernel.flash_attention = lambda q, *a, **kw: torch.zeros_like(q)
+    try:
+        mod.forward_backward(batches[2])
+    finally:
+        attention_kernel.flash_attention = k4
+    ref.forward_backward(batches[2])
+    control_k4 = leaf_errs(grads_of(mod), grads_of(ref))
+    summary = {"seq": seq, "grad_rel_limit": ATT_GRAD_REL, "steps": steps,
+               "control_k4_zeroed_grad_rel": control_k4}
+    log("phase 15 f32 vs cpu %s" % json.dumps(summary))
+    for step, row in enumerate(steps):
+        fails += ["step %d %s of %s: %.3g" % (step, kind, row[kind]["worst"],
+                                              row[kind]["max"])
+                  for kind in ("grad_rel", "update_rel")
+                  if not row[kind]["max"] <= ATT_GRAD_REL]
+    for what, reading in (
+            ("K4 output zeroed", control_k4["max"]),
+            ("update without momentum",
+             steps[1]["control_update_without_momentum_rel"]["max"])):
+        if reading <= ATT_GRAD_REL:
+            fails.append("control %s passes the limit: %.3g"
+                         % (what, reading))
+    check(not fails, "attention LM f32 card vs cpu: " + "; ".join(fails))
+    return summary
+
+
+def phase_attention_train(mx, rng):
+    """Part 2: bf16 at T=ATT_SEQ: 2 warm-up and ATT_STEPS timed ``_step``s
+    (tokens/s), then one profiled step."""
+    mod = attention_module(mx, mx.gpu(0), ATT_SEQ, "bfloat16")
+    batches = token_batches(mx, rng, mx.gpu(0), ATT_STEPS, ATT_SEQ)
+    for b in batches[:ATT_WARMUP]:
+        mod._step(b)
+    wall, outs = timed_steps(mod, batches)
+    losses = [float(nll(o, b.label[0].data)) for o, b in zip(outs, batches)]
+    check(all(bool(torch.isfinite(o.float()).all()) for o in outs)
+          and all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "attention LM bf16 outputs or losses not finite, or the loss "
+          "did not fall: %s" % losses)
+    return mod, batches, {
+        "seq": ATT_SEQ, "dtype": "bfloat16", "step_s": wall / ATT_STEPS,
+        "tokens_per_s": ATT_STEPS * ATT_SEQ / wall, "losses": losses,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_attention_profile(mod, batch):
+    """One bf16 step under torch.profiler: the wall, the device's busy
+    time and idle share, K4's share and the top kernels."""
+    wall, kernels = device_profile(lambda: mod._step(batch))
+    busy = sum(ms for _, ms in kernels.values())
+    check(busy > 0, "the profiler saw no device kernel in the step")
+    k4 = sum(ms for name, (_, ms) in kernels.items()
+             if "flash_fwd" in name)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"step_wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall, "k4_ms": k4,
+            "k4_share": k4 / busy,
+            "kernels": sum(c for c, _ in kernels.values()),
+            "top_kernels": [{"kernel": k, "launches": c, "ms": ms,
+                             "share": ms / busy} for k, (c, ms) in top]}
+
+
+RTC_SOURCE = r'''
+extern "C" __global__ void axpy(const float* x, const float* y, float* out,
+                                int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = 2.0f * x[i] + y[i];
+}
+template <typename T>
+__global__ void row_sum(const T* x, int cols, T* out) {
+  extern __shared__ float buf[];
+  float s = 0.f;
+  for (int c = threadIdx.x; c < cols; c += blockDim.x)
+    s += static_cast<float>(x[static_cast<size_t>(blockIdx.x) * cols + c]);
+  buf[threadIdx.x] = s;
+  __syncthreads();
+  for (int w = blockDim.x / 2; w > 0; w /= 2) {
+    if (threadIdx.x < w) buf[threadIdx.x] += buf[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = static_cast<T>(buf[0]);
+}
+'''
+
+
+def phase_rtc(mx):
+    """K6: the user's path of ``mx.rtc`` on gpu(0) (compile, get the
+    kernels, launch each once, launches counted), checked against
+    ``2*x + y`` (exactly) and ``x.sum(1)``; then axpy at RTC_N timed
+    against its bound, its plain PyTorch version and ``torch.add``."""
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(SEED + 60)
+    x = mx.nd.array(rng.randn(RTC_N).astype(np.float32), ctx=ctx)
+    y = mx.nd.array(rng.randn(RTC_N).astype(np.float32), ctx=ctx)
+    out = mx.nd.zeros((RTC_N,), ctx=ctx)
+    m = mx.nd.array(rng.randn(*RTC_ROWS).astype(np.float32), ctx=ctx)
+    grid = ((RTC_N + 255) // 256,)
+    t0 = time.perf_counter()
+    mx.rtc.Kernel.launches = 0                # the rtc path starts here
+    mod = mx.rtc.CudaModule(RTC_SOURCE, exports=["axpy", "row_sum<float>"])
+    compile_s = time.perf_counter() - t0
+    axpy = mod.get_kernel("axpy", "const float *x, const float *y, "
+                                  "float *out, int n")
+    rows = mod.get_kernel("row_sum<float>",
+                          "const float *x, int cols, float *out")
+    axpy.launch((x, y, out, RTC_N), ctx, grid, (256,))
+    sums = rows.launch((m, RTC_ROWS[1]), ctx, (RTC_ROWS[0],), (256,),
+                       shared_mem=256 * 4,
+                       out_shapes=[((RTC_ROWS[0],), "float32")])
+    torch.cuda.synchronize()
+    launches = mx.rtc.Kernel.launches         # ... and ends here
+    check(launches == 2, "the rtc path launched %d kernels, want 2"
+          % launches)
+    want = 2 * x.data + y.data
+    check(torch.equal(out.data, want), "rtc axpy differs from 2*x+y (max "
+          "abs err %.3g)" % float((out.data - want).abs().max()))
+    err_sum = max_err([sums.data], [m.data.sum(1)], "rtc row_sum",
+                      rtol=1e-5, atol=1e-4)
+    bound = 12.0 * RTC_N / PEAK_BYTES_PER_S * 1e3
+    return launches, {
+        "n": RTC_N, "compile_s": compile_s, "launches": launches,
+        "axpy_max_abs_err": 0.0, "row_sum_max_abs_err": err_sum,
+        "ms": time_ms(lambda: axpy.launch((x, y, out, RTC_N), ctx, grid,
+                                          (256,)), 20),
+        "plain_ms": time_ms(lambda: 2 * x.data + y.data, 20),
+        "library_ms": time_ms(lambda: torch.add(y.data, x.data, alpha=2),
+                              20),
+        "bound_ms": bound, "bound_by": "bytes"}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs the port on the GPU",
@@ -1314,6 +1741,36 @@ def main():
         "seconds": time.perf_counter() - t0}))
     log("phase 12 resnet50 profile %s" % json.dumps(
         phase_resnet_profile(mx, mod, batches[0])))
+    del mod, batches
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    k4_rows = phase_k4(mx.ops, device)
+    log("phase 13 seconds %.1f" % (time.perf_counter() - t0))
+    log("phase 14 attention op %s" % json.dumps(
+        phase_attention_op(mx, mx.ops)))
+    t0 = time.perf_counter()
+    k4 = mx.ops.flash_attention
+    k4.launches = 0                           # the attention path starts
+    att_check = phase_attention_check(mx, mx.ops, rng)
+    k4_check = k4.launches
+    mod, batches, att_train = phase_attention_train(mx, rng)
+    k4_launches = k4.launches                 # ... and ends here
+    att_steps = 2 + ATT_WARMUP + ATT_STEPS
+    check(k4_check == ATT_LAYERS * 2
+          and k4_launches == ATT_LAYERS * att_steps,
+          "the attention LM launched flash_attention %d times (%d in the 2 "
+          "f32 steps), want %d per step over %d steps"
+          % (k4_launches, k4_check, ATT_LAYERS, att_steps))
+    log("phase 15 attention LM %s" % json.dumps({
+        "f32_vs_cpu": att_check, "bf16_train": att_train,
+        "k4_launches": k4_launches, "k4_launches_f32_check": k4_check,
+        "steps_on_card": att_steps, "seconds": time.perf_counter() - t0}))
+    log("phase 15 attention LM profile %s" % json.dumps(
+        phase_attention_profile(mod, batches[0])))
+    del mod, batches
+    rtc_launches, rtc_row = phase_rtc(mx)
+    log("phase 16 rtc %s" % json.dumps(rtc_row))
 
     top = next(r for r in rows if r["B"] == max(SERVED_BATCHES))
     train = next(r for r in train_rows if r["B"] == TRAIN_BATCH)
@@ -1353,6 +1810,23 @@ def main():
         **{key: sum(r[key] for r in step_rows)
            for key in ("ms", "plain_ms", "library_ms")},
         "bound_ms": k5_bound, "bound_by": k5_by})
+    # K4: the LM's shape (B=1, T=4096, 8 heads of 128, bf16, causal)
+    main4 = next(r for r in k4_rows if r["Tq"] == ATT_SEQ and r["causal"]
+                 and r["dtype"] == "bfloat16")
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+        "replaces": pallas + ":220", "launches": k4_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in k4_rows),
+        **{key: main4[key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}})
+    kernels.append({
+        "name": "rtc", "route": "cuda", "source": "mxnet_tpu_torch/rtc.py",
+        "replaces": "mxnet_tpu/rtc.py:78", "launches": rtc_launches,
+        "max_abs_err": max(rtc_row["axpy_max_abs_err"],
+                           rtc_row["row_sum_max_abs_err"]),
+        **{key: rtc_row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 
 A second package beside the JAX one, with the same module names, so an
 ``import mxnet_tpu_torch as mx`` script reads like one written against
-`mxnet_tpu`. It imports neither JAX nor `mxnet_tpu`. It holds three paths
+`mxnet_tpu`. It imports neither JAX nor `mxnet_tpu`. It holds four paths
 so far:
 
 - serving: ``sym`` -> ``Executor`` -> ``Predictor`` ->
@@ -19,7 +19,15 @@ so far:
   ``Convolution``, ``BatchNorm``, ``Pooling`` and ``Activation``; with
   ``MXNET_CONV1X1_PALLAS`` on, the input gradient of every NHWC
   stride-2 1x1 convolution is a hand-written CUDA kernel
-  (`csrc/conv1x1_s2_dgrad.cu`, bound by `ops/conv_kernel.py`).
+  (`csrc/conv1x1_s2_dgrad.cu`, bound by `ops/conv_kernel.py`);
+- attention: ``nd.contrib.flash_attention`` and
+  ``sym.contrib.flash_attention`` (``_contrib_flash_attention``), whose
+  forward is a hand-written CUDA kernel (`csrc/flash_attention.cu`, bound
+  by `ops/attention_kernel.py`), in graphs trained by ``mod.Module``
+  with ``LayerNorm``.
+
+``rtc`` compiles and launches user CUDA kernels at runtime (NVRTC and
+``libcuda``), the reference's ``mx.rtc.CudaModule``.
 
 Entry points run on ``gpu(0)`` (``cuda:0``) unless the caller passes
 ``cpu()``; without a CUDA device they raise rather than fall back.
@@ -49,10 +57,11 @@ from .predict import Predictor
 from .weights import (params_from_numpy, params_to_numpy,
                       set_block_params)
 from . import serving
+from . import rtc
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "random", "nd", "ndarray", "ops", "sym", "symbol",
            "Executor", "init", "initializer", "optimizer", "io", "metric",
            "mod", "module", "model", "callback", "name", "gluon",
            "autograd", "Predictor", "params_from_numpy", "params_to_numpy",
-           "set_block_params", "serving"]
+           "set_block_params", "serving", "rtc"]

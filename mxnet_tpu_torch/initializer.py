@@ -15,6 +15,7 @@ from __future__ import annotations
 import json
 
 import numpy as np
+import torch
 
 __all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
            "Normal", "Xavier", "register", "create"]
@@ -89,7 +90,11 @@ class Initializer:
 
     @staticmethod
     def _set(arr, np_value):
-        arr[:] = np.asarray(np_value).astype(arr.dtype)
+        if arr.data.dtype == torch.bfloat16:   # no numpy bf16: through f32
+            arr[:] = torch.from_numpy(np.asarray(np_value, np.float32)) \
+                .to(torch.bfloat16)
+        else:
+            arr[:] = np.asarray(np_value).astype(arr.dtype)
 
     @staticmethod
     def _init_zero(_, arr):

@@ -10,3 +10,4 @@ __all__ = ["NDArray", "zeros", "array", "save", "load",
            "load_frombuffer"]
 
 _populate(globals())
+from . import contrib  # noqa: E402,F401

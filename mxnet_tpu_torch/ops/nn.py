@@ -1,9 +1,10 @@
-"""Neural-network operators (the subset the LSTM LM and ResNet slices use).
+"""Neural-network operators (the subset the port's slices use).
 
 Counterpart of `mxnet_tpu/ops/nn.py`: ``FullyConnected``, ``softmax``,
 the ``SoftmaxOutput`` loss head, the fused multi-layer ``RNN`` op with
-its cuDNN flat parameter layout, and ``Convolution``, ``BatchNorm``,
-``Pooling`` and ``Activation`` in channel-first and channel-last layouts.
+its cuDNN flat parameter layout, ``Convolution``, ``BatchNorm``,
+``Pooling`` and ``Activation`` in channel-first and channel-last layouts,
+and ``LayerNorm``.
 
 An LSTM layer that needs a gradient runs ``FusedLSTM`` (the hand-written
 training kernels K2/K3 on a CUDA tensor, their plain versions on the
@@ -602,3 +603,25 @@ def _activation(params, data):
     if act not in _ACTIVATIONS:
         raise MXNetError("unknown act_type " + act)
     return (_ACTIVATIONS[act](data),)
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm (reference nn/layer_norm-inl.h)
+# ---------------------------------------------------------------------------
+@register("LayerNorm", num_outputs=3, num_visible_outputs=1)
+def _layer_norm(params, data, gamma, beta):
+    """Normalise over ``axis`` (default the last): statistics in f32, the
+    normalised value cast to the data dtype before gamma and beta, as the
+    JAX package does for bf16 stability. Outputs (out, mean, std), the
+    last two hidden and in f32; the gradient is autograd's over these
+    ops."""
+    axis = int(params.get("axis", -1))
+    eps = float(params.get("eps", 1e-5))
+    x32 = data.float()
+    mean = x32.mean(axis, keepdim=True)
+    var = x32.var(axis, unbiased=False, keepdim=True)
+    out = ((x32 - mean) * torch.rsqrt(var + eps)).to(data.dtype)
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    out = out * gamma.reshape(shape) + beta.reshape(shape)
+    return (out, mean.squeeze(axis), torch.sqrt(var + eps).squeeze(axis))

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 from ..base import MXNetError
 
-__all__ = ["Operator", "register", "get_op"]
+__all__ = ["Operator", "register", "get_op", "populate_contrib"]
 
 _OPS = {}
 
@@ -79,3 +79,11 @@ def get_op(name) -> Operator:
         return _OPS[name]
     except KeyError:
         raise MXNetError("Operator %s is not registered" % name) from None
+
+
+def populate_contrib(namespace, make_fn):
+    """Fill an ``nd.contrib`` / ``sym.contrib`` namespace: every registered
+    ``_contrib_Foo`` op as ``Foo``, built by ``make_fn(name)``."""
+    for name in list(_OPS):
+        if name.startswith("_contrib_"):
+            namespace.setdefault(name[len("_contrib_"):], make_fn(name))

@@ -4,3 +4,4 @@ from .symbol import Symbol, var, Variable, Group, load_json, load, create
 from .register import populate as _populate
 
 _populate(globals())
+from . import contrib  # noqa: E402,F401

@@ -81,6 +81,16 @@ def _bn(params, shapes):
     return shapes
 
 
+@filler("LayerNorm")
+def _ln(params, shapes):
+    """gamma and beta: one value along the normalised axis."""
+    c = shapes[0][int(params.get("axis", -1))]
+    for i in (1, 2):
+        if shapes[i] is None:
+            shapes[i] = (c,)
+    return shapes
+
+
 @filler("Embedding")
 def _emb(params, shapes):
     if shapes[1] is None:

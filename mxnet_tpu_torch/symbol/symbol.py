@@ -244,6 +244,8 @@ def _op_input_names(op_name, attrs):
             ([] if attrs.get("no_bias", False) else ["bias"])
     if op_name in ("BatchNorm", "BatchNorm_v1"):
         return ["data", "gamma", "beta", "moving_mean", "moving_var"]
+    if op_name == "LayerNorm":
+        return ["data", "gamma", "beta"]
     if op_name == "Embedding":
         return ["data", "weight"]
     if op_name == "RNN":

@@ -6,10 +6,11 @@ PyTorch is installed::
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance 1e-4: f32 on both sides, but the kernels sum h @ Wh (and
-dgates @ Wh^T) in another order than cuBLAS, and the difference
-compounds over time. One train step of the LM on the card against the
-same step on the CPU is held to 1e-4 too: both run f32 with TF32 off.
+Each section states its tolerances. The LSTM kernels: 1e-4, f32 on both
+sides, but the kernels sum h @ Wh (and dgates @ Wh^T) in another order
+than cuBLAS, and the difference compounds over time. One train step of
+the LM on the card against the same step on the CPU is held to 1e-4 too:
+both run f32 with TF32 off.
 """
 import numpy as np
 import pytest
@@ -305,3 +306,149 @@ def test_small_resnet_steps_on_gpu_match_cpu(cuda, monkeypatch):
     print("small ResNet gradient and update relative errors", readings)
     assert conv1x1_s2_dgrad.launches == before + 12
     assert max(max(r) for r in readings) <= SMALL_RESNET_REL, readings
+
+
+# ---------------------------------------------------------------------------
+# K4 (flash_attention) and rtc on the card
+# ---------------------------------------------------------------------------
+# (B, Tq, Tk, H, D): tiles of 64 (bf16) and 32 (f32) rows, ragged; Tq != Tk
+# both ways (the causal mask is aligned at the top left); D below a tile
+K4_SHAPES = [(1, 128, 128, 2, 64), (2, 200, 200, 3, 128), (1, 100, 300, 2, 64),
+             (2, 300, 100, 2, 128), (1, 77, 77, 1, 40)]
+# f32: the reference's 2e-5; bf16: both sides compute in f32 and round once
+# to bf16, so a value may land one bf16 step (2^-7 relative) apart
+K4_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2 ** -7, 1e-5)}
+
+
+def _attention_inputs(shape, device, dtype, seed=0):
+    b, tq, tk, h, d = shape
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32))
+            .to(device, dtype) for t in (tq, tk, tk)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K4_SHAPES)
+def test_k4_matches_plain(cuda, shape, dtype, causal):
+    from mxnet_tpu_torch.ops.attention_kernel import (flash_attention,
+                                                      flash_attention_plain)
+    q, k, v = _attention_inputs(shape, cuda, dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    rtol, atol = K4_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_k4_given_scale_and_strided_inputs(cuda):
+    from mxnet_tpu_torch.ops.attention_kernel import (flash_attention,
+                                                      flash_attention_plain)
+    q, k, v = _attention_inputs((2, 96, 96, 2, 64), cuda, torch.float32, 1)
+    qs = q.transpose(1, 2).contiguous().transpose(1, 2)   # not contiguous
+    got = flash_attention(qs, k, v, scale=0.3, causal=True)
+    want = flash_attention_plain(q, k, v, scale=0.3, causal=True)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_k4_refuses_what_it_cannot_launch(cuda):
+    from mxnet_tpu_torch.ops.attention_kernel import flash_attention
+    q = torch.zeros(1, 4, 1, 256, device=cuda)
+    with pytest.raises(mxt.MXNetError, match="head dims up to 128"):
+        flash_attention(q, q, q)
+    h = torch.zeros(1, 4, 1, 8, device=cuda, dtype=torch.float16)
+    with pytest.raises(mxt.MXNetError, match="f32 or bf16"):
+        flash_attention(h, h, h)
+    with pytest.raises(mxt.MXNetError, match="k on cpu"):
+        flash_attention(h.float(), h.float().cpu(), h.float())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_backward_on_card(cuda, causal):
+    from mxnet_tpu_torch.ops.attention_kernel import (FlashAttention,
+                                                      dense_attention_plain,
+                                                      flash_attention)
+    q, k, v = (t.requires_grad_(True) for t in _attention_inputs(
+        (2, 150, 150, 2, 64), cuda, torch.float32, 2))
+    cot = torch.from_numpy(np.random.RandomState(3).randn(
+        2, 150, 2, 64).astype(np.float32)).to(cuda)
+    before = flash_attention.launches
+    got = torch.autograd.grad(FlashAttention.apply(q, k, v, None, causal),
+                              (q, k, v), cot)
+    assert flash_attention.launches == before + 1
+    want = torch.autograd.grad(dense_attention_plain(q, k, v, None, causal),
+                               (q, k, v), cot)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+AXPY = r'''
+extern "C" __global__ void axpy(const float* x, const float* y, float* out,
+                                int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = 2.0f * x[i] + y[i];
+}
+template <typename T>
+__global__ void row_sum(const T* x, int cols, T* out) {
+  extern __shared__ float buf[];
+  float s = 0.f;
+  for (int c = threadIdx.x; c < cols; c += blockDim.x)
+    s += static_cast<float>(x[static_cast<size_t>(blockIdx.x) * cols + c]);
+  buf[threadIdx.x] = s;
+  __syncthreads();
+  for (int w = blockDim.x / 2; w > 0; w /= 2) {
+    if (threadIdx.x < w) buf[threadIdx.x] += buf[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = static_cast<T>(buf[0]);
+}
+'''
+
+
+def test_rtc_axpy_and_exported_template(cuda):
+    from mxnet_tpu_torch import rtc
+    mod = rtc.CudaModule(AXPY, exports=["axpy", "row_sum<float>"])
+    axpy = mod.get_kernel("axpy", "const float *x, const float *y, "
+                                  "float *out, int n")
+    rng = np.random.RandomState(4)
+    n = 1000
+    x, y = (mxt.nd.array(rng.randn(n), ctx=mxt.gpu(0)) for _ in range(2))
+    out = mxt.nd.zeros((n,), ctx=mxt.gpu(0))
+    before = rtc.Kernel.launches
+    assert axpy.launch((x, y, out, n), mxt.gpu(0), (4, 1, 1),
+                       (256, 1, 1)) is None
+    torch.cuda.synchronize()
+    assert rtc.Kernel.launches == before + 1
+    assert torch.equal(out.data, 2 * x.data + y.data)
+    rows = mod.get_kernel("row_sum<float>",
+                          "const float *x, int cols, float *out")
+    m = mxt.nd.array(rng.randn(37, 300), ctx=mxt.gpu(0))
+    got = rows.launch((m, 300), mxt.gpu(0), (37,), (128,),
+                      shared_mem=128 * 4, out_shapes=[((37,), "float32")])
+    torch.testing.assert_close(got.data, m.data.sum(1), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_rtc_raises(cuda):
+    from mxnet_tpu_torch import rtc
+    mod = rtc.CudaModule(AXPY, exports=["row_sum<float>"])
+    with pytest.raises(ValueError, match="not in exports"):
+        mod.get_kernel("row_sum<double>", "const double *x, int cols, "
+                                          "double *out")
+    with pytest.raises(ValueError, match="not in exports"):   # as in JAX
+        mod.get_kernel("axpy", "const float *x, const float *y, "
+                               "float *out, int n")
+    bare = rtc.CudaModule(AXPY)
+    with pytest.raises(ValueError, match="no kernel 'scale'"):
+        bare.get_kernel("scale", "float *x")
+    axpy = bare.get_kernel("axpy", "const float *x, const float *y, "
+                                   "float *out, int n")
+    x = mxt.nd.zeros((8,), ctx=mxt.gpu(0), dtype="float64")
+    with pytest.raises(mxt.MXNetError, match="must be torch.float32"):
+        axpy.launch((x, x, x, 8), mxt.gpu(0), (1,), (8,))
+    with pytest.raises(mxt.MXNetError, match="could not compile"):
+        rtc.CudaModule('extern "C" __global__ void k() { undefined(); }')
