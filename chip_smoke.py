@@ -77,7 +77,9 @@ B=1) and drives ``rtc``, in four more:
     last 256 query rows of every head), non-causal and f32 at T=4096 and
     ragged shapes with Tq != Tk both ways, with kernel, plain and
     ``scaled_dot_product_attention`` times (the yardstick only), TFLOP/s
-    as the bench counts them, and the bound;
+    as the bench counts them and their share of the dtype's peak, and the
+    bound; and the bf16 kernels' ptxas registers and spills and their
+    shared memory a block;
 14. the op's entry points on ``gpu(0)``: ``nd.contrib.flash_attention``,
     and ``sym.contrib.flash_attention`` bound by ``simple_bind`` with a
     forward and backward, the gradients held against the dense version's
@@ -111,6 +113,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1329,6 +1332,58 @@ def sdpa(q, k, v, causal):
     return out.transpose(1, 2)
 
 
+def sass_registers(so, kernel):
+    """Registers the SASS of ``kernel`` (a substring of its symbol) in the
+    library ``so`` addresses (the highest R index + 1), or None without
+    cuobjdump: with setmaxnreg this is what a branch really holds, where
+    ptxas reports the count at entry."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    syms = [w for w in subprocess.run(
+        [tool, "-symbols", so], capture_output=True, text=True,
+        timeout=60).stdout.split() if kernel in w]
+    sass = subprocess.run([tool, "-sass", "-fun", syms[0], so],
+                          capture_output=True, text=True, timeout=60).stdout
+    return 1 + max(int(r) for r in re.findall(r"\bR(\d+)\b", sass))
+
+
+def k4_ptxas(ops):
+    """The bf16 K4 kernels as ptxas built them, by head-dim tile: registers
+    a thread at entry and as the SASS uses them, spill bytes, whether
+    ptxas serialised their wgmmas, and the dynamic shared memory of one
+    block."""
+    from mxnet_tpu_torch.ops import _build
+    lib = ops.attention_kernel._library()
+    log = _build.build_log("flash_attention") or ""
+    lines = log.splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Function properties for \S*flash_fwd_bf16ILi(\d+)E",
+                      line)
+        if not m:
+            continue
+        d = int(m.group(1))
+        text = " ".join(lines[i + 1:i + 3])
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", text)
+        out["D<=%d" % d] = {
+            "registers_at_entry": int(re.search(r"Used (\d+) registers",
+                                                text).group(1)),
+            "registers_used": sass_registers(
+                lib._name, "flash_fwd_bf16ILi%dE" % d),
+            "spill_stores": int(spill.group(1)),
+            "spill_loads": int(spill.group(2)),
+            "wgmma_serialized": any(
+                "C7512" in x and "flash_fwd_bf16ILi%dE" % d in x
+                for x in lines),
+            "smem_bytes": lib.flash_attention_bf16_smem(d)}
+    check(len(out) == 2, "no ptxas report of the bf16 flash_attention "
+          "kernels in the build log")
+    return out
+
+
 def phase_k4(ops, device):
     """K4 against its plain version (on the last ATT_SAMPLE query rows of
     every head where the whole would not fit), with kernel, plain and
@@ -1357,10 +1412,13 @@ def phase_k4(ops, device):
         # TFLOP/s as tools/perf/attention_bench.py counts them
         flops = 4.0 * b * h * tq * tk * d * (0.5 if causal else 1.0)
         ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal), 20)
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
         row = {"B": b, "Tq": tq, "Tk": tk, "H": h, "D": d, "causal": causal,
                "dtype": str(dtype).split(".")[1], "max_abs_err": err,
                "checked_rows": tq - start, "ms": ms,
-               "tflops": flops / ms / 1e9, "bound_ms": bound, "bound_by": by,
+               "tflops": flops / ms / 1e9,
+               "peak_share": flops / ms * 1e3 / peak,
+               "bound_ms": bound, "bound_by": by,
                "plain_ms": time_ms(plain, 5),
                "library_ms": time_ms(lambda: sdpa(q, k, v, causal), 20),
                "library_max_abs_err": float(
@@ -1745,6 +1803,7 @@ def main():
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    log("phase 13 flash_attention ptxas %s" % json.dumps(k4_ptxas(mx.ops)))
     k4_rows = phase_k4(mx.ops, device)
     log("phase 13 seconds %.1f" % (time.perf_counter() - t0))
     log("phase 14 attention op %s" % json.dumps(

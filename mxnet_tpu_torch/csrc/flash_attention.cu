@@ -7,40 +7,82 @@
 // over the keys j < Tk, and for causal attention only j <= i (absolute
 // positions: aligned at the top left when Tq != Tk), with masked scores at
 // -1e30 as in the TPU kernel. The running max, the normaliser and the
-// accumulator are f32; o is stored in q's type.
+// accumulator are f32; o is stored in q's type, rounded once.
 //
-// Design. The TPU kernel walks a grid (B*H, q blocks, k blocks) in order and
-// carries its softmax statistics across the k axis in VMEM scratch. Hopper's
-// blocks run in no order, so here one block owns one (b, h, q tile) and the
-// k axis is a loop inside it: the tile's statistics and accumulator live in
-// registers for the whole sweep, and o is divided by the normaliser once at
-// the end (the same function as the TPU kernel's per-block renormalisation).
-// With causal attention the loop stops at the tile that holds the diagonal,
-// and q tiles are issued last-first so that the longest sweeps start first.
-// q, k and v are read in place through their token stride H*D: no transpose.
-// Rows past Tq or Tk and columns past D load as zeros; masked scores make the
-// padded keys count for nothing.
-//
-// - bf16: four warps, 64 q rows (16 a warp), 64 keys a step, tensor cores
-//   through mma.sync m16n8k16 (bf16 in, f32 accumulation). q.k^T is exact
-//   products summed in f32, as the TPU kernel's f32 products of bf16 inputs
-//   are. P is not rounded to bf16 for P.V: it is split into a bf16 high part
-//   and a bf16 low part, and both go through the tensor cores, so P keeps
-//   about 16 bits and the result differs from the f32-math version by
-//   summation order before its one rounding to bf16.
-// - f32: 256 threads on CUDA-core FMAs, 32 q rows and 64 keys a step, exact
-//   f32 (no TF32), for the f32 path and the references that run TF32 off.
-// Tiles are staged in dynamic shared memory (52 KB for bf16 at D = 128, 89 KB
-// for f32), above the 48 KB default, so the limit is raised before launch.
-// D may be anything up to 128.
+// Shape of the work. The TPU kernel walks a grid (B*H, q blocks, k blocks)
+// in order and carries its softmax statistics across the k axis in VMEM
+// scratch. Hopper's blocks run in no order, so one block owns one (b, h, q
+// tile) and the k axis is a loop inside it: statistics and accumulator live
+// in registers for the whole sweep, and o is divided by the normaliser once
+// at the end (the same function as the TPU kernel's per-block
+// renormalisation). With causal attention the loop stops at the tile that
+// holds the diagonal. q, k and v are read in place through their token
+// stride H*D: no transpose, no copy.
 //
 // What bounds it. Per (b, h) it does 4*Tq*Tk*D operations (half of them for
-// causal attention) on 4*T*D elements, so from T of about 1024 on, the
-// operations bound it: at B=1, H=8, D=128, causal, T=4096 in bf16, 34 GFLOP
-// take 35 us at 989 TFLOP/s while the 34 MB take 10 us at 3.35 TB/s. This
-// kernel spends 1.5x those operations (the split P.V) on mma.sync, which
-// reaches a fraction of the wgmma rate; a wgmma/TMA pipeline, and rounding P
-// once where a caller allows it, are later work.
+// causal attention) on 4*T*D elements, so from T of about 1024 on the
+// operations bound it: at B=1, H=8, D=128, causal, T=4096, 34 GFLOP take
+// 35 us at the bf16 peak of 989 TFLOP/s while the 34 MB take 10 us at
+// 3.35 TB/s. The bf16 kernel does 1.5x those operations: P.V runs twice,
+// on P's bf16 high part and on its low part, so P keeps about 16 bits and
+// the result is the f32-math one before its single rounding (the TPU
+// kernel computes both products in f32; P rounded once to bf16 would be
+// another function).
+//
+// bf16: warp-specialised TMA + wgmma.
+// - Block: 384 threads. Warpgroups 0 and 1 are consumers of 64 q rows
+//   each (wgmma's M) and rise to 240 registers (setmaxnreg); warpgroup 2
+//   is the producer: it drops to 24, and one of its threads issues every
+//   TMA load while its other warps exit. 128 q rows a block, 128 keys a
+//   tile: each K/V tile read serves 128 rows. Grid (B*H, q tiles), the q
+//   tiles issued last-first so that the longest causal sweeps start first
+//   across all heads. Not persistent: at 160 KB of shared memory one
+//   block fills an SM, and 256 blocks at B*H=8, T=4096 make two waves on
+//   132 SMs; a persistent scheduler would overlap one tile's epilogue with
+//   the next one's loads, left for later.
+// - Registers: a consumer thread holds O (64 f32 at D=128), S (64 f32)
+//   and then P as bf16 hi/lo fragments (64 registers) while the P.V
+//   wgmmas run: ptxas (CUDA 12.9) gives the consumer branch about 200,
+//   no spills. 384 threads start at 168 a thread (three warps share each
+//   SM sub-partition's 16K registers), so without setmaxnreg, or with a
+//   __trap() anywhere in the kernel (ptxas then keeps every branch at the
+//   entry budget), the consumers spill and ptxas serialises every wgmma.
+// - Loads: TMA (cp.async.bulk.tensor.4d) over [B, T, H, D] maps built on
+//   the host per call (cuTensorMapEncodeTiled, reached through
+//   cudaGetDriverEntryPoint: no -lcuda), passed as __grid_constant__. The
+//   head is a coordinate, the stride H*D the map's. Boxes of 64 columns
+//   (128 bytes, the limit of the 128-byte swizzle) by 128 rows, so a D=128
+//   tile is two boxes. Rows past Tq or Tk and columns past D come in as
+//   zeros (TMA's out-of-bounds fill); the kpos < Tk and causal masks make
+//   the padded keys count for nothing. Q is loaded once; K and V go
+//   through a ring of 2 stages, each with "full" (TMA bytes) and "empty"
+//   (8 consumer warps) mbarriers for K and for V apart, so the next K
+//   lands while this tile's P.V still reads V.
+// - Products: S = Q K^T is wgmma m64n128k16 with A (Q) and B (K, K-major)
+//   as shared-memory descriptors (128-byte swizzle, 1024-byte stride
+//   between 8-row groups). The softmax runs in registers on the f32
+//   accumulator (a row's max and sum over the quad of lanes that share
+//   it; exp2 with the scale folded into log2(e)), masking only the tiles
+//   that cross the diagonal or Tk. P's accumulator layout is wgmma's
+//   register A-fragment layout, so P goes to bf16 hi/lo pairs without
+//   shuffles, and O += P_hi V + P_lo V is wgmma m64nDk16 with A from
+//   registers and B = V from shared memory, MN-major (the transpose bit).
+//   A stage is released after wgmma.wait_group, so TMA never overwrites a
+//   tile that an in-flight wgmma reads.
+// - Epilogue: O / l once, rounded to bf16, stored as bf16 pairs for rows
+//   below Tq and columns below D.
+// - Shared memory at D=128: Q 32 KB + 2 stages x (K 32 KB + V 32 KB) =
+//   160 KB plus barriers (D <= 64: 80 KB). D up to 128; the TMA maps need
+//   a global stride of a multiple of 16 bytes and 16-byte aligned bases,
+//   so the wrapper pads D to a multiple of 8 and copies unaligned inputs.
+// - Left for later: ping-pong of the two consumer warpgroups and the
+//   softmax overlapped with the next tile's Q K^T (each warpgroup now
+//   waits for its own products), a persistent tile scheduler, a TMA store.
+//
+// f32: 256 threads on CUDA-core FMAs, 32 q rows and 64 keys a step, exact
+// f32 (no TF32), for the f32 path and the references that run TF32 off;
+// 89 KB of dynamic shared memory at D=128. D may be anything up to 128.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -53,18 +95,25 @@ typedef __nv_bfloat16 bf16;
 constexpr float kNeg = -1e30f;
 
 // ---------------------------------------------------------------- bf16 path
-constexpr int kBM = 64;        // q rows per block, 16 per warp
-constexpr int kBN = 64;        // keys per step
-constexpr int kThreads = 128;  // 4 warps
+constexpr int kBM = 128;        // q rows per block, 64 per consumer warpgroup
+constexpr int kBN = 128;        // keys per tile
+constexpr int kStages = 2;      // K/V tiles in the ring
+constexpr int kThreads = 384;   // 2 consumer warpgroups + the producer
+constexpr int kBox = 64;        // bf16 columns per TMA box: one 128-byte row
+constexpr int kRow = 2 * kBox;  // bytes per box row
+constexpr int kConsumerWarps = 8;
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
+// Byte offsets in the 1024-aligned dynamic shared memory of one block.
+template <int kD>
+struct Smem {
+  static constexpr int kBoxes = kD / kBox;
+  static constexpr int kQ = kBoxes * kBM * kRow;   // the Q tile
+  static constexpr int kKV = kBoxes * kBN * kRow;  // one K (or V) tile
+  static constexpr int kK = kQ;                    // K stages
+  static constexpr int kV = kQ + kStages * kKV;    // V stages
+  static constexpr int kBar = kV + kStages * kKV;  // mbarriers
+  static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages) + 1024;
+};
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   uint32_t u;
@@ -81,203 +130,356 @@ __device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
   lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
 }
 
-// c += a (16x16, row major) * b (16x8, column major); bf16 in, f32 out
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
 }
 
-// rows [t0, t0 + rows) of one head (token stride rs) into shared memory
-// (row stride ld), 16 bytes a thread; zeros past T and past D
-template <int kD, bool kVec>
-__device__ __forceinline__ void load_tile(const bf16* __restrict__ base,
-                                          size_t rs, int t0, int T, int D,
-                                          bf16* dst, int ld, int rows) {
-  constexpr int kChunks = kD / 8;
-  for (int e = threadIdx.x; e < rows * kChunks; e += kThreads) {
-    const int r = e / kChunks;
-    const int c = (e % kChunks) * 8;
-    const int t = t0 + r;
-    uint4 u = make_uint4(0, 0, 0, 0);
-    if (t < T) {
-      const bf16* src = base + static_cast<size_t>(t) * rs + c;
-      if (kVec) {
-        // D is a multiple of 8: a chunk is wholly inside or outside
-        if (c < D) u = *reinterpret_cast<const uint4*>(src);
-      } else {
-        bf16* ev = reinterpret_cast<bf16*>(&u);
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// one box of a [B, T, H, D] map: columns d0.. of head h, rows t0.. of
+// batch b, to shared memory at dst; completion counted on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d0, int h, int t0,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(h),
+      "r"(t0), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile that TMA wrote with the 128-byte
+// swizzle: start address, leading and stride byte offsets (16-byte units),
+// layout 1 (128-byte swizzle). Tiles are 1024-aligned, so the base offset
+// is 0 for every start address used here.
+__device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo,
+                                          uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving register accesses across an async wgmma
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          if (c + i < D) ev[i] = src[i];
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = u;
-  }
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-template <int kD, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o, int Tq,
-               int Tk, int H, int D, float scale, int causal) {
-  constexpr int kLd = kD + 8;  // 16-byte rows, conflict-free fragment loads
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kBM * kLd;
-  bf16* Vs = Ks + kBN * kLd;
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
 
-  const int bh = blockIdx.y;
+// d (+)= a * b, m64n128k16: A and B from shared memory, K-major
+// (accumulate = 0 overwrites d)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += a * b, m64n128k16 (64) or m64n64k16 (32 floats a thread): A from
+// registers, B from shared memory MN-major (the transpose bit)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_bf16(__grid_constant__ const CUtensorMap map_q,
+               __grid_constant__ const CUtensorMap map_k,
+               __grid_constant__ const CUtensorMap map_v,
+               bf16* __restrict__ o, int Tq, int Tk, int H, int D,
+               float scale, int causal) {
+  typedef Smem<kD> L;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + 1023u) &
+      ~1023u;
+  const uint32_t sQ = base, sK = base + L::kK, sV = base + L::kV;
+  // barriers: full Q; per stage full K, full V, empty K, empty V
+  const uint32_t full_q = base + L::kBar;
+  const uint32_t full_k = full_q + 8, full_v = full_k + 8 * kStages;
+  const uint32_t empty_k = full_v + 8 * kStages;
+  const uint32_t empty_v = empty_k + 8 * kStages;
+
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;
-  const size_t rs = static_cast<size_t>(H) * D;
-  const size_t head = static_cast<size_t>(h) * D;
-  const bf16* qb = q + static_cast<size_t>(b) * Tq * rs + head;
-  const bf16* kb = k + static_cast<size_t>(b) * Tk * rs + head;
-  const bf16* vb = v + static_cast<size_t>(b) * Tk * rs + head;
-  bf16* ob = o + static_cast<size_t>(b) * Tq * rs + head;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;   // fragment row (and column of B fragments)
-  const int t4 = lane % 4;  // fragment column pair
-
-  load_tile<kD, kVec>(qb, rs, q0, Tq, D, Qs, kLd, kBM);
-  __syncthreads();
-  // this warp's 16 q rows as A fragments, for the whole sweep
-  uint32_t qf[kD / 16][4];
-  const int qr = warp * 16 + g;
-#pragma unroll
-  for (int ks = 0; ks < kD / 16; ++ks) {
-    const bf16* p = Qs + qr * kLd + ks * 16 + t4 * 2;
-    qf[ks][0] = ld32(p);
-    qf[ks][1] = ld32(p + 8 * kLd);
-    qf[ks][2] = ld32(p + 8);
-    qf[ks][3] = ld32(p + 8 * kLd + 8);
-  }
-
-  // rows row0 = q0 + qr and row1 = row0 + 8: fragment elements 0-1 and 2-3
-  const int row0 = q0 + qr;
-  const int row1 = row0 + 8;
-  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;
   int n_tiles = (Tk + kBN - 1) / kBN;
   if (causal) n_tiles = min(n_tiles, (min(q0 + kBM, Tq) - 1) / kBN + 1);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBN;
-    __syncthreads();  // the previous step's K and V are no longer read
-    load_tile<kD, kVec>(kb, rs, k0, Tk, D, Ks, kLd, kBN);
-    load_tile<kD, kVec>(vb, rs, k0, Tk, D, Vs, kLd, kBN);
-    __syncthreads();
 
-    // S = Q K^T: 16 rows x 64 keys a warp, 8 fragments of 8 keys
-    float s[kBN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kD / 16; ++ks)
-#pragma unroll
-      for (int nt = 0; nt < kBN / 8; ++nt) {
-        const bf16* p = Ks + (nt * 8 + g) * kLd + ks * 16 + t4 * 2;
-        mma(s[nt], qf[ks], ld32(p), ld32(p + 8));
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, kConsumerWarps);
+      mbar_init(empty_v + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // scale, mask, and the streaming softmax statistics of the two rows
-    float mx0 = kNeg, mx1 = kNeg;
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
-        const int row = e < 2 ? row0 : row1;
-        float x = s[nt][e] * scale;
-        if (col >= Tk || (causal && row < col)) x = kNeg;
-        s[nt][e] = x;
-        if (e < 2)
-          mx0 = fmaxf(mx0, x);
-        else
-          mx1 = fmaxf(mx1, x);
+  const int role = threadIdx.x / 128;  // 0, 1: consumers; 2: the producer
+  if (role == 2) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(full_q, L::kQ);
+      for (int x = 0; x < L::kBoxes; ++x)
+        tma_load(sQ + x * kBM * kRow, &map_q, full_q, x * kBox, h, q0, b);
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int s = kt % kStages;
+        const uint32_t lap = (kt / kStages) & 1;
+        mbar_wait(empty_k + 8 * s, lap ^ 1);
+        mbar_expect_tx(full_k + 8 * s, L::kKV);
+        for (int x = 0; x < L::kBoxes; ++x)
+          tma_load(sK + s * L::kKV + x * kBN * kRow, &map_k, full_k + 8 * s,
+                   x * kBox, h, kt * kBN, b);
+        mbar_wait(empty_v + 8 * s, lap ^ 1);
+        mbar_expect_tx(full_v + 8 * s, L::kKV);
+        for (int x = 0; x < L::kBoxes; ++x)
+          tma_load(sV + s * L::kKV + x * kBN * kRow, &map_v, full_v + 8 * s,
+                   x * kBox, h, kt * kBN, b);
       }
-#pragma unroll
-    for (int w = 1; w < 4; w *= 2) {  // the 4 lanes that share a row
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, w));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
     }
-    const float mn0 = fmaxf(m0, mx0);
-    const float mn1 = fmaxf(m1, mx1);
-    const float a0 = expf(m0 - mn0);
-    const float a1 = expf(m1 - mn1);
-    float sum0 = 0.f, sum1 = 0.f;
+  } else {
+    // ----------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = role;  // consumer warpgroup: 0 or 1
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;   // accumulator row (and row + 8)
+    const int t4 = lane % 4;  // accumulator column pair
+    const int q0w = q0 + 64 * cw;
+    const int row0 = q0w + 16 * warp + g;
+    const int row1 = row0 + 8;
+    const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units
+
+    float acc[kD / 2];  // O, 64 x kD, in wgmma's accumulator layout
 #pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-      s[nt][0] = expf(s[nt][0] - mn0);
-      s[nt][1] = expf(s[nt][1] - mn0);
-      s[nt][2] = expf(s[nt][2] - mn1);
-      s[nt][3] = expf(s[nt][3] - mn1);
-      sum0 += s[nt][0] + s[nt][1];
-      sum1 += s[nt][2] + s[nt][3];
+    for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
+    // m: running row max (log2 units); l: this thread's share of the sum
+    float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
+
+    const uint32_t qa = sQ + cw * 64 * kRow;  // this warpgroup's 64 rows
+    mbar_wait(full_q, 0);
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int s = kt % kStages;
+      const uint32_t lap = (kt / kStages) & 1;
+      const int k0 = kt * kBN;
+
+      // S = Q K^T: 64 x 128, k16 steps over D (4 per 64-column box)
+      float sc[kBN / 2];
+      const uint32_t ka = sK + s * L::kKV;
+      mbar_wait(full_k + 8 * s, lap);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kD / 16; ++ks)
+        wgmma_ss_n128(
+            sc, sdesc(qa + (ks / 4) * kBM * kRow + (ks % 4) * 32, 16, 1024),
+            sdesc(ka + (ks / 4) * kBN * kRow + (ks % 4) * 32, 16, 1024),
+            ks > 0);
+      wgmma_commit_wait();
+      pin(sc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_k + 8 * s);
+
+      // scale, mask (only tiles that cross the diagonal or Tk), and the
+      // streaming softmax statistics of rows row0 and row1
+      const bool edge = k0 + kBN > Tk || (causal && k0 + kBN - 1 > q0w);
+      float mx0 = kNeg, mx1 = kNeg;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e] * sl2;
+          if (edge) {
+            const int col = k0 + 8 * j + 2 * t4 + (e & 1);
+            if (col >= Tk || (causal && col > (e < 2 ? row0 : row1)))
+              x = kNeg;
+          }
+          sc[4 * j + e] = x;
+          if (e < 2)
+            mx0 = fmaxf(mx0, x);
+          else
+            mx1 = fmaxf(mx1, x);
+        }
+#pragma unroll
+      for (int w = 1; w < 4; w *= 2) {  // the 4 lanes that share a row
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, w));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
+      }
+      const float mn0 = fmaxf(m0, mx0);
+      const float mn1 = fmaxf(m1, mx1);
+      const float a0 = exp2f(m0 - mn0);
+      const float a1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        sc[4 * j + 0] = exp2f(sc[4 * j + 0] - mn0);
+        sc[4 * j + 1] = exp2f(sc[4 * j + 1] - mn0);
+        sc[4 * j + 2] = exp2f(sc[4 * j + 2] - mn1);
+        sc[4 * j + 3] = exp2f(sc[4 * j + 3] - mn1);
+        sum0 += sc[4 * j + 0] + sc[4 * j + 1];
+        sum1 += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+      l0 = l0 * a0 + sum0;
+      l1 = l1 * a1 + sum1;
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        acc[4 * j + 0] *= a0;
+        acc[4 * j + 1] *= a0;
+        acc[4 * j + 2] *= a1;
+        acc[4 * j + 3] *= a1;
+      }
+      // P as bf16 high and low A fragments, 16 keys each: the accumulator
+      // pairs of two 8-key groups are the fragment, in place
+      uint32_t ph[kBN / 16][4], pl[kBN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          split(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], ph[kk][r],
+                pl[kk][r]);
+
+      // O += P_hi V + P_lo V; V is MN-major: 16 keys are 2 groups of 8
+      // rows 1024 bytes apart, the two 64-column boxes kBN rows apart
+      const uint32_t va = sV + s * L::kKV;
+      mbar_wait(full_v + 8 * s, lap);
+      pin(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        const uint64_t dv = sdesc(va + kk * 16 * kRow, kBN * kRow, 1024);
+        wgmma_rs(acc, ph[kk], dv);
+        wgmma_rs(acc, pl[kk], dv);
+      }
+      wgmma_commit_wait();
+      pin(acc);
+      pin(ph);
+      pin(pl);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_v + 8 * s);
     }
+
+    // O / l, rounded once; bf16 pairs (D is a multiple of 8)
 #pragma unroll
     for (int w = 1; w < 4; w *= 2) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, w);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, w);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, w);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, w);
     }
-    l0 = l0 * a0 + sum0;
-    l1 = l1 * a1 + sum1;
-    m0 = mn0;
-    m1 = mn1;
+    const float inv0 = 1.f / l0;
+    const float inv1 = 1.f / l1;
+    const size_t rs = static_cast<size_t>(H) * D;
+    bf16* ob = o + static_cast<size_t>(b) * Tq * rs + static_cast<size_t>(h) * D;
 #pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
-      acc[dt][0] *= a0;
-      acc[dt][1] *= a0;
-      acc[dt][2] *= a1;
-      acc[dt][3] *= a1;
-    }
-
-    // O += P V: the S fragments of two 8-key groups are the A fragment of
-    // P for 16 keys; P goes in as a bf16 high and a bf16 low part
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      uint32_t ph[4], pl[4];
-      split(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-      split(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-      split(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-      split(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int dt = 0; dt < kD / 8; ++dt) {
-        // B fragment: keys kk*16 + t4*2 + {0, 1} (and + 8), column dt*8 + g
-        const bf16* p = Vs + (kk * 16 + t4 * 2) * kLd + dt * 8 + g;
-        const uint32_t b0 = pack2(p[0], p[kLd]);
-        const uint32_t b1 = pack2(p[8 * kLd], p[9 * kLd]);
-        mma(acc[dt], ph, b0, b1);
-        mma(acc[dt], pl, b0, b1);
+    for (int j = 0; j < kD / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (col < D) {
+        if (row0 < Tq)
+          *reinterpret_cast<__nv_bfloat162*>(ob + row0 * rs + col) =
+              __floats2bfloat162_rn(acc[4 * j] * inv0,
+                                    acc[4 * j + 1] * inv0);
+        if (row1 < Tq)
+          *reinterpret_cast<__nv_bfloat162*>(ob + row1 * rs + col) =
+              __floats2bfloat162_rn(acc[4 * j + 2] * inv1,
+                                    acc[4 * j + 3] * inv1);
       }
     }
   }
-
-  const float inv0 = 1.f / l0;
-  const float inv1 = 1.f / l1;
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = e < 2 ? row0 : row1;
-      const int d = dt * 8 + t4 * 2 + (e & 1);
-      if (row < Tq && d < D)
-        ob[static_cast<size_t>(row) * rs + d] =
-            __float2bfloat16(acc[dt][e] * (e < 2 ? inv0 : inv1));
-    }
 }
 
 // ----------------------------------------------------------------- f32 path
@@ -396,30 +598,6 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// --------------------------------------------------------------- launchers
-template <int kD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int Tq, int Tk, int H, int D, float scale, int causal,
-                cudaStream_t s) {
-  constexpr size_t smem = static_cast<size_t>(kBM + 2 * kBN) * (kD + 8) *
-                          sizeof(bf16);
-  const bool vec = D % 8 == 0 &&
-                   ((reinterpret_cast<uintptr_t>(q) |
-                     reinterpret_cast<uintptr_t>(k) |
-                     reinterpret_cast<uintptr_t>(v)) % 16) == 0;
-  auto kern = vec ? flash_fwd_bf16<kD, true> : flash_fwd_bf16<kD, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Tq + kBM - 1) / kBM, B * H);
-  kern<<<grid, kThreads, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Tq, Tk, H, D, scale,
-      causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int kD>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int Tq, int Tk, int H, int D, float scale, int causal,
@@ -439,13 +617,90 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// --------------------------------------------------------------- launchers
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// the CUDA driver's cuTensorMapEncodeTiled through the runtime, so that
+// the library links no libcuda; null when that driver lacks it
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a TMA map over a contiguous bf16 [B, T, H, D] tensor: boxes of 64
+// columns x `rows` tokens of one head, 128-byte swizzle, zeros out of bounds
+int tensor_map(CUtensorMap* map, const void* ptr, int B, int T, int H, int D,
+               int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -4;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * H * D, 2ull * T * H * D};
+  const cuuint32_t box[4] = {kBox, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -5;
+}
+
+template <int kD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int Tq, int Tk, int H, int D, float scale, int causal,
+                cudaStream_t s) {
+  if (D % 8 != 0 || ((reinterpret_cast<uintptr_t>(q) |
+                      reinterpret_cast<uintptr_t>(k) |
+                      reinterpret_cast<uintptr_t>(v) |
+                      reinterpret_cast<uintptr_t>(o)) % 16) != 0)
+    return -3;
+  CUtensorMap mq, mk, mv;
+  int err = tensor_map(&mq, q, B, Tq, H, D, kBM);
+  if (!err) err = tensor_map(&mk, k, B, Tk, H, D, kBN);
+  if (!err) err = tensor_map(&mv, v, B, Tk, H, D, kBN);
+  if (err) return err;
+  const int smem = Smem<kD>::kBytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_bf16<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(B * H, (Tq + kBM - 1) / kBM);
+  flash_fwd_bf16<kD><<<grid, kThreads, smem, s>>>(
+      mq, mk, mv, static_cast<bf16*>(o), Tq, Tk, H, D, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
 }  // namespace
 
 // q [B, Tq, H, D], k and v [B, Tk, H, D] read, o [B, Tq, H, D] written;
 // contiguous, on one device, dtype 0 = f32, 1 = bf16; 1 <= D <= 128,
-// Tk >= 1. Launches one kernel on `stream` and returns its launch error (0
-// when it was accepted, -1 for an unknown dtype, -2 for D out of range); it
-// does not synchronise.
+// Tk >= 1; for bf16 D a multiple of 8 and every pointer 16-byte aligned.
+// Launches one kernel on `stream` and returns 0 when it was accepted, else
+// the reason it was refused: -1 an unknown dtype, -2 D out of range, -3 a
+// bf16 D or pointer that TMA cannot address, -4 no cuTensorMapEncodeTiled
+// in the CUDA driver, -5 a map it refused, or the launch's CUDA error.
+// It does not synchronise.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int B, int Tq, int Tk, int H,
                                    int D, float scale, int causal, int dtype,
@@ -453,8 +708,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D < 1 || D > 128) return -2;
   if (dtype == 1) {
-    if (D <= 32) return launch_bf16<32>(q, k, v, o, B, Tq, Tk, H, D, scale,
-                                        causal, s);
     if (D <= 64) return launch_bf16<64>(q, k, v, o, B, Tq, Tk, H, D, scale,
                                         causal, s);
     return launch_bf16<128>(q, k, v, o, B, Tq, Tk, H, D, scale, causal, s);
@@ -469,8 +722,17 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   return -1;
 }
 
+// dynamic shared memory of one bf16 block for head dim D (1..128)
+extern "C" int flash_attention_bf16_smem(int D) {
+  return D <= 64 ? Smem<64>::kBytes : Smem<128>::kBytes;
+}
+
 extern "C" const char* flash_attention_error_name(int err) {
   if (err == -1) return "unsupported dtype";
   if (err == -2) return "head dim out of range (1..128)";
+  if (err == -3) return "bf16 needs D a multiple of 8 and 16-byte aligned "
+                        "q, k, v and o for its TMA maps";
+  if (err == -4) return "the CUDA driver has no cuTensorMapEncodeTiled";
+  if (err == -5) return "cuTensorMapEncodeTiled refused the tensor map";
   return cudaGetErrorName(static_cast<cudaError_t>(err));
 }

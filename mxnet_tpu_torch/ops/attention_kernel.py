@@ -13,6 +13,9 @@ returns an empty tensor of the output's shape for a ``meta`` tensor (the
 port's shape inference), launches ``csrc/flash_attention.cu`` on a CUDA
 tensor (f32 or bf16, ``D <= 128``), and raises on anything else.
 ``flash_attention.launches`` counts the calls that launched the kernel.
+The bf16 kernel reads q, k and v through TMA maps, which need a head dim
+that is a multiple of 8 and 16-byte aligned tensors: :func:`tma_operands`
+pads and copies the inputs for it, and the output is sliced back.
 
 :class:`FlashAttention` is the ``torch.autograd.Function`` (the JAX
 package's ``custom_vjp``): the forward is ``flash_attention``, the
@@ -31,7 +34,7 @@ from ..base import MXNetError
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_plain",
-           "dense_attention_plain", "FlashAttention"]
+           "dense_attention_plain", "tma_operands", "FlashAttention"]
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -86,6 +89,26 @@ def dense_attention_plain(q, k, v, scale=None, causal=False):
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
+def tma_operands(q, k, v):
+    """q, k, v as the bf16 kernel's TMA maps can address them: contiguous,
+    the head dim zero-padded to a multiple of 8 (a token's stride a
+    multiple of 16 bytes), each base 16-byte aligned (an unaligned one is
+    copied). Returns the three tensors; where nothing needs to change they
+    are the inputs themselves. Zero columns add nothing to q.k and give
+    zero output columns, so the first D output columns are the function of
+    the original inputs at the original scale."""
+    pad = -q.shape[-1] % 8
+    out = []
+    for t in (q, k, v):
+        t = t.contiguous()
+        if pad:
+            t = torch.nn.functional.pad(t, (0, pad))
+        elif t.data_ptr() % 16:
+            t = t.clone()
+        out.append(t)
+    return out
+
+
 def _library():
     lib = _build.library("flash_attention")
     with _lock:
@@ -96,6 +119,8 @@ def _library():
             lib.flash_attention_fwd.restype = i
             lib.flash_attention_error_name.argtypes = [i]
             lib.flash_attention_error_name.restype = ctypes.c_char_p
+            lib.flash_attention_bf16_smem.argtypes = [i]
+            lib.flash_attention_bf16_smem.restype = i
     return lib
 
 
@@ -132,23 +157,27 @@ def flash_attention(q, k, v, scale=None, causal=False, block_q=512,
                          "%d; got %d" % (MAX_HEAD_DIM, d))
     lib = _library()
     with torch.cuda.device(q.device):
-        q_c, k_c, v_c = q.contiguous(), k.contiguous(), v.contiguous()
+        if q.dtype == torch.bfloat16:
+            q_c, k_c, v_c = tma_operands(q, k, v)
+        else:
+            q_c, k_c, v_c = q.contiguous(), k.contiguous(), v.contiguous()
         out = torch.empty_like(q_c)
         if out.numel() == 0:
-            return out
+            return out[..., :d]
         if tk == 0:
             raise MXNetError("flash_attention: no keys (Tk = 0)")
         err = lib.flash_attention_fwd(
             q_c.data_ptr(), k_c.data_ptr(), v_c.data_ptr(), out.data_ptr(),
-            b, tq, tk, h, d, _scale(q, scale), int(bool(causal)),
-            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+            b, tq, tk, h, q_c.shape[-1], _scale(q, scale),
+            int(bool(causal)), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise MXNetError("flash_attention kernel launch failed: %s (%d)"
                          % (lib.flash_attention_error_name(err).decode(),
                             err))
     with _lock:
         flash_attention.launches += 1
-    return out
+    return out if out.shape[-1] == d else out[..., :d].contiguous()
 
 
 #: calls that launched the CUDA kernel (the plain version does not count)

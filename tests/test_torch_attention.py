@@ -37,7 +37,7 @@ from mxnet_tpu.ops.pallas_kernels import flash_attention as jflash
 import mxnet_tpu_torch as mxt
 from mxnet_tpu_torch.ops.attention_kernel import (
     FlashAttention, dense_attention_plain, flash_attention,
-    flash_attention_plain)
+    flash_attention_plain, tma_operands)
 
 FWD_TOL, GRAD_TOL = 2e-5, 1e-4
 BF16_RTOL, BF16_ATOL = 2 ** -7, 1e-6
@@ -140,6 +140,77 @@ def test_rejects_bad_shapes():
     with pytest.raises(mxt.MXNetError, match="flash_attention"):
         kv = torch.zeros((2, 5, 3, 4))
         flash_attention(q, kv, kv)
+
+
+# ------------------------------------- the bf16 kernel's TMA preparation
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _unaligned(t):
+    """``t``'s values in a contiguous view one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype)
+    off = -buf.data_ptr() % 16 // t.element_size() + 1
+    view = buf[off:off + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("d", [7, 37])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tma_operands_pad_head_dim(d, causal, dtype):
+    """D zero-padded to a multiple of 8: the first D columns of the padded
+    inputs' attention, at the original D's scale, are the original
+    inputs' attention, exactly."""
+    q, k, v = (torch.from_numpy(a).to(TORCH_DTYPES[dtype])
+               for a in _qkv(2, 24, 40, 3, d, seed=13))
+    ready = tma_operands(q, k, v)
+    for t, orig in zip(ready, (q, k, v)):
+        assert t.is_contiguous() and t.shape[-1] % 8 == 0
+        assert t.data_ptr() % 16 == 0 and t.dtype == orig.dtype
+        torch.testing.assert_close(t[..., :d], orig, rtol=0, atol=0)
+        assert not t[..., d:].any()
+    got = flash_attention_plain(*ready, scale=1.0 / d ** 0.5,
+                                causal=causal)[..., :d]
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_tma_operands_pad_tiny_head_dim():
+    """At D = 3 the CPU's einsum sums the 3 and the 8 columns in another
+    order, so the padded result is held to f32 rounding, not exactly."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 24, 40, 3, 3, seed=14))
+    got = flash_attention_plain(*tma_operands(q, k, v),
+                                scale=1.0 / 3 ** 0.5, causal=True)[..., :3]
+    want = flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tma_operands_copy_unaligned(causal, dtype):
+    """Views that start off a 16-byte boundary are copied to aligned
+    tensors with the same values; the attention is the same, exactly."""
+    q, k, v = (torch.from_numpy(a).to(TORCH_DTYPES[dtype])
+               for a in _qkv(1, 30, 20, 2, 16, seed=15))
+    views = [_unaligned(t) for t in (q, k, v)]
+    assert all(t.data_ptr() % 16 for t in views)
+    ready = tma_operands(*views)
+    for t, orig in zip(ready, (q, k, v)):
+        assert t.data_ptr() % 16 == 0 and t.shape == orig.shape
+        torch.testing.assert_close(t, orig, rtol=0, atol=0)
+    torch.testing.assert_close(flash_attention_plain(*ready, causal=causal),
+                               flash_attention_plain(q, k, v, causal=causal),
+                               rtol=0, atol=0)
+
+
+def test_tma_operands_keep_ready_inputs():
+    """Contiguous, aligned inputs with D a multiple of 8 are passed as they
+    are: no copy on the main path."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(1, 8, 8, 2, 16))
+    assert all(a is b for a, b in zip(tma_operands(q, k, v), (q, k, v)))
 
 
 # ---------------------------------------------------------------- the op

@@ -311,10 +311,18 @@ def test_small_resnet_steps_on_gpu_match_cpu(cuda, monkeypatch):
 # ---------------------------------------------------------------------------
 # K4 (flash_attention) and rtc on the card
 # ---------------------------------------------------------------------------
-# (B, Tq, Tk, H, D): tiles of 64 (bf16) and 32 (f32) rows, ragged; Tq != Tk
-# both ways (the causal mask is aligned at the top left); D below a tile
+# (B, Tq, Tk, H, D): bf16 tiles of 128 q rows (64 a consumer warpgroup) and
+# 128 keys, f32 tiles of 32 rows and 64 keys; Tq and Tk at every tile edge
+# (1, 63, 64, 65, 127, 128, 129, 255), Tq != Tk both ways (the causal mask
+# is aligned at the top left); D below a 64-column TMA box (8, 40), across
+# two (96), and 7, which the wrapper pads to 8; B*H = 150 blocks of q rows
+# twice over, more than the card's 132 SMs
 K4_SHAPES = [(1, 128, 128, 2, 64), (2, 200, 200, 3, 128), (1, 100, 300, 2, 64),
-             (2, 300, 100, 2, 128), (1, 77, 77, 1, 40)]
+             (2, 300, 100, 2, 128), (1, 77, 77, 1, 40),
+             (1, 1, 129, 2, 128), (1, 129, 1, 2, 128), (1, 63, 255, 2, 64),
+             (1, 255, 63, 2, 64), (2, 65, 127, 1, 96), (2, 127, 65, 1, 96),
+             (1, 64, 128, 2, 8), (1, 128, 64, 2, 40), (1, 255, 129, 1, 7),
+             (3, 129, 129, 50, 64)]
 # f32: the reference's 2e-5; bf16: both sides compute in f32 and round once
 # to bf16, so a value may land one bf16 step (2^-7 relative) apart
 K4_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2 ** -7, 1e-5)}
@@ -355,8 +363,34 @@ def test_k4_given_scale_and_strided_inputs(cuda):
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_k4_unaligned_bf16_inputs(cuda, causal):
+    """q, k, v views that start 2 bytes past a 16-byte boundary: the
+    wrapper copies them for the TMA maps, and the result is the plain
+    version's on the same values."""
+    from mxnet_tpu_torch.ops.attention_kernel import (flash_attention,
+                                                      flash_attention_plain)
+    shape = (2, 100, 130, 2, 64)
+    want_in = _attention_inputs(shape, cuda, torch.bfloat16, 5)
+    views = []
+    for t in want_in:
+        buf = torch.empty(t.numel() + 1, device=cuda, dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 2
+        views.append(view)
+    before = flash_attention.launches
+    got = flash_attention(*views, causal=causal)
+    want = flash_attention_plain(*want_in, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    rtol, atol = K4_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
 def test_k4_refuses_what_it_cannot_launch(cuda):
-    from mxnet_tpu_torch.ops.attention_kernel import flash_attention
+    from mxnet_tpu_torch.ops.attention_kernel import _library, flash_attention
     q = torch.zeros(1, 4, 1, 256, device=cuda)
     with pytest.raises(mxt.MXNetError, match="head dims up to 128"):
         flash_attention(q, q, q)
@@ -365,6 +399,17 @@ def test_k4_refuses_what_it_cannot_launch(cuda):
         flash_attention(h, h, h)
     with pytest.raises(mxt.MXNetError, match="k on cpu"):
         flash_attention(h.float(), h.float().cpu(), h.float())
+    # the launcher itself refuses what its TMA maps cannot address: an
+    # unaligned pointer, a bf16 head dim that is not a multiple of 8
+    lib = _library()
+    b = torch.zeros(64, device=cuda, dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    for ptr, d in ((b.data_ptr() + 2, 8), (b.data_ptr(), 7)):
+        err = lib.flash_attention_fwd(ptr, b.data_ptr(), b.data_ptr(),
+                                      b.data_ptr(), 1, 4, 4, 1, d, 1.0, 0, 1,
+                                      stream)
+        assert err == -3, err
+        assert b"TMA" in lib.flash_attention_error_name(err)
 
 
 @pytest.mark.parametrize("causal", [False, True])
