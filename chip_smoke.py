@@ -14,16 +14,22 @@ through the port's user entry points, in six phases:
 
 1. build the kernels (one ``nvcc`` per source, all at once);
 2. ``fused_lstm`` kernel vs plain version at the served shapes
-   (T=35, B in {1, 8, 32}, I=H=650) and at a ragged small shape, with
+   (T=35, B in {1, 8, 32}, I=H=650), at B = 3 and 64, at T = 1, at a
+   shape that takes the step route and at a ragged small shape, with
    kernel, plain and cuDNN (``torch.nn.LSTM``, timed as a yardstick only)
-   times and the kernel's bound;
+   times and the kernel's bound at the served shapes; each call's route
+   against its plan (grid, units a block, rows, shared memory; every
+   shape at H=650 persistent), the recurrence kernel's launches a call
+   (1 on the persistent route) and device µs a step from a profile,
+   ptxas's registers and spills, and 20 calls at B=32 bit-identical;
 3. ``Predictor`` on ``gpu(0)`` vs the same ``Predictor`` on ``cpu()``;
 4. ``InferenceEngine`` on ``gpu(0)`` (buckets 1..32) under 100 concurrent
    requests of 1-8 rows, sampled results held against the CPU reference;
 5. the HTTP server in-process: two ``/predict`` requests, ``/healthz``,
    ``/shutdown``;
 6. ``torch.profiler`` over one served forward at the top bucket: device
-   time by kernel and the device's idle share;
+   time by kernel, K1's share and launches (one persistent launch a
+   layer) and the device's idle share;
 
 and then trains the same LM, the configuration of the training benchmark
 (``examples/rnn/word_lm/benchmark.py``: batch 32, SGD with lr 1 and
@@ -33,7 +39,9 @@ and then trains the same LM, the configuration of the training benchmark
    ``lstm_bwd_recurrence`` (K3) vs their plain versions, and a
    ``FusedLSTM`` layer's six gradients vs the plain backward, at T=35,
    B in {8, 32}, I=H=650 and a ragged shape, with kernel, plain and cuDNN
-   (forward, backward, both; timed as a yardstick only) times;
+   (forward, backward, both; timed as a yardstick only) times; K2 alone
+   at phase 2's extra shapes, its routes, launches, µs a step, ptxas
+   report and 20 bit-identical calls at B=32, as phase 2 for K1;
 8. ``Module`` on ``gpu(0)`` from ``mx.random.seed(0)``: 2 ``_step``s held
    against the same Module on ``cpu()``, 20 timed steps of
    ``_step_scan`` after 2 warm-up steps (tokens/s trained) between two
@@ -41,7 +49,8 @@ and then trains the same LM, the configuration of the training benchmark
    default, each batch copied from host memory), ``fit`` for
    one short epoch of an ``NDArrayIter`` with ``Perplexity`` and
    ``Speedometer``, and ``score`` on an eval iterator (K1);
-9. ``torch.profiler`` over one train step;
+9. ``torch.profiler`` over one train step: K2's and K3's shares and
+   launches (K2: one persistent launch a layer);
 
 and then trains ResNet-50 v1 at the configuration of the image
 benchmark (``tools/bench_all.py:91-97``: NHWC, bf16, batch 128, 1000
@@ -98,10 +107,11 @@ Phases 3-5 are the serving main path, phase 8 the LM training one,
 phase 11's gate-on steps on the card the ResNet one, phase 15's steps on
 the card the attention one and phase 16's first launches the rtc one:
 every kernel's launch count is set to 0 before each and read after it.
-The serving path must launch K1; the LM training path must launch K2 and
-K3 exactly once per layer and step, and K1 once per layer and eval
-batch; the ResNet path must launch K5 exactly 6 times per step with the
-gate on, and never with it off; the attention path must launch K4 once
+The serving path must launch K1, every call by the persistent route; the
+LM training path must launch K2 and K3 exactly once per layer and step,
+and K1 once per layer and eval batch, K1 and K2 by the persistent route;
+the ResNet path must launch K5 exactly 6 times per step with the gate
+on, and never with it off; the attention path must launch K4 once
 per layer and step; the rtc path its two kernels once each. Any failed
 check exits non-zero. The last lines
 are the card's name and power limit (``nvidia-smi``), one JSON line with
@@ -127,6 +137,15 @@ VOCAB, EMBED, HIDDEN, LAYERS, SEQ = 10000, 650, 650, 2, 35
 SEED = 0
 SERVED_BATCHES = (1, 8, 32)
 RAGGED = (5, 3, 7, 13)          # T, B, I, H: H and B off every tile size
+# K1 and K2 are also held to LSTM_ATOL, untimed, at B = 3 and 64, at T = 1,
+# and at a shape whose Wh slice does not fit a block's shared memory: the
+# step route (one launch per step); every shape at H = 650 must take the
+# persistent route (one cooperative launch a layer)
+EXTRA_SHAPES = [(SEQ, 3, EMBED, HIDDEN), (1, 32, EMBED, HIDDEN),
+                (SEQ, 64, EMBED, HIDDEN)]
+STEP_ROUTE_SHAPE = (8, 4, 64, 1536)
+# K1 and K2 sum in a fixed order: this many calls give the same bits
+DETERMINISM_CALLS = 20
 # kernel vs plain, f32 on both: the h @ Wh sums (650 terms) run in another
 # order than cuBLAS's, and the difference compounds over 35 steps
 LSTM_ATOL = 1e-4
@@ -278,23 +297,104 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_profile(fn):
-    """Run ``fn`` once under torch.profiler. Returns the profiled wall
-    time in ms and {kernel name: [launches, device ms]}; the kernels are
-    empty when the profiler saw no device activity."""
+def device_profile(fn, attempts=3):
+    """Run ``fn`` under torch.profiler. Returns the profiled wall time in
+    ms and {kernel name: [launches, device ms]}; the kernels are empty
+    when the profiler saw no device activity. A run whose trace holds no
+    device activity at all is run again, up to ``attempts`` runs: the
+    tracer now and then returns an empty trace."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for _ in range(attempts):
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            kernels[e.key[:60]] = [e.count, e.self_device_time_total / 1e3]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels = {}
+        for e in prof.key_averages():
+            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                kernels[e.key[:60]] = [e.count,
+                                       e.self_device_time_total / 1e3]
+        if kernels:
+            break
     return wall, kernels
+
+
+# the name fragments of K1's, K2's and K3's kernels in a profile (K1 and K2:
+# both routes of csrc/lstm_persistent.cuh)
+K1_KERNELS = ("lstm_persistent<false>", "lstm_step<false>")
+K2_KERNELS = ("lstm_persistent<true>", "lstm_step<true>")
+K3_KERNELS = ("lstm_bwd_step", "lstm_bwd_dh0")
+
+
+def kernel_share(kern, fragments, busy):
+    """Launches, device ms and share of busy time of the kernels whose
+    names hold one of ``fragments``, by name."""
+    hits = {k: v for k, v in kern.items() if any(f in k for f in fragments)}
+    ms = sum(v[1] for v in hits.values())
+    return {"launches": {k: v[0] for k, v in hits.items()}, "ms": ms,
+            "share": ms / busy if busy else None}
+
+
+def recurrence_profile(fn, t, plan, residuals):
+    """Launches of K1's (K2's with ``residuals``) recurrence kernel in one
+    call of ``fn`` over ``t`` steps, and its device µs a step."""
+    _, kern = device_profile(fn)
+    name = "%s<%s>" % ("lstm_persistent" if plan.route == "persistent"
+                       else "lstm_step", "true" if residuals else "false")
+    hits = [v for k, v in kern.items() if name in k]
+    check(len(hits) == 1, "one call's profile shows %d %s kernels"
+          % (len(hits), name))
+    launches, ms = hits[0]
+    want = 1 if plan.route == "persistent" else t
+    check(launches == want, "one call launched %s %d times, want %d"
+          % (name, launches, want))
+    return launches, ms * 1e3 / t
+
+
+def ptxas_of(name, fragment):
+    """ptxas's registers and spill bytes for the entry of csrc/<name>.cu
+    whose mangled name holds ``fragment``."""
+    from mxnet_tpu_torch.ops import _build
+    out, entry = {}, ""
+    for line in (_build.build_log(name) or "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        elif fragment in entry:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                out["spill_store_bytes"] = int(m.group(1))
+                out["spill_load_bytes"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out["registers"] = int(m.group(1))
+    check("registers" in out, "no ptxas report for %s in %s"
+          % (fragment, name))
+    return out
+
+
+def check_route(wrapper, plan, before, what):
+    """The one call since ``before`` (a copy of ``launches_by_route``) took
+    ``plan``'s route."""
+    took = [r for r, n in wrapper.launches_by_route.items()
+            if n != before[r]]
+    check(took == [plan.route], "%s took route %s, its plan says %s"
+          % (what, took, plan.route))
+    return took[0]
+
+
+def check_deterministic(fn, args, what):
+    """DETERMINISM_CALLS calls of ``fn`` give the same bits."""
+    first = [o.clone() for o in fn(*args)]
+    for n in range(DETERMINISM_CALLS - 1):
+        for k, (g, w) in enumerate(zip(fn(*args), first)):
+            check(torch.equal(g, w), "%s output %d of call %d differs from "
+                  "call 1's bits" % (what, k, n + 2))
+    return DETERMINISM_CALLS
 
 
 def lstm_inputs(t, b, i, h, device, seed):
@@ -334,15 +434,28 @@ def cudnn_lstm(x, h0, c0, wx, wh, b):
 
 
 def phase_kernel(ops, device):
-    """fused_lstm kernel vs plain at the served and a ragged shape."""
+    """fused_lstm kernel vs plain at the served shapes (timed), the extra
+    shapes, the step route's and a ragged one; each call's route against
+    its plan; bitwise determinism at B=32."""
     fused_lstm, plain = ops.fused_lstm, ops.fused_lstm_plain
     rows = []
     worst = 0.0
-    shapes = [(SEQ, b, EMBED, HIDDEN) for b in SERVED_BATCHES] + [RAGGED]
+    served = [(SEQ, b, EMBED, HIDDEN) for b in SERVED_BATCHES]
+    shapes = served + EXTRA_SHAPES + [STEP_ROUTE_SHAPE, RAGGED]
+    log("phase 2 fused_lstm ptxas %s" % json.dumps({
+        "lstm_persistent": ptxas_of("fused_lstm", "lstm_persistent"),
+        "lstm_step": ptxas_of("fused_lstm", "lstm_step")}))
     for n, (t, b, i, h) in enumerate(shapes):
         args = lstm_inputs(t, b, i, h, device, SEED + n)
+        plan = ops.lstm_plan(b, h, device)
+        check(plan.route == ("step" if (t, b, i, h) == STEP_ROUTE_SHAPE
+                             else "persistent"),
+              "the plan at %s is %s" % ((t, b, i, h), plan))
         with torch.no_grad():
+            before = dict(fused_lstm.launches_by_route)
             got = fused_lstm(*args)
+            check_route(fused_lstm, plan, before, "fused_lstm %s"
+                        % ((t, b, i, h),))
             want = plain(*args)
             torch.cuda.synchronize()
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
@@ -352,8 +465,9 @@ def phase_kernel(ops, device):
                   "> %.1g at T=%d B=%d I=%d H=%d" % (err, LSTM_ATOL, t, b,
                                                      i, h))
             worst = max(worst, err)
-            row = {"T": t, "B": b, "I": i, "H": h, "max_abs_err": err}
-            if (t, b, i, h) != RAGGED:
+            row = {"T": t, "B": b, "I": i, "H": h, "max_abs_err": err,
+                   "plan": plan._asdict()}
+            if (t, b, i, h) in served:
                 lib = cudnn_lstm(*args)
                 lib_err = float((lib()[0] - got[0]).abs().max())
                 bound, by = lstm_bound_ms(t, b, i, h)
@@ -362,11 +476,15 @@ def phase_kernel(ops, device):
                     plain_ms=time_ms(lambda: plain(*args), 20),
                     library_ms=time_ms(lib, 20), library_max_abs_err=lib_err,
                     bound_ms=bound, bound_by=by)
-                # the recurrence kernel's own device time, per step
-                _, kern = device_profile(lambda: fused_lstm(*args))
-                steps = [v for k, v in kern.items() if "lstm_step" in k]
-                row["step_us"] = (steps[0][1] / steps[0][0] * 1e3
-                                  if steps else None)
+                # the recurrence kernel's launches in one call, and its own
+                # device time per step
+                launches, us = recurrence_profile(lambda: fused_lstm(*args),
+                                                  t, plan, False)
+                row.update(recurrence_launches_per_call=launches,
+                           recurrence_us_per_step=us)
+            if (t, b, i, h) == served[-1]:
+                row["bitwise_identical_calls"] = check_deterministic(
+                    fused_lstm, args, "fused_lstm %s" % ((t, b, i, h),))
         log("phase 2 fused_lstm %s" % json.dumps(row))
         rows.append(row)
     return rows, worst
@@ -540,11 +658,17 @@ def phase_profile(mx, sym_json, params, rng):
     wall, kern = device_profile(lambda: pred.forward(data=toks))
     busy = sum(ms for _, ms in kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:6]
+    k1 = kernel_share(kern, K1_KERNELS, busy)
     log("phase 6 profile %s" % json.dumps({
         "rows": n, "forward_wall_ms": wall, "device_busy_ms": busy,
         "device_idle_share": (1 - busy / wall) if kern else None,
+        "k1": k1,
         "top_kernels": [{"kernel": k, "launches": c, "ms": ms,
                          "share": ms / busy} for k, (c, ms) in top]}))
+    check(list(k1["launches"].values()) == [LAYERS]
+          and "lstm_persistent" in next(iter(k1["launches"])),
+          "a served forward's profile shows K1 kernels %s, want one "
+          "lstm_persistent launch per layer (%d)" % (k1["launches"], LAYERS))
 
 
 # ---------------------------------------------------------------------------
@@ -625,20 +749,45 @@ def phase_train_kernels(ops, device):
     """K2 (fused_lstm_train) and K3 (lstm_bwd_recurrence) against their
     plain versions, and the six gradients of a FusedLSTM layer against
     the plain backward, at T=35, B in {8, 32}, I=H=650 and a ragged
-    shape; kernel, plain and cuDNN times with each kernel's bound."""
+    shape; kernel, plain and cuDNN times with each kernel's bound. K2
+    alone at the extra shapes and the step route's; each K2 call's route
+    against its plan; K2's bitwise determinism at B=32."""
     rows = []
     worst = 0.0
+    log("phase 7 fused_lstm_train ptxas %s" % json.dumps({
+        "lstm_persistent": ptxas_of("fused_lstm_train", "lstm_persistent"),
+        "lstm_step": ptxas_of("fused_lstm_train", "lstm_step")}))
+    for n, shape in enumerate(EXTRA_SHAPES + [STEP_ROUTE_SHAPE]):
+        args = lstm_inputs(*shape, device, SEED + 30 + n)
+        plan = ops.lstm_plan(shape[1], shape[3], device)
+        with torch.no_grad():
+            before = dict(ops.fused_lstm_train.launches_by_route)
+            got = ops.fused_lstm_train(*args)
+            route = check_route(ops.fused_lstm_train, plan, before,
+                                "fused_lstm_train %s" % (shape,))
+            err = max_err(got, ops.fused_lstm_train_plain(*args),
+                          "fused_lstm_train %s" % (shape,))
+        worst = max(worst, err)
+        log("phase 7 train kernels %s" % json.dumps({
+            "T": shape[0], "B": shape[1], "I": shape[2], "H": shape[3],
+            "k2_max_abs_err": err, "route": route, "plan": plan._asdict()}))
     shapes = [(SEQ, b, EMBED, HIDDEN) for b in TRAIN_BATCHES] + [RAGGED]
     for n, (t, b, i, h) in enumerate(shapes):
         args = lstm_inputs(t, b, i, h, device, SEED + 10 + n)
+        plan = ops.lstm_plan(b, h, device)
         rng = np.random.RandomState(SEED + 20 + n)
         cots = [torch.from_numpy(rng.randn(*s).astype(np.float32))
                 .to(device) for s in ((t, b, h), (b, h), (b, h))]
         x, h0, c0, wx, wh, bias = args
         with torch.no_grad():
             res = ops.fused_lstm_train_plain(*args)
+            before = dict(ops.fused_lstm_train.launches_by_route)
             err2 = max_err(ops.fused_lstm_train(*args), res,
                            "fused_lstm_train %s" % ((t, b, i, h),))
+            route = check_route(ops.fused_lstm_train, plan, before,
+                                "fused_lstm_train %s" % ((t, b, i, h),))
+            check(route == "persistent", "fused_lstm_train at %s took the "
+                  "%s route" % ((t, b, i, h), route))
             bwd_args = (*cots, res[2], res[1], c0, wh)
             err3 = max_err(ops.lstm_bwd_recurrence(*bwd_args),
                            ops.lstm_bwd_recurrence_plain(*bwd_args),
@@ -652,7 +801,8 @@ def phase_train_kernels(ops, device):
                         % ((t, b, i, h),))
         worst = max(worst, err2, err3, err_g)
         row = {"T": t, "B": b, "I": i, "H": h, "k2_max_abs_err": err2,
-               "k3_max_abs_err": err3, "grad_max_abs_err": err_g}
+               "k3_max_abs_err": err3, "grad_max_abs_err": err_g,
+               "route": route, "plan": plan._asdict()}
         if (t, b, i, h) != RAGGED:
             (k2b, k2by), (k3b, k3by) = train_bounds(t, b, i, h)
             lib_fwd, lib_bwd, lib_both = cudnn_train(*args, cots)
@@ -673,10 +823,16 @@ def phase_train_kernels(ops, device):
                     k3_bound_ms=k3b, k3_bound_by=k3by,
                     backward_ms=time_ms(lambda: ops.fused_lstm_backward(
                         *cots, x, h0, c0, wx, wh, *res), 20),
-                    k2_step_us=step_us(lambda: ops.fused_lstm_train(*args),
-                                       "lstm_train_step"),
                     k3_step_us=step_us(lambda: ops.lstm_bwd_recurrence(
                         *bwd_args), "lstm_bwd_step"))
+                launches, us = recurrence_profile(
+                    lambda: ops.fused_lstm_train(*args), t, plan, True)
+                row.update(k2_recurrence_launches_per_call=launches,
+                           k2_recurrence_us_per_step=us)
+                if b == TRAIN_BATCH:
+                    row["k2_bitwise_identical_calls"] = check_deterministic(
+                        ops.fused_lstm_train, args, "fused_lstm_train %s"
+                        % ((t, b, i, h),))
             row.update(layer_fwd_bwd_ms=time_ms(layer, 20),
                        cudnn_fwd_ms=time_ms(lib_fwd, 20),
                        cudnn_bwd_ms=time_ms(lib_bwd, 20),
@@ -839,11 +995,17 @@ def phase_train_profile(mod, rng, mx):
     wall, kern = device_profile(lambda: mod._step(batch))
     busy = sum(ms for _, ms in kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:10]
+    k2 = kernel_share(kern, K2_KERNELS, busy)
     log("phase 9 train profile %s" % json.dumps({
         "step_wall_ms": wall, "device_busy_ms": busy,
         "device_idle_share": (1 - busy / wall) if kern else None,
+        "k2": k2, "k3": kernel_share(kern, K3_KERNELS, busy),
         "top_kernels": [{"kernel": k, "launches": c, "ms": ms,
                          "share": ms / busy} for k, (c, ms) in top]}))
+    check(list(k2["launches"].values()) == [LAYERS]
+          and "lstm_persistent" in next(iter(k2["launches"])),
+          "a train step's profile shows K2 kernels %s, want one "
+          "lstm_persistent launch per layer (%d)" % (k2["launches"], LAYERS))
 
 
 # ---------------------------------------------------------------------------
@@ -1741,12 +1903,20 @@ def main():
     gpu_params = mx.params_from_numpy(host, mx.gpu(0))
     rng = np.random.RandomState(SEED + 1)
 
+    k1_routes = mx.ops.fused_lstm.launches_by_route
     mx.ops.fused_lstm.launches = 0            # the main path starts here
+    k1_routes.update(persistent=0, step=0)
     phase_predictor(mx, sym_json, gpu_params, ref, rng, mx.gpu(0))
     engine = phase_engine(mx, sym_json, gpu_params, ref, rng, mx.gpu(0))
     phase_http(mx, engine, ref, rng)
     launches = mx.ops.fused_lstm.launches     # ... and ends here
+    serving_routes = dict(k1_routes)
+    log("phase 5 fused_lstm launches by route %s" % json.dumps(
+        serving_routes))
     check(launches > 0, "the main path never launched fused_lstm")
+    check(serving_routes == {"persistent": launches, "step": 0},
+          "the serving path's fused_lstm calls by route %s, want all %d "
+          "persistent" % (serving_routes, launches))
     phase_profile(mx, sym_json, gpu_params, rng)
 
     train_rows, train_worst = phase_train_kernels(mx.ops, device)
@@ -1754,11 +1924,20 @@ def main():
                 mx.ops.lstm_bwd_recurrence)
     for c in counters:                        # the training path starts
         c.launches = 0
+    for c in counters[:2]:
+        c.launches_by_route.update(persistent=0, step=0)
     mod, summary = phase_train(mx, mx.gpu(0), rng)
     k1, k2, k3 = (c.launches for c in counters)   # ... and ends here
+    routes = [dict(c.launches_by_route) for c in counters[:2]]
     steps = 4 + 2 * SCAN_STEPS + FIT_BATCHES
     summary.update(train_steps=steps, launches={
-        "fused_lstm": k1, "fused_lstm_train": k2, "lstm_bwd_recurrence": k3})
+        "fused_lstm": k1, "fused_lstm_train": k2, "lstm_bwd_recurrence": k3},
+        launches_by_route={"fused_lstm": routes[0],
+                           "fused_lstm_train": routes[1]})
+    check(routes == [{"persistent": k1, "step": 0},
+                     {"persistent": k2, "step": 0}],
+          "the training path's K1 and K2 calls by route %s, want all "
+          "persistent" % routes)
     log("phase 8 train %s" % json.dumps(summary))
     check(k2 == LAYERS * steps and k3 == LAYERS * steps,
           "training launched fused_lstm_train %d and lstm_bwd_recurrence %d "
@@ -1835,15 +2014,16 @@ def main():
     train = next(r for r in train_rows if r["B"] == TRAIN_BATCH)
     pallas = "mxnet_tpu/ops/pallas_kernels.py"
     train_src = "mxnet_tpu_torch/csrc/fused_lstm_train.cu"
+    recurrence_src = "mxnet_tpu_torch/csrc/lstm_persistent.cuh"
     kernels = [{
-        "name": "fused_lstm", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/fused_lstm.cu",
+        "name": "fused_lstm", "route": "cuda", "source": recurrence_src,
         "replaces": pallas + ":295",
         "launches": launches, "max_abs_err": worst,
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": top["library_ms"]}, {
-        "name": "fused_lstm_train", "route": "cuda", "source": train_src,
+        "name": "fused_lstm_train", "route": "cuda",
+        "source": recurrence_src,
         "replaces": pallas + ":348", "launches": k2,
         "max_abs_err": train_worst, "ms": train["k2_ms"],
         "plain_ms": train["k2_plain_ms"], "bound_ms": train["k2_bound_ms"],

@@ -7,7 +7,8 @@ so far:
 
 - serving: ``sym`` -> ``Executor`` -> ``Predictor`` ->
   ``serving.InferenceEngine`` -> HTTP, with the LSTM layer on a
-  hand-written CUDA inference kernel (`csrc/fused_lstm.cu`);
+  hand-written CUDA inference kernel (`csrc/fused_lstm.cu`, the
+  persistent recurrence of `csrc/lstm_persistent.cuh`);
 - LM training: ``sym`` -> ``mod.Module`` (bind, ``init_params``,
   ``init_optimizer``, ``fit``/``_step``/``_step_scan``, ``score``) with
   ``io``, ``metric``, ``optimizer``, ``initializer`` and ``callback``,

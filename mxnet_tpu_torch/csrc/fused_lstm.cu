@@ -1,139 +1,36 @@
 // Inference LSTM layer for Hopper (sm_90a): the hand-written counterpart of
 // the TPU kernel mxnet_tpu/ops/pallas_kernels.py::fused_lstm (_lstm_kernel).
 //
-// What it computes, per layer, gate order i, f, g, o (cuDNN's):
-//   gates_t = xp_t + h_{t-1} @ Wh      (xp = x @ Wx + b comes from the caller)
-//   c_t     = sigmoid(f) * c_{t-1} + sigmoid(i) * tanh(g)
-//   h_t     = sigmoid(o) * tanh(c_t)
-//
-// Design. The TPU kernel walks t on a sequential grid and carries h and c in
-// VMEM scratch from one grid step to the next. Hopper blocks run in parallel
-// and in no order, so nothing carries between them: here each time step is one
-// launch, issued in order on the caller's stream by fused_lstm_forward. h is
-// double-buffered in device memory at no cost: step t reads h_{t-1} from the
-// output sequence (h0 at t = 0) and writes h_t next to it. c is updated in
-// place, each element only by the one thread that owns it.
-//
-// One block covers 32 hidden units (one per lane) for up to 8 batch rows. Its
-// 8 warps split the reduction over k = 0..H-1 (warp w takes k = w, w+8, ...).
-// Each lane accumulates the four gate columns j, H+j, 2H+j, 3H+j for its 8
-// rows, so each Wh value it loads serves 8 rows, and the cell update runs in
-// the same kernel once the 8 partial sums are reduced through shared memory.
-// Lanes past H (H = 650 is no multiple of 32) and rows past B load and write
-// nothing. Everything is f32, as the TPU kernel's internal precision.
-//
-// What bounds it. Per step the blocks read Wh (H x 4H f32, 6.76 MB at H = 650)
-// once per 8-row batch tile; Wh fits the 50 MB L2, so after the first step
-// those reads hit L2. The arithmetic is 2*B*H*4H f32 operations per step on
-// the CUDA cores. At the served sizes a step is a few microseconds of either,
-// and 35 dependent launches per layer make launch latency the cost. A
-// persistent kernel with a grid-wide barrier, Wh spread over the SMs' shared
-// memory across steps, and wgmma are the later steps.
-#include <cuda_runtime.h>
-#include <stddef.h>
+// The recurrence is lstm_persistent.cuh's, without residuals: one
+// cooperative launch a layer with the block's slice of Wh resident in shared
+// memory across all T steps (route 1), or one launch per step where that
+// slice does not fit (route 2). The header says what bounds it and how its
+// design answers that. c is written once a step by the thread that owns it
+// and holds c_T on return.
+#include "lstm_persistent.cuh"
 
-namespace {
-
-constexpr int kLanes = 32;  // hidden units per block, one per lane
-constexpr int kWarps = 8;   // warps splitting the reduction over k
-constexpr int kRows = 8;    // batch rows per block
-static_assert(kWarps == kRows, "the cell update maps warp w to row w");
-
-__device__ __forceinline__ float sigmoid_f(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
-
-__global__ void __launch_bounds__(kLanes * kWarps)
-lstm_step(const float* __restrict__ xp_t,    // (B, 4H): this step's x@Wx + b
-          const float* __restrict__ wh,      // (H, 4H)
-          const float* __restrict__ h_prev,  // (B, H)
-          float* __restrict__ c,             // (B, H), updated in place
-          float* __restrict__ h_next,        // (B, H)
-          int B, int H) {
-  __shared__ float partial[kWarps][4][kRows][kLanes];  // 32 KB
-  const int lane = threadIdx.x % kLanes;
-  const int warp = threadIdx.x / kLanes;
-  const int j = blockIdx.x * kLanes + lane;
-  const int b0 = blockIdx.y * kRows;
-  const int rows = min(kRows, B - b0);
-  const size_t G = 4 * static_cast<size_t>(H);
-
-  float acc[4][kRows];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[g][r] = 0.0f;
-  }
-
-  if (j < H) {
-    const float* hb = h_prev + static_cast<size_t>(b0) * H;
-    for (int k = warp; k < H; k += kWarps) {
-      const float* w = wh + static_cast<size_t>(k) * G + j;
-      const float wi = w[0];
-      const float wf = w[H];
-      const float wg = w[2 * H];
-      const float wo = w[3 * H];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r < rows) {
-          const float hv = hb[static_cast<size_t>(r) * H + k];
-          acc[0][r] = fmaf(hv, wi, acc[0][r]);
-          acc[1][r] = fmaf(hv, wf, acc[1][r]);
-          acc[2][r] = fmaf(hv, wg, acc[2][r]);
-          acc[3][r] = fmaf(hv, wo, acc[3][r]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) partial[warp][g][r][lane] = acc[g][r];
-  }
-  __syncthreads();
-
-  const int r = warp;  // cell update: warp w finishes row b0 + w
-  if (r < rows && j < H) {
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-#pragma unroll
-      for (int g = 0; g < 4; ++g) s[g] += partial[w][g][r][lane];
-    }
-    const float* x = xp_t + static_cast<size_t>(b0 + r) * G;
-    const float gi = s[0] + x[j];
-    const float gf = s[1] + x[H + j];
-    const float gg = s[2] + x[2 * H + j];
-    const float go = s[3] + x[3 * H + j];
-    const size_t idx = static_cast<size_t>(b0 + r) * H + j;
-    const float cn = sigmoid_f(gf) * c[idx] + sigmoid_f(gi) * tanhf(gg);
-    c[idx] = cn;
-    h_next[idx] = sigmoid_f(go) * tanhf(cn);
-  }
-}
-
-}  // namespace
-
-// Runs the T-step recurrence on `stream`: xp (T, B, 4H), wh (H, 4H), h0 (B, H)
-// read; c (B, H) holds c0 on entry and c_T on return; hseq (T, B, H) written.
-// All f32, contiguous, on one device. Returns the first launch error (0 when
-// every launch was accepted); it does not synchronise.
+// Runs the T-step recurrence on `stream`: xp (T, B, 4H), wh (H, 4H), h0 and
+// c0 (B, H) read; hseq (T, B, H) and c (B, H, c_T on return) written; hx
+// (2, B, Hp) scratch for route 1 (null for route 2); `gates` is unused (the
+// training forward's signature). All f32, contiguous, on the current device.
+// `persistent`, `grid`, `units`, `rows` and `smem` are the caller's plan.
+// Returns the first CUDA error (0 when the launches were accepted); it does
+// not synchronise.
 extern "C" int fused_lstm_forward(const float* xp, const float* wh,
-                                  const float* h0, float* c, float* hseq,
-                                  int T, int B, int H, void* stream) {
-  const dim3 grid((H + kLanes - 1) / kLanes, (B + kRows - 1) / kRows);
-  const dim3 block(kLanes * kWarps);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t bh = static_cast<size_t>(B) * H;
-  for (int t = 0; t < T; ++t) {
-    const float* hp = t == 0 ? h0 : hseq + static_cast<size_t>(t - 1) * bh;
-    lstm_step<<<grid, block, 0, s>>>(xp + static_cast<size_t>(t) * 4 * bh,
-                                     wh, hp, c,
-                                     hseq + static_cast<size_t>(t) * bh, B, H);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaSuccess);
+                                  const float* h0, const float* c0,
+                                  float* hseq, float* c, float* gates,
+                                  float* hx, int T, int B, int H,
+                                  int persistent, int grid, int units,
+                                  int rows, int smem, void* stream) {
+  (void)gates;
+  return lstm_forward<false>(xp, wh, h0, c0, hseq, c, nullptr, hx, T, B, H,
+                             persistent, grid, units, rows, smem,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The current device's SM count and opt-in shared memory a block.
+extern "C" int fused_lstm_limits(int* sms, int* smem_optin) {
+  return lstm_device_limits(sms, smem_optin);
 }
 
 extern "C" const char* fused_lstm_error_name(int err) {

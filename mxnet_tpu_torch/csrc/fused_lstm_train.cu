@@ -3,7 +3,7 @@
 // backward of fused_lstm's custom VJP.
 //
 // K2 fused_lstm_train_forward replaces _lstm_fwd_train_kernel (called from
-// _lstm_vjp_fwd). It runs the inference recurrence of fused_lstm.cu and also
+// _lstm_vjp_fwd). It runs K1's recurrence (lstm_persistent.cuh) and also
 // keeps the residuals the backward needs, gate order i, f, g, o:
 //   gates_t = [sigmoid(i), sigmoid(f), tanh(g), sigmoid(o)]  (post-activation)
 //   c_t     = f * c_{t-1} + i * g,   h_t = o * tanh(c_t)
@@ -21,19 +21,16 @@
 // weight gradients are sequence-wide products of dgates that the caller runs
 // outside (dx, dWx, dWh, db), as the TPU code does.
 //
-// Design. The TPU kernels walk t on a sequential grid and carry h, c (and dh,
-// dc) in VMEM scratch. Hopper blocks run in parallel and in no order, so as
-// in fused_lstm.cu each time step is one launch, issued in order on the
-// caller's stream by the host functions below. Because c_t is now stored per
-// step, the forward reads h_{t-1} and c_{t-1} from the outputs of the step
-// before (h0, c0 at t = 0): nothing is updated in place and c0 is not copied.
+// Design. K2 is the recurrence of lstm_persistent.cuh with residuals: one
+// cooperative launch a layer with the block's slice of Wh resident in shared
+// memory across all T steps (route 1), or one launch per step where that
+// slice does not fit (route 2); the header says what bounds it. It writes
+// c_t and the activated gates every step, and reads c_{t-1} from cseq (c0 at
+// t = 0): nothing is updated in place and c0 is not copied.
 //
-// The forward step is fused_lstm.cu's: a block covers 32 hidden units (one
-// per lane) for up to 8 batch rows, its 8 warps split the reduction over
-// k = 0..H-1, and the partial sums meet in shared memory for the cell
-// update, which also stores the four activated gates.
-//
-// The backward step fuses the carry product with the elementwise part. For
+// K3 walks t in reverse with one launch per step: the TPU kernel carries dh
+// and dc in VMEM scratch, and Hopper blocks run in parallel and in no order.
+// It fuses the carry product with the elementwise part. For
 // hidden unit j the elementwise part needs only column j of each gate, so a
 // block that owns units j..j+31 for 8 rows first reduces
 //   dh_carry[b, j] = sum_k dgates_{t+1}[b, k] * WhT[k, j],  k < 4H,
@@ -45,104 +42,15 @@
 // is owned in place by the one thread that updates it. One last
 // reduction-only launch gives dh0.
 //
-// What bounds them. Per step a layer reads Wh (H x 4H f32, 6.76 MB at
-// H = 650) once per 8-row batch tile; it fits the 50 MB L2, so after the
-// first step the reads hit L2. The arithmetic is 2*B*H*4H f32 operations per
-// step on the CUDA cores in each direction. At B = 32 that is a few
-// microseconds of either, so the dependent loads of each warp's k loop and
-// the 35 dependent launches set the time. A persistent kernel with a
-// grid-wide barrier, Wh resident in the SMs' shared memory, and wgmma are the
-// later steps.
-#include <cuda_runtime.h>
-#include <stddef.h>
+// What bounds K3. Per step it reads Wh (H x 4H f32, 6.76 MB at H = 650)
+// once per 8-row batch tile; it fits the 50 MB L2, so after the first step
+// the reads hit L2. The arithmetic is 2*B*H*4H f32 operations per step on
+// the CUDA cores. At B = 32 that is a few microseconds of either, so the
+// dependent loads of each warp's k loop and the 35 dependent launches set
+// the time. K2's design run in reverse time (WhT resident) is its next step.
+#include "lstm_persistent.cuh"
 
 namespace {
-
-constexpr int kLanes = 32;  // hidden units per block, one per lane
-constexpr int kWarps = 8;   // warps splitting the reduction over k
-constexpr int kRows = 8;    // batch rows per block
-static_assert(kWarps == kRows, "the cell update maps warp w to row w");
-
-__device__ __forceinline__ float sigmoid_f(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
-
-__global__ void __launch_bounds__(kLanes * kWarps)
-lstm_train_step(const float* __restrict__ xp_t,    // (B, 4H): x@Wx + b
-                const float* __restrict__ wh,      // (H, 4H)
-                const float* __restrict__ h_prev,  // (B, H)
-                const float* __restrict__ c_prev,  // (B, H)
-                float* __restrict__ h_t,           // (B, H)
-                float* __restrict__ c_t,           // (B, H)
-                float* __restrict__ gates_t,       // (B, 4H), activated
-                int B, int H) {
-  __shared__ float partial[kWarps][4][kRows][kLanes];  // 32 KB
-  const int lane = threadIdx.x % kLanes;
-  const int warp = threadIdx.x / kLanes;
-  const int j = blockIdx.x * kLanes + lane;
-  const int b0 = blockIdx.y * kRows;
-  const int rows = min(kRows, B - b0);
-  const size_t G = 4 * static_cast<size_t>(H);
-
-  float acc[4][kRows];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[g][r] = 0.0f;
-  }
-
-  if (j < H) {
-    const float* hb = h_prev + static_cast<size_t>(b0) * H;
-    for (int k = warp; k < H; k += kWarps) {
-      const float* w = wh + static_cast<size_t>(k) * G + j;
-      const float wi = w[0];
-      const float wf = w[H];
-      const float wg = w[2 * H];
-      const float wo = w[3 * H];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r < rows) {
-          const float hv = hb[static_cast<size_t>(r) * H + k];
-          acc[0][r] = fmaf(hv, wi, acc[0][r]);
-          acc[1][r] = fmaf(hv, wf, acc[1][r]);
-          acc[2][r] = fmaf(hv, wg, acc[2][r]);
-          acc[3][r] = fmaf(hv, wo, acc[3][r]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) partial[warp][g][r][lane] = acc[g][r];
-  }
-  __syncthreads();
-
-  const int r = warp;  // cell update: warp w finishes row b0 + w
-  if (r < rows && j < H) {
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-#pragma unroll
-      for (int g = 0; g < 4; ++g) s[g] += partial[w][g][r][lane];
-    }
-    const size_t row = static_cast<size_t>(b0 + r);
-    const float* x = xp_t + row * G;
-    const float gi = sigmoid_f(s[0] + x[j]);
-    const float gf = sigmoid_f(s[1] + x[H + j]);
-    const float gg = tanhf(s[2] + x[2 * H + j]);
-    const float go = sigmoid_f(s[3] + x[3 * H + j]);
-    const size_t idx = row * H + j;
-    const float cn = gf * c_prev[idx] + gi * gg;
-    c_t[idx] = cn;
-    h_t[idx] = go * tanhf(cn);
-    float* gt = gates_t + row * G;
-    gt[j] = gi;
-    gt[H + j] = gf;
-    gt[2 * H + j] = gg;
-    gt[3 * H + j] = go;
-  }
-}
 
 // The carry product of the backward for this block's 32 units and 8 rows:
 // returns sum_k dg[b0 + warp, k] * whT[k, j] to the thread of (warp, lane);
@@ -255,28 +163,26 @@ dim3 grid_of(int B, int H) {
 }  // namespace
 
 // K2: the T-step forward on `stream`. Reads xp (T, B, 4H), wh (H, 4H),
-// h0 and c0 (B, H); writes hseq and cseq (T, B, H) and gates (T, B, 4H).
-// All f32, contiguous, on one device. Returns the first launch error (0 when
-// every launch was accepted); it does not synchronise.
+// h0 and c0 (B, H); writes hseq and cseq (T, B, H) and gates (T, B, 4H); hx
+// (2, B, Hp) is scratch for route 1 (null for route 2). All f32, contiguous,
+// on the current device. `persistent`, `grid`, `units`, `rows` and `smem`
+// are the caller's plan. Returns the first CUDA error (0 when the launches
+// were accepted); it does not synchronise.
 extern "C" int fused_lstm_train_forward(const float* xp, const float* wh,
                                         const float* h0, const float* c0,
                                         float* hseq, float* cseq,
-                                        float* gates, int T, int B, int H,
+                                        float* gates, float* hx, int T, int B,
+                                        int H, int persistent, int grid,
+                                        int units, int rows, int smem,
                                         void* stream) {
-  const dim3 block(kLanes * kWarps);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t bh = static_cast<size_t>(B) * H;
-  for (int t = 0; t < T; ++t) {
-    const size_t off = static_cast<size_t>(t) * bh;
-    const float* hp = t == 0 ? h0 : hseq + off - bh;
-    const float* cp = t == 0 ? c0 : cseq + off - bh;
-    lstm_train_step<<<grid_of(B, H), block, 0, s>>>(
-        xp + 4 * off, wh, hp, cp, hseq + off, cseq + off, gates + 4 * off,
-        B, H);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaSuccess);
+  return lstm_forward<true>(xp, wh, h0, c0, hseq, cseq, gates, hx, T, B, H,
+                            persistent, grid, units, rows, smem,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The current device's SM count and opt-in shared memory a block.
+extern "C" int fused_lstm_train_limits(int* sms, int* smem_optin) {
+  return lstm_device_limits(sms, smem_optin);
 }
 
 // K3: the reverse-time backward on `stream`. Reads dhseq (T, B, H), dh_n

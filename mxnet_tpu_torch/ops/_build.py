@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, at first
 use, and loaded with ``ctypes``. Libraries go to ``build/`` inside the
-package (git-ignored), named by a hash of their source, so an edited
-source is rebuilt and an unchanged one is loaded as it is. Nothing here
-runs at import: the CPU tests import every module on hosts without
-``nvcc``.
+package (git-ignored), named by a hash of their source and of every
+header ``csrc/*.cuh``, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is. Nothing here runs at import: the CPU
+tests import every module on hosts without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -51,9 +51,15 @@ def _nvcc():
 
 
 def _target(name):
+    """(source, library path): the name hashes the source and every
+    header of ``CSRC``, which any source may include."""
     src = CSRC / ("%s.cu" % name)
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return src, BUILD_DIR / ("lib%s-%s.so" % (name, digest))
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
+    tag = digest.hexdigest()[:16]
+    return src, BUILD_DIR / ("lib%s-%s.so" % (name, tag))
 
 
 def build_log(name):

@@ -10,12 +10,17 @@ here, with the same signatures and layouts (gate order i, f, g, o):
 - ``lstm_bwd_recurrence`` (K3) replaces ``_lstm_bwd_kernel``: the
   reverse-time backward that emits ``dgates``, ``dh0`` and ``dc0``.
 
-K2 and K3 launch ``csrc/fused_lstm_train.cu``. Each wrapper runs its plain
-version (``*_plain``, a loop over time with the same math, which is also
-the kernel's reference on the card) on a CPU tensor, launches its kernel
-on a CUDA tensor, and raises on any other device. ``<wrapper>.launches``
-counts the calls that launched a kernel (one call is one layer: T step
-launches).
+K2 and K3 launch ``csrc/fused_lstm_train.cu``. K1 and K2 share the
+recurrence of ``csrc/lstm_persistent.cuh``, launched by one of two routes
+that :func:`_lstm_route` picks from the shape alone: ``persistent``, one
+cooperative launch a layer with Wh resident in shared memory, or
+``step``, one launch per time step where Wh's slice does not fit. Each
+wrapper runs its plain version (``*_plain``, a loop over time with the
+same math, which is also the kernel's reference on the card) on a CPU
+tensor, launches its kernel on a CUDA tensor, and raises on any other
+device. ``<wrapper>.launches`` counts the calls that launched a kernel
+(one call is one layer), and K1's and K2's ``launches_by_route`` the same
+calls by route.
 
 :class:`FusedLSTM` is the layer's ``torch.autograd.Function`` (the JAX
 package's ``custom_vjp``): forward K2, backward K3 plus the four
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -38,7 +44,7 @@ from . import _build
 __all__ = ["fused_lstm", "fused_lstm_plain", "fused_lstm_train",
            "fused_lstm_train_plain", "lstm_bwd_recurrence",
            "lstm_bwd_recurrence_plain", "fused_lstm_backward",
-           "fused_lstm_backward_plain", "FusedLSTM"]
+           "fused_lstm_backward_plain", "FusedLSTM", "LSTMPlan", "lstm_plan"]
 
 
 def _project(x, wx, b):
@@ -168,9 +174,11 @@ def _raise_on(lib, name, err):
             name, getattr(lib, name + "_error_name")(err).decode(), err))
 
 
-def _count(wrapper):
+def _count(wrapper, route=None):
     with _count_lock:
         wrapper.launches += 1
+        if route is not None:
+            wrapper.launches_by_route[route] += 1
 
 
 def _stream(t):
@@ -212,6 +220,117 @@ def _f32(t):
     return t.float().contiguous()
 
 
+# ---------------------------------------------------------------------------
+# K1 and K2: the route and the launch
+# ---------------------------------------------------------------------------
+#: batch rows of a warp's work item in csrc/lstm_persistent.cuh, and the
+#: most rows of h a block holds at once (8 such groups, one mbarrier each)
+_ITEM_ROWS, _MAX_TILE_ROWS = 8, 64
+#: the step route's block: 32 hidden units by 8 rows, 32 KB of shared memory
+_STEP_UNITS, _STEP_ROWS, _STEP_SMEM = 32, 8, 32768
+
+
+class LSTMPlan(NamedTuple):
+    """How one layer's recurrence is launched (:func:`_lstm_route`)."""
+    route: str   # "persistent": one cooperative launch; "step": T launches
+    grid: int    # blocks of a launch
+    units: int   # hidden units a block
+    rows: int    # batch rows a block holds at once
+    smem: int    # shared memory a block, bytes (dynamic for "persistent")
+
+
+def _lstm_route(batch, hid, sms, smem_per_block):
+    """The plan of one layer of batch ``batch`` and hidden size ``hid`` on a
+    card of ``sms`` SMs whose blocks may opt in to ``smem_per_block`` bytes
+    of shared memory, from the shape alone, before any launch.
+
+    ``persistent``: at most ``sms`` blocks of ``ceil(H / sms)`` units each,
+    every block resident at once; a block keeps its units' four gate
+    columns of Wh (rows padded to ``Hp``, H rounded up to 4) in shared
+    memory beside a tile of h: all B rows when they fit (64 at most),
+    else the most that fit rounded down to a multiple of 8, walked in turn
+    each step.
+    ``step``, where not one such tile fits: one launch per step of blocks
+    of 32 units by 8 rows."""
+    hp = -(-hid // 4) * 4
+    units = -(-hid // sms)
+    w_bytes = 4 * 4 * units * hp
+    rows = min(batch, _MAX_TILE_ROWS,
+               max(0, smem_per_block - w_bytes) // (4 * hp))
+    if rows < batch:
+        rows -= rows % _ITEM_ROWS
+    if rows > 0:
+        return LSTMPlan("persistent", -(-hid // units), units, rows,
+                        w_bytes + 4 * hp * rows)
+    return LSTMPlan("step", -(-hid // _STEP_UNITS) * -(-batch // _STEP_ROWS),
+                    _STEP_UNITS, _STEP_ROWS, _STEP_SMEM)
+
+
+_FORWARD_ARGS = [_VP] * 8 + [_INT] * 8 + [_VP]
+_limits = {}
+
+
+def _forward_library(name):
+    return _library(name, {name + "_forward": _FORWARD_ARGS,
+                           name + "_limits": [ctypes.POINTER(_INT)] * 2})
+
+
+def _device_limits(lib, name, device):
+    """(SM count, opt-in shared memory a block) of a CUDA device."""
+    if device.index not in _limits:
+        sms, smem = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(device):
+            err = getattr(lib, name + "_limits")(ctypes.byref(sms),
+                                                 ctypes.byref(smem))
+        _raise_on(lib, name, err)
+        _limits[device.index] = (sms.value, smem.value)
+    return _limits[device.index]
+
+
+def lstm_plan(batch, hid, device):
+    """The :class:`LSTMPlan` that K1 and K2 take for a layer of this batch
+    and hidden size on the CUDA ``device``."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    lib = _forward_library("fused_lstm")
+    return _lstm_route(batch, hid, *_device_limits(lib, "fused_lstm", device))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _forward(wrapper, name, x, h0, c0, wx, wh, b, residuals):
+    """One layer's recurrence by the kernel of ``csrc/<name>.cu``:
+    (hseq (T,B,H), c_T (B,H) or cseq (T,B,H), gates (T,B,4H) or None),
+    f32. A refused plan or launch raises; it never takes another route."""
+    _check(x, h0, c0, wx, wh, b)
+    t, bs, _ = x.shape
+    hid = wh.shape[0]
+    lib = _forward_library(name)
+    plan = _lstm_route(bs, hid, *_device_limits(lib, name, x.device))
+    persistent = plan.route == "persistent"
+    f32 = {"dtype": torch.float32, "device": x.device}
+    with torch.cuda.device(x.device):
+        xp = _project(x, wx, b).contiguous()
+        whf, h0f, c0f = _f32(wh), _f32(h0), _f32(c0)
+        hseq = torch.empty((t, bs, hid), **f32)
+        cout = torch.empty((t, bs, hid) if residuals else (bs, hid), **f32)
+        gates = torch.empty((t, bs, 4 * hid), **f32) if residuals else None
+        # h_t's exchange buffer between blocks, rows padded to Hp
+        hx = (torch.empty((2, bs, -(-hid // 4) * 4), **f32) if persistent
+              else None)
+        err = getattr(lib, name + "_forward")(
+            xp.data_ptr(), whf.data_ptr(), h0f.data_ptr(), c0f.data_ptr(),
+            hseq.data_ptr(), cout.data_ptr(), _ptr(gates), _ptr(hx), t, bs,
+            hid, int(persistent), plan.grid, plan.units, plan.rows,
+            plan.smem, _stream(x))
+    _raise_on(lib, name, err)
+    _count(wrapper, plan.route)
+    return hseq, cout, gates
+
+
 def fused_lstm(x, h0, c0, wx, wh, b):
     """Single-layer LSTM over a full sequence (cuDNN-RNN analog), K1.
 
@@ -227,26 +346,9 @@ def fused_lstm(x, h0, c0, wx, wh, b):
                          "FusedLSTM")
     if not _on_kernel_device(x, "fused_lstm"):
         return fused_lstm_plain(x, h0, c0, wx, wh, b)
-    _check(x, h0, c0, wx, wh, b)
-    t, bs, _ = x.shape
-    hid = wh.shape[0]
-    lib = _library("fused_lstm", {"fused_lstm_forward": [_VP] * 5 + [_INT] * 3
-                                  + [_VP]})
-    with torch.cuda.device(x.device):
-        xp = _project(x, wx, b).contiguous()
-        whf = _f32(wh)
-        h0f = _f32(h0)
-        # the kernel updates c in place: never alias the caller's c0
-        c = torch.empty((bs, hid), dtype=torch.float32, device=x.device)
-        c.copy_(c0)
-        hseq = torch.empty((t, bs, hid), dtype=torch.float32,
-                           device=x.device)
-        err = lib.fused_lstm_forward(
-            xp.data_ptr(), whf.data_ptr(), h0f.data_ptr(), c.data_ptr(),
-            hseq.data_ptr(), t, bs, hid, _stream(x))
-    _raise_on(lib, "fused_lstm", err)
-    _count(fused_lstm)
-    return (hseq.to(x.dtype), hseq[t - 1].to(x.dtype), c.to(x.dtype))
+    hseq, c, _ = _forward(fused_lstm, "fused_lstm", x, h0, c0, wx, wh, b,
+                          residuals=False)
+    return (hseq.to(x.dtype), hseq[-1].to(x.dtype), c.to(x.dtype))
 
 
 def fused_lstm_train(x, h0, c0, wx, wh, b):
@@ -257,26 +359,8 @@ def fused_lstm_train(x, h0, c0, wx, wh, b):
     :func:`fused_lstm_train_plain`; CUDA tensors the kernel."""
     if not _on_kernel_device(x, "fused_lstm_train"):
         return fused_lstm_train_plain(x, h0, c0, wx, wh, b)
-    _check(x, h0, c0, wx, wh, b)
-    t, bs, _ = x.shape
-    hid = wh.shape[0]
-    lib = _library("fused_lstm_train", {
-        "fused_lstm_train_forward": [_VP] * 7 + [_INT] * 3 + [_VP]})
-    with torch.cuda.device(x.device):
-        xp = _project(x, wx, b).contiguous()
-        whf, h0f, c0f = _f32(wh), _f32(h0), _f32(c0)
-        hseq = torch.empty((t, bs, hid), dtype=torch.float32,
-                           device=x.device)
-        cseq = torch.empty_like(hseq)
-        gates = torch.empty((t, bs, 4 * hid), dtype=torch.float32,
-                            device=x.device)
-        err = lib.fused_lstm_train_forward(
-            xp.data_ptr(), whf.data_ptr(), h0f.data_ptr(), c0f.data_ptr(),
-            hseq.data_ptr(), cseq.data_ptr(), gates.data_ptr(), t, bs, hid,
-            _stream(x))
-    _raise_on(lib, "fused_lstm_train", err)
-    _count(fused_lstm_train)
-    return hseq, cseq, gates
+    return _forward(fused_lstm_train, "fused_lstm_train", x, h0, c0, wx, wh,
+                    b, residuals=True)
 
 
 def lstm_bwd_recurrence(dhseq, dhn, dcn, gates, cseq, c0, wh):
@@ -321,6 +405,9 @@ def lstm_bwd_recurrence(dhseq, dhn, dcn, gates, cseq, c0, wh):
 fused_lstm.launches = 0
 fused_lstm_train.launches = 0
 lstm_bwd_recurrence.launches = 0
+#: K1's and K2's calls by route (:func:`_lstm_route`)
+fused_lstm.launches_by_route = {"persistent": 0, "step": 0}
+fused_lstm_train.launches_by_route = {"persistent": 0, "step": 0}
 
 
 class FusedLSTM(torch.autograd.Function):

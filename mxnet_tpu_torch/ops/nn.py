@@ -574,16 +574,23 @@ def _pooling(params, data):
     elif pool_type in ("avg", "sum"):
         pool = (F.avg_pool1d, F.avg_pool2d, F.avg_pool3d)[nd - 1]
         include_pad = _attr_bool(params, "count_include_pad", True)
+        # torch's CPU avg_pool3d has no bf16/f16 kernel: pool in f32 there
+        # and round the result once to the data dtype
+        upcast = (nd == 3 and x.device.type == "cpu"
+                  and x.dtype in (torch.bfloat16, torch.float16))
+        xin = x.float() if upcast else x
         if native and pool_type == "avg" and include_pad:
-            out = pool(x, kernel, stride, lo, count_include_pad=True)
+            out = pool(xin, kernel, stride, lo, count_include_pad=True)
         else:
             size = math.prod(kernel)
-            out = pool(_pad_spatial(x, lo, hi, 0.0), kernel, stride)
+            out = pool(_pad_spatial(xin, lo, hi, 0.0), kernel, stride)
             if pool_type == "sum":
                 out = out * size
             elif not include_pad:
-                ones = _pad_spatial(torch.ones_like(x), lo, hi, 0.0)
+                ones = _pad_spatial(torch.ones_like(xin), lo, hi, 0.0)
                 out = out * size / (pool(ones, kernel, stride) * size)
+        if upcast:
+            out = out.to(x.dtype)
     else:
         raise MXNetError("unsupported pool_type " + pool_type)
     return (_last_channels(out, nd) if channel_last else out,)

@@ -259,7 +259,27 @@ def test_pooling_matches_jax(case):
     _close(tgrads[0], jgrads[0], F32_TOL, "grad")
 
 
-@pytest.mark.parametrize("act", ["relu", "sigmoid", "tanh", "softrelu",
+@pytest.mark.parametrize("layout", ["NCDHW", "NDHWC"])
+@pytest.mark.parametrize("pool_type", ["avg", "sum"])
+def test_pooling_3d_bf16_matches_jax(pool_type, layout):
+    # torch's CPU avg_pool3d has no bf16 kernel: the port pools in f32 and
+    # rounds once, the JAX op reduces in bf16; they may differ by one bf16
+    # step (2^-7 relative) at the output's largest magnitude
+    x = np.random.RandomState(3).randn(1, 2, 5, 5, 5).astype(np.float32)
+    if layout == "NDHWC":
+        x = np.ascontiguousarray(x.transpose(0, 2, 3, 4, 1))
+    attrs = {"kernel": (2, 2, 2), "stride": (2, 2, 2), "layout": layout,
+             "pool_type": pool_type, "count_include_pad": False}
+    jx, tx = _pair(x, "bfloat16")
+    got = get_op("Pooling").fcompute(dict(attrs), tx)[0]
+    want = np.asarray(jget_op("Pooling").fcompute(dict(attrs), jx)[0],
+                      np.float32)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=2 ** -7 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("act",["relu", "sigmoid", "tanh", "softrelu",
                                  "softsign"])
 def test_activation_matches_jax(act):
     x = np.random.RandomState(4).randn(3, 5).astype(np.float32)

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import mxnet_tpu_torch as mxt
+from mxnet_tpu_torch.ops import lstm_kernel
 from mxnet_tpu_torch.ops.lstm_kernel import (
     FusedLSTM, fused_lstm, fused_lstm_backward_plain, fused_lstm_plain,
     fused_lstm_train, fused_lstm_train_plain, lstm_bwd_recurrence,
@@ -87,6 +88,61 @@ def test_rejects_tensors_on_two_devices(cuda):
 
 
 SHAPES = [(5, 4, 6, 8), (4, 1, 5, 13), (3, 9, 7, 33), (35, 32, 650, 650)]
+# K1 and K2 at the rest of chip_smoke.py's shapes: B = 3 and 64, T = 1,
+# batches walked in two row tiles (the persistent route holds at most 64
+# rows of h), and one whose Wh slice does not fit (the step route)
+ROUTE_SHAPES = [((35, 3, 650, 650), "persistent"),
+                ((1, 32, 650, 650), "persistent"),
+                ((35, 64, 650, 650), "persistent"),
+                ((3, 100, 16, 650), "persistent"),
+                ((4, 70, 5, 13), "persistent"),
+                ((8, 4, 64, 1536), "step")]
+
+
+@pytest.mark.parametrize("shape,route", ROUTE_SHAPES)
+@pytest.mark.parametrize("kernel", ["fused_lstm", "fused_lstm_train"])
+def test_forward_routes_match_plain(cuda, kernel, shape, route):
+    wrapper, plain = {"fused_lstm": (fused_lstm, fused_lstm_plain),
+                      "fused_lstm_train": (fused_lstm_train,
+                                           fused_lstm_train_plain)}[kernel]
+    t, b, i, h = shape
+    assert lstm_kernel.lstm_plan(b, h, cuda).route == route
+    args = _inputs(*shape, device=cuda, seed=5)
+    before = wrapper.launches_by_route[route]
+    got = wrapper(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches_by_route[route] == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("kernel", ["fused_lstm", "fused_lstm_train"])
+def test_forward_is_bitwise_deterministic(cuda, kernel):
+    # every sum runs in a fixed order: a missing fence or an early barrier
+    # would show as a difference between calls
+    wrapper = getattr(lstm_kernel, kernel)
+    args = _inputs(35, 32, 650, 650, device=cuda, seed=6)
+    first = [o.clone() for o in wrapper(*args)]
+    for _ in range(19):
+        for g, w in zip(wrapper(*args), first):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("plan", [
+    # more shared memory than a block may have
+    lstm_kernel.LSTMPlan("persistent", 130, 5, 32, 300000),
+    # 650 blocks of one unit, one a SM: more than the card holds at once
+    lstm_kernel.LSTMPlan("persistent", 650, 1, 32, 200000),
+    # a plan that leaves units without a block
+    lstm_kernel.LSTMPlan("persistent", 100, 5, 32, 135616)])
+def test_refused_plan_raises(cuda, monkeypatch, plan):
+    monkeypatch.setattr(lstm_kernel, "_lstm_route", lambda *a: plan)
+    args = _inputs(3, 32, 8, 650, device=cuda)
+    before = fused_lstm.launches
+    with pytest.raises(mxt.MXNetError, match="kernel launch failed"):
+        fused_lstm(*args)
+    assert fused_lstm.launches == before
 
 
 def _cotangents(t, b, h, device, seed):

@@ -5,8 +5,11 @@ package's runs its Pallas kernel in interpret mode, as `test_pallas.py`
 does. Both get the same inputs, made with numpy from a seed. The
 tolerance is the one `test_pallas.py` holds the Pallas kernel to (1e-5).
 `test_torch_cuda.py` holds the CUDA kernel against the plain version on
-the card.
+the card. The route that K1 and K2 take (``_lstm_route``) and the build
+cache's names are computed here, with no card.
 """
+import shutil
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -15,7 +18,7 @@ import torch
 from mxnet_tpu.ops.pallas_kernels import (_lstm_scan_ref,
                                           fused_lstm as jax_fused_lstm)
 from mxnet_tpu_torch.base import MXNetError
-from mxnet_tpu_torch.ops import lstm_kernel
+from mxnet_tpu_torch.ops import _build, lstm_kernel
 from mxnet_tpu_torch.ops.lstm_kernel import fused_lstm, fused_lstm_plain
 
 TOL = 1e-5
@@ -90,3 +93,56 @@ def test_shape_checks(bad):
     with pytest.raises(MXNetError):
         lstm_kernel._check(args["x"], args["h0"], args["c0"], args["wx"],
                            args["wh"], args["b"])
+
+
+# an H100 SXM: 132 SMs, 232,448 bytes of shared memory a block may opt in to
+SMS, SMEM = 132, 232448
+
+
+@pytest.mark.parametrize("batch", [1, 8, 32, 64])
+def test_route_is_persistent_at_h650(batch):
+    plan = lstm_kernel._lstm_route(batch, 650, SMS, SMEM)
+    assert plan.route == "persistent"
+    assert plan.grid <= SMS and plan.smem <= SMEM
+    assert plan.rows == batch            # all of h in one tile
+
+
+@pytest.mark.parametrize("batch,hid", [(4, 1536), (32, 1300), (1, 4096)])
+def test_route_takes_steps_where_wh_cannot_fit(batch, hid):
+    plan = lstm_kernel._lstm_route(batch, hid, SMS, SMEM)
+    assert plan.route == "step"
+    assert plan.grid == -(-hid // 32) * -(-batch // 8)
+
+
+@pytest.mark.parametrize("batch,hid", [(1, 650), (32, 650), (64, 650),
+                                       (100, 650), (1000, 650), (4, 13),
+                                       (100, 13),
+                                       (3, 8), (8, 131), (8, 133),
+                                       (32, 1100), (4, 1300)])
+def test_route_plan_covers_every_unit_once(batch, hid):
+    plan = lstm_kernel._lstm_route(batch, hid, SMS, SMEM)
+    assert plan.route == "persistent" and plan.grid <= SMS
+    owned = [j for p in range(plan.grid)
+             for j in range(p * plan.units, min(hid, (p + 1) * plan.units))]
+    assert owned == list(range(hid))                 # each unit once
+    assert (plan.grid - 1) * plan.units < hid        # no block without one
+    # row tiles of 8-row items cover the batch; Wh's slice and one tile of
+    # h (rows padded to a multiple of 4) fit the block
+    assert plan.rows == batch <= 64 or (plan.rows < batch
+                                        and plan.rows % 8 == 0
+                                        and plan.rows <= 64)
+    hp = -(-hid // 4) * 4
+    assert plan.smem == 4 * hp * (4 * plan.units + plan.rows) <= SMEM
+
+
+def test_build_name_follows_headers(tmp_path, monkeypatch):
+    for src in _build.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            shutil.copy(src, tmp_path / src.name)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build._target(n)[1].name for n in _build.SOURCES}
+    assert before == {n: _build._target(n)[1].name for n in _build.SOURCES}
+    header = tmp_path / "lstm_persistent.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build._target(n)[1].name for n in _build.SOURCES}
+    assert all(after[n] != before[n] for n in _build.SOURCES)
