@@ -39,9 +39,11 @@ and then trains the same LM, the configuration of the training benchmark
    ``lstm_bwd_recurrence`` (K3) vs their plain versions, and a
    ``FusedLSTM`` layer's six gradients vs the plain backward, at T=35,
    B in {8, 32}, I=H=650 and a ragged shape, with kernel, plain and cuDNN
-   (forward, backward, both; timed as a yardstick only) times; K2 alone
-   at phase 2's extra shapes, its routes, launches, µs a step, ptxas
-   report and 20 bit-identical calls at B=32, as phase 2 for K1;
+   (forward, backward, both; timed as a yardstick only) times; K2 and K3
+   at phase 2's extra shapes and the step route's, their routes against
+   their plans, the recurrence kernels' launches a call (one each on the
+   persistent routes) and µs a step, ptxas reports and 20 bit-identical
+   calls at B=32, as phase 2 for K1;
 8. ``Module`` on ``gpu(0)`` from ``mx.random.seed(0)``: 2 ``_step``s held
    against the same Module on ``cpu()``, 20 timed steps of
    ``_step_scan`` after 2 warm-up steps (tokens/s trained) between two
@@ -50,7 +52,7 @@ and then trains the same LM, the configuration of the training benchmark
    one short epoch of an ``NDArrayIter`` with ``Perplexity`` and
    ``Speedometer``, and ``score`` on an eval iterator (K1);
 9. ``torch.profiler`` over one train step: K2's and K3's shares and
-   launches (K2: one persistent launch a layer);
+   launches (each one persistent launch a layer);
 
 and then trains ResNet-50 v1 at the configuration of the image
 benchmark (``tools/bench_all.py:91-97``: NHWC, bf16, batch 128, 1000
@@ -109,7 +111,8 @@ the card the attention one and phase 16's first launches the rtc one:
 every kernel's launch count is set to 0 before each and read after it.
 The serving path must launch K1, every call by the persistent route; the
 LM training path must launch K2 and K3 exactly once per layer and step,
-and K1 once per layer and eval batch, K1 and K2 by the persistent route;
+and K1 once per layer and eval batch, K1, K2 and K3 by the persistent
+route;
 the ResNet path must launch K5 exactly 6 times per step with the gate
 on, and never with it off; the attention path must launch K4 once
 per layer and step; the rtc path its two kernels once each. Any failed
@@ -137,14 +140,14 @@ VOCAB, EMBED, HIDDEN, LAYERS, SEQ = 10000, 650, 650, 2, 35
 SEED = 0
 SERVED_BATCHES = (1, 8, 32)
 RAGGED = (5, 3, 7, 13)          # T, B, I, H: H and B off every tile size
-# K1 and K2 are also held to LSTM_ATOL, untimed, at B = 3 and 64, at T = 1,
-# and at a shape whose Wh slice does not fit a block's shared memory: the
-# step route (one launch per step); every shape at H = 650 must take the
-# persistent route (one cooperative launch a layer)
+# K1, K2 and K3 are also held to LSTM_ATOL, untimed, at B = 3 and 64, at
+# T = 1, and at a shape whose Wh slice does not fit a block's shared
+# memory: the step route (one launch per step); every shape at H = 650
+# must take the persistent route (one cooperative launch a layer)
 EXTRA_SHAPES = [(SEQ, 3, EMBED, HIDDEN), (1, 32, EMBED, HIDDEN),
                 (SEQ, 64, EMBED, HIDDEN)]
 STEP_ROUTE_SHAPE = (8, 4, 64, 1536)
-# K1 and K2 sum in a fixed order: this many calls give the same bits
+# K1, K2 and K3 sum in a fixed order: this many calls give the same bits
 DETERMINISM_CALLS = 20
 # kernel vs plain, f32 on both: the h @ Wh sums (650 terms) run in another
 # order than cuBLAS's, and the difference compounds over 35 steps
@@ -297,12 +300,13 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_profile(fn, attempts=3):
+def device_profile(fn, attempts=3, complete=None):
     """Run ``fn`` under torch.profiler. Returns the profiled wall time in
     ms and {kernel name: [launches, device ms]}; the kernels are empty
     when the profiler saw no device activity. A run whose trace holds no
-    device activity at all is run again, up to ``attempts`` runs: the
-    tracer now and then returns an empty trace."""
+    device activity at all, or that ``complete`` (a test of the kernels)
+    rejects, is run again, up to ``attempts`` runs: the tracer now and
+    then returns an empty trace, or one that lost part of the run."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(attempts):
         torch.cuda.synchronize()
@@ -317,16 +321,17 @@ def device_profile(fn, attempts=3):
             if str(getattr(e, "device_type", "")).endswith("CUDA"):
                 kernels[e.key[:60]] = [e.count,
                                        e.self_device_time_total / 1e3]
-        if kernels:
+        if kernels and (complete is None or complete(kernels)):
             break
     return wall, kernels
 
 
 # the name fragments of K1's, K2's and K3's kernels in a profile (K1 and K2:
-# both routes of csrc/lstm_persistent.cuh)
+# both routes of csrc/lstm_persistent.cuh; K3: lstm_bwd_persistent.cuh's
+# route and the step route's two kernels)
 K1_KERNELS = ("lstm_persistent<false>", "lstm_step<false>")
 K2_KERNELS = ("lstm_persistent<true>", "lstm_step<true>")
-K3_KERNELS = ("lstm_bwd_step", "lstm_bwd_dh0")
+K3_KERNELS = ("lstm_bwd_persistent", "lstm_bwd_step", "lstm_bwd_dh0")
 
 
 def kernel_share(kern, fragments, busy):
@@ -338,12 +343,21 @@ def kernel_share(kern, fragments, busy):
             "share": ms / busy if busy else None}
 
 
-def recurrence_profile(fn, t, plan, residuals):
-    """Launches of K1's (K2's with ``residuals``) recurrence kernel in one
+def recurrence_kernel(plan, kernel):
+    """The name fragment of the recurrence kernel that ``plan``'s route of
+    K1, K2 or K3 (``kernel``) launches."""
+    persistent = plan.route == "persistent"
+    if kernel == "k3":
+        return "lstm_bwd_persistent" if persistent else "lstm_bwd_step"
+    return "%s<%s>" % ("lstm_persistent" if persistent else "lstm_step",
+                       "true" if kernel == "k2" else "false")
+
+
+def recurrence_profile(fn, t, plan, kernel):
+    """Launches of K1's, K2's or K3's (``kernel``) recurrence kernel in one
     call of ``fn`` over ``t`` steps, and its device µs a step."""
     _, kern = device_profile(fn)
-    name = "%s<%s>" % ("lstm_persistent" if plan.route == "persistent"
-                       else "lstm_step", "true" if residuals else "false")
+    name = recurrence_kernel(plan, kernel)
     hits = [v for k, v in kern.items() if name in k]
     check(len(hits) == 1, "one call's profile shows %d %s kernels"
           % (len(hits), name))
@@ -479,7 +493,7 @@ def phase_kernel(ops, device):
                 # the recurrence kernel's launches in one call, and its own
                 # device time per step
                 launches, us = recurrence_profile(lambda: fused_lstm(*args),
-                                                  t, plan, False)
+                                                  t, plan, "k1")
                 row.update(recurrence_launches_per_call=launches,
                            recurrence_us_per_step=us)
             if (t, b, i, h) == served[-1]:
@@ -724,13 +738,6 @@ def cudnn_train(x, h0, c0, wx, wh, b, cots):
             lambda: torch.autograd.grad(fwd(), wrt, cots))
 
 
-def step_us(fn, kernel):
-    """Mean device µs of one launch of ``kernel`` while ``fn`` runs."""
-    _, kern = device_profile(fn)
-    steps = [v for k, v in kern.items() if kernel in k]
-    return steps[0][1] / steps[0][0] * 1e3 if steps else None
-
-
 def max_err(got, want, what, rtol=LSTM_ATOL, atol=LSTM_ATOL):
     """Max abs difference of two tensor lists; fails unless every pair is
     within ``atol + rtol * |want|`` and finite."""
@@ -745,21 +752,49 @@ def max_err(got, want, what, rtol=LSTM_ATOL, atol=LSTM_ATOL):
     return worst
 
 
+def cotangents(t, b, h, device, seed):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(device)
+            for s in ((t, b, h), (b, h), (b, h))]
+
+
+def k3_check(ops, plan, bwd_args, shape):
+    """One K3 call against its plain version; its route against ``plan``.
+    Returns (max abs err, route)."""
+    before = dict(ops.lstm_bwd_recurrence.launches_by_route)
+    got = ops.lstm_bwd_recurrence(*bwd_args)
+    route = check_route(ops.lstm_bwd_recurrence, plan, before,
+                        "lstm_bwd_recurrence %s" % (shape,))
+    err = max_err(got, ops.lstm_bwd_recurrence_plain(*bwd_args),
+                  "lstm_bwd_recurrence %s" % (shape,))
+    return err, route
+
+
 def phase_train_kernels(ops, device):
     """K2 (fused_lstm_train) and K3 (lstm_bwd_recurrence) against their
     plain versions, and the six gradients of a FusedLSTM layer against
     the plain backward, at T=35, B in {8, 32}, I=H=650 and a ragged
-    shape; kernel, plain and cuDNN times with each kernel's bound. K2
-    alone at the extra shapes and the step route's; each K2 call's route
-    against its plan; K2's bitwise determinism at B=32."""
+    shape; kernel, plain and cuDNN times with each kernel's bound. K2 and
+    K3 at the extra shapes and the step route's; each call's route
+    against its plan; K2's and K3's recurrence launches a call, µs a step
+    and bitwise determinism at B=32."""
     rows = []
     worst = 0.0
+    k3_units = ops.lstm_bwd_plan(TRAIN_BATCH, HIDDEN, device).units
     log("phase 7 fused_lstm_train ptxas %s" % json.dumps({
         "lstm_persistent": ptxas_of("fused_lstm_train", "lstm_persistent"),
-        "lstm_step": ptxas_of("fused_lstm_train", "lstm_step")}))
+        "lstm_step": ptxas_of("fused_lstm_train", "lstm_step"),
+        "lstm_bwd_persistent<%d>" % k3_units: ptxas_of(
+            "fused_lstm_train", "lstm_bwd_persistentILi%dE" % k3_units),
+        "lstm_bwd_step": ptxas_of("fused_lstm_train", "lstm_bwd_step")}))
     for n, shape in enumerate(EXTRA_SHAPES + [STEP_ROUTE_SHAPE]):
+        t, b, i, h = shape
         args = lstm_inputs(*shape, device, SEED + 30 + n)
-        plan = ops.lstm_plan(shape[1], shape[3], device)
+        plan = ops.lstm_plan(b, h, device)
+        bplan = ops.lstm_bwd_plan(b, h, device)
+        check(bplan.route == ("step" if shape == STEP_ROUTE_SHAPE
+                              else "persistent"),
+              "K3's plan at %s is %s" % (shape, bplan))
         with torch.no_grad():
             before = dict(ops.fused_lstm_train.launches_by_route)
             got = ops.fused_lstm_train(*args)
@@ -767,17 +802,20 @@ def phase_train_kernels(ops, device):
                                 "fused_lstm_train %s" % (shape,))
             err = max_err(got, ops.fused_lstm_train_plain(*args),
                           "fused_lstm_train %s" % (shape,))
-        worst = max(worst, err)
+            bwd_args = (*cotangents(t, b, h, device, SEED + 40 + n),
+                        got[2], got[1], args[2], args[4])
+            err3, route3 = k3_check(ops, bplan, bwd_args, shape)
+        worst = max(worst, err, err3)
         log("phase 7 train kernels %s" % json.dumps({
-            "T": shape[0], "B": shape[1], "I": shape[2], "H": shape[3],
-            "k2_max_abs_err": err, "route": route, "plan": plan._asdict()}))
+            "T": t, "B": b, "I": i, "H": h, "k2_max_abs_err": err,
+            "route": route, "plan": plan._asdict(), "k3_max_abs_err": err3,
+            "k3_route": route3, "k3_plan": bplan._asdict()}))
     shapes = [(SEQ, b, EMBED, HIDDEN) for b in TRAIN_BATCHES] + [RAGGED]
     for n, (t, b, i, h) in enumerate(shapes):
         args = lstm_inputs(t, b, i, h, device, SEED + 10 + n)
         plan = ops.lstm_plan(b, h, device)
-        rng = np.random.RandomState(SEED + 20 + n)
-        cots = [torch.from_numpy(rng.randn(*s).astype(np.float32))
-                .to(device) for s in ((t, b, h), (b, h), (b, h))]
+        bplan = ops.lstm_bwd_plan(b, h, device)
+        cots = cotangents(t, b, h, device, SEED + 20 + n)
         x, h0, c0, wx, wh, bias = args
         with torch.no_grad():
             res = ops.fused_lstm_train_plain(*args)
@@ -789,9 +827,9 @@ def phase_train_kernels(ops, device):
             check(route == "persistent", "fused_lstm_train at %s took the "
                   "%s route" % ((t, b, i, h), route))
             bwd_args = (*cots, res[2], res[1], c0, wh)
-            err3 = max_err(ops.lstm_bwd_recurrence(*bwd_args),
-                           ops.lstm_bwd_recurrence_plain(*bwd_args),
-                           "lstm_bwd_recurrence %s" % ((t, b, i, h),))
+            err3, route3 = k3_check(ops, bplan, bwd_args, (t, b, i, h))
+            check(route3 == "persistent", "lstm_bwd_recurrence at %s took "
+                  "the %s route" % ((t, b, i, h), route3))
             want = ops.fused_lstm_backward_plain(*cots, x, h0, c0, wx, wh,
                                                  *res)
         leaves = [a.detach().requires_grad_(True) for a in args]
@@ -802,7 +840,8 @@ def phase_train_kernels(ops, device):
         worst = max(worst, err2, err3, err_g)
         row = {"T": t, "B": b, "I": i, "H": h, "k2_max_abs_err": err2,
                "k3_max_abs_err": err3, "grad_max_abs_err": err_g,
-               "route": route, "plan": plan._asdict()}
+               "route": route, "plan": plan._asdict(), "k3_route": route3,
+               "k3_plan": bplan._asdict()}
         if (t, b, i, h) != RAGGED:
             (k2b, k2by), (k3b, k3by) = train_bounds(t, b, i, h)
             lib_fwd, lib_bwd, lib_both = cudnn_train(*args, cots)
@@ -822,17 +861,24 @@ def phase_train_kernels(ops, device):
                         *bwd_args), 20),
                     k3_bound_ms=k3b, k3_bound_by=k3by,
                     backward_ms=time_ms(lambda: ops.fused_lstm_backward(
-                        *cots, x, h0, c0, wx, wh, *res), 20),
-                    k3_step_us=step_us(lambda: ops.lstm_bwd_recurrence(
-                        *bwd_args), "lstm_bwd_step"))
+                        *cots, x, h0, c0, wx, wh, *res), 20))
                 launches, us = recurrence_profile(
-                    lambda: ops.fused_lstm_train(*args), t, plan, True)
+                    lambda: ops.fused_lstm_train(*args), t, plan, "k2")
                 row.update(k2_recurrence_launches_per_call=launches,
                            k2_recurrence_us_per_step=us)
+                # K3's recurrence kernel: one launch a call on its route
+                launches, us = recurrence_profile(
+                    lambda: ops.lstm_bwd_recurrence(*bwd_args), t, bplan,
+                    "k3")
+                row.update(k3_recurrence_launches_per_call=launches,
+                           k3_step_us=us)
                 if b == TRAIN_BATCH:
                     row["k2_bitwise_identical_calls"] = check_deterministic(
                         ops.fused_lstm_train, args, "fused_lstm_train %s"
                         % ((t, b, i, h),))
+                    row["k3_bitwise_identical_calls"] = check_deterministic(
+                        ops.lstm_bwd_recurrence, bwd_args,
+                        "lstm_bwd_recurrence %s" % ((t, b, i, h),))
             row.update(layer_fwd_bwd_ms=time_ms(layer, 20),
                        cudnn_fwd_ms=time_ms(lib_fwd, 20),
                        cudnn_bwd_ms=time_ms(lib_bwd, 20),
@@ -992,20 +1038,33 @@ def phase_train(mx, ctx, rng):
 def phase_train_profile(mod, rng, mx):
     """Where one train step's device time goes."""
     batch = lm_batches(mx, rng, 1)[0]
-    wall, kern = device_profile(lambda: mod._step(batch))
+
+    def both_recurrences(kern):
+        # a trace that lost the forward (or the backward) is taken again;
+        # the checks below still hold the trace that is kept
+        return all(any(f in k for k in kern for f in frags)
+                   for frags in (K2_KERNELS, K3_KERNELS))
+    wall, kern = device_profile(lambda: mod._step(batch),
+                                complete=both_recurrences)
     busy = sum(ms for _, ms in kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:10]
     k2 = kernel_share(kern, K2_KERNELS, busy)
+    k3 = kernel_share(kern, K3_KERNELS, busy)
     log("phase 9 train profile %s" % json.dumps({
         "step_wall_ms": wall, "device_busy_ms": busy,
         "device_idle_share": (1 - busy / wall) if kern else None,
-        "k2": k2, "k3": kernel_share(kern, K3_KERNELS, busy),
+        "k2": k2, "k3": k3,
         "top_kernels": [{"kernel": k, "launches": c, "ms": ms,
                          "share": ms / busy} for k, (c, ms) in top]}))
     check(list(k2["launches"].values()) == [LAYERS]
           and "lstm_persistent" in next(iter(k2["launches"])),
           "a train step's profile shows K2 kernels %s, want one "
           "lstm_persistent launch per layer (%d)" % (k2["launches"], LAYERS))
+    check(list(k3["launches"].values()) == [LAYERS]
+          and "lstm_bwd_persistent" in next(iter(k3["launches"])),
+          "a train step's profile shows K3 kernels %s, want one "
+          "lstm_bwd_persistent launch per layer (%d)"
+          % (k3["launches"], LAYERS))
 
 
 # ---------------------------------------------------------------------------
@@ -1924,19 +1983,20 @@ def main():
                 mx.ops.lstm_bwd_recurrence)
     for c in counters:                        # the training path starts
         c.launches = 0
-    for c in counters[:2]:
         c.launches_by_route.update(persistent=0, step=0)
     mod, summary = phase_train(mx, mx.gpu(0), rng)
     k1, k2, k3 = (c.launches for c in counters)   # ... and ends here
-    routes = [dict(c.launches_by_route) for c in counters[:2]]
+    routes = [dict(c.launches_by_route) for c in counters]
     steps = 4 + 2 * SCAN_STEPS + FIT_BATCHES
     summary.update(train_steps=steps, launches={
         "fused_lstm": k1, "fused_lstm_train": k2, "lstm_bwd_recurrence": k3},
         launches_by_route={"fused_lstm": routes[0],
-                           "fused_lstm_train": routes[1]})
+                           "fused_lstm_train": routes[1],
+                           "lstm_bwd_recurrence": routes[2]})
     check(routes == [{"persistent": k1, "step": 0},
-                     {"persistent": k2, "step": 0}],
-          "the training path's K1 and K2 calls by route %s, want all "
+                     {"persistent": k2, "step": 0},
+                     {"persistent": k3, "step": 0}],
+          "the training path's K1, K2 and K3 calls by route %s, want all "
           "persistent" % routes)
     log("phase 8 train %s" % json.dumps(summary))
     check(k2 == LAYERS * steps and k3 == LAYERS * steps,
@@ -2013,7 +2073,7 @@ def main():
     top = next(r for r in rows if r["B"] == max(SERVED_BATCHES))
     train = next(r for r in train_rows if r["B"] == TRAIN_BATCH)
     pallas = "mxnet_tpu/ops/pallas_kernels.py"
-    train_src = "mxnet_tpu_torch/csrc/fused_lstm_train.cu"
+    k3_src = "mxnet_tpu_torch/csrc/lstm_bwd_persistent.cuh"
     recurrence_src = "mxnet_tpu_torch/csrc/lstm_persistent.cuh"
     kernels = [{
         "name": "fused_lstm", "route": "cuda", "source": recurrence_src,
@@ -2029,7 +2089,7 @@ def main():
         "plain_ms": train["k2_plain_ms"], "bound_ms": train["k2_bound_ms"],
         "bound_by": train["k2_bound_by"],
         "library_ms": train["cudnn_fwd_ms"]}, {
-        "name": "lstm_bwd_recurrence", "route": "cuda", "source": train_src,
+        "name": "lstm_bwd_recurrence", "route": "cuda", "source": k3_src,
         "replaces": pallas + ":382", "launches": k3,
         "max_abs_err": train_worst, "ms": train["k3_ms"],
         "plain_ms": train["k3_plain_ms"], "bound_ms": train["k3_bound_ms"],

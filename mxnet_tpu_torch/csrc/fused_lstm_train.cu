@@ -28,9 +28,15 @@
 // c_t and the activated gates every step, and reads c_{t-1} from cseq (c0 at
 // t = 0): nothing is updated in place and c0 is not copied.
 //
-// K3 walks t in reverse with one launch per step: the TPU kernel carries dh
-// and dc in VMEM scratch, and Hopper blocks run in parallel and in no order.
-// It fuses the carry product with the elementwise part. For
+// K3 takes one of two routes, chosen from the shape by the caller
+// (mxnet_tpu_torch/ops/lstm_kernel.py::_lstm_bwd_route). Route 1,
+// lstm_bwd_persistent (lstm_bwd_persistent.cuh, which says what bounds it):
+// one cooperative launch a layer, each block's slice of Wh resident in
+// shared memory for all T steps, the partial products of dgates_t @ Wh^T
+// exchanged between blocks through a double buffer in device memory.
+// Route 2, below, where that slice and one row group do not fit (at 132
+// SMs, H above about 1,200): one launch per step, the carry product fused
+// with the elementwise part. For
 // hidden unit j the elementwise part needs only column j of each gate, so a
 // block that owns units j..j+31 for 8 rows first reduces
 //   dh_carry[b, j] = sum_k dgates_{t+1}[b, k] * WhT[k, j],  k < 4H,
@@ -40,15 +46,9 @@
 // of each dgates row (4H is a multiple of 4, so the chunks stay aligned).
 // dgates_{t+1} is already in the output buffer from the launch before, and dc
 // is owned in place by the one thread that updates it. One last
-// reduction-only launch gives dh0.
-//
-// What bounds K3. Per step it reads Wh (H x 4H f32, 6.76 MB at H = 650)
-// once per 8-row batch tile; it fits the 50 MB L2, so after the first step
-// the reads hit L2. The arithmetic is 2*B*H*4H f32 operations per step on
-// the CUDA cores. At B = 32 that is a few microseconds of either, so the
-// dependent loads of each warp's k loop and the 35 dependent launches set
-// the time. K2's design run in reverse time (WhT resident) is its next step.
-#include "lstm_persistent.cuh"
+// reduction-only launch gives dh0: T + 1 dependent launches, each of which
+// reads all of WhT from the L2 once per 8-row batch tile.
+#include "lstm_bwd_persistent.cuh"
 
 namespace {
 
@@ -186,29 +186,42 @@ extern "C" int fused_lstm_train_limits(int* sms, int* smem_optin) {
 }
 
 // K3: the reverse-time backward on `stream`. Reads dhseq (T, B, H), dh_n
-// (B, H), gates (T, B, 4H), cseq (T, B, H), c0 (B, H) and whT (4H, H);
-// dc (B, H) holds dc_n on entry and dc0 on return; writes dgates (T, B, 4H)
-// and dh0 (B, H). All f32, contiguous, on one device; T + 1 launches.
-// Returns the first launch error; it does not synchronise.
+// (B, H), gates (T, B, 4H), cseq (T, B, H), c0 (B, H) and the weights `w`:
+// on route 1 (`persistent`) wh (H, 4H) with element strides ws0 and ws1, on
+// route 2 whT (4H, H), contiguous. dc (B, H) holds dc_n on entry and dc0 on
+// return; writes dgates (T, B, 4H) and dh0 (B, H). xbuf (2, grid,
+// ceil(B/8), grid, 8, units) is route 1's scratch, any contents (null for
+// route 2). All f32 on one device. `persistent`, `grid`, `units`, `rows`
+// and `smem` are the caller's plan: one launch on route 1, T + 1 on route
+// 2. Returns the first CUDA error (0 when the launches were accepted); it
+// does not synchronise.
 extern "C" int fused_lstm_backward(const float* dhseq, const float* dhn,
                                    const float* gates, const float* cseq,
-                                   const float* c0, const float* whT,
+                                   const float* c0, const float* w,
                                    float* dc, float* dgates, float* dh0,
-                                   int T, int B, int H, void* stream) {
-  const dim3 block(kLanes * kWarps);
+                                   float* xbuf, int T, int B, int H,
+                                   long long ws0, long long ws1,
+                                   int persistent, int grid, int units,
+                                   int rows, int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (persistent) {
+    return lstm_backward_persistent(dhseq, dhn, gates, cseq, c0, w, ws0, ws1,
+                                    dc, dgates, dh0, xbuf, T, B, H, grid,
+                                    units, rows, smem, s);
+  }
+  const dim3 block(kLanes * kWarps);
   const size_t bh = static_cast<size_t>(B) * H;
   for (int t = T - 1; t >= 0; --t) {
     const size_t off = static_cast<size_t>(t) * bh;
     const float* dg_next = t == T - 1 ? nullptr : dgates + 4 * (off + bh);
     const float* cp = t == 0 ? c0 : cseq + off - bh;
     lstm_bwd_step<<<grid_of(B, H), block, 0, s>>>(
-        dg_next, dhn, whT, dhseq + off, gates + 4 * off, cseq + off, cp, dc,
+        dg_next, dhn, w, dhseq + off, gates + 4 * off, cseq + off, cp, dc,
         dgates + 4 * off, B, H);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  lstm_bwd_dh0<<<grid_of(B, H), block, 0, s>>>(dgates, whT, dh0, B, H);
+  lstm_bwd_dh0<<<grid_of(B, H), block, 0, s>>>(dgates, w, dh0, B, H);
   return static_cast<int>(cudaGetLastError());
 }
 

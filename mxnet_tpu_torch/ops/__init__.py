@@ -10,8 +10,8 @@ from .conv_kernel import conv1x1_s2_dgrad, conv1x1_s2_dgrad_plain
 from .lstm_kernel import (FusedLSTM, fused_lstm, fused_lstm_backward,
                           fused_lstm_backward_plain, fused_lstm_plain,
                           fused_lstm_train, fused_lstm_train_plain,
-                          lstm_bwd_recurrence, lstm_bwd_recurrence_plain,
-                          lstm_plan)
+                          lstm_bwd_plan, lstm_bwd_recurrence,
+                          lstm_bwd_recurrence_plain, lstm_plan)
 
 __all__ = ["registry", "conv1x1_s2_dgrad", "conv1x1_s2_dgrad_plain",
            "FlashAttention", "flash_attention", "flash_attention_plain",
@@ -19,4 +19,5 @@ __all__ = ["registry", "conv1x1_s2_dgrad", "conv1x1_s2_dgrad_plain",
            "FusedLSTM", "fused_lstm", "fused_lstm_plain",
            "fused_lstm_train", "fused_lstm_train_plain",
            "lstm_bwd_recurrence", "lstm_bwd_recurrence_plain",
-           "fused_lstm_backward", "fused_lstm_backward_plain", "lstm_plan"]
+           "fused_lstm_backward", "fused_lstm_backward_plain", "lstm_plan",
+           "lstm_bwd_plan"]

@@ -14,13 +14,16 @@ K2 and K3 launch ``csrc/fused_lstm_train.cu``. K1 and K2 share the
 recurrence of ``csrc/lstm_persistent.cuh``, launched by one of two routes
 that :func:`_lstm_route` picks from the shape alone: ``persistent``, one
 cooperative launch a layer with Wh resident in shared memory, or
-``step``, one launch per time step where Wh's slice does not fit. Each
+``step``, one launch per time step where Wh's slice does not fit. K3 has
+the same two routes, picked by :func:`_lstm_bwd_route`: ``persistent``
+runs ``csrc/lstm_bwd_persistent.cuh``, one launch a layer; ``step`` runs
+T + 1 launches. Each
 wrapper runs its plain version (``*_plain``, a loop over time with the
 same math, which is also the kernel's reference on the card) on a CPU
 tensor, launches its kernel on a CUDA tensor, and raises on any other
 device. ``<wrapper>.launches`` counts the calls that launched a kernel
-(one call is one layer), and K1's and K2's ``launches_by_route`` the same
-calls by route.
+(one call is one layer), and ``launches_by_route`` the same calls by
+route.
 
 :class:`FusedLSTM` is the layer's ``torch.autograd.Function`` (the JAX
 package's ``custom_vjp``): forward K2, backward K3 plus the four
@@ -44,7 +47,8 @@ from . import _build
 __all__ = ["fused_lstm", "fused_lstm_plain", "fused_lstm_train",
            "fused_lstm_train_plain", "lstm_bwd_recurrence",
            "lstm_bwd_recurrence_plain", "fused_lstm_backward",
-           "fused_lstm_backward_plain", "FusedLSTM", "LSTMPlan", "lstm_plan"]
+           "fused_lstm_backward_plain", "FusedLSTM", "LSTMPlan", "lstm_plan",
+           "lstm_bwd_plan"]
 
 
 def _project(x, wx, b):
@@ -266,7 +270,52 @@ def _lstm_route(batch, hid, sms, smem_per_block):
                     _STEP_UNITS, _STEP_ROWS, _STEP_SMEM)
 
 
+#: unit counts a block of K3's persistent kernel is built for
+#: (``lstm_bwd_persistent<U>``, U = 1 .. this)
+_BWD_MAX_UNITS = 9
+#: K3's step route: blocks of 32 units by 8 rows, 8 KB of shared memory
+_BWD_STEP_SMEM = 8192
+
+
+def _lstm_bwd_route(batch, hid, sms, smem_per_block):
+    """K3's plan for a layer of batch ``batch`` and hidden size ``hid`` on
+    a card of ``sms`` SMs whose blocks may opt in to ``smem_per_block``
+    bytes of shared memory, from the shape alone, before any launch.
+
+    ``persistent``: ``ceil(H / units)`` blocks of ``units = ceil(H / sms)``
+    hidden units, all resident at once. A block keeps the rows of Wh^T
+    that multiply its own 4·units dgates columns in shared memory (every
+    owner's units × 4·units, and 4 floats of padding for an even units);
+    the slab of a tile, the partial products the other blocks wrote for
+    its units (grid writers × 8 rows × units floats an 8-row group),
+    which then holds the block's own staged partials (4 floats of
+    padding an owner); and for each group its dgates (4·units × 8 and 4
+    floats of padding) and the four partial sums of its carries (8 ×
+    units each): all B rows when they fit, else the most 8-row groups
+    that fit, walked in turn each step.
+    ``step``, where not one group fits or units exceed
+    ``_BWD_MAX_UNITS``: T + 1 launches of blocks of 32 units by 8 rows."""
+    units = -(-hid // sms)
+    grid = -(-hid // units)
+    # the Wh slice, 4·units² floats an owner (4 more for an even units),
+    # and the staged partials' padding, 4 floats an owner
+    fixed = 4 * grid * (4 * units * units + (0 if units % 2 else 4) + 4)
+    group_bytes = 32 * units * grid + 256 * units + 16
+    groups = min(-(-batch // _ITEM_ROWS),
+                 max(0, smem_per_block - fixed) // group_bytes)
+    if units <= _BWD_MAX_UNITS and groups > 0:
+        return LSTMPlan("persistent", grid, units,
+                        min(batch, _ITEM_ROWS * groups),
+                        fixed + groups * group_bytes)
+    return LSTMPlan("step", -(-hid // _STEP_UNITS) * -(-batch // _STEP_ROWS),
+                    _STEP_UNITS, _STEP_ROWS, _BWD_STEP_SMEM)
+
+
 _FORWARD_ARGS = [_VP] * 8 + [_INT] * 8 + [_VP]
+#: fused_lstm_backward: 10 pointers, T, B, H, Wh's two strides (64-bit),
+#: the plan's five ints, the stream
+_BACKWARD_ARGS = ([_VP] * 10 + [_INT] * 3 + [ctypes.c_longlong] * 2
+                  + [_INT] * 5 + [_VP])
 _limits = {}
 
 
@@ -295,6 +344,17 @@ def lstm_plan(batch, hid, device):
         device = torch.device("cuda", torch.cuda.current_device())
     lib = _forward_library("fused_lstm")
     return _lstm_route(batch, hid, *_device_limits(lib, "fused_lstm", device))
+
+
+def lstm_bwd_plan(batch, hid, device):
+    """The :class:`LSTMPlan` that K3 takes for a layer of this batch and
+    hidden size on the CUDA ``device``."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    lib = _forward_library("fused_lstm_train")
+    return _lstm_bwd_route(batch, hid,
+                           *_device_limits(lib, "fused_lstm_train", device))
 
 
 def _ptr(t):
@@ -368,7 +428,9 @@ def lstm_bwd_recurrence(dhseq, dhn, dcn, gates, cseq, c0, wh):
 
     Same arguments as :func:`lstm_bwd_recurrence_plain`. Returns
     (dgates [T,B,4H], dh0, dc0). CPU tensors take the plain version;
-    CUDA tensors the kernel (T + 1 launches in one call)."""
+    CUDA tensors the kernel, by the route of :func:`_lstm_bwd_route`: one
+    launch a call on ``persistent``, T + 1 on ``step``. A refused plan or
+    launch raises; it never takes another route."""
     if not _on_kernel_device(gates, "lstm_bwd_recurrence"):
         return lstm_bwd_recurrence_plain(dhseq, dhn, dcn, gates, cseq, c0,
                                          wh)
@@ -383,21 +445,36 @@ def lstm_bwd_recurrence(dhseq, dhn, dcn, gates, cseq, c0, wh):
                              "%s on %s" % (name, want[name], gates.device,
                                            tuple(arr.shape), arr.device))
     lib = _library("fused_lstm_train", {
-        "fused_lstm_backward": [_VP] * 9 + [_INT] * 3 + [_VP]})
+        "fused_lstm_backward": _BACKWARD_ARGS,
+        "fused_lstm_train_limits": [ctypes.POINTER(_INT)] * 2})
+    plan = _lstm_bwd_route(bs, hid, *_device_limits(lib, "fused_lstm_train",
+                                                    gates.device))
+    persistent = plan.route == "persistent"
+    f32 = {"dtype": torch.float32, "device": gates.device}
     with torch.cuda.device(gates.device):
         ins = [_f32(a) for a in (dhseq, dhn, gates, cseq, c0)]
-        whT = _f32(wh.t())
+        if persistent:
+            # read through its strides: neither layout of Wh is copied
+            w = wh.float()
+            strides = w.stride()
+            # partial products between blocks: (2, owner, writer, 8-row
+            # group, 8 rows, units)
+            xbuf = torch.empty((2, plan.grid, -(-bs // _ITEM_ROWS) * plan.grid
+                                * _ITEM_ROWS * plan.units), **f32)
+        else:
+            w, strides, xbuf = _f32(wh.t()), (0, 0), None
         # the kernel owns dc in place: start it from a copy of dc_n
-        dc = torch.empty((bs, hid), dtype=torch.float32, device=gates.device)
+        dc = torch.empty((bs, hid), **f32)
         dc.copy_(dcn)
-        dgates = torch.empty((t, bs, g4), dtype=torch.float32,
-                             device=gates.device)
+        dgates = torch.empty((t, bs, g4), **f32)
         dh0 = torch.empty_like(dc)
         err = lib.fused_lstm_backward(
-            *[a.data_ptr() for a in ins], whT.data_ptr(), dc.data_ptr(),
-            dgates.data_ptr(), dh0.data_ptr(), t, bs, hid, _stream(gates))
+            *[a.data_ptr() for a in ins], w.data_ptr(), dc.data_ptr(),
+            dgates.data_ptr(), dh0.data_ptr(), _ptr(xbuf), t, bs, hid,
+            *strides, int(persistent), plan.grid, plan.units, plan.rows,
+            plan.smem, _stream(gates))
     _raise_on(lib, "fused_lstm_train", err)
-    _count(lstm_bwd_recurrence)
+    _count(lstm_bwd_recurrence, plan.route)
     return dgates, dh0, dc
 
 
@@ -405,9 +482,10 @@ def lstm_bwd_recurrence(dhseq, dhn, dcn, gates, cseq, c0, wh):
 fused_lstm.launches = 0
 fused_lstm_train.launches = 0
 lstm_bwd_recurrence.launches = 0
-#: K1's and K2's calls by route (:func:`_lstm_route`)
+#: calls by route (:func:`_lstm_route`; K3: :func:`_lstm_bwd_route`)
 fused_lstm.launches_by_route = {"persistent": 0, "step": 0}
 fused_lstm_train.launches_by_route = {"persistent": 0, "step": 0}
+lstm_bwd_recurrence.launches_by_route = {"persistent": 0, "step": 0}
 
 
 class FusedLSTM(torch.autograd.Function):

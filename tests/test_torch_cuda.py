@@ -178,6 +178,80 @@ def test_backward_recurrence_matches_plain(cuda, shape):
         torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
 
 
+# K3 by route: the LM's shapes (B = 8, 32, 64; T = 1), a ragged small shape
+# (H and B off every tile size), batches walked in row tiles (100 rows at
+# H = 650; 32 rows in 8-row tiles at H = 1100, 9 units a block, the most
+# the kernel is built for) and one whose Wh slice does not fit (the step
+# route)
+BWD_ROUTE_SHAPES = [((35, 8, 650, 650), "persistent"),
+                    ((35, 32, 650, 650), "persistent"),
+                    ((35, 64, 650, 650), "persistent"),
+                    ((1, 32, 650, 650), "persistent"),
+                    ((5, 3, 7, 13), "persistent"),
+                    ((3, 100, 16, 650), "persistent"),
+                    ((4, 32, 8, 1100), "persistent"),
+                    ((8, 4, 64, 1536), "step")]
+
+
+def _bwd_args(shape, device, seed, transposed=False):
+    """K3's inputs from K2's plain forward; with ``transposed`` Wh is the
+    (H, 4H) view of a contiguous (4H, H) tensor, as the RNN op passes it."""
+    t, b, i, h = shape
+    x, h0, c0, wx, wh, bias = _inputs(*shape, device=device, seed=seed)
+    _, cseq, gates = fused_lstm_train_plain(x, h0, c0, wx, wh, bias)
+    if transposed:
+        wh = wh.t().contiguous().t()
+    return (*_cotangents(t, b, h, device, seed=seed + 1), gates, cseq, c0,
+            wh)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("shape,route", BWD_ROUTE_SHAPES)
+def test_backward_routes_match_plain(cuda, shape, route, transposed):
+    t, b, i, h = shape
+    plan = lstm_kernel.lstm_bwd_plan(b, h, cuda)
+    assert plan.route == route
+    args = _bwd_args(shape, cuda, seed=7, transposed=transposed)
+    before = dict(lstm_bwd_recurrence.launches_by_route)
+    got = lstm_bwd_recurrence(*args)
+    want = lstm_bwd_recurrence_plain(*args)
+    torch.cuda.synchronize()
+    assert lstm_bwd_recurrence.launches_by_route == {
+        r: n + (r == route) for r, n in before.items()}
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+
+
+def test_backward_is_bitwise_deterministic(cuda):
+    # a fixed order of every sum: the product over the block's columns,
+    # then the writers in order; a missing fence would show here
+    args = _bwd_args((35, 32, 650, 650), cuda, seed=8, transposed=True)
+    first = [o.clone() for o in lstm_bwd_recurrence(*args)]
+    for _ in range(19):
+        for g, w in zip(lstm_bwd_recurrence(*args), first):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("plan", [
+    # more shared memory than a block may have
+    lstm_kernel.LSTMPlan("persistent", 130, 5, 32, 300000),
+    # shared memory short of what the plan's tile needs
+    lstm_kernel.LSTMPlan("persistent", 130, 5, 32, 100000),
+    # 650 blocks of one unit, one a SM: more than the card holds at once
+    lstm_kernel.LSTMPlan("persistent", 650, 1, 8, 200000),
+    # a plan that leaves units without a block
+    lstm_kernel.LSTMPlan("persistent", 100, 5, 32, 137760),
+    # a unit count the kernel is not built for
+    lstm_kernel.LSTMPlan("persistent", 65, 10, 8, 200000)])
+def test_refused_backward_plan_raises(cuda, monkeypatch, plan):
+    monkeypatch.setattr(lstm_kernel, "_lstm_bwd_route", lambda *a: plan)
+    args = _bwd_args((3, 32, 8, 650), cuda, seed=9)
+    before = dict(lstm_bwd_recurrence.launches_by_route)
+    with pytest.raises(mxt.MXNetError, match="kernel launch failed"):
+        lstm_bwd_recurrence(*args)
+    assert lstm_bwd_recurrence.launches_by_route == before
+
+
 @pytest.mark.parametrize("shape", SHAPES[:3])
 def test_fused_lstm_gradients_match_plain(cuda, shape):
     t, b, i, h = shape
@@ -222,10 +296,14 @@ def test_module_step_on_gpu_matches_cpu(cuda):
     mods = [_lm(mxt, ctx, t, b, vocab, hidden)
             for ctx in (mxt.gpu(0), mxt.cpu())]
     before = (fused_lstm_train.launches, lstm_bwd_recurrence.launches)
+    persistent = lstm_bwd_recurrence.launches_by_route["persistent"]
     for mod in mods:
         mod._step(batch)
     assert (fused_lstm_train.launches, lstm_bwd_recurrence.launches) == \
         (before[0] + 2, before[1] + 2)
+    # K3 takes its one-launch route, once a layer
+    assert lstm_bwd_recurrence.launches_by_route["persistent"] == \
+        persistent + 2
     got, want = (m.get_outputs()[0].asnumpy() for m in mods)
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
     for name, arr in mods[0].get_params()[0].items():

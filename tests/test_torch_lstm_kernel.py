@@ -135,6 +135,68 @@ def test_route_plan_covers_every_unit_once(batch, hid):
     assert plan.smem == 4 * hp * (4 * plan.units + plan.rows) <= SMEM
 
 
+# K3 (lstm_bwd_recurrence): its own route function, the same two routes
+@pytest.mark.parametrize("batch", [1, 8, 32, 64])
+def test_bwd_route_is_persistent_at_h650(batch):
+    plan = lstm_kernel._lstm_bwd_route(batch, 650, SMS, SMEM)
+    assert plan == lstm_kernel.LSTMPlan("persistent", 130, 5, batch,
+                                        plan.smem)
+    assert plan.smem <= SMEM
+
+
+@pytest.mark.parametrize("batch,hid", [(4, 1536), (32, 1300), (1, 4096),
+                                       (64, 1200)])
+def test_bwd_route_takes_steps_where_wh_cannot_fit(batch, hid):
+    plan = lstm_kernel._lstm_bwd_route(batch, hid, SMS, SMEM)
+    assert plan.route == "step"
+    assert plan.grid == -(-hid // 32) * -(-batch // 8)
+
+
+def _bwd_smem(grid, units, rows):
+    """csrc/lstm_bwd_persistent.cuh::lstm_bwd_smem: the Wh slice, the
+    tile's slab of partials (4 floats of padding a writer), and each 8-row
+    group's dgates (4 floats of padding) and the four partial sums of its
+    carries."""
+    groups, slot = -(-rows // 8), 8 * units
+    wh_stride = 4 * units * units + (0 if units % 2 else 4)
+    return 4 * (grid * wh_stride + grid * (groups * slot + 4)
+                + groups * (4 * slot + 4 + 4 * slot))
+
+
+@pytest.mark.parametrize("batch,hid", [(1, 650), (32, 650), (64, 650),
+                                       (65, 650), (100, 650), (1000, 650),
+                                       (4, 13), (100, 13), (3, 8), (8, 131),
+                                       (8, 133), (32, 1100), (4, 1180)])
+def test_bwd_route_plan_covers_every_unit_once(batch, hid):
+    plan = lstm_kernel._lstm_bwd_route(batch, hid, SMS, SMEM)
+    assert plan.route == "persistent" and plan.grid <= SMS
+    assert 1 <= plan.units <= lstm_kernel._BWD_MAX_UNITS
+    owned = [j for p in range(plan.grid)
+             for j in range(p * plan.units, min(hid, (p + 1) * plan.units))]
+    assert owned == list(range(hid))                 # each unit once
+    assert (plan.grid - 1) * plan.units < hid        # no block without one
+    # the slab, the dgates and the Wh slice fit the plan's shared memory
+    assert plan.smem == _bwd_smem(plan.grid, plan.units, plan.rows) <= SMEM
+    # all rows in one tile, or row tiles of whole 8-row groups
+    assert plan.rows == batch or (plan.rows < batch and plan.rows % 8 == 0)
+
+
+@pytest.mark.parametrize("batch,rows", [(65, 64), (100, 64), (1000, 64)])
+def test_bwd_route_walks_large_batches_in_row_tiles(batch, rows):
+    plan = lstm_kernel._lstm_bwd_route(batch, 650, SMS, SMEM)
+    assert plan.route == "persistent" and plan.rows == rows
+    # one more group would not fit
+    assert _bwd_smem(plan.grid, plan.units, rows + 8) > SMEM
+
+
+def test_bwd_route_tiles_when_the_slice_leaves_room_for_few_groups():
+    # H = 1100: 9 units a block, 123 blocks; the Wh slice takes 159 KB and
+    # one 8-row group of 36 KB fits beside it
+    plan = lstm_kernel._lstm_bwd_route(32, 1100, SMS, SMEM)
+    assert plan == lstm_kernel.LSTMPlan("persistent", 123, 9, 8,
+                                        _bwd_smem(123, 9, 8))
+
+
 def test_build_name_follows_headers(tmp_path, monkeypatch):
     for src in _build.CSRC.iterdir():
         if src.suffix in (".cu", ".cuh"):
