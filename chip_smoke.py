@@ -62,8 +62,12 @@ through the port's Gluon -> ``_trace_symbol`` -> ``Module`` path
 depth, with ``MXNET_CONV1X1_PALLAS`` on, in three more:
 
 10. ``conv1x1_s2_dgrad`` (K5) vs its plain version at the six stride-2
-    1x1 shapes of the train step, bf16 and f32 (TF32 off), and a ragged
-    shape, with kernel, plain and cuDNN dgrad times and the bound;
+    1x1 shapes of the train step, bf16 and f32 (TF32 off), a ragged shape
+    and a bf16 shape that takes the WMMA route, each call's route against
+    its plan (the six bf16 sites on the wgmma route), with kernel, plain
+    and cuDNN dgrad times and the bound, 20 bit-identical calls at stage
+    2's downsample, and the wgmma kernels' ptxas registers, spills and
+    shared memory;
 11. the ResNet-50 Module: 2 f32 steps at batch 4 and lr 0.05 on
     ``gpu(0)`` held against the same Module on ``cpu()`` (outputs, moving
     statistics, every parameter's gradient and update) with two controls
@@ -172,6 +176,9 @@ PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-6
 # outside the tensor cores and dense bf16 tensor-core FLOP/s, at the
 # 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
+# time_ms: the card's sleep while the host queues the timed calls, about
+# 25 ms at the H100's 1.98 GHz
+QUEUE_CYCLES = 50_000_000
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 # ResNet-50 v1 training (tools/bench_all.py:91-97)
@@ -186,6 +193,9 @@ K5_SHAPES = [(RESNET_BATCH, ho, ho, k, c) for ho, c in ((28, 256), (14, 512),
                                                         (7, 1024))
              for k in (c // 2, 2 * c)]
 K5_RAGGED = (3, 5, 3, 40, 136)
+# a bf16 shape TMA cannot address (K and C not multiples of 8): the WMMA
+# route
+K5_WMMA = (4, 7, 7, 60, 100)
 K5_PER_STEP = 6
 # K5 vs plain: f32 both sides (TF32 off), sums of K <= 2048 products in
 # another order; bf16 outputs are rounded from f32 sums that differ in
@@ -286,12 +296,17 @@ def nvidia_smi():
 
 
 def time_ms(fn, reps):
-    """Mean device time of ``fn`` in ms, by CUDA events after warm-up."""
+    """Mean device time of ``fn`` in ms, by CUDA events after warm-up. The
+    card first sleeps (QUEUE_CYCLES) while the host queues the ``reps``
+    calls, so that where the host takes longer to issue a call (the
+    wrapper's Python, the launch) than the card to run it, the card's time
+    is measured and not the host's."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -1096,12 +1111,29 @@ def cudnn_dgrad(dy, w2, h, w):
                                               stride=2).permute(0, 2, 3, 1)
 
 
+def k5_ptxas(ops):
+    """The wgmma route's kernels by tile width (``wgmma_ptxas``); fails
+    on spills or serialised wgmmas."""
+    out = wgmma_ptxas("conv1x1_s2_dgrad", ops.conv_kernel._library(),
+                      "dgrad_wgmmaILi%dE", "BN=%d",
+                      ops.conv_kernel._wgmma_smem)
+    for bn, row in out.items():
+        check(row["spill_stores"] == 0 and row["spill_loads"] == 0
+              and not row["wgmma_serialized"],
+              "conv1x1_s2_dgrad wgmma %s spills or serialises: %s"
+              % (bn, row))
+    return out
+
+
 def phase_k5(ops, device):
-    """K5 vs plain at the train step's six shapes (bf16 and f32) and a
-    ragged one; kernel, plain and cuDNN times at the six."""
+    """K5 vs plain at the train step's six shapes (bf16 and f32), a ragged
+    one and one the WMMA route takes; each call's route against its plan
+    (the six bf16 sites on the wgmma route); kernel, plain and cuDNN times
+    at the six; 20 bit-identical calls at stage 2's downsample."""
+    k5 = ops.conv1x1_s2_dgrad
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        for n_shape, shape in enumerate(K5_SHAPES + [K5_RAGGED]):
+        for n_shape, shape in enumerate(K5_SHAPES + [K5_RAGGED, K5_WMMA]):
             n, ho, wo, k, c = shape
             gen = torch.Generator(device=device)
             gen.manual_seed(SEED + 30 + n_shape)
@@ -1109,20 +1141,27 @@ def phase_k5(ops, device):
                              device=device).to(dtype)
             w2 = (torch.randn((k, c), generator=gen, device=device)
                   / k ** 0.5).to(dtype)
-            got = ops.conv1x1_s2_dgrad(dy, w2, 2 * ho, 2 * wo)
+            plan = ops.conv_kernel.conv1x1_s2_dgrad_plan(dy, w2)
+            before = dict(k5.launches_by_route)
+            got = k5(dy, w2, 2 * ho, 2 * wo)
+            what = "conv1x1_s2_dgrad %s %s" % (shape, dtype)
+            check_route(k5, plan, before, what)
+            if dtype == torch.bfloat16 and shape in K5_SHAPES:
+                check(plan.route == "wgmma", "%s planned the %s route, not "
+                      "wgmma" % (what, plan.route))
             want = ops.conv1x1_s2_dgrad_plain(dy, w2, 2 * ho, 2 * wo)
             torch.cuda.synchronize()
             tol = K5_TOL[dtype]
-            err = max_err([got.float()], [want.float()],
-                          "conv1x1_s2_dgrad %s %s" % (shape, dtype),
+            err = max_err([got.float()], [want.float()], what,
                           rtol=tol, atol=tol)
             check(bool((got[:, 1::2] == 0).all())
                   and bool((got[:, :, 1::2] == 0).all()),
                   "conv1x1_s2_dgrad %s left a nonzero at an odd position"
                   % (shape,))
             row = {"shape": list(shape), "dtype": str(dtype).split(".")[1],
+                   "route": plan.route, "bn": plan.bn, "grid": plan.grid,
                    "max_abs_err": err}
-            if shape != K5_RAGGED:
+            if shape in K5_SHAPES:
                 lib = cudnn_dgrad(dy, w2, 2 * ho, 2 * wo)
                 # the yardstick must compute the same dx, to K5's tolerance
                 lib_err = max_err([lib().float()], [want.float()],
@@ -1131,13 +1170,15 @@ def phase_k5(ops, device):
                 t_bytes, t_ops = k5_times(*shape, dtype)
                 bound, by = bound_of(t_bytes, t_ops)
                 row.update(
-                    ms=time_ms(lambda: ops.conv1x1_s2_dgrad(
-                        dy, w2, 2 * ho, 2 * wo), 20),
+                    ms=time_ms(lambda: k5(dy, w2, 2 * ho, 2 * wo), 20),
                     plain_ms=time_ms(lambda: ops.conv1x1_s2_dgrad_plain(
                         dy, w2, 2 * ho, 2 * wo), 20),
                     library_ms=time_ms(lib, 20), library_max_abs_err=lib_err,
                     bound_ms=bound, bound_by=by, bytes_ms=t_bytes,
                     operations_ms=t_ops)
+                if dtype == torch.bfloat16 and shape == K5_SHAPES[1]:
+                    row["identical_calls"] = check_deterministic(
+                        lambda *a: [k5(*a)], (dy, w2, 2 * ho, 2 * wo), what)
             del dy, w2, got, want
             log("phase 10 conv1x1_s2_dgrad %s" % json.dumps(row))
             rows.append(row)
@@ -1429,7 +1470,7 @@ def phase_resnet_bf16_vs_f32(mx, mod, batches):
 def kernel_class(kernel, stack):
     k = kernel.lower()
     where = " ".join(stack)
-    if "dgrad_bf16" in k or "dgrad_f32" in k:
+    if "dgrad_wgmma" in k or "dgrad_bf16" in k or "dgrad_f32" in k:
         return "K5 conv1x1_s2_dgrad"
     if "memcpy" in k or "memset" in k:
         return "copies"
@@ -1570,39 +1611,44 @@ def sass_registers(so, kernel):
     return 1 + max(int(r) for r in re.findall(r"\bR(\d+)\b", sass))
 
 
-def k4_ptxas(ops):
-    """The bf16 K4 kernels as ptxas built them, by head-dim tile: registers
-    a thread at entry and as the SASS uses them, spill bytes, whether
-    ptxas serialised their wgmmas, and the dynamic shared memory of one
+def wgmma_ptxas(name, lib, kernel, key, smem):
+    """The wgmma kernels of csrc/<name>.cu as ptxas built them, by their
+    one template argument (``kernel`` % it is the mangled name's
+    fragment; ``key`` % it the result's key): registers a thread at entry
+    and as the SASS uses them, spill bytes, whether ptxas serialised
+    their wgmmas, and ``smem(it)``, the dynamic shared memory of one
     block."""
     from mxnet_tpu_torch.ops import _build
-    lib = ops.attention_kernel._library()
-    log = _build.build_log("flash_attention") or ""
-    lines = log.splitlines()
+    lines = (_build.build_log(name) or "").splitlines()
+    pattern = re.escape(kernel).replace(re.escape("%d"), r"(\d+)")
     out = {}
     for i, line in enumerate(lines):
-        m = re.search(r"Function properties for \S*flash_fwd_bf16ILi(\d+)E",
-                      line)
+        m = re.search(r"Function properties for \S*" + pattern, line)
         if not m:
             continue
-        d = int(m.group(1))
+        arg = int(m.group(1))
         text = " ".join(lines[i + 1:i + 3])
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", text)
-        out["D<=%d" % d] = {
+        out[key % arg] = {
             "registers_at_entry": int(re.search(r"Used (\d+) registers",
                                                 text).group(1)),
-            "registers_used": sass_registers(
-                lib._name, "flash_fwd_bf16ILi%dE" % d),
+            "registers_used": sass_registers(lib._name, kernel % arg),
             "spill_stores": int(spill.group(1)),
             "spill_loads": int(spill.group(2)),
-            "wgmma_serialized": any(
-                "C7512" in x and "flash_fwd_bf16ILi%dE" % d in x
-                for x in lines),
-            "smem_bytes": lib.flash_attention_bf16_smem(d)}
-    check(len(out) == 2, "no ptxas report of the bf16 flash_attention "
-          "kernels in the build log")
+            "wgmma_serialized": any("C7512" in x and kernel % arg in x
+                                    for x in lines),
+            "smem_bytes": smem(arg)}
+    check(len(out) == 2, "no ptxas report of the wgmma kernels of %s in "
+          "the build log" % name)
     return out
+
+
+def k4_ptxas(ops):
+    """The bf16 K4 kernels by head-dim tile (``wgmma_ptxas``)."""
+    lib = ops.attention_kernel._library()
+    return wgmma_ptxas("flash_attention", lib, "flash_fwd_bf16ILi%dE",
+                       "D<=%d", lib.flash_attention_bf16_smem)
 
 
 def phase_k4(ops, device):
@@ -2010,6 +2056,7 @@ def main():
     del mod
 
     t0 = time.perf_counter()
+    log("phase 10 conv1x1_s2_dgrad ptxas %s" % json.dumps(k5_ptxas(mx.ops)))
     k5_rows = phase_k5(mx.ops, device)
     log("phase 10 seconds %.1f" % (time.perf_counter() - t0))
     t0 = time.perf_counter()
@@ -2102,7 +2149,7 @@ def main():
                                sum(r["operations_ms"] for r in step_rows))
     kernels.append({
         "name": "conv1x1_s2_dgrad", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/conv1x1_s2_dgrad.cu",
+        "source": "mxnet_tpu_torch/csrc/dgrad_wgmma.cuh",
         "replaces": "mxnet_tpu/ops/conv_kernels.py:66",
         "launches": k5_launches,
         "max_abs_err": max(r["max_abs_err"] for r in k5_rows),

@@ -6,56 +6,39 @@
 // OHWI weight of the 1x1 conv, reshaped) give dx (N, 2Ho, 2Wo, C) with
 //   dx[:, ::2, ::2, :] = dy @ w2     (f32 accumulation, stored in dy's type)
 // and exact zeros everywhere else. It is one GEMM, M = N*Ho*Wo rows of depth K
-// and width C, plus an interleaved store.
+// and width C, plus an interleaved store. Every element of dx is written
+// once, zeros included, with no separate memset.
 //
-// Design. The TPU kernel writes through the (N, Ho, 2, Wo, 2C) view of dx, in
-// which each GEMM row is the first C lanes of a 2C-wide row and the rest is
-// zero rows, zero-filling its VMEM block before the one HBM write. Here each
-// block owns a tile of the product (rows m, columns c) and writes, for every
-// product element (n, ho, wo, c), the four positions (2ho + {0,1},
-// 2wo + {0,1}, c) of dx: the value and three zeros. The tiles partition the
-// product, so every element of dx is written exactly once, zeros included,
-// with no separate memset. Stores are 16 bytes wide where C allows it, and
-// neighbouring threads write neighbouring columns of one row.
-//
-// Two GEMM bodies, both with f32 accumulators:
-// - bf16: tensor cores through WMMA (mma.sync, 16x16x16 bf16 -> f32). A block
-//   of 8 warps computes a 128x64 tile in steps of 32 along K; each warp holds
-//   a 32x32 piece in 2x2 fragments. Tiles are staged in shared memory, the
-//   accumulators go back through shared memory for the interleaved store.
-// - f32: a 64x64 tile on the CUDA cores, 256 threads of 4x4 outputs, exact
+// Three routes, which the wrapper (ops/conv_kernel.py::_k5_route) picks from
+// the shape and dtype before the launch and passes in as a plan; a plan a
+// route is not built for is refused, never changed:
+// - "wgmma" (bf16, K and C multiples of 8): the persistent TMA + wgmma
+//   kernel of dgrad_wgmma.cuh, tiles of 128 rows by BN = 128 or 256
+//   columns. The six stride-2 sites of a ResNet-50 step take it.
+// - "wmma" (bf16 shapes TMA cannot address: K or C not a multiple of 8):
+//   tensor cores through WMMA (mma.sync, 16x16x16 bf16 -> f32). A block of
+//   8 warps computes a 128x64 tile in steps of 32 along K; each warp holds a
+//   32x32 piece in 2x2 fragments. Tiles are staged in shared memory with
+//   element-wise masked loads; the accumulators go back through shared
+//   memory and each product element is stored with its three zeros.
+// - "f32": a 64x64 tile on the CUDA cores, 256 threads of 4x4 outputs, exact
 //   f32 (no TF32), for the f32 path and the references that run TF32 off.
-// Loads and stores are masked at the ragged edges, so any N, Ho, Wo, K and C
-// are taken; the 16-byte path needs K and C multiples of 8 (bf16) and falls
-// back to element-wise loads otherwise.
 //
-// What bounds it. dx is four times the product, so the bytes (read dy and w2
-// once, write dx once) bound it on this card: at ResNet-50's stage-entry
-// shapes, batch 128 bf16, 59-309 MB, 18-92 us at 3.35 TB/s, while the
-// operations (2*M*K*C, 2.4-6.6 GFLOP) take 2.5-6.7 us at 989 TFLOP/s. The
-// design streams dx out in one pass; w2 (at most 4 MB) stays in L2 across
-// the row tiles. Double-buffered cp.async/TMA loads and wgmma are later work.
+// What bounds it: see dgrad_wgmma.cuh; the two other routes are off the
+// bf16 training path.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "dgrad_wgmma.cuh"
+
 namespace {
 
-// position of dx[n, 2ho, 2wo, 0] for product row m = (n, ho, wo)
-__device__ __forceinline__ size_t row_base(int m, int Ho, int Wo, int C) {
-  const int hw = Ho * Wo;
-  const int n = m / hw;
-  const int rem = m - n * hw;
-  const int ho = rem / Wo;
-  const int wo = rem - ho * Wo;
-  const size_t W = 2 * static_cast<size_t>(Wo);
-  return ((static_cast<size_t>(n) * 2 * Ho + 2 * ho) * W + 2 * wo) *
-         static_cast<size_t>(C);
-}
+using k5::dx_row;
 
-// ---------------------------------------------------------------- bf16 path
+// ------------------------------------------------------------ the wmma route
 constexpr int kBM = 128;  // rows of the product per block
 constexpr int kBN = 64;   // columns of the product per block
 constexpr int kBK = 32;   // depth per shared-memory stage
@@ -68,29 +51,22 @@ constexpr size_t kSmemAB =
 constexpr size_t kSmemC = kBM * kLdC * sizeof(float);
 constexpr size_t kSmem = kSmemAB > kSmemC ? kSmemAB : kSmemC;
 
-template <bool kVec>
 __device__ __forceinline__ void load8(const __nv_bfloat16* __restrict__ src,
                                       bool row_ok, int col, int ncols,
                                       __nv_bfloat16* dst) {
   uint4 u = make_uint4(0, 0, 0, 0);  // 8 bf16 = 16 bytes
-  if (kVec) {
-    // ncols is a multiple of 8: a chunk is wholly inside or wholly outside
-    if (row_ok && col < ncols) u = *reinterpret_cast<const uint4*>(src);
-  } else {
-    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&u);
+  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&u);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      if (row_ok && col + i < ncols) e[i] = src[i];
-  }
+  for (int i = 0; i < 8; ++i)
+    if (row_ok && col + i < ncols) e[i] = src[i];
   *reinterpret_cast<uint4*>(dst) = u;
 }
 
-template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 dgrad_bf16(const __nv_bfloat16* __restrict__ dy,  // (M, K)
            const __nv_bfloat16* __restrict__ w2,  // (K, C)
            __nv_bfloat16* __restrict__ dx,        // (N, 2Ho, 2Wo, C)
-           int M, int K, int C, int Ho, int Wo) {
+           int M, int K, int C, int Wo) {
   using namespace nvcuda;
   __shared__ __align__(128) unsigned char smem[kSmem];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -118,16 +94,16 @@ dgrad_bf16(const __nv_bfloat16* __restrict__ dy,  // (M, K)
       const int row = e / (kBK / 8);
       const int col = (e % (kBK / 8)) * 8;
       const int m = m0 + row;
-      load8<kVec>(dy + static_cast<size_t>(m) * K + k0 + col, m < M,
-                  k0 + col, K, As + row * kLdA + col);
+      load8(dy + static_cast<size_t>(m) * K + k0 + col, m < M, k0 + col, K,
+            As + row * kLdA + col);
     }
     // B: 32 x 64 = 256 chunks of 8, one per thread
     {
       const int row = tid / (kBN / 8);
       const int col = (tid % (kBN / 8)) * 8;
       const int k = k0 + row;
-      load8<kVec>(w2 + static_cast<size_t>(k) * C + c0 + col, k < K,
-                  c0 + col, C, Bs + row * kLdB + col);
+      load8(w2 + static_cast<size_t>(k) * C + c0 + col, k < K, c0 + col, C,
+            Bs + row * kLdB + col);
     }
     __syncthreads();
 #pragma unroll
@@ -169,39 +145,26 @@ dgrad_bf16(const __nv_bfloat16* __restrict__ dy,  // (M, K)
     const int m = m0 + row;
     const int c = c0 + col;
     if (m >= M || c >= C) continue;
-    const size_t p = row_base(m, Ho, Wo, C) + c;
+    const size_t p = dx_row(m, Wo, C) + c;
     const float* v = Cs + row * kLdC + col;
-    if (kVec) {
-      uint4 out;
-      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-      const uint4 zero = make_uint4(0, 0, 0, 0);
-      *reinterpret_cast<uint4*>(dx + p) = out;
-      *reinterpret_cast<uint4*>(dx + p + C) = zero;
-      *reinterpret_cast<uint4*>(dx + p + rowW) = zero;
-      *reinterpret_cast<uint4*>(dx + p + rowW + C) = zero;
-    } else {
-      const __nv_bfloat16 zero = __float2bfloat16(0.f);
-      for (int i = 0; i < 8 && c + i < C; ++i) {
-        dx[p + i] = __float2bfloat16(v[i]);
-        dx[p + C + i] = zero;
-        dx[p + rowW + i] = zero;
-        dx[p + rowW + C + i] = zero;
-      }
+    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    for (int i = 0; i < 8 && c + i < C; ++i) {
+      dx[p + i] = __float2bfloat16(v[i]);
+      dx[p + C + i] = zero;
+      dx[p + rowW + i] = zero;
+      dx[p + rowW + C + i] = zero;
     }
   }
 }
 
-// ----------------------------------------------------------------- f32 path
+// ------------------------------------------------------------- the f32 route
 constexpr int kFM = 64;
 constexpr int kFN = 64;
 constexpr int kFK = 16;
 
 __global__ void __launch_bounds__(256)
 dgrad_f32(const float* __restrict__ dy, const float* __restrict__ w2,
-          float* __restrict__ dx, int M, int K, int C, int Ho, int Wo) {
+          float* __restrict__ dx, int M, int K, int C, int Wo) {
   __shared__ float As[kFK][kFM + 4];  // transposed: As[k][m]
   __shared__ float Bs[kFK][kFN + 4];
   const int tid = threadIdx.x;
@@ -245,7 +208,7 @@ dgrad_f32(const float* __restrict__ dy, const float* __restrict__ w2,
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty * 4 + i;
     if (m >= M) continue;
-    const size_t base = row_base(m, Ho, Wo, C);
+    const size_t base = dx_row(m, Wo, C);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = c0 + tx * 4 + j;
@@ -262,34 +225,58 @@ dgrad_f32(const float* __restrict__ dy, const float* __restrict__ w2,
 }  // namespace
 
 // dy (N*Ho*Wo = M, K) and w2 (K, C) read, dx (N, 2Ho, 2Wo, C) written in
-// full; contiguous, on one device, dtype 0 = f32, 1 = bf16. Launches one
-// kernel on `stream` and returns its launch error (0 when it was accepted,
-// -1 for an unknown dtype); it does not synchronise.
+// full (only Wo is needed to place a row); contiguous, on one device, dtype 0 = f32, 1 = bf16. The plan: route
+// 0 = f32, 1 = wmma, 2 = wgmma; bn the columns of a tile; stages the depth
+// of the TMA ring (1 for the other routes); grid the blocks of the launch;
+// smem the dynamic shared memory of a block (0 for the other routes).
+// Launches one kernel on `stream` and returns 0 when it was accepted, else
+// the reason it was refused: -1 an unknown dtype, -2 a route the dtype or
+// shape cannot take, -3 an operand TMA cannot address (not 16-byte
+// aligned), -4 no cuTensorMapEncodeTiled in the CUDA driver, -5 a map it
+// refused, -6 a plan the route is not built for, or the launch's CUDA
+// error. It does not synchronise.
 extern "C" int conv1x1_s2_dgrad(const void* dy, const void* w2, void* dx,
-                                int M, int K, int C, int Ho, int Wo,
-                                int dtype, void* stream) {
+                                int M, int K, int C, int Wo,
+                                int dtype, int route, int bn, int stages,
+                                int grid, int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    const dim3 grid((M + kBM - 1) / kBM, (C + kBN - 1) / kBN);
-    const auto* a = static_cast<const __nv_bfloat16*>(dy);
-    const auto* b = static_cast<const __nv_bfloat16*>(w2);
-    auto* out = static_cast<__nv_bfloat16*>(dx);
-    if (K % 8 == 0 && C % 8 == 0)
-      dgrad_bf16<true><<<grid, kThreads, 0, s>>>(a, b, out, M, K, C, Ho, Wo);
-    else
-      dgrad_bf16<false><<<grid, kThreads, 0, s>>>(a, b, out, M, K, C, Ho, Wo);
-  } else if (dtype == 0) {
-    const dim3 grid((M + kFM - 1) / kFM, (C + kFN - 1) / kFN);
-    dgrad_f32<<<grid, 256, 0, s>>>(static_cast<const float*>(dy),
-                                   static_cast<const float*>(w2),
-                                   static_cast<float*>(dx), M, K, C, Ho, Wo);
-  } else {
-    return -1;
+  if (dtype != 0 && dtype != 1) return -1;
+  if (route == 2) {
+    if (dtype != 1 || K < 8 || K % 8 != 0 || C % 8 != 0) return -2;
+    if (((reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(w2) |
+          reinterpret_cast<uintptr_t>(dx)) % 16) != 0)
+      return -3;
+    if (bn == 256)
+      return k5::launch<256>(dy, w2, dx, M, K, C, Wo, stages, grid, smem, s);
+    if (bn == 128)
+      return k5::launch<128>(dy, w2, dx, M, K, C, Wo, stages, grid, smem, s);
+    return -6;
   }
+  if (route != 0 && route != 1) return -6;
+  if (route != dtype) return -2;  // f32 on the CUDA cores, bf16 on WMMA
+  const int bm = route == 1 ? kBM : kFM;
+  const dim3 blocks((M + bm - 1) / bm, (C + kBN - 1) / kBN);
+  if (bn != kBN || stages != 1 || smem != 0 ||
+      grid != static_cast<int>(blocks.x * blocks.y))
+    return -6;
+  if (route == 1)
+    dgrad_bf16<<<blocks, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(dy),
+        static_cast<const __nv_bfloat16*>(w2),
+        static_cast<__nv_bfloat16*>(dx), M, K, C, Wo);
+  else
+    dgrad_f32<<<blocks, 256, 0, s>>>(static_cast<const float*>(dy),
+                                     static_cast<const float*>(w2),
+                                     static_cast<float*>(dx), M, K, C, Wo);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* conv1x1_s2_dgrad_error_name(int err) {
   if (err == -1) return "unsupported dtype";
+  if (err == -2) return "a route the dtype or shape cannot take";
+  if (err == -3) return "the wgmma route needs 16-byte aligned dy, w2 and dx";
+  if (err == -4) return "the CUDA driver has no cuTensorMapEncodeTiled";
+  if (err == -5) return "cuTensorMapEncodeTiled refused a tensor map";
+  if (err == -6) return "a plan the route is not built for";
   return cudaGetErrorName(static_cast<cudaError_t>(err));
 }

@@ -319,31 +319,126 @@ def test_module_step_on_gpu_matches_cpu(cuda):
 # an H100 the readings were at most 0.0375, and a zeroed gradient or
 # update reads 1.0; the limit is about their geometric mean
 SMALL_RESNET_REL = 0.2
-K5_SHAPES = [(2, 3, 5, 128, 256), (3, 5, 3, 40, 136), (2, 7, 7, 512, 128),
-             (1, 1, 1, 8, 8)]
+# small shapes, the six stride-2 sites of a ResNet-50 step at batch 8, and
+# bf16 shapes the WMMA route takes (K or C not a multiple of 8)
+K5_SITES_B8 = [(8, ho, ho, k, c) for ho, c in ((28, 256), (14, 512),
+                                               (7, 1024))
+               for k in (c // 2, 2 * c)]
+K5_WMMA_SHAPES = [(4, 7, 7, 60, 100), (3, 5, 3, 40, 134)]
+K5_SHAPES = ([(2, 3, 5, 128, 256), (3, 5, 3, 40, 136), (2, 7, 7, 512, 128),
+              (1, 1, 1, 8, 8)] + K5_SITES_B8 + K5_WMMA_SHAPES)
+
+
+def _k5_inputs(shape, dtype, device, seed=7):
+    n, ho, wo, k, c = shape
+    rng = np.random.RandomState(seed)
+    dy = torch.from_numpy(rng.randn(n, ho, wo, k).astype(np.float32)) \
+        .to(device, dtype)
+    w2 = torch.from_numpy((rng.randn(k, c) / np.sqrt(k)).astype(np.float32)) \
+        .to(device, dtype)
+    return dy, w2
+
+
+def _k5_check(got, dy, w2):
+    from mxnet_tpu_torch.ops.conv_kernel import conv1x1_s2_dgrad_plain
+    want = conv1x1_s2_dgrad_plain(dy, w2, got.shape[1], got.shape[2])
+    torch.cuda.synchronize()
+    # bf16: both round an f32 sum, in another order, to 8 significant bits
+    tol = TOL if dy.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert bool((got[:, 1::2] == 0).all()) and \
+        bool((got[:, :, 1::2] == 0).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", K5_SHAPES)
 def test_k5_matches_plain(cuda, shape, dtype):
     from mxnet_tpu_torch.ops.conv_kernel import (conv1x1_s2_dgrad,
-                                                 conv1x1_s2_dgrad_plain)
+                                                 conv1x1_s2_dgrad_plan)
     n, ho, wo, k, c = shape
-    rng = np.random.RandomState(7)
-    dy = torch.from_numpy(rng.randn(n, ho, wo, k).astype(np.float32)) \
-        .to(cuda, dtype)
-    w2 = torch.from_numpy((rng.randn(k, c) / np.sqrt(k)).astype(np.float32)) \
-        .to(cuda, dtype)
-    before = conv1x1_s2_dgrad.launches
+    dy, w2 = _k5_inputs(shape, dtype, cuda)
+    plan = conv1x1_s2_dgrad_plan(dy, w2)
+    assert plan.route == ("f32" if dtype == torch.float32 else
+                          "wmma" if shape in K5_WMMA_SHAPES else "wgmma")
+    before = dict(conv1x1_s2_dgrad.launches_by_route)
+    launches = conv1x1_s2_dgrad.launches
     got = conv1x1_s2_dgrad(dy, w2, 2 * ho, 2 * wo)
-    want = conv1x1_s2_dgrad_plain(dy, w2, 2 * ho, 2 * wo)
-    torch.cuda.synchronize()
-    assert conv1x1_s2_dgrad.launches == before + 1
-    # bf16: both round an f32 sum, in another order, to 8 significant bits
-    tol = TOL if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    assert bool((got[:, 1::2] == 0).all()) and \
-        bool((got[:, :, 1::2] == 0).all())
+    assert conv1x1_s2_dgrad.launches == launches + 1
+    before[plan.route] += 1
+    assert conv1x1_s2_dgrad.launches_by_route == before
+    _k5_check(got, dy, w2)
+
+
+@pytest.mark.parametrize("bn", [128, 256])
+@pytest.mark.parametrize("shape", [(2, 3, 5, 128, 256), (3, 5, 3, 40, 136),
+                                   (8, 14, 14, 1024, 512),
+                                   (8, 7, 7, 512, 1024)])
+def test_k5_both_tile_widths_match_plain(cuda, monkeypatch, shape, bn):
+    # the wgmma route's two kernels, whichever width the plan would take
+    from mxnet_tpu_torch.ops import conv_kernel
+    route = conv_kernel._k5_route
+
+    def width(n, ho, wo, k, c, dtype, sms):
+        plan = route(n, ho, wo, k, c, dtype, sms)
+        return conv_kernel._wgmma_plan(plan.row_tiles, c, bn, sms)
+    monkeypatch.setattr(conv_kernel, "_k5_route", width)
+    n, ho, wo, k, c = shape
+    dy, w2 = _k5_inputs(shape, torch.bfloat16, cuda, seed=8)
+    assert conv_kernel.conv1x1_s2_dgrad_plan(dy, w2).bn == bn
+    _k5_check(conv_kernel.conv1x1_s2_dgrad(dy, w2, 2 * ho, 2 * wo), dy, w2)
+
+
+def test_k5_is_bitwise_deterministic(cuda):
+    # each element is one thread's sum over K in a fixed order
+    from mxnet_tpu_torch.ops.conv_kernel import conv1x1_s2_dgrad
+    dy, w2 = _k5_inputs((8, 28, 28, 512, 256), torch.bfloat16, cuda, seed=9)
+    first = conv1x1_s2_dgrad(dy, w2, 56, 56)
+    for _ in range(19):
+        assert torch.equal(conv1x1_s2_dgrad(dy, w2, 56, 56), first)
+
+
+def test_k5_takes_unaligned_views(cuda):
+    # TMA needs 16-byte aligned operands: the wrapper copies a view that
+    # is not
+    from mxnet_tpu_torch.ops.conv_kernel import conv1x1_s2_dgrad
+    dy, w2 = _k5_inputs((2, 3, 5, 128, 256), torch.bfloat16, cuda, seed=10)
+    flat = torch.empty(dy.numel() + 1, dtype=dy.dtype, device=cuda)
+    flat[1:] = dy.reshape(-1)
+    view = flat[1:].view(dy.shape)
+    assert view.data_ptr() % 16 != 0
+    _k5_check(conv1x1_s2_dgrad(view, w2, 6, 10), dy, w2)
+
+
+def _k5_plan(route, bn, stages, grid, smem, rows=1, cols=1):
+    from mxnet_tpu_torch.ops.conv_kernel import K5Plan
+    return K5Plan(route, bn, stages, grid, rows, cols, smem)
+
+
+@pytest.mark.parametrize("shape,plan", [
+    # a tile width the kernel is not built for
+    ((2, 3, 5, 128, 256), _k5_plan("wgmma", 192, 3, 1, 216128)),
+    # shared memory or ring depth other than the kernel's layout
+    ((2, 3, 5, 128, 256), _k5_plan("wgmma", 256, 3, 1, 300000)),
+    ((2, 3, 5, 128, 256), _k5_plan("wgmma", 256, 4, 1, 216128)),
+    # no blocks, or more blocks than tiles
+    ((2, 3, 5, 128, 256), _k5_plan("wgmma", 256, 3, 0, 216128)),
+    ((2, 3, 5, 128, 256), _k5_plan("wgmma", 256, 3, 2, 216128)),
+    # K not a multiple of 8 on the TMA route
+    ((2, 3, 5, 60, 256), _k5_plan("wgmma", 256, 3, 1, 216128)),
+    # the f32 route for bf16, and a WMMA grid that misses tiles
+    ((2, 3, 5, 128, 256), _k5_plan("f32", 64, 1, 4, 0, 1, 4)),
+    ((2, 3, 5, 128, 256), _k5_plan("wmma", 64, 1, 3, 0, 1, 3))])
+def test_k5_refused_plan_raises(cuda, monkeypatch, shape, plan):
+    from mxnet_tpu_torch.ops import conv_kernel
+    monkeypatch.setattr(conv_kernel, "_k5_route", lambda *a: plan)
+    n, ho, wo, k, c = shape
+    dy, w2 = _k5_inputs(shape, torch.bfloat16, cuda, seed=11)
+    before = (conv_kernel.conv1x1_s2_dgrad.launches,
+              dict(conv_kernel.conv1x1_s2_dgrad.launches_by_route))
+    with pytest.raises(mxt.MXNetError, match="kernel launch failed"):
+        conv_kernel.conv1x1_s2_dgrad(dy, w2, 2 * ho, 2 * wo)
+    assert (conv_kernel.conv1x1_s2_dgrad.launches,
+            conv_kernel.conv1x1_s2_dgrad.launches_by_route) == before
 
 
 def test_k5_refuses_what_it_cannot_launch(cuda):
