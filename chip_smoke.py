@@ -107,11 +107,40 @@ B=1) and drives ``rtc``, in four more:
 16. ``rtc.CudaModule``: an ``extern "C"`` axpy and a templated row sum
     found through ``exports``, launched on ``gpu(0)`` and held against
     ``2*x + y`` (exactly) and ``x.sum(1)``; axpy at 2^26 timed against
-    its bound, ``2*x + y`` and ``torch.add``.
+    its bound, ``2*x + y`` and ``torch.add``;
+
+and then runs ResNet-50 v1 inference at batch 32, f32, 224x224, full
+width and depth, through ``hybridize`` (one captured CUDA graph per
+input signature, `mxnet_tpu_torch/compiled.py`), by the steps of the
+JAX bench (``bench.py:123-146``), in two more:
+
+17. ``nd.random`` on ``gpu(0)``: every sampler's draws on the card, their
+    moments at ``tests/test_random.py``'s tolerances, one seed
+    reproducing a draw bit for bit and two draws without a reseed
+    differing;
+18. for NCHW and NHWC, TF32 off: the hybridized logits against the eager
+    ones on the card and against the eager net on ``cpu()`` (batch 4)
+    from the same weights, by relative norm to INFER_REL, with a control
+    that must fail it (one BatchNorm's moving variance doubled);
+    ``compile_counts()`` (one compile, then only cache hits, one retrace
+    at batch 16 naming the batch dimension); ``warmup()`` leaving every
+    moving statistic bit-identical and one train-mode call stepping them
+    once, as the eager call does; a capture holding ``.asnumpy()``
+    raising ``MXNetError``; ``torch.profiler`` over one hybridized and
+    one eager call, cuDNN's TF32 off and on (device busy ms, idle share,
+    the longest kernels, the host's launch calls: one
+    ``cudaGraphLaunch`` and no kernel launch for the hybridized call;
+    turning TF32 on is one retrace, and that graph's logits are held
+    against the TF32-on eager ones to INFER_REL); peak memory; the
+    operations bound
+    from the layer shapes; and img/s hybridized and eager through the
+    port's bench function (`mxnet_tpu_torch/tools/bench.py`), cuDNN's
+    TF32 on and off.
 
 Phases 3-5 are the serving main path, phase 8 the LM training one,
 phase 11's gate-on steps on the card the ResNet one, phase 15's steps on
-the card the attention one and phase 16's first launches the rtc one:
+the card the attention one, phase 16's first launches the rtc one and
+phase 18 the inference one:
 every kernel's launch count is set to 0 before each and read after it.
 The serving path must launch K1, every call by the persistent route; the
 LM training path must launch K2 and K3 exactly once per layer and step,
@@ -119,7 +148,9 @@ and K1 once per layer and eval batch, K1, K2 and K3 by the persistent
 route;
 the ResNet path must launch K5 exactly 6 times per step with the gate
 on, and never with it off; the attention path must launch K4 once
-per layer and step; the rtc path its two kernels once each. Any failed
+per layer and step; the rtc path its two kernels once each; the
+inference path none of them (no TPU kernel of the repo is on it: K5 is
+a dgrad). Any failed
 check exits non-zero. The last lines
 are the card's name and power limit (``nvidia-smi``), one JSON line with
 every ported kernel's numbers, and the result line
@@ -276,6 +307,24 @@ ATT_GRAD_REL = 0.02
 # K6: axpy over 2^26 f32 (768 MiB moved), a row sum over 4096 x 1000
 RTC_N = 1 << 26
 RTC_ROWS = (4096, 1000)
+# nd.random on the card: 40000 draws a sampler, at the moments'
+# tolerances of the JAX package's tests/test_random.py
+RANDOM_N = 40000
+# ResNet-50 v1 inference through hybridize (bench.py:123-146): batch 32,
+# f32, 224x224, NCHW and NHWC; batch 4 against the eager net on cpu();
+# batch 16 for the one retrace. The hybridized logits are held to the
+# eager logits on the card and on the CPU by relative norm, TF32 off, to
+# INFER_REL, set between the sound readings and a control that must fail
+# it (one BatchNorm's moving variance doubled), all printed in phase 18.
+# On an H100 (700 W) the sound readings were 0 (card, hybridized against
+# eager: the same kernels) and at most 1.08e-6 (card against CPU), the
+# controls 0.099 (NCHW) and 0.064 (NHWC): the limit is about the
+# geometric mean of the largest sound reading and the smallest control.
+INFER_BATCH, INFER_CHECK_BATCH, INFER_RETRACE_BATCH = 32, 4, 16
+INFER_REL = 2.5e-4
+# the bench's inference function in phase 18: rounds of calls x iters
+INFER_ITERS, INFER_CALLS, INFER_ROUNDS = 50, 2, 2
+PEAK_TF32_FLOPS = 495e12
 
 
 def log(msg):
@@ -1976,6 +2025,352 @@ def phase_rtc(mx):
         "bound_ms": bound, "bound_by": "bytes"}
 
 
+# ---------------------------------------------------------------------------
+# the inference slice: nd.random, and ResNet-50 v1 through hybridize
+# (compiled.py: one CUDA graph per input signature)
+# ---------------------------------------------------------------------------
+def phase_random(mx):
+    """``nd.random`` on gpu(0): each sampler's draws lie on the card and
+    meet their moments at tests/test_random.py's tolerances; one seed
+    reproduces a draw bit for bit, and two draws without a reseed
+    differ."""
+    ctx, n = mx.gpu(0), (RANDOM_N,)
+    r = mx.nd.random
+    probs = mx.nd.array(np.array([[0.1, 0.2, 0.7]], "f"), ctx=ctx)
+    samplers = {
+        "uniform": (lambda: r.uniform(2.0, 4.0, shape=n),
+                    lambda x: (2.0 <= x.min() and x.max() <= 4.0
+                               and abs(x.mean() - 3.0) <= 0.05
+                               and abs(x.var() - 4.0 / 12.0) <= 0.05)),
+        "normal": (lambda: r.normal(1.5, 2.0, shape=n),
+                   lambda x: (abs(x.mean() - 1.5) <= 0.06
+                              and abs(x.std() - 2.0) <= 0.06)),
+        "gamma": (lambda: r.gamma(4.0, 0.5, shape=n),
+                  lambda x: abs(x.mean() - 2.0) <= 0.1),
+        "poisson": (lambda: r.poisson(3.0, shape=n),
+                    lambda x: abs(x.mean() - 3.0) <= 0.15),
+        "exponential": (lambda: r.exponential(2.0, shape=n),
+                        lambda x: abs(x.mean() - 2.0) <= 0.1),
+        "negative_binomial": (lambda: r.negative_binomial(4, 0.5, shape=n),
+                              lambda x: abs(x.mean() - 4.0) <= 0.2),
+        "generalized_negative_binomial": (
+            lambda: r.generalized_negative_binomial(3.0, 0.5, shape=n),
+            lambda x: abs(x.mean() - 3.0) <= 0.15),
+        "randint": (lambda: r.randint(0, 10, shape=n),
+                    lambda x: x.min() == 0 and x.max() == 9),
+        "multinomial": (lambda: r.multinomial(probs, shape=n),
+                        lambda x: np.allclose(
+                            np.bincount(x.ravel(), minlength=3) / x.size,
+                            [0.1, 0.2, 0.7], atol=0.02)),
+        "shuffle": (lambda: r.shuffle(mx.nd.array(np.arange(50, dtype="f"),
+                                                  ctx=ctx)),
+                    lambda x: sorted(x.tolist()) == list(range(50))
+                    and not np.array_equal(x, np.arange(50))),
+    }
+    rows, fails = {}, []
+    for name, (draw, ok) in samplers.items():
+        mx.random.seed(SEED + 70)
+        a = draw()
+        mx.random.seed(SEED + 70)
+        b = draw()
+        c = draw()
+        x = a.asnumpy()
+        rows[name] = {"mean": float(x.mean()), "std": float(x.std()),
+                      "device": str(a.data.device)}
+        if a.data.device.type != "cuda":
+            fails.append("%s drew on %s" % (name, a.data.device))
+        if not ok(x):
+            fails.append("%s moments %s" % (name, rows[name]))
+        if not torch.equal(a.data, b.data) or torch.equal(a.data, c.data):
+            fails.append("%s: a seed does not reproduce the draw, or two "
+                         "draws agree" % name)
+    check(not fails, "nd.random on the card: " + "; ".join(fails))
+    return rows
+
+
+def resnet_macs(net, shape):
+    """Multiply-accumulates of one forward of a Gluon net over ``shape``:
+    every Convolution (output elements x input channels a group x the
+    window) and FullyConnected, from the traced symbol's shapes."""
+    sym = net._trace_symbol()
+    internals = sym.get_internals()
+    args = dict(zip(sym.list_arguments(), sym.infer_shape(data=shape)[0]))
+    outs = dict(zip(internals.list_outputs(),
+                    internals.infer_shape(data=shape)[1]))
+    macs = 0
+    for node in sym._topo_nodes():
+        if node.op not in ("Convolution", "FullyConnected"):
+            continue
+        weight = args[node.inputs[1][0].name]
+        macs += int(np.prod(outs["%s_output" % node.name])) \
+            * int(np.prod(weight[1:]))
+    return macs
+
+
+def call_profile(fn):
+    """One call of ``fn`` under torch.profiler: profiled wall ms, device
+    busy ms (kernels and copies; None if the trace held no device
+    activity), device events, the host's CUDA runtime calls by name and
+    the eight longest kernels (launches, device ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, events, api, kernels = 0.0, 0, {}, {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            busy += e.self_device_time_total / 1e3
+            events += e.count
+            row = kernels.setdefault(e.key[:60], [0, 0.0])
+            row[0] += e.count
+            row[1] += e.self_device_time_total / 1e3
+        elif e.key.startswith("cuda"):
+            api[e.key] = e.count
+    return {"wall_ms": wall, "device_busy_ms": busy if events else None,
+            "device_idle_share": 1 - busy / wall if events else None,
+            "device_events": events, "runtime_calls": api,
+            "top": sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]}
+
+
+def infer_net(mx, layout, ctx, **extra):
+    """``bench.py``'s inference set-up on the port, line for line
+    (bench.py:123-146; the card in place of the TPU)."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    kwargs = {"layout": layout} if layout != "NCHW" else {}
+    net = vision.resnet50_v1(**kwargs, **extra)
+    net.initialize(ctx=ctx)
+    return net
+
+
+def infer_shape(layout, batch):
+    return (batch, 3, 224, 224) if layout == "NCHW" else (batch, 224, 224, 3)
+
+
+def phase_infer(mx, layout):
+    """ResNet-50 v1 at batch 32, f32, TF32 off, one layout: bench.py's
+    flow (initialize, hybridize, nd.random.uniform, a warm call,
+    ``_cached_jit`` over ``_param_order``); the hybridized logits against
+    the eager ones on the card and on ``cpu()`` (batch 4) and a control
+    that must fail INFER_REL; compile counts (one compile, the timed
+    calls all cache hits, one retrace at batch 16 naming dim 0);
+    ``warmup()`` leaving every moving statistic bit-identical, then one
+    train-mode call stepping them once, as the eager call does; a capture
+    that must fail; a profile of one hybridized and one eager call, with
+    cuDNN's TF32 off and on (a retrace naming the switch), the TF32-on
+    graph's logits against the TF32-on eager ones to INFER_REL."""
+    from mxnet_tpu_torch import compiled
+    from mxnet_tpu_torch.gluon.block import HybridBlock
+    ctx = mx.gpu(0)
+    torch.cuda.reset_peak_memory_stats()
+    mx.random.seed(SEED + 80)
+    net = infer_net(mx, layout, ctx)
+    x = mx.nd.random.uniform(shape=infer_shape(layout, INFER_BATCH),
+                             ctx=ctx)
+    eager = net(x).data.clone()             # finishes deferred init
+    net.hybridize()
+    before = compiled.compile_counts()
+    hybrid = net(x).asnumpy()
+    cached = net._cached_jit
+    params = tuple(net.collect_params()[n].data()._data
+                   for n in net._param_order)
+    first = compiled.compile_counts()
+    n_timed = 20
+    for _ in range(n_timed):
+        out = cached(params, 0, False, x.data)[0][0]
+    timed = compiled.compile_counts()
+    counts = {"first_call": {k: first[k] - before[k] for k in first},
+              "timed_calls": {k: timed[k] - first[k] for k in timed}}
+    check(counts["first_call"] == {"compiles": 1, "cache_hits": 0,
+                                   "retraces": 0}
+          and counts["timed_calls"] == {"compiles": 0,
+                                        "cache_hits": n_timed,
+                                        "retraces": 0},
+          "%s compile counts %s: want one compile, then %d cache hits"
+          % (layout, counts, n_timed))
+    check(hybrid.shape == (INFER_BATCH, CLASSES)
+          and bool(np.isfinite(hybrid).all())
+          and torch.equal(out, torch.from_numpy(hybrid).to(out.device)),
+          "%s hybridized output not finite, or replays differ" % layout)
+    # the same weights on the CPU, eager, batch 4
+    cpu_net = infer_net(mx, layout, mx.cpu(), prefix=net.prefix)
+    mx.set_block_params(cpu_net, mx.params_to_numpy(
+        {k: v.data() for k, v in net.collect_params().items()}))
+    x_cpu = mx.nd.array(x.asnumpy()[:INFER_CHECK_BATCH], ctx=mx.cpu())
+    on_cpu = cpu_net(x_cpu).asnumpy()
+    want = eager.cpu().numpy()
+    readings = {"vs_eager_on_card": rel_err(hybrid, want),
+                "vs_eager_on_cpu": rel_err(hybrid[:INFER_CHECK_BATCH],
+                                           on_cpu),
+                "eager_card_vs_cpu": rel_err(want[:INFER_CHECK_BATCH],
+                                             on_cpu),
+                "max_abs_err_vs_eager_on_card": float(
+                    np.abs(hybrid - want).max())}
+    # control: one stage-3 BatchNorm's moving variance doubled, in place,
+    # so the graph reads it without a recapture
+    var = next(net.collect_params()[n].data().data for n in net._param_order
+               if "stage3" in n and n.endswith("running_var"))
+    var.mul_(2)
+    control = net(x).asnumpy()
+    var.div_(2)
+    readings["control_bn_var_doubled"] = rel_err(control, want)
+    check(np.array_equal(net(x).asnumpy(), hybrid),
+          "%s: the hybridized output changed after the control" % layout)
+    # one retrace at batch 16, naming the batch dimension
+    small = mx.nd.random.uniform(
+        shape=infer_shape(layout, INFER_RETRACE_BATCH), ctx=ctx)
+    before = compiled.compile_counts()
+    net(small)
+    after = compiled.compile_counts()
+    retrace = compiled.last_retrace()
+    check(after["retraces"] - before["retraces"] == 1
+          and after["compiles"] - before["compiles"] == 1
+          and "dim 0: %d -> %d" % (INFER_BATCH, INFER_RETRACE_BATCH)
+          in retrace["reason"],
+          "%s batch %d: counts %s -> %s, retrace %s" % (
+              layout, INFER_RETRACE_BATCH, before, after, retrace))
+    # warmup() changes no moving statistic; one train-mode call steps
+    # them once, as the eager call does from the same state
+    stats = {n: net.collect_params()[n].data().data
+             for n in net._param_order if "running" in n}
+    saved = {n: v.clone() for n, v in stats.items()}
+    cached.warmup(params, 0, True, x.data)
+    check(all(torch.equal(v, saved[n]) for n, v in stats.items()),
+          "%s: warmup() changed a moving statistic" % layout)
+    with mx.autograd.train_mode():
+        train_out = net(x).data.clone()
+    stepped = {n: v.clone() for n, v in stats.items()}
+    for n, v in stats.items():
+        v.copy_(saved[n])
+    net.hybridize(False)
+    with mx.autograd.train_mode():
+        train_eager = net(x).data.clone()
+    net.hybridize()
+    stat_err = max(float((stepped[n] - v).abs().max())
+                   for n, v in stats.items())
+    moved = sum(not torch.equal(stepped[n], saved[n]) for n in stats)
+    readings.update(train_mode_vs_eager=rel_err(
+        train_out.cpu().numpy(), train_eager.cpu().numpy()),
+        train_mode_moving_stat_max_abs_err=stat_err,
+        moving_stats_moved=moved, moving_stats=len(stats))
+    log("phase 18 %s readings %s" % (layout, json.dumps(readings)))
+    fails = [k for k in ("vs_eager_on_card", "vs_eager_on_cpu",
+                         "train_mode_vs_eager")
+             if not readings[k] <= INFER_REL]
+    if readings["control_bn_var_doubled"] <= INFER_REL:
+        fails.append("the control passes the limit")
+    if moved != len(stats) or not stat_err <= RESNET_ATOL + RESNET_RTOL * max(
+            float(v.abs().max()) for v in stepped.values()):
+        fails.append("train-mode moving statistics (%d of %d moved, max "
+                     "abs err %.3g)" % (moved, len(stats), stat_err))
+    check(not fails, "%s hybridized inference (limit %.3g): %s"
+          % (layout, INFER_REL, "; ".join(fails)))
+    # a capture that must fail raises, and nothing runs eagerly instead
+    class HostSyncBlock(HybridBlock):
+        """Reads a value to the host in its forward: no CUDA graph can
+        hold that."""
+
+        def hybrid_forward(self, F, v):
+            v.asnumpy()
+            return F.Activation(v, act_type="relu")
+    sync = HostSyncBlock()
+    sync.hybridize()
+    try:
+        sync(x)
+        raised = None
+    except mx.MXNetError as exc:
+        raised = str(exc)
+    check(raised is not None and "CUDA graph capture failed" in raised,
+          "a capture holding asnumpy() did not raise MXNetError: %s"
+          % raised)
+    # one hybridized call and one eager call under the profiler
+    net(x)
+    prof_hybrid = call_profile(lambda: net(x))
+    net.hybridize(False)
+    net(x)
+    prof_eager = call_profile(lambda: net(x))
+    net.hybridize()
+    # the same with cuDNN's TF32 on: a new signature (the capture keeps
+    # the kernels chosen at capture time), one retrace naming the switch
+    # the TF32-on graph (the one the timed rates replay) against the eager
+    # call under TF32: the same kernels, so held to INFER_REL; against the
+    # f32 CPU net it is only recorded, to show whether INFER_REL would
+    # catch TF32's lower precision
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_hybrid = net(x).asnumpy()
+        tf32_retrace = compiled.last_retrace()["reason"]
+        prof_tf32 = call_profile(lambda: net(x))
+        net.hybridize(False)
+        tf32_eager = net(x).asnumpy()
+        prof_tf32_eager = call_profile(lambda: net(x))
+        net.hybridize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    tf32_readings = {
+        "tf32_vs_eager_tf32_on_card": rel_err(tf32_hybrid, tf32_eager),
+        "tf32_vs_eager_on_cpu": rel_err(tf32_hybrid[:INFER_CHECK_BATCH],
+                                        on_cpu)}
+    tf32_readings["tf32_vs_eager_on_cpu_within_limit"] = \
+        tf32_readings["tf32_vs_eager_on_cpu"] <= INFER_REL
+    readings.update(tf32_readings)
+    log("phase 18 %s TF32-on readings %s" % (layout,
+                                             json.dumps(tf32_readings)))
+    check(tf32_retrace.startswith("tf32 (cudnn, matmul)"),
+          "%s: turning TF32 on gave the retrace %r" % (layout, tf32_retrace))
+    check(tf32_readings["tf32_vs_eager_tf32_on_card"] <= INFER_REL,
+          "%s: the TF32-on graph against the TF32-on eager call: %.3g > "
+          "%.3g" % (layout, tf32_readings["tf32_vs_eager_tf32_on_card"],
+                    INFER_REL))
+    for prof in (prof_hybrid, prof_tf32):
+        calls = prof["runtime_calls"]
+        check(calls.get("cudaGraphLaunch") == 1
+              and not any("LaunchKernel" in k for k in calls),
+              "%s: a hybridized call made host calls %s, want one "
+              "cudaGraphLaunch and no kernel launch" % (layout, calls))
+    return {"layout": layout, "batch": INFER_BATCH, "readings": readings,
+            "limit": INFER_REL, "compile_counts": counts,
+            "retrace": retrace["reason"][:200],
+            "capture_error": str(raised)[:200],
+            "profile_hybridized": prof_hybrid, "profile_eager": prof_eager,
+            "profile_hybridized_tf32": prof_tf32,
+            "profile_eager_tf32": prof_tf32_eager,
+            "macs_per_image": resnet_macs(
+                net, infer_shape(layout, 1)),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_infer_rate(mx, layout, tf32):
+    """img/s of the bench's own inference function, hybridized and eager,
+    with cuDNN's TF32 on (PyTorch's default) or off; the hybridized run's
+    counts: one compile (its warm call), every timed call a cache hit."""
+    from mxnet_tpu_torch import compiled
+    from mxnet_tpu_torch.tools import bench
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        rows = {}
+        for hybridize in (True, False):
+            before = compiled.compile_counts()
+            rows["hybridized" if hybridize else "eager"] = bench.bench_infer(
+                batch=INFER_BATCH, iters=INFER_ITERS, calls=INFER_CALLS,
+                ctx=mx.gpu(0), layout=layout, hybridize=hybridize,
+                rounds=INFER_ROUNDS)
+            after = compiled.compile_counts()
+            if hybridize:
+                calls = INFER_ITERS * (1 + INFER_CALLS * INFER_ROUNDS)
+                diff = {k: after[k] - before[k] for k in after}
+                check(diff == {"compiles": 1, "cache_hits": calls,
+                               "retraces": 0},
+                      "bench run %s: counts %s, want 1 compile and %d "
+                      "hits" % (layout, diff, calls))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs the port on the GPU",
@@ -2116,6 +2511,39 @@ def main():
     del mod, batches
     rtc_launches, rtc_row = phase_rtc(mx)
     log("phase 16 rtc %s" % json.dumps(rtc_row))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    log("phase 17 nd.random %s" % json.dumps(phase_random(mx)))
+    counters = {"fused_lstm": mx.ops.fused_lstm,
+                "fused_lstm_train": mx.ops.fused_lstm_train,
+                "lstm_bwd_recurrence": mx.ops.lstm_bwd_recurrence,
+                "conv1x1_s2_dgrad": k5, "flash_attention": k4,
+                "rtc": mx.rtc.Kernel}
+    for c in counters.values():               # the inference path starts
+        c.launches = 0
+    infer = [phase_infer(mx, layout) for layout in ("NCHW", "NHWC")]
+    infer_launches = {k: c.launches for k, c in counters.items()}
+    check(not any(infer_launches.values()),
+          "ResNet-50 inference launched %s: no TPU kernel of the repo is on "
+          "this path" % infer_launches)
+    for row in infer:
+        flops = 2.0 * row["macs_per_image"] * INFER_BATCH
+        row.update(flops_per_batch=flops,
+                   bound_ms_tf32=flops / PEAK_TF32_FLOPS * 1e3,
+                   bound_ms_f32=flops / PEAK_F32_FLOPS * 1e3)
+        log("phase 18 resnet50 inference %s" % json.dumps(row))
+    rates = {}
+    for layout in ("NCHW", "NHWC"):
+        for tf32 in (True, False):
+            rates["%s cudnn_tf32=%s" % (layout, tf32)] = phase_infer_rate(
+                mx, layout, tf32)
+    infer_launches = {k: c.launches for k, c in counters.items()}
+    log("phase 18 img/s %s" % json.dumps({
+        "rates": rates, "kernel_launches": infer_launches,
+        "card": card, "seconds": time.perf_counter() - t0}))
+    check(not any(infer_launches.values()),
+          "ResNet-50 inference launched %s" % infer_launches)
 
     top = next(r for r in rows if r["B"] == max(SERVED_BATCHES))
     train = next(r for r in train_rows if r["B"] == TRAIN_BATCH)

@@ -2,7 +2,7 @@
 
 A second package beside the JAX one, with the same module names, so an
 ``import mxnet_tpu_torch as mx`` script reads like one written against
-`mxnet_tpu`. It imports neither JAX nor `mxnet_tpu`. It holds four paths
+`mxnet_tpu`. It imports neither JAX nor `mxnet_tpu`. It holds five paths
 so far:
 
 - serving: ``sym`` -> ``Executor`` -> ``Predictor`` ->
@@ -25,7 +25,17 @@ so far:
   ``sym.contrib.flash_attention`` (``_contrib_flash_attention``), whose
   forward is a hand-written CUDA kernel (`csrc/flash_attention.cu`, bound
   by `ops/attention_kernel.py`), in graphs trained by ``mod.Module``
-  with ``LayerNorm``.
+  with ``LayerNorm``;
+- image-classifier inference: a ``gluon.model_zoo.vision`` ResNet after
+  ``hybridize()`` runs as one `compiled.CompiledProgram`: on the card one
+  captured CUDA graph per input signature (the parameters read in place,
+  the inputs copied into static buffers, the outputs cloned), replayed
+  with one launch a call; on ``cpu()`` the same signature cache and
+  ``compiled.compile_counts()`` over an eager run. ``nd.random`` draws
+  the inputs (`ops/random_ops.py`, seeded by ``random.seed``), and
+  `tools/bench.py` is the port's counterpart of the repository's
+  ``bench.py`` (run it on a GPU host as ``python3
+  mxnet_tpu_torch/tools/bench.py``).
 
 ``rtc`` compiles and launches user CUDA kernels at runtime (NVRTC and
 ``libcuda``), the reference's ``mx.rtc.CudaModule``.
@@ -54,6 +64,7 @@ from . import model
 from . import callback
 from . import name
 from . import gluon
+from . import compiled
 from .predict import Predictor
 from .weights import (params_from_numpy, params_to_numpy,
                       set_block_params)
@@ -63,6 +74,6 @@ from . import rtc
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "random", "nd", "ndarray", "ops", "sym", "symbol",
            "Executor", "init", "initializer", "optimizer", "io", "metric",
-           "mod", "module", "model", "callback", "name", "gluon",
+           "mod", "module", "model", "callback", "name", "gluon", "compiled",
            "autograd", "Predictor", "params_from_numpy", "params_to_numpy",
            "set_block_params", "serving", "rtc"]

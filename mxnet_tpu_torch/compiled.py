@@ -1,0 +1,494 @@
+"""CompiledProgram: the compiled-program layer of the port.
+
+Counterpart of `mxnet_tpu/compiled.py`. A :class:`CompiledProgram` wraps
+a function of tensors and owns its **signature cache**: a call's
+arguments are abstracted to a key (tensors by shape, dtype and device;
+Python scalars by type only on the CPU, so per-call values never cause a
+recompile, and by value on CUDA, where a graph keeps the value it was
+captured with; static arguments by value; and the TF32 switches of cuDNN
+and cuBLAS, which a capture bakes in). A cache miss is a
+*compile*; a miss beyond the first of the program's lineage is a
+*retrace*, logged with an explanation of what changed
+(:func:`explain_signature_change`) and kept in :func:`last_retrace`.
+:func:`compile_counts` gives the process's ``compiles``, ``cache_hits``
+and ``retraces`` (the keys of `mxnet_tpu/xla_stats.py::compile_counts`);
+:func:`reset` clears them and every program's cache.
+
+On a CUDA device a compile captures the function into a
+``torch.cuda.CUDAGraph``, in the place of the JAX package's XLA
+executable:
+
+1. the function runs once or twice on the program's side stream with the
+   auxiliary-state write-back suppressed (`ops/invoke.py`), so that
+   cuDNN's algorithm choice, workspace allocation and any lazy kernel
+   build happen outside the capture and BatchNorm's moving statistics do
+   not step;
+2. it is captured over static input buffers (a copy of every input
+   tensor), into one memory pool that all the program's signatures share;
+3. the static outputs are kept.
+
+A call then copies its inputs into the static buffers, replays the graph
+and returns clones of the outputs (a replay overwrites the static ones),
+all under the program's lock, since the buffers are shared by every
+caller. The arguments named by ``inplace_argnums`` (a Gluon block's
+parameters) are not copied: the graph reads them where they are, so
+their key also holds each tensor's ``data_ptr()``. An in-place update of
+such a tensor (an optimizer step, BatchNorm's moving statistics written
+by the graph itself) is seen by the next replay; storage that moved (a
+cast, a re-initialisation) is a new key, so one recapture, reported as a
+retrace that names the tensor. A new value of a Python scalar argument
+is a new signature on CUDA, so one recapture, reported as a retrace
+naming the argument; the arguments named by ``key_argnums`` (a Gluon
+call's random seed) stay keyed by type, since no graph reads them: an op
+that draws random numbers raises at capture (`ops/invoke.py`), as a
+replay would repeat its bits. An argument leaf that is neither a tensor
+nor a Python scalar raises at capture. A capture that fails raises
+:class:`MXNetError` naming the site and the error; nothing falls back to
+running eagerly.
+
+On the CPU there is no graph: the same cache, keys and counters, and a
+call runs the function eagerly.
+
+:meth:`CompiledProgram.warmup` compiles a signature without running it
+and without changing any auxiliary state (the counterpart of the JAX
+package's AOT ``warmup``).
+
+A program's function that calls another program (a hybridized child
+block inside its parent) runs that one's function inline: there is one
+capture at a time on a thread (:func:`running`).
+
+Not ported: the JAX package's cost and memory analysis, its
+``memprof``/``shardprof``/``runprof`` hooks, the sharding-policy slot and
+buffer donation.
+"""
+from __future__ import annotations
+
+import contextlib
+import gc
+import logging
+import threading
+import time
+import weakref
+
+import torch
+
+from .base import MXNetError
+from .ops.invoke import suppress_aux_writeback
+
+__all__ = ["CompiledProgram", "compile_counts", "explain_signature_change",
+           "last_retrace", "reset", "running"]
+
+logger = logging.getLogger(__name__)
+
+#: eager runs on the side stream before a capture
+WARMUP_RUNS = 2
+
+_lock = threading.Lock()
+_sites = {}     # lineage -> {"compiles": int, "sig": dict}
+_state = {"last_retrace": None}
+_counts = {"compiles": 0, "cache_hits": 0, "retraces": 0}
+_programs = weakref.WeakSet()
+_TLS = threading.local()
+
+
+def compile_counts():
+    """``{"compiles", "cache_hits", "retraces"}`` over every program of
+    the process since the last :func:`reset`."""
+    with _lock:
+        return dict(_counts)
+
+
+def last_retrace():
+    """The most recent retrace: ``{"site", "reason", "compiles",
+    "time"}``, or None."""
+    with _lock:
+        return dict(_state["last_retrace"]) if _state["last_retrace"] \
+            else None
+
+
+def reset():
+    """Clear the counters, the retrace record and every live program's
+    cache."""
+    with _lock:
+        _sites.clear()
+        _state["last_retrace"] = None
+        for k in _counts:
+            _counts[k] = 0
+        programs = list(_programs)
+    for program in programs:
+        with program._lock:
+            program._cache.clear()
+
+
+def _count(name):
+    with _lock:
+        _counts[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# which program's function runs on this thread
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def inline(site):
+    """Mark ``site``'s eager pass (a program's function, or a Gluon
+    block's deferred-initialisation pass): hybridized blocks called inside
+    it run their functions inline instead of compiling a program of their
+    own."""
+    prev = getattr(_TLS, "site", None)
+    _TLS.site = site
+    try:
+        yield
+    finally:
+        _TLS.site = prev
+
+
+def running():
+    """The site of the program whose function runs on this thread (or of
+    a Gluon block's deferred-initialisation pass), else None."""
+    return getattr(_TLS, "site", None)
+
+
+# ---------------------------------------------------------------------------
+# Abstract signatures: fast hashable keys + printable descriptions
+# ---------------------------------------------------------------------------
+_SCALARS = (bool, int, float, complex, str, bytes)
+
+
+def _describe_leaf(x, inplace=False, by_value=False):
+    """One argument leaf as a hashable tuple, the part of both the cache
+    key and the retrace explanation: tensors by shape, dtype, device and
+    (for in-place arguments) storage address; Python scalars by type, and
+    with ``by_value`` (on CUDA) by value too; anything else by type."""
+    if x is None:
+        return ("none",)
+    if isinstance(x, torch.Tensor):
+        return ("array", tuple(x.shape), x.dtype, x.device,
+                x.data_ptr() if inplace else None)
+    if isinstance(x, _SCALARS):
+        return ("scalar", type(x).__name__, repr(x) if by_value else None)
+    return ("opaque", type(x).__name__)
+
+
+def _key_of(obj, inplace, by_value):
+    if isinstance(obj, dict):
+        return ("d",) + tuple((k, _key_of(obj[k], inplace, by_value))
+                              for k in sorted(obj, key=str))
+    if isinstance(obj, (list, tuple)):
+        return ("t",) + tuple(_key_of(v, inplace, by_value) for v in obj)
+    return _describe_leaf(obj, inplace, by_value)
+
+
+def _describe_args(args, static, inplace=(), names=None, by_value=()):
+    """{path: leaf description} over the positional args, built only on a
+    cache miss for the retrace explainer; ``names`` maps an argument
+    index to the names of its leaves (a block's parameter names), and
+    ``by_value`` holds the indices whose scalars are keyed by value."""
+    names = names or {}
+    entries = {}
+
+    def walk(prefix, obj, flags, labels):
+        if isinstance(obj, dict):
+            for k in sorted(obj, key=str):
+                walk("%s[%r]" % (prefix, k), obj[k], flags, None)
+        elif isinstance(obj, (list, tuple)):
+            for i, v in enumerate(obj):
+                label = labels[i] if labels is not None and \
+                    i < len(labels) else i
+                walk("%s[%s]" % (prefix, label), v, flags, None)
+        else:
+            entries[prefix] = _describe_leaf(obj, *flags)
+
+    for i, a in enumerate(args):
+        if i in static:
+            entries["arg%d(static)" % i] = ("static", repr(a))
+        else:
+            walk("arg%d" % i, a, (i in inplace, i in by_value),
+                 names.get(i))
+    return entries
+
+
+def _dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+def _fmt_desc(d):
+    if d[0] == "array":
+        out = "shape %s dtype %s" % (tuple(d[1]), _dtype_name(d[2]))
+        if d[4] is not None:
+            out += " at %s" % hex(d[4])
+        return out
+    if d[0] == "static":
+        return "static %s" % d[1]
+    if d[0] == "scalar":
+        return "python %s" % d[1] + ("" if d[2] is None else " " + d[2])
+    if d[0] == "opaque":
+        return "opaque %s" % d[1]
+    return d[0]
+
+
+def _diff_desc(a, b):
+    if a[0] == "array" and b[0] == "array":
+        parts = []
+        if a[1] != b[1]:
+            msg = "shape %s -> %s" % (tuple(a[1]), tuple(b[1]))
+            if len(a[1]) == len(b[1]):
+                dims = ", ".join("dim %d: %s -> %s" % (i, x, y)
+                                 for i, (x, y) in enumerate(zip(a[1], b[1]))
+                                 if x != y)
+                msg += " (%s)" % dims
+            parts.append(msg)
+        if a[2] != b[2]:
+            parts.append("dtype %s -> %s" % (_dtype_name(a[2]),
+                                             _dtype_name(b[2])))
+        if a[3] != b[3]:
+            parts.append("device %s -> %s" % (a[3], b[3]))
+        if a[4] != b[4]:
+            parts.append("storage moved %s -> %s" % (
+                a[4] if a[4] is None else hex(a[4]),
+                b[4] if b[4] is None else hex(b[4])))
+        return ", ".join(parts) or "changed"
+    if a[0] == "static" and b[0] == "static":
+        return "static value %s -> %s" % (a[1], b[1])
+    return "%s -> %s" % (_fmt_desc(a), _fmt_desc(b))
+
+
+def explain_signature_change(old, new):
+    """Human-readable diff of two ``_describe_args`` signatures: names
+    every path whose description changed, down to the dimension for
+    rank-preserving shape changes."""
+    parts = []
+    for k in sorted(set(old) | set(new)):
+        a, b = old.get(k), new.get(k)
+        if a == b:
+            continue
+        if a is None:
+            parts.append("%s: new input (%s)" % (k, _fmt_desc(b)))
+        elif b is None:
+            parts.append("%s: input removed (was %s)" % (k, _fmt_desc(a)))
+        else:
+            parts.append("%s: %s" % (k, _diff_desc(a, b)))
+    return "; ".join(parts) or \
+        "no signature change detected (new function or closure)"
+
+
+# ---------------------------------------------------------------------------
+# The compiled-program layer
+# ---------------------------------------------------------------------------
+def _math_mode():
+    """cuDNN's and cuBLAS's TF32 switches: a capture bakes the kernels
+    they select into the graph, so they are part of every signature and
+    a change recaptures (an eager call reads them afresh each time)."""
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def _map(obj, fn):
+    """``obj`` with every tensor leaf of its lists, tuples and dicts
+    replaced by ``fn(leaf)``."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return {k: _map(v, fn) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map(v, fn) for v in obj)
+    return obj
+
+
+def _first_tensor(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj
+    if isinstance(obj, dict):
+        obj = obj.values()
+    elif not isinstance(obj, (list, tuple)):
+        return None
+    for v in obj:
+        t = _first_tensor(v)
+        if t is not None:
+            return t
+    return None
+
+
+def _leaves(obj, out):
+    if isinstance(obj, torch.Tensor):
+        out.append(obj)
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            _leaves(v, out)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            _leaves(v, out)
+    return out
+
+
+class _Eager:
+    """A CPU signature: the function runs eagerly on every call."""
+
+    def run(self, program, args):
+        with inline(program.site), suppress_aux_writeback(False):
+            return program._fun(*args)
+
+
+class _Graph:
+    """A CUDA signature: the captured graph, its static input buffers
+    and its static outputs."""
+
+    def __init__(self, graph, buffers, outputs):
+        self.graph = graph
+        self.buffers = buffers
+        self.outputs = outputs
+
+    def run(self, program, args):
+        for buf, x in zip(self.buffers, program._copied(args)):
+            if x is not buf:
+                buf.copy_(x)
+        self.graph.replay()
+        return _map(self.outputs, torch.clone)
+
+
+class CompiledProgram:
+    """A function of tensors with its signature cache; on CUDA each
+    signature is one captured ``CUDAGraph`` (see the module docstring).
+
+    ``static_argnums`` are keyed by value; ``inplace_argnums`` are read by
+    the graph where they lie (keyed by storage address, never copied);
+    ``key_argnums`` only seed random ops (a Gluon call's ``key``), so
+    their scalars are keyed by type on CUDA too;
+    ``arg_names`` maps an argument index to the names of its leaves, for
+    the retrace explanation. ``lineage`` scopes retrace detection as in
+    the JAX package: programs sharing ``(site, lineage)`` (the rebuilt
+    programs of one Gluon block) diff against each other; by default this
+    program only.
+    """
+
+    def __init__(self, fun, site, static_argnums=(), inplace_argnums=(),
+                 key_argnums=(), lineage=None, arg_names=None):
+        self.site = site
+        self._fun = fun
+        self._lineage = (site, lineage if lineage is not None else id(self))
+        self._static = frozenset(static_argnums)
+        self._inplace = frozenset(inplace_argnums)
+        self._keys = frozenset(key_argnums)
+        self._names = dict(arg_names or {})
+        self._cache = {}
+        self._lock = threading.Lock()
+        self._stream = None     # side stream of the warm-ups and captures
+        self._pool = None       # one graph memory pool for all signatures
+        _programs.add(self)
+
+    def _device(self, args):
+        """The device of the first tensor of the non-static arguments."""
+        t = _first_tensor([a for i, a in enumerate(args)
+                           if i not in self._static])
+        return None if t is None else t.device
+
+    def _by_value(self, args, device):
+        """The argument indices whose scalars a capture would bake in:
+        on CUDA, every one but the static and the key arguments."""
+        if device is None or device.type != "cuda":
+            return frozenset()
+        return frozenset(range(len(args))) - self._static - self._keys
+
+    def _key(self, args):
+        by_value = self._by_value(args, self._device(args))
+        return tuple(("s", a) if i in self._static
+                     else _key_of(a, i in self._inplace, i in by_value)
+                     for i, a in enumerate(args)) + (_math_mode(),)
+
+    def _copied(self, args):
+        """The tensors of ``args`` that a replay copies into its buffers,
+        in order."""
+        out = []
+        for i, a in enumerate(args):
+            if i not in self._static and i not in self._inplace:
+                _leaves(a, out)
+        return out
+
+    def __call__(self, *args):
+        if running() is not None:
+            # inside another program's function: run inline, as the JAX
+            # package falls through to plain dispatch inside a trace
+            return self._fun(*args)
+        key = self._key(args)
+        with self._lock:
+            entry = self._cache.get(key)
+            if entry is None:
+                entry = self._compile(key, args)
+            else:
+                _count("cache_hits")
+            return entry.run(self, args)
+
+    def warmup(self, *args):
+        """Compile the signature of ``args`` without running the program
+        (no result, no change of any auxiliary state). Returns self."""
+        key = self._key(args)
+        with self._lock:
+            if key not in self._cache:
+                self._compile(key, args)
+        return self
+
+    def _compile(self, key, args):
+        device = self._device(args)
+        by_value = self._by_value(args, device)
+        sig = _describe_args(args, self._static, self._inplace, self._names,
+                             by_value)
+        if by_value:
+            opaque = sorted(k for k, d in sig.items() if d[0] == "opaque")
+            if opaque:
+                raise MXNetError(
+                    "%s: a CUDA graph takes tensors and Python scalars only; "
+                    "%s" % (self.site, ", ".join(
+                        "%s is %s" % (k, _fmt_desc(sig[k])) for k in opaque)))
+            entry = self._capture(args, device)
+        else:
+            entry = _Eager()
+        self._cache[key] = entry
+        sig["tf32 (cudnn, matmul)"] = ("static", repr(_math_mode()))
+        with _lock:
+            st = _sites.setdefault(self._lineage, {"compiles": 0, "sig": None})
+            st["compiles"] += 1
+            n, prev = st["compiles"], st["sig"]
+            st["sig"] = sig
+            _counts["compiles"] += 1
+            if prev is not None:
+                _counts["retraces"] += 1
+        if prev is not None:
+            reason = explain_signature_change(prev, sig)
+            with _lock:
+                _state["last_retrace"] = {"site": self.site, "reason": reason,
+                                          "compiles": n, "time": time.time()}
+            logger.warning("retrace [%s] (compile #%d): %s", self.site, n,
+                           reason)
+        return entry
+
+    def _capture(self, args, device):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+            self._pool = torch.cuda.graph_pool_handle()
+        static_args = [a if i in self._static or i in self._inplace
+                       else _map(a, torch.clone) for i, a in enumerate(args)]
+        current = torch.cuda.current_stream(device)
+        self._stream.wait_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        # Python's collector stays off during the capture: collecting a
+        # dropped program there would free its graph's memory, which a
+        # capture forbids (the capture then fails in the next library call)
+        collecting = gc.isenabled()
+        try:
+            with inline(self.site), torch.cuda.device(device):
+                with torch.cuda.stream(self._stream), \
+                        suppress_aux_writeback(True):
+                    for _ in range(WARMUP_RUNS):
+                        self._fun(*static_args)
+                gc.disable()
+                with suppress_aux_writeback(False), torch.cuda.graph(
+                        graph, pool=self._pool, stream=self._stream,
+                        capture_error_mode="thread_local"):
+                    outputs = self._fun(*static_args)
+        except Exception as exc:
+            raise MXNetError("%s: CUDA graph capture failed: %s: %s"
+                             % (self.site, type(exc).__name__, exc)) from exc
+        finally:
+            if collecting:
+                gc.enable()
+            current.wait_stream(self._stream)
+        return _Graph(graph, self._copied(static_args), outputs)

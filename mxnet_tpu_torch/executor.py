@@ -215,7 +215,7 @@ class Executor:
                              for n in symbol._topo_nodes() if not n.is_var())
         # one generator seed per forward, from a per-executor base that
         # `random.seed` fixes
-        self._seed = _random.executor_seed()
+        self._seed = _random.executor_seed(ctx)
         self._recorded = None   # (outputs, leaves) of a training forward
         self.outputs = []
 

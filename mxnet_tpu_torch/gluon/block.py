@@ -2,27 +2,46 @@
 
 Counterpart of `mxnet_tpu/gluon/block.py` (reference
 `python/mxnet/gluon/block.py:123,486`): blocks with prefixed name scopes,
-child registration, ``collect_params`` and ``initialize``; an eager
-forward through ``hybrid_forward(F=nd, ...)`` that finishes deferred
-parameter shapes on the first call (a leaf layer implements
-``_infer_shapes``); and ``_trace_symbol``, which runs ``hybrid_forward``
+child registration, ``collect_params``, ``initialize`` and ``cast``; an
+eager forward through ``hybrid_forward(F=nd, ...)`` that finishes
+deferred parameter shapes on the first call (a leaf layer implements
+``_infer_shapes``); ``_trace_symbol``, which runs ``hybrid_forward``
 with ``F=sym`` and the parameters' variables to build the Symbol that
-``Module`` binds. The JAX package's compiled ``hybridize`` (one jitted
-program per signature) is not ported yet: ``hybridize()`` records the
-flag, says so once, and the forward stays eager. ``SymbolBlock``,
-forward hooks, ``summary`` and parameter files wait too.
+``Module`` binds; and the compiled ``hybridize``.
+
+A hybridized block calls one `compiled.CompiledProgram` (site
+``gluon.hybrid_forward``) over ``traced(param_vals, key, is_train,
+*inputs)``: on a CUDA device one captured CUDA graph per input
+signature, replayed with the parameters read in place, so BatchNorm's
+moving statistics step inside the graph; on the CPU the same cache and
+counters over an eager run. The program is built on the first call and
+dropped by ``hybridize``, ``register_child``, ``cast`` and setting a
+child block as an attribute. The port has no autograd tape yet, so under
+``autograd.record()`` a hybridized call does what the eager forward
+does: it runs with the training flag and records nothing;
+``hybridize(remat=True)`` (and ``MXNET_BACKWARD_DO_MIRROR=1``) raises.
+``SymbolBlock``, forward hooks, ``summary`` and parameter files wait.
 """
 from __future__ import annotations
 
+import os
 import re
 import threading
-import warnings
 from collections import OrderedDict
 
+import torch
+
+from .. import autograd
+from .. import compiled as compiled_mod
 from .. import ndarray as nd_mod
+from .. import random as _random
 from .. import symbol as sym_mod
+from ..base import MXNetError
+from ..context import cpu, gpu
 from ..name import NameManager, Prefix
-from .parameter import Parameter, ParameterDict
+from ..ndarray.ndarray import NDArray
+from ..ops.invoke import suppress_aux_writeback
+from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock"]
 
@@ -142,6 +161,14 @@ class Block:
         for child in self._children.values():
             child.hybridize(active, **kwargs)
 
+    def cast(self, dtype):
+        """Cast every parameter of this block and its children to
+        ``dtype``."""
+        for child in self._children.values():
+            child.cast(dtype)
+        for param in self.params.values():
+            param.cast(dtype)
+
     def __call__(self, *args):
         return self.forward(*args)
 
@@ -149,15 +176,23 @@ class Block:
         raise NotImplementedError
 
 
-class HybridBlock(Block):
-    """Reference gluon/block.py:486; the forward runs eagerly (see the
-    module docstring) or, given a Symbol, builds the graph."""
+def _context_of(tensor):
+    device = tensor.device
+    return cpu() if device.type == "cpu" else gpu(device.index or 0)
 
-    _told = False       # hybridize's message is given once per process
+
+class HybridBlock(Block):
+    """Reference gluon/block.py:486: the forward runs eagerly, given a
+    Symbol builds the graph, and after ``hybridize()`` runs as one
+    compiled program (see the module docstring)."""
 
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._active = False
+        self._flags = {}
+        self._cached_jit = None
+        self._param_order = None
+        self._param_objs = None
 
     def register_child(self, block, name=None):
         if not isinstance(block, HybridBlock):
@@ -165,17 +200,83 @@ class HybridBlock(Block):
                              "HybridBlock, but %s has type %s."
                              % (block, type(block)))
         super().register_child(block, name)
+        self._clear_cached_op()
 
     def hybridize(self, active=True, **kwargs):
-        """Record the flag. The compiled call is not ported: the forward
-        stays eager, and this says so once."""
+        """Run this block and its children as one compiled program from
+        the next call (``active=False``: eagerly again). Recomputing
+        activations in the backward pass (``remat=True``, or
+        ``MXNET_BACKWARD_DO_MIRROR=1`` without ``remat``) needs the
+        autograd tape, which the port does not have yet: it raises."""
+        remat = kwargs.get(
+            "remat", os.environ.get("MXNET_BACKWARD_DO_MIRROR", "0") == "1")
+        if active and (remat or kwargs.get("static_alloc") == "remat"):
+            raise MXNetError("hybridize(remat=True) recomputes activations "
+                             "in the backward pass; the port has no "
+                             "autograd tape yet")
         self._active = active
-        if active and not HybridBlock._told:
-            HybridBlock._told = True
-            warnings.warn("hybridize(): the port has no compiled Gluon call "
-                          "yet; the block runs eagerly", stacklevel=2)
+        self._flags = kwargs
+        self._clear_cached_op()
         super().hybridize(active, **kwargs)
 
+    def cast(self, dtype):
+        self._clear_cached_op()
+        super().cast(dtype)
+
+    def _clear_cached_op(self):
+        self._cached_jit = None
+        self._param_order = None
+        self._param_objs = None
+
+    def _build_jit(self):
+        """One `CompiledProgram` over ``traced(param_vals, key, is_train,
+        *inputs) -> (outs, aux_up)``: the parameters in sorted name order
+        (read in place), ``key`` the call's random seed and ``is_train``
+        static. ``aux_up`` is empty: the moving statistics are written in
+        place, by the graph itself on CUDA."""
+        params = self.collect_params()
+        names = sorted(params.keys())
+        objs = [params[n] for n in names]
+        self._param_order = names
+        self._param_objs = objs
+        block = self
+
+        def traced(param_vals, key, is_train, *inputs):
+            saved = [p._data for p in objs]
+            try:
+                for p, v in zip(objs, param_vals):
+                    p._data = NDArray(v, _context_of(v))
+                with _random.key_scope(key), \
+                        autograd.pause(train_mode=is_train):
+                    out = block._forward_impl(*[
+                        NDArray(x, _context_of(x))
+                        if isinstance(x, torch.Tensor) else x
+                        for x in inputs])
+            finally:
+                for p, d in zip(objs, saved):
+                    p._data = d
+            if isinstance(out, (list, tuple)):
+                return tuple(o.data for o in out), {}
+            return (out.data,), {}
+
+        # lineage: this block, so its rebuilt programs diff against each
+        # other and unrelated nets never do
+        self._cached_jit = compiled_mod.CompiledProgram(
+            traced, "gluon.hybrid_forward", static_argnums=(2,),
+            inplace_argnums=(0,), key_argnums=(1,), lineage=id(self),
+            arg_names={0: names})
+
+    def _call_cached(self, *args):
+        if self._cached_jit is None:
+            self._build_jit()
+        param_vals = [p.data().data for p in self._param_objs]
+        inputs = [a.data if isinstance(a, NDArray) else a for a in args]
+        ctx = args[0].context if args and isinstance(args[0], NDArray) \
+            else None
+        outs, _ = self._cached_jit(param_vals, _random.executor_seed(ctx),
+                                   autograd.is_training(), *inputs)
+        out_nds = [NDArray(o, ctx or _context_of(o)) for o in outs]
+        return out_nds[0] if len(out_nds) == 1 else tuple(out_nds)
     def _forward_impl(self, *args):
         """Eager forward through ``hybrid_forward`` with the parameters
         injected; Symbol inputs go to the symbolic tracer. Deferred
@@ -195,6 +296,20 @@ class HybridBlock(Block):
         input here."""
 
     def forward(self, x, *args):
+        if self._active and compiled_mod.running() is None \
+                and not isinstance(x, sym_mod.Symbol):
+            try:
+                return self._call_cached(x, *args)
+            except DeferredInitializationError:
+                # one eager pass materialises the deferred parameters; its
+                # moving-statistics step is suppressed, since the compiled
+                # call that follows performs it, and hybridized children
+                # called inside it run inline
+                self._clear_cached_op()
+                with suppress_aux_writeback(), \
+                        compiled_mod.inline("gluon.deferred_init"):
+                    self._forward_impl(x, *args)
+                return self._call_cached(x, *args)
         return self._forward_impl(x, *args)
 
     def hybrid_forward(self, F, x, *args, **kwargs):

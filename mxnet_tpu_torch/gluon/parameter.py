@@ -4,11 +4,13 @@ Counterpart of `mxnet_tpu/gluon/parameter.py` (reference
 `python/mxnet/gluon/parameter.py`), cut to what a Gluon net needs to be
 built, initialised, run eagerly and traced to a Symbol: deferred
 initialisation (a parameter whose shape has unknown dimensions waits for
-the first forward), ``data``/``set_data``, ``var()`` and the prefixed
-``ParameterDict``. A parameter lives on one device: ``gpu(0)``
-unless ``initialize`` is given another context; without that CUDA device
-it raises, as ``Module`` does. Gradient buffers, ``Constant``, multi-device
-contexts and ``save``/``load`` wait for the Gluon training slice.
+the first forward), ``data``, ``set_data`` (a copy into the existing
+tensor, so a hybridized block's graph reads the new value), ``cast``,
+``var()`` and the prefixed ``ParameterDict``. A parameter lives on one
+device: ``gpu(0)`` unless ``initialize`` is given another context;
+without that CUDA device it raises, as ``Module`` does. Gradient
+buffers, ``Constant``, multi-device contexts and ``save``/``load`` wait
+for the Gluon training slice.
 """
 from __future__ import annotations
 
@@ -17,10 +19,10 @@ from collections import OrderedDict
 
 import numpy as np
 
-from ..base import MXNetError
+from ..base import MXNetError, torch_dtype
 from ..context import Context, gpu
 from .. import initializer as init_mod
-from ..ndarray.ndarray import array as nd_array, zeros as nd_zeros
+from ..ndarray.ndarray import NDArray, array as nd_array, zeros as nd_zeros
 
 __all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
 
@@ -144,6 +146,15 @@ class Parameter:
     def data(self, ctx=None):
         self._check_initialized()
         return self._data
+
+    def cast(self, dtype):
+        """Hold the parameter in ``dtype`` from now on (a new tensor where
+        the dtype changes)."""
+        self.dtype = dtype
+        self._var = None
+        if self._data is not None:
+            self._data = NDArray(self._data.data.to(torch_dtype(dtype)),
+                                 self._ctx)
 
     def var(self):
         """The Symbol variable of this parameter (its name, shape, dtype,

@@ -1,6 +1,6 @@
 """`mx.nd` namespace of the port (reference `python/mxnet/ndarray/`):
-the NDArray, its constructors, the ``.params`` format and one function
-per registered op."""
+the NDArray, its constructors, the ``.params`` format, one function per
+registered op, ``nd.contrib`` and the samplers of ``nd.random``."""
 from .. import ops as _ops  # noqa: F401  (registers the operators)
 from .ndarray import NDArray, zeros, array
 from .utils import save, load, load_frombuffer
@@ -11,3 +11,4 @@ __all__ = ["NDArray", "zeros", "array", "save", "load",
 
 _populate(globals())
 from . import contrib  # noqa: E402,F401
+from . import random  # noqa: E402,F401

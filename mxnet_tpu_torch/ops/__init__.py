@@ -4,6 +4,7 @@ from . import shape_ops  # noqa: F401  (registers ops)
 from . import elemwise  # noqa: F401  (registers ops)
 from . import nn  # noqa: F401  (registers ops)
 from . import contrib_ops  # noqa: F401  (registers ops)
+from . import random_ops  # noqa: F401  (registers ops)
 from .attention_kernel import (FlashAttention, dense_attention_plain,
                                flash_attention, flash_attention_plain)
 from .conv_kernel import conv1x1_s2_dgrad, conv1x1_s2_dgrad_plain

@@ -4,19 +4,44 @@ Counterpart of `mxnet_tpu/ops/invoke.py` (reference
 `Imperative::Invoke`): run one registered op over NDArrays, with the
 train flag from `autograd.py` for the ops that read one, and write the
 new values of ``mutate_aux`` inputs (BatchNorm's moving statistics) back
-into those NDArrays in place. The autograd tape is not ported yet, so an
-op runs without recording a gradient.
+into those NDArrays in place, unless :func:`suppress_aux_writeback` is
+in force. An op that draws random numbers gets a ``torch.Generator`` on
+the op's device, seeded from `random.py`'s sequence (or, inside a
+hybridized call, from the call's key); inside a CUDA graph capture it
+raises, since every replay would draw the same bits. The autograd tape
+is not ported yet, so an op runs without recording a gradient.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
 from .. import autograd
 from .. import random as _random
+from ..base import MXNetError
 from ..context import current_context
 from .registry import get_op
 
-__all__ = ["invoke"]
+__all__ = ["invoke", "suppress_aux_writeback"]
+
+_TLS = threading.local()
+
+
+@contextlib.contextmanager
+def suppress_aux_writeback(suppress=True):
+    """Run ops without committing their ``mutate_aux`` updates (BatchNorm's
+    moving statistics), or, with ``suppress=False``, with them whatever
+    an enclosing scope says. A hybridized block's eager passes before a
+    compiled call use it: the compiled call performs the same update, and
+    a double step would diverge from the eager trajectory."""
+    prev = getattr(_TLS, "no_aux", False)
+    _TLS.no_aux = suppress
+    try:
+        yield
+    finally:
+        _TLS.no_aux = prev
 
 
 def invoke(op_name, inputs, params=None, ctx=None):
@@ -33,15 +58,21 @@ def invoke(op_name, inputs, params=None, ctx=None):
     if op.need_train_flag:
         params.setdefault("_is_train", autograd.is_training())
     if op.need_rng and "_generator" not in params:
+        if torch.cuda.is_initialized() and \
+                torch.cuda.is_current_stream_capturing():
+            raise MXNetError(
+                "op %s draws random numbers, and a captured CUDA graph "
+                "would replay the same bits on every call" % op_name)
         gen = torch.Generator(device=ctx.torch_device())
-        gen.manual_seed(_random.executor_seed())
+        gen.manual_seed(_random.op_seed(ctx))
         params["_generator"] = gen
     with torch.no_grad():
         outs = tuple(op.fcompute(params, *[a.data for a in in_arrs]))
         n_out = op.n_out(params)
-        for idx, new in zip(op.mutate_aux, outs[n_out:]):
-            dst = in_arrs[idx].data
-            if new is not dst:
-                dst.copy_(new)
+        if not getattr(_TLS, "no_aux", False):
+            for idx, new in zip(op.mutate_aux, outs[n_out:]):
+                dst = in_arrs[idx].data
+                if new is not dst:
+                    dst.copy_(new)
     out_arrs = [NDArray(v, ctx) for v in outs[:n_out]]
     return out_arrs[0] if len(out_arrs) == 1 else out_arrs

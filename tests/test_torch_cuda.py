@@ -12,6 +12,9 @@ than cuBLAS, and the difference compounds over time. One train step of
 the LM on the card against the same step on the CPU is held to 1e-4 too:
 both run f32 with TF32 off.
 """
+import gc
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -726,3 +729,252 @@ def test_rtc_raises(cuda):
         axpy.launch((x, x, x, 8), mxt.gpu(0), (1,), (8,))
     with pytest.raises(mxt.MXNetError, match="could not compile"):
         rtc.CudaModule('extern "C" __global__ void k() { undefined(); }')
+
+
+# ---------------------------------------------------------------------------
+# hybridize on the card: one captured CUDA graph per input signature
+# (compiled.py). f32 with TF32 off in cuDNN and cuBLAS; the graph replays
+# the eager path's kernels, so outputs agree with the eager call to 1e-5.
+# ---------------------------------------------------------------------------
+HYB_TOL = 1e-5
+
+
+@pytest.fixture
+def f32(cuda):
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cudnn.allow_tf32 = saved
+
+
+def _small_net(prefix):
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential(prefix=prefix)
+    with net.name_scope():
+        net.add(nn.Conv2D(8, 3, padding=1, in_channels=3),
+                nn.BatchNorm(in_channels=8), nn.Activation("relu"),
+                nn.GlobalAvgPool2D(), nn.Dense(4, in_units=8))
+    net.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0))
+    return net
+
+
+def _image(seed, batch=2):
+    return mxt.nd.array(np.random.RandomState(seed).rand(batch, 3, 16, 16),
+                        ctx=mxt.gpu(0))
+
+
+def _moving(net):
+    return {n: p.data().data.clone() for n, p in net.collect_params().items()
+            if "running" in n}
+
+
+def test_hybridized_call_is_a_graph_replay(f32):
+    from mxnet_tpu_torch import compiled
+    net = _small_net("cap_")
+    x = _image(0)
+    eager = net(x).data
+    net.hybridize()
+    compiled.reset()
+    first = net(x)
+    second = net(x)
+    assert compiled.compile_counts() == {"compiles": 1, "cache_hits": 1,
+                                         "retraces": 0}
+    assert first.data.device.type == "cuda"
+    (entry,) = net._cached_jit._cache.values()
+    assert isinstance(entry, compiled._Graph)
+    torch.testing.assert_close(first.data, eager, rtol=HYB_TOL, atol=HYB_TOL)
+    assert torch.equal(first.data, second.data)
+    net(_image(1, batch=3))
+    assert "dim 0: 2 -> 3" in compiled.last_retrace()["reason"]
+
+
+def test_tf32_switch_recaptures(f32):
+    """A graph keeps the convolution kernels chosen at its capture, so
+    turning cuDNN's TF32 on is a new signature: the replay then matches
+    the eager call under TF32, not the f32 graph."""
+    from mxnet_tpu_torch import compiled
+    net = _small_net("tf32_")
+    x = _image(7)
+    net.hybridize()
+    f32_out = net(x).data
+    torch.backends.cudnn.allow_tf32 = True
+    got = net(x).data
+    assert compiled.last_retrace()["reason"].startswith("tf32 (cudnn")
+    torch.testing.assert_close(got, net._forward_impl(x).data, rtol=1e-3,
+                               atol=1e-3)
+    torch.backends.cudnn.allow_tf32 = False
+    assert torch.equal(net(x).data, f32_out)
+
+
+class _GcProbe(mxt.gluon.HybridBlock):
+    seen = []
+
+    def hybrid_forward(self, F, x):
+        if torch.cuda.is_current_stream_capturing():
+            _GcProbe.seen.append(gc.isenabled())
+        return x * 2.0
+
+
+def test_collector_is_off_during_a_capture(f32):
+    """A collection inside a capture could free a dropped program's graph
+    memory, which invalidates the capture (seen as a cuBLAS failure in
+    the next product): the collector is off while capturing, and on
+    again after."""
+    assert gc.isenabled()
+    net = _GcProbe()
+    net.hybridize()
+    x = _image(8)
+    assert torch.equal(net(x).data, x.data * 2.0)
+    assert _GcProbe.seen == [False]
+    assert gc.isenabled()
+
+
+def test_replay_returns_clones(f32):
+    net = _small_net("clone_")
+    net.hybridize()
+    a = net(_image(0))
+    kept = a.data.clone()
+    b = net(_image(1))
+    torch.cuda.synchronize()
+    assert torch.equal(a.data, kept)
+    assert not torch.equal(a.data, b.data)
+    assert a.data.data_ptr() != b.data.data_ptr()
+
+
+def test_parameter_updates_reach_the_graph(f32):
+    """``set_data`` writes into the tensor the graph reads: the next
+    replay uses it without a recapture. A re-initialisation moves the
+    storage: one recapture, reported as a retrace naming the weight."""
+    from mxnet_tpu_torch import compiled
+    net = _small_net("upd_")
+    net.hybridize()
+    x = _image(2)
+    net(x)
+    w = net.collect_params()["upd_conv0_weight"]
+    w.set_data(np.full(w.shape, 0.05, np.float32))
+    counts = compiled.compile_counts()
+    got = net(x).data
+    assert compiled.compile_counts()["compiles"] == counts["compiles"]
+    torch.testing.assert_close(got, net._forward_impl(x).data, rtol=HYB_TOL,
+                               atol=HYB_TOL)
+    net.collect_params().initialize(mxt.init.Xavier(), ctx=mxt.gpu(0),
+                                    force_reinit=True)
+    got = net(x).data
+    assert compiled.compile_counts()["retraces"] == counts["retraces"] + 1
+    assert "arg0[upd_conv0_weight]: storage moved" in \
+        compiled.last_retrace()["reason"]
+    torch.testing.assert_close(got, net._forward_impl(x).data, rtol=HYB_TOL,
+                               atol=HYB_TOL)
+
+
+class _HostSync(mxt.gluon.HybridBlock):
+    def hybrid_forward(self, F, x):
+        x.asnumpy()
+        return x * 2.0
+
+
+class _Noisy(mxt.gluon.HybridBlock):
+    def hybrid_forward(self, F, x):
+        return x + F.random.normal(shape=x.shape, ctx=x.context)
+
+
+@pytest.mark.parametrize("block,match", [
+    (_HostSync, "CUDA graph capture failed"),
+    (_Noisy, "draws random numbers")])
+def test_capture_that_cannot_work_raises(f32, block, match):
+    net = block()
+    net.hybridize()
+    with pytest.raises(mxt.MXNetError, match=match):
+        net(_image(3))
+    ok = _small_net("after_")          # the card is usable afterwards
+    ok.hybridize()
+    assert bool(torch.isfinite(ok(_image(3)).data).all())
+
+
+def test_warmup_and_train_mode_step_once(f32):
+    net = _small_net("bn_")
+    x = _image(4, batch=8)
+    eager_net = _small_net("bn_")
+    for (_, p), (_, q) in zip(sorted(net.collect_params().items()),
+                              sorted(eager_net.collect_params().items())):
+        q.set_data(p.data().data)
+    net.hybridize()
+    net(x)
+    params = [net.collect_params()[n].data().data for n in net._param_order]
+    before = _moving(net)
+    net._cached_jit.warmup(params, 0, True, x.data)
+    for n, v in _moving(net).items():
+        assert torch.equal(v, before[n]), n
+    with mxt.autograd.train_mode():
+        got = net(x).data
+        want = eager_net(x).data
+    torch.testing.assert_close(got, want, rtol=HYB_TOL, atol=HYB_TOL)
+    after, eager = _moving(net), _moving(eager_net)
+    for n, v in after.items():
+        assert not torch.equal(v, before[n]), n
+        torch.testing.assert_close(v, eager[n], rtol=HYB_TOL, atol=HYB_TOL)
+
+
+class _Scale(mxt.gluon.HybridBlock):
+    def hybrid_forward(self, F, x, s):
+        return x * s
+
+
+def test_scalar_argument_recaptures(f32):
+    """A graph keeps the Python scalar it was captured with, so on the
+    card a new value is a new signature: one recapture, named in the
+    retrace, and each call equals the eager call with its own value. A
+    leaf that is neither a tensor nor a scalar cannot be captured."""
+    from mxnet_tpu_torch import compiled
+    net = _Scale()
+    x = _image(11)
+    want = {s: net(x, s).data for s in (0.5, 2.0)}
+    net.hybridize()
+    compiled.reset()
+    for s in (0.5, 2.0, 0.5):
+        assert torch.equal(net(x, s).data, want[s]), s
+    assert compiled.compile_counts() == {"compiles": 2, "cache_hits": 1,
+                                         "retraces": 1}
+    assert compiled.last_retrace()["reason"] == \
+        "arg4: python float 0.5 -> python float 2.0"
+    with pytest.raises(mxt.MXNetError, match=r"arg4\[0\] is opaque NDArray"):
+        net(x, [x])
+
+
+def test_two_threads_share_one_graph(f32):
+    net = _small_net("thr_")
+    net.hybridize()
+    inputs = [_image(10 + i) for i in range(16)]
+    want = [net(x).data for x in inputs]
+    got = [None] * len(inputs)
+
+    def worker(k):
+        for i in range(k, len(inputs), 2):
+            got[i] = net(inputs[i]).data
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_nd_random_on_the_card(cuda):
+    mxt.random.seed(11)
+    a = mxt.nd.random.uniform(low=2.0, high=4.0, shape=(40000,))
+    assert a.data.device.type == "cuda" and a.context == mxt.gpu(0)
+    mxt.random.seed(11)
+    b = mxt.nd.random.uniform(low=2.0, high=4.0, shape=(40000,))
+    assert torch.equal(a.data, b.data)
+    c = mxt.nd.random.uniform(low=2.0, high=4.0, shape=(40000,))
+    assert not torch.equal(a.data, c.data)
+    x = a.asnumpy()
+    assert 2.0 <= x.min() and x.max() <= 4.0
+    assert abs(x.mean() - 3.0) <= 0.05
+    n = mxt.nd.random.normal(loc=1.5, scale=2.0, shape=(40000,)).asnumpy()
+    assert abs(n.mean() - 1.5) <= 0.06 and abs(n.std() - 2.0) <= 0.06
+    p = mxt.nd.random.poisson(lam=3.0, shape=(40000,))
+    assert p.data.device.type == "cuda"
+    assert abs(p.asnumpy().mean() - 3.0) <= 0.15
