@@ -135,12 +135,32 @@ JAX bench (``bench.py:123-146``), in two more:
     operations bound
     from the layer shapes; and img/s hybridized and eager through the
     port's bench function (`mxnet_tpu_torch/tools/bench.py`), cuDNN's
-    TF32 on and off.
+    TF32 on and off;
+
+and then trains ResNet-50 v1 through Gluon by the loop of
+``examples/gluon/train_resnet50.py`` (``with autograd.record(): loss =
+loss_fn(net(x), y)``, ``loss.backward()``, ``trainer.step(batch)`` on a
+hybridized net, SGD lr 0.1, momentum 0.9, wd 1e-4,
+``SoftmaxCrossEntropyLoss``), full width and depth, in one more:
+
+19. 2 f32 steps at batch 4 (NHWC, the gate on, lr 0.005) on
+    ``gpu(0)`` held against the same steps on ``cpu()`` (outputs, losses,
+    moving statistics, every gradient and update) with the two controls
+    of phase 11; ``autograd.grad(create_graph=True)`` on the card against the
+    CPU; the example's loop at its defaults (NCHW, f32, batch 32: 2
+    warm-up and 10 timed steps, img/s, the first update must lower the
+    loss, the recorded signature one compile then cache hits); the image
+    bench's configuration (NHWC, bf16 by ``net.cast``, batch 128) with
+    the gate on (2 warm-up and 10 timed steps, the loss must fall, K5
+    exactly 6 launches a step, all on the wgmma route) and 10 steps with
+    it off (none); ``torch.profiler`` over one gate-on step (device time
+    by kernel class, the idle share, K5's launches and ms).
 
 Phases 3-5 are the serving main path, phase 8 the LM training one,
 phase 11's gate-on steps on the card the ResNet one, phase 15's steps on
-the card the attention one, phase 16's first launches the rtc one and
-phase 18 the inference one:
+the card the attention one, phase 16's first launches the rtc one,
+phase 18 the inference one and phase 19's steps on the card (its check,
+the example's loop and the bf16 gate-on loop) the Gluon training one:
 every kernel's launch count is set to 0 before each and read after it.
 The serving path must launch K1, every call by the persistent route; the
 LM training path must launch K2 and K3 exactly once per layer and step,
@@ -150,7 +170,10 @@ the ResNet path must launch K5 exactly 6 times per step with the gate
 on, and never with it off; the attention path must launch K4 once
 per layer and step; the rtc path its two kernels once each; the
 inference path none of them (no TPU kernel of the repo is on it: K5 is
-a dgrad). Any failed
+a dgrad); the Gluon training path K5 exactly 6 times per gate-on step on
+the wgmma route, never on NCHW or with the gate off, and no other kernel.
+K5's launches in the kernels line are the ResNet path's and the Gluon
+path's. Any failed
 check exits non-zero. The last lines
 are the card's name and power limit (``nvidia-smi``), one JSON line with
 every ported kernel's numbers, and the result line
@@ -322,6 +345,27 @@ RANDOM_N = 40000
 # geometric mean of the largest sound reading and the smallest control.
 INFER_BATCH, INFER_CHECK_BATCH, INFER_RETRACE_BATCH = 32, 4, 16
 INFER_REL = 2.5e-4
+# Gluon training (examples/gluon/train_resnet50.py:45-80): the example's
+# defaults (f32, NCHW, batch 32, 224x224, Xavier(magnitude=2), SGD lr 0.1,
+# momentum 0.9, wd 1e-4, SoftmaxCrossEntropyLoss, hybridized) and the image
+# bench's training configuration (NHWC, bf16 by net.cast, batch 128, with
+# MXNET_CONV1X1_PALLAS on); 2 warm-up and 10 timed steps each; 2 f32 steps
+# at batch 4 (NHWC, the gate on) on the card against the CPU, held as
+# phase 11 holds the Module: output probabilities and moving statistics
+# elementwise to RESNET_RTOL/ATOL, gradients and updates by relative norm
+# to GRAD_REL, with the same two controls that must fail; at lr 0.005. At
+# the example's lr 0.1, and at phase 11's 0.05, the first update takes
+# this batch-4 loss from 7 to 51-69 and 26-36 (H100, 700 W), and the
+# second step's probabilities, near one-hot, and moving means, near 0
+# against activations that large, then miss the elementwise tolerance by
+# rounding alone (by 5.4e-4 and 2.2e-4)
+GLUON_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+GLUON_CHECK_OPT = dict(GLUON_OPT, learning_rate=0.005)
+GLUON_BATCH, GLUON_BF16_BATCH, GLUON_CHECK_BATCH = 32, 128, 4
+GLUON_WARMUP, GLUON_STEPS = 2, 10
+# a conv bias's gradient, exactly 0 ahead of a BatchNorm, over its
+# weight's gradient (by norm): rounding noise reads far below it
+BIAS_NOISE = 1e-3
 # the bench's inference function in phase 18: rounds of calls x iters
 INFER_ITERS, INFER_CALLS, INFER_ROUNDS = 50, 2, 2
 PEAK_TF32_FLOPS = 495e12
@@ -1548,41 +1592,57 @@ def kernel_class(kernel, stack):
     return "other (softmax, residual add, loss head)"
 
 
-def phase_resnet_profile(mx, mod, batch):
-    """One bf16 batch-128 step under torch.profiler, gate on, with each
-    forward op and the optimizer update in a named range."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-    from mxnet_tpu_torch.ops import registry
+class ranged_ops:
+    """Each registered op's compute, and each method named by
+    ``updates`` (``(owner, attribute)`` pairs), inside a named profiler
+    range ("op:<name>", "update") while the block runs."""
 
-    saved = [(op, op.fcompute) for op in
-             {id(op): op for op in registry._OPS.values()}.values()]
+    def __init__(self, updates=()):
+        self._updates = updates
+        self._saved = []
 
-    def ranged(name, fn):
-        def run(params, *args):
-            with record_function("op:" + name):
-                return fn(params, *args)
-        return run
-    for op, fn in saved:
-        op.fcompute = ranged(op.name, fn)
-    update = mod.update
+    def __enter__(self):
+        from torch.profiler import record_function
+        from mxnet_tpu_torch.ops import registry
 
-    def ranged_update():
-        with record_function("update"):
-            update()
-    mod.update = ranged_update
-    try:
-        mod._step(batch)
+        def ranged(name, fn):
+            def run(*args, **kwargs):
+                with record_function(name):
+                    return fn(*args, **kwargs)
+            return run
+        for op in {id(op): op for op in registry._OPS.values()}.values():
+            self._saved.append((op, "fcompute", op.fcompute))
+            op.fcompute = ranged("op:" + op.name, op.fcompute)
+        for owner, attr in self._updates:
+            # a method of the class: the wrapper shadows it on the object
+            own = attr in vars(owner)
+            self._saved.append((owner, attr, getattr(owner, attr)
+                                if own else None))
+            setattr(owner, attr, ranged("update", getattr(owner, attr)))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self._saved):
+            if fn is None:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, fn)
+        return False
+
+
+def profiled_step(step):
+    """``step`` once to warm, then once under torch.profiler: the wall
+    time and the device time by kernel class (``kernel_class``), the idle
+    share and the launches."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            mod._step(batch)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-    finally:
-        for op, fn in saved:
-            op.fcompute = fn
-        del mod.update
+        wall = (time.perf_counter() - t0) * 1e3
     classes = {}
     launches = 0
     for evt in prof.events():
@@ -1609,6 +1669,13 @@ def phase_resnet_profile(mx, mod, batch):
                                           key=lambda kv: -kv[1])[:3]}
                         for k, (c, ms, names) in sorted(
                             classes.items(), key=lambda kv: -kv[1][1])}}
+
+
+def phase_resnet_profile(mx, mod, batch):
+    """One bf16 batch-128 step under torch.profiler, gate on, with each
+    forward op and the optimizer update in a named range."""
+    with ranged_ops([(mod, "update")]):
+        return profiled_step(lambda: mod._step(batch))
 
 
 # ---------------------------------------------------------------------------
@@ -2371,6 +2438,349 @@ def phase_infer_rate(mx, layout, tf32):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the Gluon training slice: the autograd tape, a hybridized call under
+# record(), Trainer and the loss, with K5 under the tape
+# ---------------------------------------------------------------------------
+def gluon_shape(layout, batch):
+    h, w, c = IMAGE
+    return (batch, c, h, w) if layout == "NCHW" else (batch, h, w, c)
+
+
+def gluon_net(mx, ctx, layout, **extra):
+    """The example's net: ``vision.resnet50_v1(classes=1000)`` with
+    Xavier(magnitude=2) on ``ctx``."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    kwargs = {"layout": layout} if layout != "NCHW" else {}
+    net = vision.resnet50_v1(classes=CLASSES, **kwargs, **extra)
+    net.initialize(mx.init.Xavier(magnitude=2), ctx=ctx)
+    return net
+
+
+def gluon_trainer(mx, net, opt=GLUON_OPT):
+    return mx.gluon.Trainer(net.collect_params(), "sgd", dict(opt),
+                            kvstore="device")
+
+
+def gluon_record(mx, net, loss_fn, x, y):
+    """``with autograd.record(): loss = loss_fn(net(x), y)`` and
+    ``loss.backward()``: (outputs, losses)."""
+    with mx.autograd.record():
+        out = net(x)
+        loss = loss_fn(out, y)
+    loss.backward()
+    return out, loss
+
+
+def gluon_grads(net):
+    return {n: p.grad().asnumpy() for n, p in net.collect_params().items()
+            if p.grad_req != "null"}
+
+
+def gluon_values(net):
+    return {n: p.data().asnumpy() for n, p in net.collect_params().items()}
+
+
+def bias_noise(grads):
+    """{conv bias: |its gradient| / |its conv weight's gradient|}. In
+    ResNet v1 every convolution with a bias feeds a BatchNorm, which
+    subtracts the batch mean: the bias's exact gradient is 0, and what is
+    computed is rounding noise, which no relative norm can hold."""
+    return {n: float(np.linalg.norm(g) / np.linalg.norm(
+        grads[n[:-len("bias")] + "weight"]))
+        for n, g in grads.items() if "_conv" in n and n.endswith("_bias")}
+
+
+def phase_gluon_check(mx, rng):
+    """Part 1: f32 at batch 4, NHWC, the gate on, TF32 off: 2 steps of the
+    example's loop on gpu(0) against the same on cpu(), each from the
+    card's weights (the CPU net takes them, moving statistics included,
+    before each step). After ``loss.backward()`` the output
+    probabilities, losses and moving statistics are held elementwise to
+    RESNET_RTOL/ATOL and every parameter's gradient by relative norm to
+    GRAD_REL; after ``trainer.step`` every parameter's change by relative
+    norm to GRAD_REL. The convolutions' biases, whose exact gradient is 0
+    (``bias_noise``), are held instead to gradients below BIAS_NOISE of
+    their weights' on both sides. Two controls must fail GRAD_REL: the
+    gradients with K5's dx zeroed on the card, and a second update that
+    forgets the momentum. The readings are printed before they are
+    checked."""
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    shape = gluon_shape("NHWC", GLUON_CHECK_BATCH)
+    card = gluon_net(mx, mx.gpu(0), "NHWC")
+    card(mx.nd.zeros(shape, ctx=mx.gpu(0)))    # finishes deferred init
+    host = gluon_net(mx, mx.cpu(), "NHWC", prefix=card.prefix)
+    host(mx.nd.zeros(shape, ctx=mx.cpu()))
+    for net in (card, host):
+        net.hybridize()
+    trainers = [gluon_trainer(mx, n, GLUON_CHECK_OPT) for n in (card, host)]
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    data = [(rng.rand(*shape).astype(np.float32),
+             rng.randint(0, CLASSES, GLUON_CHECK_BATCH).astype(np.float32))
+            for _ in range(3)]
+
+    def sync_host():
+        mx.set_block_params(host, gluon_values(card))
+
+    def arrays(ctx, x, y):
+        return mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+
+    steps, fails = [], []
+    for step, (x, y) in enumerate(data[:2]):
+        sync_host()
+        before = gluon_values(host)
+        (out, loss), (out_ref, loss_ref) = (
+            gluon_record(mx, n, loss_fn, *arrays(ctx, x, y))
+            for n, ctx in ((card, mx.gpu(0)), (host, mx.cpu())))
+        got, want = (o.data.detach().softmax(-1).cpu().numpy()
+                     for o in (out, out_ref))
+        check(got.shape == (GLUON_CHECK_BATCH, CLASSES)
+              and bool(np.isfinite(got).all()),
+              "Gluon step %d output not finite" % step)
+        stats, stats_ref = ({n: v for n, v in gluon_values(m).items()
+                             if "running" in n} for m in (card, host))
+        for what, a, b in (("outputs", got, want),
+                           ("losses", loss.asnumpy(), loss_ref.asnumpy())):
+            if not np.allclose(a, b, rtol=RESNET_RTOL, atol=RESNET_ATOL):
+                fails.append("step %d %s" % (step, what))
+        fails += ["step %d moving statistic %s" % (step, n)
+                  for n, v in stats_ref.items()
+                  if not np.allclose(stats[n], v, rtol=RESNET_RTOL,
+                                     atol=RESNET_ATOL)]
+        grads, grads_ref = gluon_grads(card), gluon_grads(host)
+        noise = {n: max(a, bias_noise(grads_ref)[n])
+                 for n, a in bias_noise(grads).items()}
+        for g in (grads, grads_ref):
+            for n in noise:
+                del g[n]
+        for t in trainers:
+            t.step(GLUON_CHECK_BATCH)
+        moved, moved_ref = ({n: v - before[n] for n, v in
+                             gluon_values(m).items() if n in grads}
+                            for m in (card, host))
+        worst = max(noise, key=noise.get)
+        row = {"output_max_abs_err": float(np.abs(got - want).max()),
+               "loss": [float(v) for v in loss.asnumpy()],
+               "moving_stat_max_abs_err": max_abs(stats, stats_ref),
+               "grad_rel": leaf_errs(grads, grads_ref),
+               "update_rel": leaf_errs(moved, moved_ref),
+               "conv_bias_grad_over_weight_grad": {
+                   "max": noise[worst], "worst": worst,
+                   "median": float(np.median(list(noise.values())))}}
+        if noise[worst] > BIAS_NOISE:
+            fails.append("step %d conv bias gradient %s: %.3g of its "
+                         "weight's" % (step, worst, noise[worst]))
+        if step == 1:       # control: the update without the momentum term
+            lr, wd = GLUON_CHECK_OPT["learning_rate"], GLUON_CHECK_OPT["wd"]
+            plain = {n: -lr * (g / GLUON_CHECK_BATCH + wd * before[n])
+                     for n, g in grads.items()}
+            row["control_update_without_momentum_rel"] = leaf_errs(
+                plain, moved_ref)
+        steps.append(row)
+    # control: the gradients with every K5 dx zeroed on the card
+    sync_host()
+    k5 = nn_ops.conv1x1_s2_dgrad
+    nn_ops.conv1x1_s2_dgrad = lambda dy, w2, h, w: dy.new_zeros(
+        (dy.shape[0], h, w, w2.shape[1]))
+    try:
+        gluon_record(mx, card, loss_fn, *arrays(mx.gpu(0), *data[2]))
+    finally:
+        nn_ops.conv1x1_s2_dgrad = k5
+    gluon_record(mx, host, loss_fn, *arrays(mx.cpu(), *data[2]))
+    control_k5 = leaf_errs(*({n: v for n, v in gluon_grads(m).items()
+                              if n in grads} for m in (card, host)))
+    summary = {"batch": GLUON_CHECK_BATCH, "layout": "NHWC",
+               "opt": GLUON_CHECK_OPT, "grad_rel_limit": GRAD_REL,
+               "steps": steps,
+               "control_k5_dx_zeroed_grad_rel": control_k5}
+    log("phase 19 f32 vs cpu %s" % json.dumps(summary))
+    for step, row in enumerate(steps):
+        fails += ["step %d %s of %s: %.3g" % (step, kind, row[kind]["worst"],
+                                              row[kind]["max"])
+                  for kind in ("grad_rel", "update_rel")
+                  if not row[kind]["max"] <= GRAD_REL]
+    for what, reading in (
+            ("K5 dx zeroed", control_k5["max"]),
+            ("update without momentum",
+             steps[1]["control_update_without_momentum_rel"]["max"])):
+        if reading <= GRAD_REL:
+            fails.append("control %s passes the limit: %.3g" % (what,
+                                                                reading))
+    check(not fails, "Gluon f32 card vs cpu: " + "; ".join(fails))
+    return summary
+
+
+def phase_second_order(mx, rng):
+    """Part 2: ``autograd.grad(create_graph=True)`` on the card against
+    the CPU: d/dx of sum((dy/dx)^2) for y = sum(x^3 w), 36 x^3 w^2."""
+    values = [rng.randn(4096).astype(np.float32) for _ in range(2)]
+    got = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        x, w = (mx.nd.array(v, ctx=ctx) for v in values)
+        x.attach_grad()
+        with mx.autograd.record():
+            y = (x * x * x * w).sum()
+            g = mx.autograd.grad(y, x, create_graph=True)
+            z = (g * g).sum()
+        z.backward()
+        got[str(ctx)] = x.grad.asnumpy()
+    card, host = got[str(mx.gpu(0))], got[str(mx.cpu())]
+    exact = 36.0 * values[0] ** 3 * values[1] ** 2
+    row = {"card_vs_cpu_max_abs_err": float(np.abs(card - host).max()),
+           "card_vs_exact_rel": rel_err(card, exact)}
+    check(np.allclose(card, host, rtol=1e-5, atol=1e-5)
+          and row["card_vs_exact_rel"] <= 1e-5,
+          "second-order gradient on the card: %s" % row)
+    return row
+
+
+def gluon_loop(mx, layout, dtype, batch, rng, first_step_only=False):
+    """The example's loop: net, ``cast``, ``hybridize()``, Trainer, loss;
+    GLUON_WARMUP warm-up steps, then GLUON_STEPS timed ones on one fixed
+    batch, whose loss must fall: by the last step, or with
+    ``first_step_only`` at the first update (at the example's lr 0.1 and
+    batch 32 the loss then climbs, in the JAX package too:
+    `tests/gluon_example_divergence.py`). Returns the net, its step
+    function and the readings."""
+    ctx = mx.gpu(0)
+    net = gluon_net(mx, ctx, layout)
+    if dtype != "float32":
+        net.cast(dtype)
+    net.hybridize()
+    trainer = gluon_trainer(mx, net)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    x = mx.nd.array(rng.rand(*gluon_shape(layout, batch)).astype(np.float32),
+                    ctx=ctx, dtype=dtype)
+    y = mx.nd.array(rng.randint(0, CLASSES, batch).astype(np.float32),
+                    ctx=ctx)
+
+    def step():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(batch)
+        return loss
+
+    from mxnet_tpu_torch import compiled
+    before = compiled.compile_counts()
+    warm = [step() for _ in range(GLUON_WARMUP)]
+    row = timed_gluon_steps(step, batch)
+    after = compiled.compile_counts()
+    means = [float(v.data.detach().float().mean()) for v in warm] \
+        + row["losses"]
+    counts = {k: after[k] - before[k] for k in after}
+    check(means[1 if first_step_only else -1] < means[0],
+          "%s %s Gluon loop: the loss did not fall: %s" % (layout, dtype,
+                                                          means))
+    check(counts == {"compiles": 1, "cache_hits": GLUON_WARMUP
+                     + GLUON_STEPS - 1, "retraces": 0},
+          "%s %s Gluon loop compile counts %s: want the recorded signature "
+          "compiled once, then hits" % (layout, dtype, counts))
+    row.update(layout=layout, dtype=dtype, batch=batch, losses=means,
+               compile_counts=counts,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return net, step, row
+
+
+def timed_gluon_steps(step, batch):
+    """GLUON_STEPS calls of ``step``: the wall time bracketed by
+    ``synchronize``, the host's time to issue them, and the losses."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(GLUON_STEPS)]
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    means = [float(v.data.detach().float().mean()) for v in losses]
+    check(all(np.isfinite(means)), "Gluon losses not finite: %s" % means)
+    return {"step_s": wall / GLUON_STEPS,
+            "imgs_per_s": GLUON_STEPS * batch / wall,
+            "host_s_per_step": host / GLUON_STEPS, "losses": means}
+
+
+def phase_gluon(mx, rng, module_step):
+    """Phase 19: Gluon training. Part 1 holds 2 f32 steps on the card
+    against the CPU; part 2 a second-order gradient; part 3 runs the
+    example's loop at its defaults (K5 never launches: NCHW); part 4 the
+    bench's configuration with the gate on (K5 exactly 6 launches a step,
+    every one on the wgmma route), then 10 steps with it off (none).
+    Every kernel count is set to 0 before part 1 and read after part 4.
+    Returns the K5 launches of that path, the bf16 loop's step function
+    and the summary."""
+    from mxnet_tpu_torch import ops
+    k5 = ops.conv1x1_s2_dgrad
+    others = {"fused_lstm": ops.fused_lstm,
+              "fused_lstm_train": ops.fused_lstm_train,
+              "lstm_bwd_recurrence": ops.lstm_bwd_recurrence,
+              "flash_attention": ops.flash_attention, "rtc": mx.rtc.Kernel}
+    os.environ["MXNET_CONV1X1_PALLAS"] = "1"
+    for c in [k5] + list(others.values()):       # the Gluon path starts
+        c.launches = 0
+    k5.launches_by_route.update(wgmma=0, wmma=0, f32=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    check_summary = phase_gluon_check(mx, rng)
+    k5_check = k5.launches
+    second = phase_second_order(mx, rng)
+    net, _, example = gluon_loop(mx, "NCHW", "float32", GLUON_BATCH, rng,
+                                 first_step_only=True)
+    k5_nchw = k5.launches - k5_check
+    del net
+    torch.cuda.empty_cache()
+    routes = dict(k5.launches_by_route)
+    net, step, bf16 = gluon_loop(mx, "NHWC", "bfloat16", GLUON_BF16_BATCH,
+                                 rng)
+    k5_launches = k5.launches                 # ... and ends here
+    routes = {r: n - routes[r] for r, n in k5.launches_by_route.items()}
+    other_launches = {k: c.launches for k, c in others.items()}
+    bf16_steps = GLUON_WARMUP + GLUON_STEPS
+    log("phase 19 K5 launches: %d in the f32 check, %d in the NCHW loop, "
+        "%d in the bf16 loop by route %s; other kernels %s"
+        % (k5_check, k5_nchw, k5_launches - k5_check - k5_nchw, routes,
+           other_launches))
+    check(k5_check == K5_PER_STEP * 2 and k5_nchw == 0
+          and k5_launches == K5_PER_STEP * (2 + bf16_steps),
+          "the Gluon path launched conv1x1_s2_dgrad %d times (%d in the 2 "
+          "f32 steps, %d in the NCHW loop), want %d a gate-on step and "
+          "none on NCHW" % (k5_launches, k5_check, k5_nchw, K5_PER_STEP))
+    check(routes == {"wgmma": K5_PER_STEP * bf16_steps, "wmma": 0, "f32": 0},
+          "the bf16 Gluon loop's K5 calls by route %s, want all wgmma"
+          % routes)
+    check(not any(other_launches.values()),
+          "the Gluon path launched %s" % other_launches)
+    k5.launches = 0
+    os.environ["MXNET_CONV1X1_PALLAS"] = "0"
+    try:
+        gate_off = timed_gluon_steps(step, GLUON_BF16_BATCH)
+    finally:
+        os.environ["MXNET_CONV1X1_PALLAS"] = "1"
+    gate_off["k5_launches"] = k5.launches
+    check(k5.launches == 0, "with the gate off the Gluon loop launched "
+          "conv1x1_s2_dgrad %d times" % k5.launches)
+    summary = {"f32_vs_cpu": check_summary, "second_order": second,
+               "example_defaults": example, "bf16_gate_on": bf16,
+               "bf16_gate_off": gate_off,
+               "module_step_imgs_per_s_same_config": module_step,
+               "k5_launches": k5_launches, "k5_routes_bf16": routes,
+               "seconds": time.perf_counter() - t0}
+    return k5_launches, net, step, summary
+
+
+def phase_gluon_profile(mx, net, step):
+    """One gate-on bf16 batch-128 Gluon step under torch.profiler, each
+    op and the Trainer's update in a named range: device time by kernel
+    class, the idle share and K5's launches and ms."""
+    trainer_cls = mx.gluon.Trainer
+    with ranged_ops([(trainer_cls, "_update")]):
+        row = profiled_step(step)
+    k5 = row["classes"].get("K5 conv1x1_s2_dgrad", {"launches": 0, "ms": 0.0})
+    row["k5"] = {"launches": k5["launches"], "ms": k5["ms"]}
+    check(k5["launches"] == K5_PER_STEP,
+          "the profiled Gluon step shows %d K5 launches, want %d"
+          % (k5["launches"], K5_PER_STEP))
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs the port on the GPU",
@@ -2544,6 +2954,14 @@ def main():
         "card": card, "seconds": time.perf_counter() - t0}))
     check(not any(infer_launches.values()),
           "ResNet-50 inference launched %s" % infer_launches)
+    torch.cuda.empty_cache()
+
+    gluon_k5, net, step, gluon = phase_gluon(
+        mx, rng, train_summary["step_imgs_per_s"])
+    log("phase 19 gluon training %s" % json.dumps(gluon))
+    log("phase 19 gluon profile %s" % json.dumps(
+        phase_gluon_profile(mx, net, step)))
+    del net, step
 
     top = next(r for r in rows if r["B"] == max(SERVED_BATCHES))
     train = next(r for r in train_rows if r["B"] == TRAIN_BATCH)
@@ -2579,7 +2997,7 @@ def main():
         "name": "conv1x1_s2_dgrad", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/dgrad_wgmma.cuh",
         "replaces": "mxnet_tpu/ops/conv_kernels.py:66",
-        "launches": k5_launches,
+        "launches": k5_launches + gluon_k5,
         "max_abs_err": max(r["max_abs_err"] for r in k5_rows),
         **{key: sum(r[key] for r in step_rows)
            for key in ("ms", "plain_ms", "library_ms")},

@@ -2,7 +2,7 @@
 
 A second package beside the JAX one, with the same module names, so an
 ``import mxnet_tpu_torch as mx`` script reads like one written against
-`mxnet_tpu`. It imports neither JAX nor `mxnet_tpu`. It holds five paths
+`mxnet_tpu`. It imports neither JAX nor `mxnet_tpu`. It holds six paths
 so far:
 
 - serving: ``sym`` -> ``Executor`` -> ``Predictor`` ->
@@ -35,7 +35,15 @@ so far:
   the inputs (`ops/random_ops.py`, seeded by ``random.seed``), and
   `tools/bench.py` is the port's counterpart of the repository's
   ``bench.py`` (run it on a GPU host as ``python3
-  mxnet_tpu_torch/tools/bench.py``).
+  mxnet_tpu_torch/tools/bench.py``);
+- Gluon training: ``autograd.record()`` over a ``gluon`` net (eager or
+  hybridized), ``loss.backward()`` and ``gluon.Trainer.step`` with the
+  losses of ``gluon.loss``; the tape is ``torch.autograd``
+  (`autograd.py`), a parameter's tensor a leaf whose gradient lands in
+  its ``.grad`` buffer, and with ``MXNET_CONV1X1_PALLAS`` on the NHWC
+  stride-2 1x1 convolutions take their input gradient from the same
+  hand-written kernel as in ``Module`` training; ``gluon.data`` and
+  ``gluon.utils`` feed it.
 
 ``rtc`` compiles and launches user CUDA kernels at runtime (NVRTC and
 ``libcuda``), the reference's ``mx.rtc.CudaModule``.

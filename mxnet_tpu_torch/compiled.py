@@ -6,7 +6,9 @@ arguments are abstracted to a key (tensors by shape, dtype and device;
 Python scalars by type only on the CPU, so per-call values never cause a
 recompile, and by value on CUDA, where a graph keeps the value it was
 captured with; static arguments by value; and the TF32 switches of cuDNN
-and cuBLAS, which a capture bakes in). A cache miss is a
+and cuBLAS, which a capture bakes in; and whether ``autograd`` is
+recording, so that a recorded call and an inference call never share a
+program). A cache miss is a
 *compile*; a miss beyond the first of the program's lineage is a
 *retrace*, logged with an explanation of what changed
 (:func:`explain_signature_change`) and kept in :func:`last_retrace`.
@@ -49,6 +51,12 @@ running eagerly.
 On the CPU there is no graph: the same cache, keys and counters, and a
 call runs the function eagerly.
 
+A call under ``autograd.record()`` has a signature of its own, counted
+like any other (one compile, then hits), which runs eagerly on the card
+too, with the tape on: a graph's replay returns clones that carry no
+``grad_fn``, so it cannot be differentiated. Capturing the forward and
+backward of a training step is not ported yet.
+
 :meth:`CompiledProgram.warmup` compiles a signature without running it
 and without changing any auxiliary state (the counterpart of the JAX
 package's AOT ``warmup``).
@@ -72,6 +80,7 @@ import weakref
 
 import torch
 
+from . import autograd
 from .base import MXNetError
 from .ops.invoke import suppress_aux_writeback
 
@@ -282,6 +291,12 @@ def _math_mode():
             torch.backends.cuda.matmul.allow_tf32)
 
 
+def _mode():
+    """The process state every key holds: the TF32 switches and whether
+    autograd is recording."""
+    return _math_mode(), autograd.is_recording()
+
+
 def _map(obj, fn):
     """``obj`` with every tensor leaf of its lists, tuples and dicts
     replaced by ``fn(leaf)``."""
@@ -392,7 +407,7 @@ class CompiledProgram:
         by_value = self._by_value(args, self._device(args))
         return tuple(("s", a) if i in self._static
                      else _key_of(a, i in self._inplace, i in by_value)
-                     for i, a in enumerate(args)) + (_math_mode(),)
+                     for i, a in enumerate(args)) + (_mode(),)
 
     def _copied(self, args):
         """The tensors of ``args`` that a replay copies into its buffers,
@@ -431,7 +446,8 @@ class CompiledProgram:
         by_value = self._by_value(args, device)
         sig = _describe_args(args, self._static, self._inplace, self._names,
                              by_value)
-        if by_value:
+        recording = autograd.is_recording()
+        if by_value and not recording:
             opaque = sorted(k for k, d in sig.items() if d[0] == "opaque")
             if opaque:
                 raise MXNetError(
@@ -443,6 +459,7 @@ class CompiledProgram:
             entry = _Eager()
         self._cache[key] = entry
         sig["tf32 (cudnn, matmul)"] = ("static", repr(_math_mode()))
+        sig["autograd recording"] = ("static", repr(recording))
         with _lock:
             st = _sites.setdefault(self._lineage, {"compiles": 0, "sig": None})
             st["compiles"] += 1

@@ -16,14 +16,24 @@ signature, replayed with the parameters read in place, so BatchNorm's
 moving statistics step inside the graph; on the CPU the same cache and
 counters over an eager run. The program is built on the first call and
 dropped by ``hybridize``, ``register_child``, ``cast`` and setting a
-child block as an attribute. The port has no autograd tape yet, so under
-``autograd.record()`` a hybridized call does what the eager forward
-does: it runs with the training flag and records nothing;
-``hybridize(remat=True)`` (and ``MXNET_BACKWARD_DO_MIRROR=1``) raises.
-``SymbolBlock``, forward hooks, ``summary`` and parameter files wait.
+child block as an attribute.
+
+Under ``autograd.record()`` a hybridized call is differentiable with
+respect to the parameters and the NDArray inputs, as the JAX package's
+``jax.vjp`` over its program makes it: the recorded signature (recording
+is part of every key, `compiled.py`) runs the program's function eagerly
+with the tape on, and BatchNorm's moving statistics, off the tape, step
+once. ``hybridize(remat=True)``, or ``MXNET_BACKWARD_DO_MIRROR=1``,
+recomputes the activations in the backward pass instead of keeping them
+(``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``): the
+recompute runs with the aux write-back suppressed, so BatchNorm steps
+once, and from the call's random key, so it draws the same bits.
+``SymbolBlock``, forward hooks, ``summary`` and parameter files are not
+ported yet.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 import threading
@@ -36,7 +46,6 @@ from .. import compiled as compiled_mod
 from .. import ndarray as nd_mod
 from .. import random as _random
 from .. import symbol as sym_mod
-from ..base import MXNetError
 from ..context import cpu, gpu
 from ..name import NameManager, Prefix
 from ..ndarray.ndarray import NDArray
@@ -176,6 +185,33 @@ class Block:
         raise NotImplementedError
 
 
+def _remat_contexts():
+    """``torch.utils.checkpoint``'s contexts: the forward as it is; the
+    recompute with BatchNorm's moving-statistics write-back suppressed,
+    since the forward already stepped them."""
+    return contextlib.nullcontext(), suppress_aux_writeback()
+
+
+def _remat(traced):
+    """``traced`` keeping no activations of a recorded call: a checkpoint
+    whose backward runs it again (recording, inline and from the same
+    random key, so the recompute matches the forward). An unrecorded call
+    runs ``traced`` as it is."""
+    from torch.utils.checkpoint import checkpoint
+
+    def again(param_vals, key, is_train, *inputs):
+        with autograd.record(train_mode=is_train), \
+                compiled_mod.inline("gluon.remat"):
+            return traced(param_vals, key, is_train, *inputs)
+
+    def remat(param_vals, key, is_train, *inputs):
+        if not autograd.is_recording():
+            return traced(param_vals, key, is_train, *inputs)
+        return checkpoint(again, param_vals, key, is_train, *inputs,
+                          use_reentrant=False, context_fn=_remat_contexts)
+    return remat
+
+
 def _context_of(tensor):
     device = tensor.device
     return cpu() if device.type == "cpu" else gpu(device.index or 0)
@@ -204,16 +240,12 @@ class HybridBlock(Block):
 
     def hybridize(self, active=True, **kwargs):
         """Run this block and its children as one compiled program from
-        the next call (``active=False``: eagerly again). Recomputing
-        activations in the backward pass (``remat=True``, or
-        ``MXNET_BACKWARD_DO_MIRROR=1`` without ``remat``) needs the
-        autograd tape, which the port does not have yet: it raises."""
-        remat = kwargs.get(
-            "remat", os.environ.get("MXNET_BACKWARD_DO_MIRROR", "0") == "1")
-        if active and (remat or kwargs.get("static_alloc") == "remat"):
-            raise MXNetError("hybridize(remat=True) recomputes activations "
-                             "in the backward pass; the port has no "
-                             "autograd tape yet")
+        the next call (``active=False``: eagerly again). ``remat=True``
+        (the default under ``MXNET_BACKWARD_DO_MIRROR=1``) recomputes the
+        activations of a recorded call in its backward pass."""
+        if "remat" not in kwargs and \
+                os.environ.get("MXNET_BACKWARD_DO_MIRROR", "0") == "1":
+            kwargs["remat"] = True
         self._active = active
         self._flags = kwargs
         self._clear_cached_op()
@@ -233,7 +265,8 @@ class HybridBlock(Block):
         *inputs) -> (outs, aux_up)``: the parameters in sorted name order
         (read in place), ``key`` the call's random seed and ``is_train``
         static. ``aux_up`` is empty: the moving statistics are written in
-        place, by the graph itself on CUDA."""
+        place, by the graph itself on CUDA. With ``remat`` a recorded call
+        runs ``traced`` under a checkpoint (:func:`_remat`)."""
         params = self.collect_params()
         names = sorted(params.keys())
         objs = [params[n] for n in names]
@@ -246,8 +279,9 @@ class HybridBlock(Block):
             try:
                 for p, v in zip(objs, param_vals):
                     p._data = NDArray(v, _context_of(v))
-                with _random.key_scope(key), \
-                        autograd.pause(train_mode=is_train):
+                with _random.key_scope(key), (autograd.train_mode()
+                                              if is_train
+                                              else autograd.predict_mode()):
                     out = block._forward_impl(*[
                         NDArray(x, _context_of(x))
                         if isinstance(x, torch.Tensor) else x
@@ -259,6 +293,9 @@ class HybridBlock(Block):
                 return tuple(o.data for o in out), {}
             return (out.data,), {}
 
+        if self._flags.get("remat") or \
+                self._flags.get("static_alloc") == "remat":
+            traced = _remat(traced)
         # lineage: this block, so its rebuilt programs diff against each
         # other and unrelated nets never do
         self._cached_jit = compiled_mod.CompiledProgram(
@@ -277,6 +314,7 @@ class HybridBlock(Block):
                                    autograd.is_training(), *inputs)
         out_nds = [NDArray(o, ctx or _context_of(o)) for o in outs]
         return out_nds[0] if len(out_nds) == 1 else tuple(out_nds)
+
     def _forward_impl(self, *args):
         """Eager forward through ``hybrid_forward`` with the parameters
         injected; Symbol inputs go to the symbolic tracer. Deferred
@@ -303,11 +341,12 @@ class HybridBlock(Block):
             except DeferredInitializationError:
                 # one eager pass materialises the deferred parameters; its
                 # moving-statistics step is suppressed, since the compiled
-                # call that follows performs it, and hybridized children
-                # called inside it run inline
+                # call that follows performs it, hybridized children
+                # called inside it run inline, and it records nothing
                 self._clear_cached_op()
                 with suppress_aux_writeback(), \
-                        compiled_mod.inline("gluon.deferred_init"):
+                        compiled_mod.inline("gluon.deferred_init"), \
+                        autograd.pause(train_mode=autograd.is_training()):
                     self._forward_impl(x, *args)
                 return self._call_cached(x, *args)
         return self._forward_impl(x, *args)

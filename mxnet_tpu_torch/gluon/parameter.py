@@ -2,15 +2,20 @@
 
 Counterpart of `mxnet_tpu/gluon/parameter.py` (reference
 `python/mxnet/gluon/parameter.py`), cut to what a Gluon net needs to be
-built, initialised, run eagerly and traced to a Symbol: deferred
-initialisation (a parameter whose shape has unknown dimensions waits for
-the first forward), ``data``, ``set_data`` (a copy into the existing
-tensor, so a hybridized block's graph reads the new value), ``cast``,
-``var()`` and the prefixed ``ParameterDict``. A parameter lives on one
-device: ``gpu(0)`` unless ``initialize`` is given another context;
-without that CUDA device it raises, as ``Module`` does. Gradient
-buffers, ``Constant``, multi-device contexts and ``save``/``load`` wait
-for the Gluon training slice.
+built, initialised, trained, run eagerly and traced to a Symbol:
+deferred initialisation (a parameter whose shape has unknown dimensions
+waits for the first forward), ``data``, ``set_data`` (a copy into the
+existing tensor, so a hybridized block's graph reads the new value),
+the gradient buffer (``grad``, ``list_grad``, ``zero_grad``, the
+``grad_req`` setter), ``cast``, ``var()`` and the prefixed
+``ParameterDict`` (with ``zero_grad`` and ``setattr``). Unless its
+``grad_req`` is ``null``, a parameter's tensor is a leaf of the autograd
+tape whose gradient lands in its buffer (`autograd.mark_variables`); the
+buffer is made with the data, in its dtype, and again by ``cast``. A
+parameter lives on one device: ``gpu(0)`` unless ``initialize`` is given
+another context; without that CUDA device it raises, as ``Module`` does.
+``Constant``, multi-device contexts and ``save``/``load`` are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -18,7 +23,9 @@ import warnings
 from collections import OrderedDict
 
 import numpy as np
+import torch
 
+from .. import autograd
 from ..base import MXNetError, torch_dtype
 from ..context import Context, gpu
 from .. import initializer as init_mod
@@ -53,16 +60,43 @@ class Parameter:
                  allow_deferred_init=False, differentiable=True):
         self._var = None
         self._data = None
+        self._grad = None
         self._ctx = None
         self._deferred_init = ()
+        self._differentiable = differentiable
+        self._grad_req = None
         self.name = name
         self._shape = tuple(shape) if shape is not None else None
         self.dtype = dtype
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
-        self.grad_req = grad_req if differentiable else "null"
+        self.grad_req = grad_req
         self.init = init
         self.allow_deferred_init = allow_deferred_init
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        """``write``, ``add`` or ``null`` (always ``null`` for a parameter
+        that is not differentiable). Going to ``null`` drops the gradient
+        buffer and takes the data off the tape; leaving it makes a new
+        zero buffer."""
+        if req not in ("write", "add", "null"):
+            raise MXNetError("grad_req must be one of 'write', 'add' or "
+                             "'null', but got %r" % (req,))
+        if not self._differentiable:
+            req = "null"
+        if self._grad_req == req:
+            return
+        self._grad_req = req
+        if req == "null" and self._grad is not None:
+            self._grad = None
+            self._data = self._data.detach()
+        elif self._data is not None:
+            self._init_grad()
 
     @property
     def shape(self):
@@ -126,6 +160,19 @@ class Parameter:
             init_mod.create(effective)(init_mod.InitDesc(self.name), data)
         self._data = data
         self._ctx = ctx
+        self._init_grad()
+
+    def _init_grad(self):
+        """A zero gradient buffer of the data's shape and dtype, and the
+        data made a leaf of the tape whose gradient lands in it (no buffer
+        for ``grad_req`` null)."""
+        if self.grad_req == "null":
+            self._grad = None
+            return
+        self._grad = NDArray(torch.zeros_like(self._data.data,
+                                              requires_grad=False),
+                             self._ctx)
+        autograd.mark_variables([self._data], [self._grad], self.grad_req)
 
     def set_data(self, data):
         """Copy ``data`` in; before a deferred initialisation finishes it
@@ -147,14 +194,37 @@ class Parameter:
         self._check_initialized()
         return self._data
 
+    def grad(self, ctx=None):
+        """The gradient buffer; raises for ``grad_req`` null."""
+        if self._data is not None and self._grad is None:
+            raise RuntimeError(
+                "Cannot get gradient array for Parameter '%s' because "
+                "grad_req='null'" % self.name)
+        self._check_initialized()
+        return self._grad
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def zero_grad(self):
+        """Set the gradient buffer to 0 in place."""
+        if self._grad is not None:
+            with torch.no_grad():
+                self._grad.data.zero_()
+
     def cast(self, dtype):
-        """Hold the parameter in ``dtype`` from now on (a new tensor where
-        the dtype changes)."""
+        """Hold the parameter, and its gradient buffer, in ``dtype`` from
+        now on (new tensors where the dtype changes)."""
         self.dtype = dtype
         self._var = None
-        if self._data is not None:
-            self._data = NDArray(self._data.data.to(torch_dtype(dtype)),
-                                 self._ctx)
+        if self._data is None:
+            return
+        dt = torch_dtype(dtype)
+        self._data = NDArray(self._data.data.detach().to(dt), self._ctx)
+        if self._grad is not None:
+            self._grad = NDArray(self._grad.data.to(dt), self._ctx)
+            autograd.mark_variables([self._data], [self._grad],
+                                    self.grad_req)
 
     def var(self):
         """The Symbol variable of this parameter (its name, shape, dtype,
@@ -246,3 +316,13 @@ class ParameterDict:
             init = init_mod.Uniform()
         for param in self.values():
             param.initialize(None, ctx, init, force_reinit=force_reinit)
+
+    def zero_grad(self):
+        for param in self.values():
+            param.zero_grad()
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` (``grad_req``, ``lr_mult``, ...) of every
+        parameter."""
+        for param in self.values():
+            setattr(param, name, value)

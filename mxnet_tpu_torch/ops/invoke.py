@@ -8,8 +8,14 @@ into those NDArrays in place, unless :func:`suppress_aux_writeback` is
 in force. An op that draws random numbers gets a ``torch.Generator`` on
 the op's device, seeded from `random.py`'s sequence (or, inside a
 hybridized call, from the call's key); inside a CUDA graph capture it
-raises, since every replay would draw the same bits. The autograd tape
-is not ported yet, so an op runs without recording a gradient.
+raises, since every replay would draw the same bits.
+
+Under ``autograd.record()`` an op with an input that requires a gradient
+runs with torch's grad mode on, so its outputs carry a ``grad_fn``: that
+is the tape (the JAX package captures a ``jax.vjp`` here). Every other
+op runs under ``torch.no_grad()``. The ``mutate_aux`` write-back stays
+off the tape: the new values are detached and copied under
+``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -66,13 +72,16 @@ def invoke(op_name, inputs, params=None, ctx=None):
         gen = torch.Generator(device=ctx.torch_device())
         gen.manual_seed(_random.op_seed(ctx))
         params["_generator"] = gen
-    with torch.no_grad():
+    recording = autograd.is_recording() and any(
+        a.data.requires_grad for a in in_arrs)
+    with torch.enable_grad() if recording else torch.no_grad():
         outs = tuple(op.fcompute(params, *[a.data for a in in_arrs]))
-        n_out = op.n_out(params)
-        if not getattr(_TLS, "no_aux", False):
+    n_out = op.n_out(params)
+    if not getattr(_TLS, "no_aux", False):
+        with torch.no_grad():
             for idx, new in zip(op.mutate_aux, outs[n_out:]):
                 dst = in_arrs[idx].data
                 if new is not dst:
-                    dst.copy_(new)
+                    dst.copy_(new.detach())
     out_arrs = [NDArray(v, ctx) for v in outs[:n_out]]
     return out_arrs[0] if len(out_arrs) == 1 else out_arrs

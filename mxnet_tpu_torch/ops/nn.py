@@ -1,7 +1,7 @@
 """Neural-network operators (the subset the port's slices use).
 
 Counterpart of `mxnet_tpu/ops/nn.py`: ``FullyConnected``, ``softmax``,
-the ``SoftmaxOutput`` loss head, the fused multi-layer ``RNN`` op with
+``log_softmax``, the ``SoftmaxOutput`` loss head, the fused multi-layer ``RNN`` op with
 its cuDNN flat parameter layout, ``Convolution``, ``BatchNorm``,
 ``Pooling`` and ``Activation`` in channel-first and channel-last layouts,
 and ``LayerNorm``.
@@ -49,6 +49,15 @@ def _softmax(params, data):
     axis = params.get("axis", -1)
     t = params.get("temperature") or 1.0
     return (torch.softmax(data / t, dim=axis),)
+
+
+@register("log_softmax")
+def _log_softmax(params, data):
+    """``log(softmax(data / temperature))`` along ``axis``, in the data
+    dtype."""
+    axis = params.get("axis", -1)
+    t = params.get("temperature") or 1.0
+    return (torch.log_softmax(data if t == 1.0 else data / t, dim=axis),)
 
 
 # ---------------------------------------------------------------------------

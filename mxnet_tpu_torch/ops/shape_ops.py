@@ -1,10 +1,12 @@
 """Shape and indexing operators (the subset the port's slices use).
 
 Counterpart of `mxnet_tpu/ops/shape_ops.py`: ``Reshape`` with the
-reference's shape-spec codes, ``Flatten``, ``transpose``, ``SwapAxis``
-and ``Embedding``.
+reference's shape-spec codes, ``reshape_like``, ``Flatten``,
+``transpose``, ``SwapAxis``, ``Embedding`` and ``pick``.
 """
 from __future__ import annotations
+
+import torch
 
 from .registry import register
 
@@ -67,6 +69,13 @@ def _reshape(params, x):
     return (x.reshape(tgt),)
 
 
+@register("reshape_like")
+def _reshape_like(params, x, other):
+    """``x`` in ``other``'s shape (``other``'s values are not read, so it
+    takes no gradient)."""
+    return (x.reshape(other.shape),)
+
+
 @register("Flatten", aliases=("flatten",))
 def _flatten(params, x):
     return (x.reshape(x.shape[0], -1),)
@@ -90,3 +99,20 @@ def _embedding(params, data, weight):
     idx = data.long().clamp(0, weight.shape[0] - 1)
     rows = weight.index_select(0, idx.reshape(-1))
     return (rows.reshape(tuple(idx.shape) + (weight.shape[1],)),)
+
+
+@register("pick")
+def _pick(params, x, index):
+    """``x``'s element at ``index`` along ``axis`` (the axis dropped
+    unless ``keepdims``). An index outside the axis is clipped to it
+    (``mode="clip"``, the reference's default) or taken modulo its
+    length (``mode="wrap"``)."""
+    axis = int(params.get("axis", -1)) % x.dim()
+    n = x.shape[axis]
+    idx = index.long()
+    idx = idx.remainder(n) if params.get("mode", "clip") == "wrap" \
+        else idx.clamp(0, n - 1)
+    out = torch.gather(x, axis, idx.unsqueeze(axis))
+    if not params.get("keepdims", False):
+        out = out.squeeze(axis)
+    return (out,)

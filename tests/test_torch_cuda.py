@@ -978,3 +978,151 @@ def test_nd_random_on_the_card(cuda):
     p = mxt.nd.random.poisson(lam=3.0, shape=(40000,))
     assert p.data.device.type == "cuda"
     assert abs(p.asnumpy().mean() - 3.0) <= 0.15
+
+
+# ---------------------------------------------------------------------------
+# Gluon training on the card: the autograd tape, a hybridized call under
+# record() (run eagerly with the tape on: a graph replay carries no
+# grad_fn), Trainer and the loss, with K5 under the tape. f32 both sides,
+# TF32 off; gradients and updates held as the small ResNet's Module steps
+# above, by relative norm to SMALL_RESNET_REL.
+# ---------------------------------------------------------------------------
+def _small_gluon_net(ctx, layout="NHWC"):
+    from mxnet_tpu_torch.gluon.model_zoo.vision import (BottleneckV1,
+                                                        ResNetV1)
+    net = ResNetV1(BottleneckV1, [1, 1, 1, 1], [16, 128, 256, 384, 512],
+                   classes=10, layout=layout, prefix="net_")
+    net.initialize(mxt.init.Xavier(), ctx=ctx)
+    shape = (4, 32, 32, 3) if layout == "NHWC" else (4, 3, 32, 32)
+    net(mxt.nd.zeros(shape, ctx=ctx))
+    net.hybridize()
+    return net
+
+
+def _gluon_values(net):
+    return {n: p.data().asnumpy() for n, p in net.collect_params().items()}
+
+
+def _gluon_record(net, x, y):
+    loss_fn = mxt.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mxt.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    return loss
+
+
+def test_gluon_steps_on_gpu_match_cpu(f32, monkeypatch):
+    """Two steps of the Gluon loop (SGD momentum 0.9, lr 0.05, wd 1e-4)
+    of the small NHWC ResNet with the gate on, each from the card's
+    weights: losses and moving statistics elementwise (rtol 1e-4, atol
+    1e-5), gradients and updates by relative norm; K5 six times a step."""
+    from mxnet_tpu_torch import compiled
+    from mxnet_tpu_torch.ops.conv_kernel import conv1x1_s2_dgrad
+    monkeypatch.setenv("MXNET_CONV1X1_PALLAS", "1")
+    card, host = _small_gluon_net(mxt.gpu(0)), _small_gluon_net(mxt.cpu())
+    opt = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+    trainers = [mxt.gluon.Trainer(n.collect_params(), "sgd", dict(opt))
+                for n in (card, host)]
+    rng = np.random.RandomState(5)
+    before = conv1x1_s2_dgrad.launches
+    readings = []
+    for _ in range(2):
+        x = rng.rand(4, 32, 32, 3).astype(np.float32)
+        y = rng.randint(0, 10, 4).astype(np.float32)
+        mxt.set_block_params(host, _gluon_values(card))
+        start = _gluon_values(host)
+        losses = [_gluon_record(n, mxt.nd.array(x, ctx=c),
+                                mxt.nd.array(y, ctx=c)).asnumpy()
+                  for n, c in ((card, mxt.gpu(0)), (host, mxt.cpu()))]
+        np.testing.assert_allclose(*losses, rtol=TOL, atol=1e-5)
+        grads = [{n: p.grad().asnumpy()
+                  for n, p in m.collect_params().items()
+                  if p.grad_req != "null"} for m in (card, host)]
+        # a conv bias feeds a BatchNorm: its exact gradient is 0, and the
+        # computed one is rounding noise, held below 1e-3 of its weight's
+        for g in grads:
+            for n in [n for n in g if "_conv" in n and n.endswith("_bias")]:
+                weight = g[n[:-len("bias")] + "weight"]
+                assert np.linalg.norm(g.pop(n)) <= \
+                    1e-3 * np.linalg.norm(weight), n
+        for t in trainers:
+            t.step(4)
+        values = [_gluon_values(m) for m in (card, host)]
+        for n, v in values[1].items():
+            if "running" in n:
+                np.testing.assert_allclose(values[0][n], v, rtol=TOL,
+                                           atol=1e-5, err_msg=n)
+        moved = [{n: v[n] - start[n] for n in grads[1]} for v in values]
+        readings.append((_worst_rel(*grads), _worst_rel(*moved)))
+    torch.cuda.synchronize()
+    print("small Gluon ResNet gradient and update relative errors", readings)
+    assert conv1x1_s2_dgrad.launches == before + 12
+    assert max(max(r) for r in readings) <= SMALL_RESNET_REL, readings
+    (entry,) = card._cached_jit._cache.values()
+    assert isinstance(entry, compiled._Eager)     # recorded: no graph
+
+
+@pytest.mark.parametrize("gate", ["1", "0"])
+def test_k5_launched_under_the_tape(cuda, monkeypatch, gate):
+    """With the gate on, each backward through the hybridized NHWC net
+    launches K5 once at each of its six stride-2 1x1 sites, by the wgmma
+    route in bf16; with it off, and in NCHW, never."""
+    from mxnet_tpu_torch.ops.conv_kernel import conv1x1_s2_dgrad
+    monkeypatch.setenv("MXNET_CONV1X1_PALLAS", gate)
+    for layout in ("NHWC", "NCHW"):
+        net = _small_gluon_net(mxt.gpu(0), layout)
+        net.cast("bfloat16")
+        shape = (4, 32, 32, 3) if layout == "NHWC" else (4, 3, 32, 32)
+        x = mxt.nd.array(np.random.RandomState(6).rand(*shape),
+                         ctx=mxt.gpu(0), dtype="bfloat16")
+        y = mxt.nd.array(np.arange(4) % 10, ctx=mxt.gpu(0))
+        before = conv1x1_s2_dgrad.launches
+        routes = dict(conv1x1_s2_dgrad.launches_by_route)
+        loss = _gluon_record(net, x, y)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(loss.data.float()).all())
+        want = 6 if gate == "1" and layout == "NHWC" else 0
+        assert conv1x1_s2_dgrad.launches == before + want
+        assert conv1x1_s2_dgrad.launches_by_route["wgmma"] == \
+            routes["wgmma"] + want
+
+
+def test_inference_graph_after_a_training_step(f32):
+    """A recorded call runs eagerly; the inference call stays one graph,
+    and the optimizer's in-place update reaches its next replay without a
+    recapture."""
+    from mxnet_tpu_torch import compiled
+    net = _small_gluon_net(mxt.gpu(0), "NCHW")
+    x = mxt.nd.array(np.random.RandomState(7).rand(4, 3, 32, 32),
+                     ctx=mxt.gpu(0))
+    compiled.reset()
+    first = net(x).data.clone()
+    _gluon_record(net, x, mxt.nd.array(np.arange(4), ctx=mxt.gpu(0)))
+    mxt.gluon.Trainer(net.collect_params(), "sgd",
+                      {"learning_rate": 0.1}).step(4)
+    after = net(x).data
+    with mxt.autograd.predict_mode():
+        eager = net._forward_impl(x).data
+    assert compiled.compile_counts() == {"compiles": 2, "cache_hits": 1,
+                                         "retraces": 1}
+    assert not torch.equal(after, first)
+    torch.testing.assert_close(after, eager, rtol=HYB_TOL, atol=HYB_TOL)
+    kinds = sorted(type(e).__name__ for e in net._cached_jit._cache.values())
+    assert kinds == ["_Eager", "_Graph"]
+
+
+def test_second_order_grad_on_the_card(cuda):
+    rng = np.random.RandomState(8)
+    values = [rng.randn(256).astype(np.float32) for _ in range(2)]
+    got = []
+    for ctx in (mxt.gpu(0), mxt.cpu()):
+        x, w = (mxt.nd.array(v, ctx=ctx) for v in values)
+        x.attach_grad()
+        with mxt.autograd.record():
+            y = (x * x * x * w).sum()
+            g = mxt.autograd.grad(y, x, create_graph=True)
+            (g * g).sum().backward()
+        got.append(x.grad.asnumpy())
+    np.testing.assert_allclose(got[0], got[1], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[0], 36 * values[0] ** 3 * values[1] ** 2,
+                               rtol=1e-4, atol=1e-4)

@@ -26,8 +26,9 @@ signature cache, keys and counters that capture CUDA graphs on the card
   the next call without a recompile, moved storage recompiled as a
   retrace naming the parameter, the TF32 switches in the signature,
   ``warmup()`` changing no moving
-  statistic, ``remat`` raising, two threads against one, a Python
-  scalar argument reaching every call;
+  statistic, two threads against one, a Python scalar argument reaching
+  every call (``remat`` is tested with training, in
+  `test_torch_gluon_train.py`);
 - the retrace explainer's text against the JAX package's.
 """
 import sys
@@ -335,17 +336,6 @@ def test_warmup_changes_no_moving_statistic(nets):
                    for n, v in _stats(tnet).items())
     finally:
         mxt.set_block_params(tnet, weights)
-
-
-def test_remat_raises(monkeypatch):
-    net = _dense_net("rm_")
-    with pytest.raises(mxt.MXNetError, match="remat"):
-        net.hybridize(remat=True)
-    monkeypatch.setenv("MXNET_BACKWARD_DO_MIRROR", "1")
-    with pytest.raises(mxt.MXNetError, match="remat"):
-        net.hybridize()
-    net.hybridize(remat=False)
-    net.hybridize(False)
 
 
 def test_two_threads_match_one():

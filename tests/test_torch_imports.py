@@ -32,9 +32,17 @@ def _imported_roots(path):
     return roots
 
 
+GLUON_TRAINING = ["autograd.py", "ops/reduce.py", "gluon/loss.py",
+                  "gluon/trainer.py", "gluon/utils.py",
+                  "gluon/data/__init__.py", "gluon/data/dataset.py",
+                  "gluon/data/sampler.py", "gluon/data/dataloader.py"]
+
+
 def test_port_files_found():
     assert len(PORT_FILES) >= 20
     assert (ROOT / "mxnet_tpu_torch" / "csrc" / "fused_lstm.cu").exists()
+    port = {str(p.relative_to(ROOT / "mxnet_tpu_torch")) for p in PORT_FILES}
+    assert set(GLUON_TRAINING) <= port
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],
