@@ -154,13 +154,36 @@ hybridized net, SGD lr 0.1, momentum 0.9, wd 1e-4,
     the gate on (2 warm-up and 10 timed steps, the loss must fall, K5
     exactly 6 launches a step, all on the wgmma route) and 10 steps with
     it off (none); ``torch.profiler`` over one gate-on step (device time
-    by kernel class, the idle share, K5's launches and ms).
+    by kernel class, the idle share, K5's launches and ms);
+
+and then drives the ``nd`` core and two of the repository's Gluon
+examples with one import changed (`mxnet_tpu_torch/tools/run_example.py`)
+in one more:
+
+20. every op of the ``nd`` core (`mxnet_tpu_torch/tools/op_sweep.py`:
+    the ops of `ops/elemwise.py`, `init_ops.py`, `shape_ops.py` and
+    `reduce.py`, ``Dropout``, ``LeakyReLU``, ``SoftmaxActivation`` and
+    ``softmax_cross_entropy``) on ``gpu(0)`` against ``cpu()`` from the
+    same inputs, f32 and bf16: the exact families bit for bit, the others
+    within their family's limit, each f32 family's control (the card's
+    inputs rounded to bf16) above it; ``Dropout`` at p = 0.5 over 2^20
+    elements on the card (the zero share within 4 sigma of 0.5,
+    survivors scaled by exactly 2, one seed the same mask, the next draw
+    another); ``examples/adversary/fgsm_mnist.py`` under ``with
+    mx.gpu(0):`` and under ``with mx.cpu():`` (its accuracy lines, its
+    net and data on the scope's device); ``examples/gluon/
+    train_resnet50.py`` at its defaults (``--ctx tpu``, which is cuda:0,
+    ``--num-batches 10``; its img/s line beside phase 19's for the same
+    loop), and with ``--dtype bfloat16``, which must raise the dtype
+    mismatch the JAX package raises on the same script (the example
+    casts the net but not its f32 input).
 
 Phases 3-5 are the serving main path, phase 8 the LM training one,
 phase 11's gate-on steps on the card the ResNet one, phase 15's steps on
 the card the attention one, phase 16's first launches the rtc one,
-phase 18 the inference one and phase 19's steps on the card (its check,
-the example's loop and the bf16 gate-on loop) the Gluon training one:
+phase 18 the inference one, phase 19's steps on the card (its check,
+the example's loop and the bf16 gate-on loop) the Gluon training one and
+phase 20's two examples the nd-core one:
 every kernel's launch count is set to 0 before each and read after it.
 The serving path must launch K1, every call by the persistent route; the
 LM training path must launch K2 and K3 exactly once per layer and step,
@@ -171,7 +194,9 @@ on, and never with it off; the attention path must launch K4 once
 per layer and step; the rtc path its two kernels once each; the
 inference path none of them (no TPU kernel of the repo is on it: K5 is
 a dgrad); the Gluon training path K5 exactly 6 times per gate-on step on
-the wgmma route, never on NCHW or with the gate off, and no other kernel.
+the wgmma route, never on NCHW or with the gate off, and no other
+kernel; the nd-core path none of them (the examples run an MLP and NCHW
+f32 ResNet-50).
 K5's launches in the kernels line are the ResNet path's and the Gluon
 path's. Any failed
 check exits non-zero. The last lines
@@ -182,6 +207,8 @@ repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -366,6 +393,10 @@ GLUON_WARMUP, GLUON_STEPS = 2, 10
 # a conv bias's gradient, exactly 0 ahead of a BatchNorm, over its
 # weight's gradient (by norm): rounding noise reads far below it
 BIAS_NOISE = 1e-3
+# phase 20: the nd core (Dropout's draw size, the two examples' arguments)
+DROPOUT_N = 1 << 20
+FGSM_ARGS = ["--num-examples", "600", "--num-epochs", "3"]
+RESNET_EXAMPLE_ARGS = ["--num-batches", "10"]
 # the bench's inference function in phase 18: rounds of calls x iters
 INFER_ITERS, INFER_CALLS, INFER_ROUNDS = 50, 2, 2
 PEAK_TF32_FLOPS = 495e12
@@ -2781,6 +2812,165 @@ def phase_gluon_profile(mx, net, step):
     return row
 
 
+@contextlib.contextmanager
+def example_spy(mx):
+    """Record the devices of every NDArray a Gluon block is called with
+    and of every parameter a Trainer steps, while an example runs."""
+    seen = {"data": set(), "params": set(), "steps": 0}
+    block_call = mx.gluon.Block.__call__
+    trainer_step = mx.gluon.Trainer.step
+
+    def call(self, *args):
+        seen["data"].update(str(a.data.device) for a in args
+                            if isinstance(a, mx.nd.NDArray))
+        return block_call(self, *args)
+
+    def step(self, *args, **kwargs):
+        seen["params"].update(str(p.data().data.device)
+                              for p in self._params)
+        seen["steps"] += 1
+        return trainer_step(self, *args, **kwargs)
+
+    mx.gluon.Block.__call__, mx.gluon.Trainer.step = call, step
+    try:
+        yield seen
+    finally:
+        mx.gluon.Block.__call__, mx.gluon.Trainer.step = \
+            block_call, trainer_step
+
+
+def run_example_captured(mx, rel, argv, device):
+    """``tools/run_example`` on ``examples/rel``: its printed lines and
+    the devices its blocks and Trainer saw."""
+    from mxnet_tpu_torch.tools.run_example import run_example
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with example_spy(mx) as seen, contextlib.redirect_stdout(out):
+        run_example(os.path.join("examples", rel), argv, device)
+    seen = {k: sorted(v) if isinstance(v, set) else v
+            for k, v in seen.items()}
+    return {"lines": out.getvalue().splitlines(), "seen": seen,
+            "seconds": time.perf_counter() - t0}
+
+
+def line_value(lines, prefix, what):
+    """The first number after ``prefix`` in the first line holding it."""
+    hit = [ln for ln in lines if prefix in ln]
+    check(hit, "%s printed no %r line: %s" % (what, prefix, lines[-5:]))
+    return float(re.search(r"[-+0-9.]+", hit[0].split(prefix, 1)[1]).group())
+
+
+def phase_nd_ops(mx):
+    """Phase 20a: every op of the nd core on gpu(0) against cpu() (f32 and
+    bf16; ``tools/op_sweep.py``), each f32 family's control, and
+    ``Dropout`` at p = 0.5 over DROPOUT_N elements on the card."""
+    from mxnet_tpu_torch.tools import op_sweep
+    t0 = time.perf_counter()
+    ctx = mx.gpu(0)
+    families, fails = op_sweep.sweep(ctx)
+    controls = {f: op_sweep.control(ctx, f) for f in op_sweep.LIMITS
+                if f != "exact"}
+    sort = next(c for c in op_sweep.CASES if c.name == "sort")
+    moved = op_sweep.run_case(sort, ctx)
+    moved[0][0, 0] = torch.nextafter(moved[0][0, 0], torch.tensor(1e9))
+    controls["exact"] = op_sweep.reading(moved, op_sweep.run_case(
+        sort, mx.cpu()), "exact")
+    rows = {"%s %s" % k: {"cases": n, "worst": worst,
+                          "limit": op_sweep.LIMITS[k[0]]
+                          if k[1] == "float32" or k[0] == "exact"
+                          else op_sweep.BF16_LIMIT}
+            for k, (n, worst) in sorted(families.items())}
+    log("phase 20 op sweep %s" % json.dumps({
+        "families": rows, "controls": controls,
+        "cases": len(op_sweep.CASES), "over_limit": [str(f) for f in fails],
+        "seconds": time.perf_counter() - t0}))
+    check(not fails, "ops over their family's limit on the card: %s"
+          % fails)
+    check(all(controls[f] > op_sweep.LIMITS[f] for f in controls),
+          "a control passed its family's limit: %s" % controls)
+
+    rng = np.random.RandomState(SEED + 80)
+    x = mx.nd.array(rng.rand(DROPOUT_N).astype("f") + 0.5, ctx=ctx)
+
+    def draw():
+        return mx.nd.Dropout(x, p=0.5, mode="always")[0].data
+
+    mx.random.seed(SEED + 80)
+    a = draw()
+    mx.random.seed(SEED + 80)
+    b, c = draw(), draw()
+    zero_share = float((a == 0).float().mean())
+    sigma = 0.5 / DROPOUT_N ** 0.5
+    kept = a != 0
+    dropout = {"zero_share": zero_share, "sigma": sigma,
+               "device": str(a.device),
+               "survivors_times_2": bool(torch.equal(a[kept],
+                                                     x.data[kept] * 2)),
+               "same_seed_same_bits": bool(torch.equal(a, b)),
+               "next_draw_differs": not torch.equal(a, c)}
+    log("phase 20 Dropout %s" % json.dumps(dropout))
+    check(a.device.type == "cuda" and abs(zero_share - 0.5) <= 4 * sigma
+          and dropout["survivors_times_2"]
+          and dropout["same_seed_same_bits"]
+          and dropout["next_draw_differs"],
+          "Dropout on the card: %s" % dropout)
+    return {"families": rows, "controls": controls, "dropout": dropout}
+
+
+def phase_examples(mx, gluon_rate):
+    """Phase 20b-c: ``examples/adversary/fgsm_mnist.py`` through
+    ``tools/run_example`` under ``with mx.gpu(0):`` and under ``with
+    mx.cpu():`` (its accuracy lines, the devices its net and data saw),
+    and ``examples/gluon/train_resnet50.py`` at its defaults (``--ctx
+    tpu``, now cuda:0) with RESNET_EXAMPLE_ARGS: the example's img/s
+    beside phase 19's for the same loop; then with ``--dtype bfloat16``,
+    which the example's own code cannot run in either package (it casts
+    the net, not its f32 input: the JAX package raises at the first
+    convolution, `lax.conv_general_dilated requires arguments to have the
+    same dtypes`), so the port must raise there too, before any step."""
+    fgsm = {}
+    for device in ("gpu", "cpu"):
+        run = run_example_captured(mx, "adversary/fgsm_mnist.py",
+                                   FGSM_ARGS, device)
+        want = "cuda:0" if device == "gpu" else "cpu"
+        fgsm[device] = {
+            "clean_accuracy": line_value(run["lines"], "clean accuracy",
+                                         "fgsm"),
+            "adversarial_accuracy": line_value(
+                run["lines"], "adversarial accuracy", "fgsm"),
+            "devices": run["seen"], "seconds": run["seconds"]}
+        check(run["seen"]["data"] == [want] and run["seen"]["params"]
+              == [want] and run["seen"]["steps"] > 0,
+              "fgsm under %s(0): the net and its data lived on %s"
+              % (device, run["seen"]))
+    log("phase 20 fgsm_mnist %s" % json.dumps(fgsm))
+    run = run_example_captured(mx, "gluon/train_resnet50.py",
+                               RESNET_EXAMPLE_ARGS, "gpu")
+    hit = [ln for ln in run["lines"] if "img/s" in ln]
+    check(hit, "train_resnet50 printed no img/s line: %s" % run["lines"])
+    rate = float(re.search(r"([0-9.]+) img/s", hit[0]).group(1))
+    check(run["seen"]["data"] == ["cuda:0"]
+          and run["seen"]["params"] == ["cuda:0"]
+          and run["seen"]["steps"] == 11,
+          "train_resnet50 at --ctx tpu: %s" % run["seen"])
+    resnet = {"line": hit[0], "imgs_per_s": rate, "phase19_imgs_per_s_same_loop":
+              gluon_rate, "devices": run["seen"],
+              "seconds": run["seconds"]}
+    try:
+        run_example_captured(mx, "gluon/train_resnet50.py",
+                             RESNET_EXAMPLE_ARGS + ["--dtype", "bfloat16"],
+                             "gpu")
+        bf16_error = None
+    except RuntimeError as e:
+        bf16_error = str(e).splitlines()[0]
+    resnet["bfloat16"] = bf16_error
+    log("phase 20 train_resnet50 %s" % json.dumps(resnet))
+    check(bf16_error is not None and "should be the same" in bf16_error,
+          "train_resnet50 --dtype bfloat16: want the dtype mismatch the "
+          "JAX package raises, got %r" % bf16_error)
+    return {"fgsm": fgsm, "train_resnet50": resnet}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs the port on the GPU",
@@ -2962,6 +3152,21 @@ def main():
     log("phase 19 gluon profile %s" % json.dumps(
         phase_gluon_profile(mx, net, step)))
     del net, step
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    nd_ops = phase_nd_ops(mx)
+    for c in counters.values():               # the nd-core path starts
+        c.launches = 0
+    examples = phase_examples(mx, gluon["example_defaults"]["imgs_per_s"])
+    nd_launches = {k: c.launches for k, c in counters.items()}
+    log("phase 20 nd core %s" % json.dumps({
+        "kernel_launches": nd_launches, "card": card,
+        "seconds": time.perf_counter() - t0}))   # ... and ends here
+    check(not any(nd_launches.values()),
+          "the examples launched %s: no TPU kernel of the repo is on this "
+          "path" % nd_launches)
+    del nd_ops, examples
 
     top = next(r for r in rows if r["B"] == max(SERVED_BATCHES))
     train = next(r for r in train_rows if r["B"] == TRAIN_BATCH)

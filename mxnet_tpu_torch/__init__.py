@@ -50,9 +50,14 @@ so far:
 
 Entry points run on ``gpu(0)`` (``cuda:0``) unless the caller passes
 ``cpu()``; without a CUDA device they raise rather than fall back.
+``tpu(i)``, the JAX package's accelerator context, is ``cuda:i`` too.
+``python -m mxnet_tpu_torch.tools.run_example`` runs an example written
+for the JAX package with its ``mxnet_tpu`` imports rewritten.
 """
 from .base import MXNetError
-from .context import Context, cpu, gpu, current_context, num_gpus
+from .context import (Context, cpu, gpu, tpu, cpu_pinned, current_context,
+                      num_gpus, num_tpus)
+from . import context
 from . import random
 from . import autograd
 from . import ndarray
@@ -79,8 +84,9 @@ from .weights import (params_from_numpy, params_to_numpy,
 from . import serving
 from . import rtc
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
-           "num_gpus", "random", "nd", "ndarray", "ops", "sym", "symbol",
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "cpu_pinned",
+           "current_context", "num_gpus", "num_tpus", "context", "random",
+           "nd", "ndarray", "ops", "sym", "symbol",
            "Executor", "init", "initializer", "optimizer", "io", "metric",
            "mod", "module", "model", "callback", "name", "gluon", "compiled",
            "autograd", "Predictor", "params_from_numpy", "params_to_numpy",

@@ -1,9 +1,11 @@
 """Gluon: the imperative neural-network front end of the port (reference
-`python/mxnet/gluon/`): blocks, parameters with gradient buffers, the
-layers ResNet uses, the ResNet model zoo, ``Trainer``, the losses,
-``data`` (datasets, samplers, ``DataLoader``) and ``utils``. The other
-layers, ``rnn`` and ``contrib`` are not ported yet."""
-from .parameter import Parameter, ParameterDict, DeferredInitializationError
+`python/mxnet/gluon/`): blocks, parameters with gradient buffers and
+``Constant``, the layers of ``nn``, the ResNet model zoo, ``Trainer``,
+the losses, ``data`` (datasets, samplers, ``DataLoader``) and ``utils``
+(``split_and_load`` also at the top). The other layers, ``rnn`` and
+``contrib`` are not ported yet."""
+from .parameter import (Parameter, Constant, ParameterDict,
+                        DeferredInitializationError)
 from .block import Block, HybridBlock
 from .trainer import Trainer
 from . import nn
@@ -11,7 +13,8 @@ from . import loss
 from . import data
 from . import utils
 from . import model_zoo
+from .utils import split_and_load
 
-__all__ = ["Parameter", "ParameterDict", "DeferredInitializationError",
-           "Block", "HybridBlock", "Trainer", "nn", "loss", "data", "utils",
-           "model_zoo"]
+__all__ = ["Parameter", "Constant", "ParameterDict",
+           "DeferredInitializationError", "Block", "HybridBlock", "Trainer",
+           "nn", "loss", "data", "utils", "model_zoo", "split_and_load"]

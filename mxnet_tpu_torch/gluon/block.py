@@ -160,8 +160,9 @@ class Block:
 
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False):
-        """Initialise every parameter on ``ctx`` (gpu(0) by default); a
-        parameter with unknown dimensions waits for the first forward."""
+        """Initialise every parameter on ``ctx`` (by default the enclosing
+        ``with ctx:`` scope's, else gpu(0)); a parameter with unknown
+        dimensions waits for the first forward."""
         from ..initializer import Uniform
         self.collect_params().initialize(init or Uniform(), ctx, verbose,
                                          force_reinit)

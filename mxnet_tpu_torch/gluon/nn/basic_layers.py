@@ -1,20 +1,25 @@
-"""Gluon basic layers (the ones ResNet uses).
+"""Gluon basic layers.
 
 Counterpart of `mxnet_tpu/gluon/nn/basic_layers.py` (reference
-`python/mxnet/gluon/nn/basic_layers.py`): ``HybridSequential``,
-``Dense``, ``Activation``, ``BatchNorm`` (moving statistics as
-parameters that take no gradient) and ``Flatten``. ``Sequential``,
-``Dropout``, ``Embedding``, ``InstanceNorm``, ``LayerNorm``, the lambdas
-and the other activations are not ported yet.
+`python/mxnet/gluon/nn/basic_layers.py`): ``Sequential``,
+``HybridSequential``, ``Dense`` (with an optional ``activation`` child,
+named as in the JAX package), ``Activation``, ``Dropout``, ``BatchNorm``
+(moving statistics as parameters that take no gradient), ``Embedding``,
+``LayerNorm``, ``Flatten``, ``Lambda``, ``HybridLambda`` and
+``LeakyReLU``. ``InstanceNorm``, ``PReLU``, ``ELU``, ``SELU`` and
+``Swish`` are not ported yet (ROADMAP A.7).
 """
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 
-from ..block import HybridBlock
+from ..block import Block, HybridBlock
 
-__all__ = ["HybridSequential", "Dense", "Activation", "BatchNorm",
-           "Flatten"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
+           "Dropout", "BatchNorm", "Embedding", "LayerNorm", "Flatten",
+           "Lambda", "HybridLambda", "LeakyReLU"]
 
 
 def _first(out):
@@ -25,12 +30,52 @@ def _first(out):
     return out[0] if len(out) > 1 else out
 
 
-class HybridSequential(HybridBlock):
-    """Children run in the order they were added."""
+class _Stack:
+    """``add``, indexing (a slice is a new container of the same kind)
+    and ``len`` of the sequential containers."""
 
     def add(self, *blocks):
         for block in blocks:
             self.register_child(block)
+
+    def __getitem__(self, key):
+        layers = list(self._children.values())[key]
+        if isinstance(layers, list):
+            net = type(self)(prefix=self._prefix)
+            with net.name_scope():
+                net.add(*layers)
+            return net
+        return layers
+
+    def __len__(self):
+        return len(self._children)
+
+
+class Sequential(_Stack, Block):
+    """Children called in the order they were added."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+    def forward(self, x):
+        for block in self._children.values():
+            x = block(x)
+        return x
+
+    def hybridize(self, active=True, **kwargs):
+        if self._children and all(isinstance(c, HybridBlock)
+                                  for c in self._children.values()):
+            warnings.warn("All children of this Sequential layer are "
+                          "HybridBlocks. Consider using HybridSequential "
+                          "for the best performance.", stacklevel=2)
+        super().hybridize(active, **kwargs)
+
+
+class HybridSequential(_Stack, HybridBlock):
+    """Children run in the order they were added."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
 
     def hybrid_forward(self, F, x):
         raise RuntimeError("HybridSequential dispatches via _forward_impl")
@@ -44,9 +89,9 @@ class HybridSequential(HybridBlock):
 
 
 class Dense(HybridBlock):
-    """``FullyConnected``."""
+    """``FullyConnected``, then ``activation`` if one is given."""
 
-    def __init__(self, units, use_bias=True, flatten=True,
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype=np.float32, weight_initializer=None,
                  bias_initializer="zeros", in_units=0, **kwargs):
         super().__init__(**kwargs)
@@ -60,6 +105,8 @@ class Dense(HybridBlock):
             self.bias = self.params.get(
                 "bias", shape=(units,), init=bias_initializer, dtype=dtype,
                 allow_deferred_init=True) if use_bias else None
+            self.act = Activation(activation, prefix=activation + "_") \
+                if activation is not None else None
 
     def _infer_shapes(self, x):
         if self.weight.shape[1] == 0:
@@ -69,8 +116,9 @@ class Dense(HybridBlock):
 
     def hybrid_forward(self, F, x, weight, bias=None):
         args = (x, weight) if bias is None else (x, weight, bias)
-        return F.FullyConnected(*args, no_bias=bias is None,
-                                num_hidden=self._units, flatten=self._flatten)
+        out = F.FullyConnected(*args, no_bias=bias is None,
+                               num_hidden=self._units, flatten=self._flatten)
+        return out if self.act is None else self.act._forward_impl(out)
 
 
 class Activation(HybridBlock):
@@ -83,6 +131,19 @@ class Activation(HybridBlock):
 
     def hybrid_forward(self, F, x):
         return F.Activation(x, act_type=self._act_type)
+
+
+class Dropout(HybridBlock):
+    """``Dropout`` at ``rate`` in training; the identity otherwise."""
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        return _first(F.Dropout(x, p=self._rate, axes=self._axes))
+
 
 class BatchNorm(HybridBlock):
     """The moving mean and variance are parameters with ``grad_req``
@@ -132,3 +193,101 @@ class BatchNorm(HybridBlock):
 class Flatten(HybridBlock):
     def hybrid_forward(self, F, x):
         return F.Flatten(x)
+
+
+class Embedding(HybridBlock):
+    """Rows of a (``input_dim``, ``output_dim``) weight by index."""
+
+    def __init__(self, input_dim, output_dim, dtype=np.float32,
+                 weight_initializer=None, sparse_grad=False, **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"input_dim": input_dim, "output_dim": output_dim}
+        self.weight = self.params.get("weight", shape=(input_dim, output_dim),
+                                      init=weight_initializer, dtype=dtype,
+                                      allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, **self._kwargs)
+
+
+class LayerNorm(HybridBlock):
+    """``LayerNorm`` over ``axis``, with ``gamma`` and ``beta`` of that
+    axis's size (taking no gradient without ``scale`` / ``center``)."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
+        self._epsilon = epsilon
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True)
+
+    def _infer_shapes(self, x):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta):
+            if not p.shape or p.shape[0] == 0:
+                p.shape = (c,)
+
+    def hybrid_forward(self, F, data, gamma, beta):
+        return _first(F.LayerNorm(data, gamma, beta, axis=self._axis,
+                                  eps=self._epsilon))
+
+
+class Lambda(Block):
+    """A block over ``function``: a callable, or the name of an ``nd``
+    function."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd
+            if not hasattr(nd, function):
+                raise ValueError("Function name %s is not found in ndarray."
+                                 % function)
+            self._func_impl = getattr(nd, function)
+        elif callable(function):
+            self._func_impl = function
+        else:
+            raise ValueError("Unrecognized function in lambda: {}"
+                             .format(function))
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+
+class HybridLambda(HybridBlock):
+    """A hybrid block over ``function(F, x, *args)``, or the name of a
+    function of ``F`` (``nd`` or ``sym``)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if not isinstance(function, str) and not callable(function):
+            raise ValueError("Unrecognized function in lambda: {}"
+                             .format(function))
+        self._function = function
+
+    def hybrid_forward(self, F, x, *args):
+        if isinstance(self._function, str):
+            return getattr(F, self._function)(x, *args)
+        return self._function(F, x, *args)
+
+
+class LeakyReLU(HybridBlock):
+    """``x`` where positive, ``alpha * x`` elsewhere."""
+
+    def __init__(self, alpha, **kwargs):
+        if alpha < 0:
+            raise ValueError("Slope coefficient for LeakyReLU must be no "
+                             "less than 0.")
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)

@@ -2,18 +2,21 @@
 
 Counterpart of `mxnet_tpu/gluon/nn/conv_layers.py` (reference
 `python/mxnet/gluon/nn/conv_layers.py`): ``Conv2D`` (over ``_Conv``;
-channel-last weights are O,kh,kw,I), ``MaxPool2D`` and
-``GlobalAvgPool2D`` (over ``_Pooling``). The 1-D and 3-D layers, the
-transposed convolutions, the other pools and ``ReflectionPad2D`` are not
-ported yet.
+channel-last weights are O,kh,kw,I; an optional ``activation`` child,
+named as in the JAX package), ``MaxPool2D``, ``AvgPool2D``,
+``GlobalMaxPool2D`` and ``GlobalAvgPool2D`` (over ``_Pooling``). The 1-D
+and 3-D layers, the transposed convolutions and ``ReflectionPad2D`` are
+not ported yet (ROADMAP A.7).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..block import HybridBlock
+from .basic_layers import Activation
 
-__all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D"]
+__all__ = ["Conv2D", "MaxPool2D", "AvgPool2D", "GlobalMaxPool2D",
+           "GlobalAvgPool2D"]
 
 
 def _to_tuple(v, n):
@@ -24,7 +27,7 @@ def _to_tuple(v, n):
 
 class _Conv(HybridBlock):
     def __init__(self, channels, kernel_size, strides, padding, dilation,
-                 groups, layout, in_channels=0,
+                 groups, layout, in_channels=0, activation=None,
                  use_bias=True, weight_initializer=None,
                  bias_initializer="zeros", prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
@@ -46,6 +49,8 @@ class _Conv(HybridBlock):
             self.bias = self.params.get(
                 "bias", shape=(channels,), init=bias_initializer,
                 allow_deferred_init=True) if use_bias else None
+            self.act = Activation(activation, prefix=activation + "_") \
+                if activation is not None else None
 
     def _infer_shapes(self, x):
         in_c = x.shape[-1] if self._channel_last else x.shape[1]
@@ -57,7 +62,8 @@ class _Conv(HybridBlock):
 
     def hybrid_forward(self, F, x, weight, bias=None):
         args = (x, weight) if bias is None else (x, weight, bias)
-        return F.Convolution(*args, **self._kwargs)
+        out = F.Convolution(*args, **self._kwargs)
+        return out if self.act is None else self.act._forward_impl(out)
 
     def _alias(self):
         return "conv"
@@ -65,19 +71,19 @@ class _Conv(HybridBlock):
 
 class Conv2D(_Conv):
     def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
-                 dilation=(1, 1), groups=1, layout="NCHW", use_bias=True,
-                 weight_initializer=None,
+                 dilation=(1, 1), groups=1, layout="NCHW", activation=None,
+                 use_bias=True, weight_initializer=None,
                  bias_initializer="zeros", in_channels=0, **kwargs):
         super().__init__(channels, _to_tuple(kernel_size, 2),
                          _to_tuple(strides, 2), _to_tuple(padding, 2),
                          _to_tuple(dilation, 2), groups, layout, in_channels,
-                         use_bias, weight_initializer,
+                         activation, use_bias, weight_initializer,
                          bias_initializer, **kwargs)
 
 
 class _Pooling(HybridBlock):
     def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
-                 pool_type, layout=None, **kwargs):
+                 pool_type, count_include_pad=None, layout=None, **kwargs):
         super().__init__(**kwargs)
         self._kwargs = {
             "kernel": pool_size,
@@ -87,6 +93,8 @@ class _Pooling(HybridBlock):
             "pooling_convention": "full" if ceil_mode else "valid"}
         if layout is not None:
             self._kwargs["layout"] = layout
+        if count_include_pad is not None:
+            self._kwargs["count_include_pad"] = count_include_pad
 
     def _alias(self):
         return "pool"
@@ -101,6 +109,22 @@ class MaxPool2D(_Pooling):
         super().__init__(_to_tuple(pool_size, 2),
                          None if strides is None else _to_tuple(strides, 2),
                          _to_tuple(padding, 2), ceil_mode, False, "max",
+                         layout=layout, **kwargs)
+
+
+class AvgPool2D(_Pooling):
+    def __init__(self, pool_size=(2, 2), strides=None, padding=0,
+                 layout="NCHW", ceil_mode=False, count_include_pad=True,
+                 **kwargs):
+        super().__init__(_to_tuple(pool_size, 2),
+                         None if strides is None else _to_tuple(strides, 2),
+                         _to_tuple(padding, 2), ceil_mode, False, "avg",
+                         count_include_pad, layout=layout, **kwargs)
+
+
+class GlobalMaxPool2D(_Pooling):
+    def __init__(self, layout="NCHW", **kwargs):
+        super().__init__((1, 1), None, (0, 0), True, True, "max",
                          layout=layout, **kwargs)
 
 

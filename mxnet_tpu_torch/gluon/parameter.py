@@ -12,10 +12,11 @@ the gradient buffer (``grad``, ``list_grad``, ``zero_grad``, the
 ``grad_req`` is ``null``, a parameter's tensor is a leaf of the autograd
 tape whose gradient lands in its buffer (`autograd.mark_variables`); the
 buffer is made with the data, in its dtype, and again by ``cast``. A
-parameter lives on one device: ``gpu(0)`` unless ``initialize`` is given
-another context; without that CUDA device it raises, as ``Module`` does.
-``Constant``, multi-device contexts and ``save``/``load`` are not ported
-yet.
+parameter lives on one device: the context ``initialize`` is given,
+else that of the enclosing ``with ctx:`` scope, else ``gpu(0)``; without
+that CUDA device it raises, as ``Module`` does. ``Constant`` is a
+parameter with a fixed value and no gradient. Multi-device contexts and
+``save``/``load`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,11 +28,12 @@ import torch
 
 from .. import autograd
 from ..base import MXNetError, torch_dtype
-from ..context import Context, gpu
+from ..context import Context, gpu, scope_context
 from .. import initializer as init_mod
 from ..ndarray.ndarray import NDArray, array as nd_array, zeros as nd_zeros
 
-__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
+__all__ = ["DeferredInitializationError", "Parameter", "Constant",
+           "ParameterDict"]
 
 
 class DeferredInitializationError(MXNetError):
@@ -39,10 +41,11 @@ class DeferredInitializationError(MXNetError):
 
 
 def _one_context(ctx):
-    """gpu(0) by default; a list must name one device. Checks that the
-    device exists."""
+    """The enclosing ``with ctx:`` scope's context by default, else
+    gpu(0); a list must name one device. Checks that the device
+    exists."""
     if ctx is None:
-        ctx = gpu(0)
+        ctx = scope_context() or gpu(0)
     if isinstance(ctx, (list, tuple)):
         if len(ctx) != 1:
             raise MXNetError("a Parameter lives on one device in the port; "
@@ -124,7 +127,8 @@ class Parameter:
 
     def initialize(self, init=None, ctx=None, default_init=None,
                    force_reinit=False):
-        """Fill the parameter on ``ctx`` (gpu(0) by default) by ``init``,
+        """Fill the parameter on ``ctx`` (by default the enclosing ``with
+        ctx:`` scope's, else gpu(0)) by ``init``,
         else its own ``init``, else ``default_init``; a shape with unknown
         dimensions defers this to the first forward."""
         if default_init is None:
@@ -235,6 +239,24 @@ class Parameter:
                                    dtype=self.dtype, lr_mult=self.lr_mult,
                                    wd_mult=self.wd_mult, init=self.init)
         return self._var
+
+class Constant(Parameter):
+    """A parameter that holds ``value`` (an NDArray, or anything
+    ``nd.array`` takes) and takes no gradient."""
+
+    def __init__(self, name, value):
+        if not isinstance(value, NDArray):
+            value = nd_array(value)
+        self.value = value
+
+        class Init(init_mod.Initializer):
+            def _init_weight(self, _, arr):
+                value.copyto(arr)
+        init_name = "Constant_{}_{}".format(name, id(self))
+        init_mod._INIT_REGISTRY[init_name.lower()] = Init
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype, init=init_name)
+
 
 class ParameterDict:
     """Parameters by name, with prefix namespacing (reference

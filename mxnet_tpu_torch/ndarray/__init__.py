@@ -1,18 +1,22 @@
 """`mx.nd` namespace of the port (reference `python/mxnet/ndarray/`):
 the NDArray, its constructors, the ``.params`` format, one function per
 registered op (``maximum`` and ``minimum`` also take a scalar on either
-side), ``nd.contrib`` and the samplers of ``nd.random``."""
+side; ``onehot_encode`` is ``one_hot``, as in the JAX package),
+``nd.contrib`` and the samplers of ``nd.random``."""
 import numbers as _numbers
 
 from .. import ops as _ops  # noqa: F401  (registers the operators)
-from .ndarray import NDArray, zeros, array, waitall
+from .ndarray import (NDArray, array, zeros, ones, full, empty, arange,
+                      concatenate, moveaxis, waitall)
 from .utils import save, load, load_frombuffer
 from .register import populate as _populate
 
-__all__ = ["NDArray", "zeros", "array", "waitall", "save", "load",
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
+           "concatenate", "moveaxis", "waitall", "save", "load",
            "load_frombuffer"]
 
 _populate(globals())
+onehot_encode = globals()["one_hot"]
 
 
 def _with_scalar(op, scalar_op):

@@ -3,6 +3,7 @@ from . import registry
 from . import shape_ops  # noqa: F401  (registers ops)
 from . import elemwise  # noqa: F401  (registers ops)
 from . import reduce  # noqa: F401  (registers ops)
+from . import init_ops  # noqa: F401  (registers ops)
 from . import nn  # noqa: F401  (registers ops)
 from . import contrib_ops  # noqa: F401  (registers ops)
 from . import random_ops  # noqa: F401  (registers ops)

@@ -8,7 +8,9 @@ into those NDArrays in place, unless :func:`suppress_aux_writeback` is
 in force. An op that draws random numbers gets a ``torch.Generator`` on
 the op's device, seeded from `random.py`'s sequence (or, inside a
 hybridized call, from the call's key); inside a CUDA graph capture it
-raises, since every replay would draw the same bits.
+raises, since every replay would draw the same bits. An op that draws
+only in some modes (``Dropout`` outside training) gets no generator when
+it does not draw.
 
 Under ``autograd.record()`` an op with an input that requires a gradient
 runs with torch's grad mode on, so its outputs carry a ``grad_fn``: that
@@ -63,7 +65,7 @@ def invoke(op_name, inputs, params=None, ctx=None):
     params.setdefault("_ctx", ctx)
     if op.need_train_flag:
         params.setdefault("_is_train", autograd.is_training())
-    if op.need_rng and "_generator" not in params:
+    if op.need_rng and "_generator" not in params and op.draws(params):
         if torch.cuda.is_initialized() and \
                 torch.cuda.is_current_stream_capturing():
             raise MXNetError(

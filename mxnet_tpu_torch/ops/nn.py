@@ -1,10 +1,15 @@
 """Neural-network operators (the subset the port's slices use).
 
 Counterpart of `mxnet_tpu/ops/nn.py`: ``FullyConnected``, ``softmax``,
-``log_softmax``, the ``SoftmaxOutput`` loss head, the fused multi-layer ``RNN`` op with
+``log_softmax``, ``SoftmaxActivation``, the ``SoftmaxOutput`` loss head,
+``softmax_cross_entropy``, the fused multi-layer ``RNN`` op with
 its cuDNN flat parameter layout, ``Convolution``, ``BatchNorm``,
 ``Pooling`` and ``Activation`` in channel-first and channel-last layouts,
-and ``LayerNorm``.
+``LeakyReLU`` (``leaky``, ``elu``, ``selu``, ``prelu``, ``rrelu``),
+``Dropout`` and ``LayerNorm``. ``Dropout`` and ``rrelu`` draw from the
+op's generator only in training (``Dropout`` also under
+``mode="always"``), so in predict mode they run inside a CUDA graph
+capture.
 
 An LSTM layer that needs a gradient runs ``FusedLSTM`` (the hand-written
 training kernels K2/K3 on a CUDA tensor, their plain versions on the
@@ -619,6 +624,90 @@ def _activation(params, data):
     if act not in _ACTIVATIONS:
         raise MXNetError("unknown act_type " + act)
     return (_ACTIVATIONS[act](data),)
+
+
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+def _rrelu_draws(params):
+    return params.get("act_type", "leaky") == "rrelu" \
+        and params.get("_is_train", False)
+
+
+@register("LeakyReLU", need_rng=_rrelu_draws, need_train_flag=True)
+def _leaky_relu(params, data, *gamma):
+    """Reference nn/leaky_relu-inl.h: the negative side scaled by
+    ``slope`` (``leaky``), ``slope * expm1`` (``elu``), SELU's constants
+    (``selu``), the per-channel ``gamma`` input (``prelu``), or slopes
+    drawn uniformly from [``lower_bound``, ``upper_bound``) in training
+    and their mean otherwise (``rrelu``)."""
+    act = params.get("act_type", "leaky")
+    slope = float(params.get("slope", 0.25))
+    pos = data >= 0
+    if act == "leaky":
+        return (torch.where(pos, data, slope * data),)
+    if act == "elu":
+        return (torch.where(pos, data, slope * torch.expm1(data)),)
+    if act == "selu":
+        return (_SELU_SCALE * torch.where(
+            pos, data, _SELU_ALPHA * torch.expm1(data)),)
+    if act == "prelu":
+        g = gamma[0].reshape((1, -1) + (1,) * (data.dim() - 2))
+        return (torch.where(pos, data, g * data),)
+    if act == "rrelu":
+        lo = float(params.get("lower_bound", 0.125))
+        hi = float(params.get("upper_bound", 0.334))
+        if _rrelu_draws(params):
+            u = torch.rand(data.shape, generator=params["_generator"],
+                           device=data.device)
+            slopes = (lo + (hi - lo) * u).to(data.dtype)
+        else:
+            slopes = (lo + hi) / 2.0
+        return (torch.where(pos, data, slopes * data),)
+    raise MXNetError("unknown act_type " + act)
+
+
+@register("SoftmaxActivation")
+def _softmax_activation(params, data):
+    """Softmax over axis 1 (``mode="channel"``) or over each instance's
+    values (``instance``, the default)."""
+    if params.get("mode", "instance") == "channel":
+        return (torch.softmax(data, dim=1),)
+    return (torch.softmax(data.reshape(data.shape[0], -1), dim=-1)
+            .reshape(data.shape),)
+
+
+@register("softmax_cross_entropy")
+def _softmax_cross_entropy(params, data, label):
+    """The summed cross entropy of the rows of ``data`` against integer
+    ``label``s (a label outside the classes adds nothing), a 0-d
+    array."""
+    logp = torch.log_softmax(data, dim=-1)
+    hot = label.long().unsqueeze(-1) == torch.arange(data.shape[-1],
+                                                     device=data.device)
+    return (-torch.sum(hot.to(data.dtype) * logp),)
+
+
+def _dropout_draws(params):
+    return float(params.get("p", 0.5)) > 0 and (
+        params.get("_is_train", False)
+        or params.get("mode", "training") == "always")
+
+
+@register("Dropout", need_rng=_dropout_draws, need_train_flag=True,
+          num_outputs=2, num_visible_outputs=1)
+def _dropout(params, data):
+    """Reference nn/dropout-inl.h: outputs (out, mask), the mask 0 or
+    1/(1-p) from a Bernoulli draw of the op's generator, in training or
+    under ``mode="always"``; otherwise the identity and a mask of ones.
+    ``axes`` is ignored, as in the JAX package."""
+    if not _dropout_draws(params):
+        return (data, torch.ones_like(data))
+    keep = 1.0 - float(params.get("p", 0.5))
+    bits = torch.bernoulli(torch.full(data.shape, keep, device=data.device),
+                           generator=params["_generator"])
+    mask = bits.to(data.dtype) / keep
+    return (data * mask, mask)
 
 
 # ---------------------------------------------------------------------------

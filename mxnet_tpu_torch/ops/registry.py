@@ -6,7 +6,10 @@ attributes and ``torch.Tensor`` inputs and returns a tuple of tensors.
 ``params`` also carries ``_is_train`` for ops that declare
 ``need_train_flag``, ``_generator`` (a ``torch.Generator`` on the
 inputs' device, in place of the JAX package's ``_rng_key``) for ops that
-declare ``need_rng``, and ``_ctx``, the executor's Context.
+declare ``need_rng``, and ``_ctx``, the executor's Context. An op that
+draws only in some modes (``Dropout`` in training) gives ``need_rng`` as
+a function of its params; an eager call that does not draw then gets no
+generator, so it may run inside a CUDA graph capture.
 
 The same fcompute runs eagerly on CUDA or CPU tensors, and on ``meta``
 tensors for shape inference (`symbol/symbol.py`), so an op must not
@@ -51,6 +54,13 @@ class Operator:
         if self.num_visible_outputs is None:
             return self.n_out(params)
         return self.num_visible_outputs
+
+    def draws(self, params):
+        """Whether a call with ``params`` (``_is_train`` set) draws random
+        numbers."""
+        if callable(self.need_rng):
+            return bool(self.need_rng(params))
+        return self.need_rng
 
     def __repr__(self):
         return "Operator(%s)" % self.name

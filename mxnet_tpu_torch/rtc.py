@@ -196,7 +196,7 @@ def _cuda_device(ctx=None):
                          "has none (there is no CPU mode)")
     if ctx is None:
         return torch.device("cuda", torch.cuda.current_device())
-    if not isinstance(ctx, Context) or ctx.device_type != "gpu":
+    if not isinstance(ctx, Context) or ctx.device_type not in ("gpu", "tpu"):
         raise MXNetError("rtc: kernels launch on a GPU context; got %s"
                          % (ctx,))
     return ctx.torch_device()

@@ -6,6 +6,11 @@ PyTorch is installed::
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
+The nd core's ops (`mxnet_tpu_torch/tools/op_sweep.py`) run on the card
+against the CPU, each held to its family's limit, with the families'
+controls; Dropout's statistics and a hybridized net holding Dropout, and
+an example run through `tools/run_example.py` under ``gpu(0)``.
+
 Each section states its tolerances. The LSTM kernels: 1e-4, f32 on both
 sides, but the kernels sum h @ Wh (and dgates @ Wh^T) in another order
 than cuBLAS, and the difference compounds over time. One train step of
@@ -1126,3 +1131,95 @@ def test_second_order_grad_on_the_card(cuda):
     np.testing.assert_allclose(got[0], got[1], rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got[0], 36 * values[0] ** 3 * values[1] ** 2,
                                rtol=1e-4, atol=1e-4)
+
+
+# -- the nd core: every op of `tools/op_sweep.py` on the card --------------
+from mxnet_tpu_torch.tools import op_sweep  # noqa: E402
+
+SWEEP = [(c, dt) for c in op_sweep.CASES
+         for dt in (("float32", "bfloat16") if c.bf16 else ("float32",))]
+
+
+@pytest.mark.parametrize("case,dtype", SWEEP,
+                         ids=["%s-%d-%s" % (c.name, i, dt)
+                              for i, (c, dt) in enumerate(SWEEP)])
+def test_nd_core_op_on_the_card_matches_cpu(cuda, case, dtype):
+    """Each op on gpu(0) against cpu() from the same inputs, held to its
+    family's limit (exact ops bit for bit; bf16 to BF16_LIMIT)."""
+    assert op_sweep.compare(case, mxt.gpu(0), dtype) <= \
+        op_sweep.limit(case, dtype)
+
+
+@pytest.mark.parametrize("family", ["arith", "transcendental", "reduction",
+                                    "product"])
+def test_nd_core_controls_fail_their_limits(cuda, family):
+    """Inputs rounded to bf16 on the card only read above the family's
+    f32 limit."""
+    assert op_sweep.control(mxt.gpu(0), family) > op_sweep.LIMITS[family]
+
+
+def test_dropout_on_the_card(cuda):
+    """p = 0.5 over 2^20 elements: the zero share within 4 sigma of 0.5,
+    survivors scaled by exactly 2, one seed the same bits, the next draw
+    others."""
+    n = 1 << 20
+    x = mxt.nd.array(np.random.RandomState(9).rand(n).astype(np.float32)
+                     + 0.5, ctx=mxt.gpu(0))
+
+    def draw():
+        return mxt.nd.Dropout(x, p=0.5, mode="always")[0].data
+
+    mxt.random.seed(11)
+    a = draw()
+    mxt.random.seed(11)
+    b, c = draw(), draw()
+    assert a.device.type == "cuda"
+    assert abs(float((a == 0).float().mean()) - 0.5) <= 4 * 0.5 / n ** 0.5
+    kept = a != 0
+    assert torch.equal(a[kept], x.data[kept] * 2)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+def test_hybridized_dropout_captures_in_predict_mode(cuda):
+    """Outside training Dropout draws nothing, so a hybridized net that
+    holds it is one CUDA graph; under record() it runs eagerly and
+    drops."""
+    from mxnet_tpu_torch import compiled
+    net = mxt.gluon.nn.HybridSequential()
+    net.add(mxt.gluon.nn.Dense(16, activation="relu", in_units=8),
+            mxt.gluon.nn.Dropout(0.5))
+    net.initialize(ctx=mxt.gpu(0))
+    net.hybridize()
+    x = mxt.nd.array(np.random.RandomState(10).rand(4, 8), ctx=mxt.gpu(0))
+    before = compiled.compile_counts()
+    eager = net._forward_impl(x).data.clone()
+    first, second = net(x).data.clone(), net(x).data
+    after = compiled.compile_counts()
+    assert after["compiles"] - before["compiles"] == 1
+    assert after["cache_hits"] - before["cache_hits"] == 1
+    assert torch.equal(first, eager) and torch.equal(second, eager)
+    kinds = sorted(type(e).__name__ for e in net._cached_jit._cache.values())
+    assert kinds == ["_Graph"]
+    with mxt.autograd.record():
+        dropped = net(x).data
+    assert bool((dropped == 0).any()) and not torch.equal(dropped, eager)
+
+
+def test_fgsm_example_runs_on_the_card(cuda, monkeypatch, capsys):
+    """fgsm_mnist through run_example under gpu(0): its accuracy line,
+    its parameters stepped on cuda:0."""
+    import os
+    from mxnet_tpu_torch.tools.run_example import run_example
+    devices = set()
+    step = mxt.gluon.Trainer.step
+
+    def spy(self, *args, **kwargs):
+        devices.update(str(p.data().data.device) for p in self._params)
+        return step(self, *args, **kwargs)
+
+    monkeypatch.setattr(mxt.gluon.Trainer, "step", spy)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    run_example(os.path.join(root, "examples", "adversary", "fgsm_mnist.py"),
+                ["--num-examples", "600", "--num-epochs", "2"], "gpu")
+    assert "adversarial accuracy" in capsys.readouterr().out
+    assert devices == {"cuda:0"}

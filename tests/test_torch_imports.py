@@ -36,6 +36,7 @@ GLUON_TRAINING = ["autograd.py", "ops/reduce.py", "gluon/loss.py",
                   "gluon/trainer.py", "gluon/utils.py",
                   "gluon/data/__init__.py", "gluon/data/dataset.py",
                   "gluon/data/sampler.py", "gluon/data/dataloader.py"]
+ND_CORE = ["ops/init_ops.py", "tools/run_example.py"]
 
 
 def test_port_files_found():
@@ -43,6 +44,7 @@ def test_port_files_found():
     assert (ROOT / "mxnet_tpu_torch" / "csrc" / "fused_lstm.cu").exists()
     port = {str(p.relative_to(ROOT / "mxnet_tpu_torch")) for p in PORT_FILES}
     assert set(GLUON_TRAINING) <= port
+    assert set(ND_CORE) <= port
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],
