@@ -178,12 +178,45 @@ in one more:
     mismatch the JAX package raises on the same script (the example
     casts the net but not its f32 input).
 
+and then trains ResNet-50 v1 through Gluon with the optimizer layer of
+``optimizer.py``, whose one update path (``FusedApplier``) updates every
+parameter of a (formula, dtype) group with one launch of
+``multi_tensor_update`` (U1, `mxnet_tpu_torch/csrc/multi_tensor_update.cu`),
+in (a) the image bench's configuration (NHWC, bf16, batch 128, the gate on)
+with SGD momentum 0.9, wd 1e-4 and ``multi_precision`` at lr 0.1, and (b)
+the example's defaults (NCHW, f32, batch 32) with Adam at lr 1e-3, wd 1e-4,
+in one more:
+
+21. U1 against its plain version (a loop over `ops/optimizer_ops.py`) at
+    the shapes of ResNet-50's trainable parameters for each of its five
+    formulas (``sgd``, ``sgd_mom``, ``mp_sgd``, ``mp_sgd_mom``, ``adam``)
+    over f32
+    and bf16 weights, clipping off and on, ``rescale_grad`` 0.25,
+    per-tensor lrs and wds, 3 updates (f32 to rtol 1e-6, atol 1e-7; bf16
+    weights one bf16 step), 20 calls from the same inputs bit-identical,
+    with kernel, plain and fused ``torch.optim`` times (the yardstick
+    only) and the bound, for (a)'s and (b)'s formulas; then phase 19's
+    card-vs-CPU check with (a)'s and with (b)'s optimizer (Adam at lr
+    1e-4; phase 19's controls, and for Adam a third update without its
+    bias correction, which must fail); the example's loop at full width
+    in (a) and (b) (img/s and the host's issue time beside phase 19's SGD
+    rates; U1 exactly one launch a (formula, dtype) group a step, K5
+    exactly 6 in (a)); ``torch.profiler`` over one step of each (U1's
+    launches, the optimizer's share of the device time and of the
+    host's); a
+    ``save_states`` / ``load_states`` round trip on the card whose next
+    step is bit-identical to the uninterrupted one; and the five Adam
+    examples (``vae``, ``gan``, ``autoencoder``, ``recommenders``,
+    ``cnn_text_classification``) through ``run_example`` on ``gpu(0)``
+    at their tests' arguments, each printing its asserted line.
+
 Phases 3-5 are the serving main path, phase 8 the LM training one,
 phase 11's gate-on steps on the card the ResNet one, phase 15's steps on
 the card the attention one, phase 16's first launches the rtc one,
 phase 18 the inference one, phase 19's steps on the card (its check,
 the example's loop and the bf16 gate-on loop) the Gluon training one and
-phase 20's two examples the nd-core one:
+phase 20's two examples the nd-core one and phase 21 after its U1
+check the optimizer one:
 every kernel's launch count is set to 0 before each and read after it.
 The serving path must launch K1, every call by the persistent route; the
 LM training path must launch K2 and K3 exactly once per layer and step,
@@ -196,7 +229,9 @@ inference path none of them (no TPU kernel of the repo is on it: K5 is
 a dgrad); the Gluon training path K5 exactly 6 times per gate-on step on
 the wgmma route, never on NCHW or with the gate off, and no other
 kernel; the nd-core path none of them (the examples run an MLP and NCHW
-f32 ResNet-50).
+f32 ResNet-50); the LM training path U1 once a step; the optimizer path
+U1 once a (formula, dtype) group a step and K5 6 times a gate-on step,
+and none of K1-K4 and K6.
 K5's launches in the kernels line are the ResNet path's and the Gluon
 path's. Any failed
 check exits non-zero. The last lines
@@ -214,6 +249,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -397,6 +433,48 @@ BIAS_NOISE = 1e-3
 DROPOUT_N = 1 << 20
 FGSM_ARGS = ["--num-examples", "600", "--num-epochs", "3"]
 RESNET_EXAMPLE_ARGS = ["--num-batches", "10"]
+# phase 21: the optimizer layer. (a) the image bench's configuration (NHWC,
+# bf16, batch 128, the gate on) trained with SGD momentum and an f32 master
+# copy (multi_precision); (b) the example's defaults (NCHW, f32, batch 32)
+# trained with Adam; both at full width and depth through the example's loop
+OPT_A = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+         "multi_precision": True}
+OPT_B = {"learning_rate": 1e-3, "wd": 1e-4}
+# the card-vs-CPU check of phase 19 (batch 4, f32) with (a)'s optimizer at
+# phase 19's check lr and with (b)'s at lr 1e-4: Adam's first update moves
+# every weight by about its lr whatever the gradient, and at 1e-3 (a few
+# percent of a conv weight here) the second step's batch-4 BatchNorm
+# statistics cancel in both packages, so its output probabilities read
+# 1.6e-4 to 2.8e-4 apart (H100, 700 W) against step 0's 4.3e-6 and miss
+# the elementwise tolerance by rounding alone
+OPT_A_CHECK = dict(OPT_A, learning_rate=GLUON_CHECK_OPT["learning_rate"])
+OPT_B_CHECK = dict(OPT_B, learning_rate=1e-4)
+# U1 against its plain version, f32: both round every product and sum to
+# f32 in the same order (the kernel through __fmul_rn/__fadd_rn, which nvcc
+# never contracts, and IEEE sqrt and division); bf16 weights: equal or one
+# bf16 step (2^-7 relative) apart
+U1_RTOL, U1_ATOL = 1e-6, 1e-7
+U1_CALLS = 20
+# bytes a value and f32 operations a value of each U1 formula, by the
+# weight's (and gradient's) bytes: what it must read and write once
+U1_BYTES = {"sgd": lambda b: 3 * b, "sgd_mom": lambda b: 3 * b + 8,
+            "mp_sgd": lambda b: 2 * b + 8, "mp_sgd_mom": lambda b: 2 * b + 16,
+            "adam": lambda b: 3 * b + 16}
+U1_OPS = {"sgd": 5, "sgd_mom": 7, "mp_sgd": 5, "mp_sgd_mom": 7, "adam": 14}
+# the five Adam examples at the arguments of tests/test_examples.py and the
+# line each of those tests asserts
+ADAM_EXAMPLES = [
+    ("vae/train_vae.py", ["--num-examples", "1000", "--num-epochs", "15"],
+     "VAE TRAINING OK"),
+    ("gan/train_gan.py", ["--num-iters", "250"], "sample mean"),
+    ("autoencoder/train_autoencoder.py",
+     ["--num-examples", "600", "--num-epochs", "12"],
+     "final reconstruction loss"),
+    ("recommenders/train_mf.py", [], "final test mse"),
+    ("cnn_text_classification/train_cnn_text.py",
+     ["--num-examples", "1000", "--num-epochs", "4"],
+     "final text-cnn accuracy"),
+]
 # the bench's inference function in phase 18: rounds of calls x iters
 INFER_ITERS, INFER_CALLS, INFER_ROUNDS = 50, 2, 2
 PEAK_TF32_FLOPS = 495e12
@@ -808,7 +886,11 @@ def phase_profile(mx, sym_json, params, rng):
                         input_shapes={"data": (n, SEQ)})
     toks = tokens(rng, n)
     pred.forward(data=toks)      # warm: allocations, first launches
-    wall, kern = device_profile(lambda: pred.forward(data=toks))
+    # a trace that lost K1's launches (seen once on the process's first
+    # profile) is taken again, as the other phases' profiles are
+    wall, kern = device_profile(
+        lambda: pred.forward(data=toks),
+        complete=lambda k: bool(kernel_share(k, K1_KERNELS, 1.0)["launches"]))
     busy = sum(ms for _, ms in kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:6]
     k1 = kernel_share(kern, K1_KERNELS, busy)
@@ -1594,6 +1676,10 @@ def phase_resnet_bf16_vs_f32(mx, mod, batches):
 def kernel_class(kernel, stack):
     k = kernel.lower()
     where = " ".join(stack)
+    if "multi_tensor_kernel" in k:
+        return "U1 multi_tensor_update"
+    if "update" in where and ("memcpy" in k or "memset" in k):
+        return "optimizer update"
     if "dgrad_wgmma" in k or "dgrad_bf16" in k or "dgrad_f32" in k:
         return "K5 conv1x1_s2_dgrad"
     if "memcpy" in k or "memset" in k:
@@ -1676,7 +1762,10 @@ def profiled_step(step):
         wall = (time.perf_counter() - t0) * 1e3
     classes = {}
     launches = 0
+    update_host_ms = 0.0
     for evt in prof.events():
+        if evt.name == "update":
+            update_host_ms += evt.cpu_time_total / 1e3
         if not evt.kernels:
             continue
         stack, e = [], evt
@@ -1691,10 +1780,23 @@ def profiled_step(step):
             cls[2][kern.name[:50]] = cls[2].get(kern.name[:50], 0.0) \
                 + kern.duration / 1e3
             launches += 1
+    # U1's launch (from csrc's library, by ctypes) carries no CPU event in
+    # this trace: take it from the device-side totals
+    if "U1 multi_tensor_update" not in classes:
+        for e in prof.key_averages():
+            if "multi_tensor_kernel" in e.key and \
+                    str(getattr(e, "device_type", "")).endswith("CUDA"):
+                cls = classes.setdefault("U1 multi_tensor_update",
+                                         [0, 0.0, {}])
+                cls[0] += e.count
+                cls[1] += e.self_device_time_total / 1e3
+                cls[2][e.key[:50]] = e.self_device_time_total / 1e3
+                launches += e.count
     busy = sum(ms for _, ms, _ in classes.values())
     check(launches > 0, "the profiler saw no device kernel in the step")
     return {"step_wall_ms": wall, "device_busy_ms": busy,
             "device_idle_share": 1 - busy / wall, "kernels": launches,
+            "update_host_ms": update_host_ms,
             "classes": {k: {"launches": c, "ms": ms, "share": ms / busy,
                             "top": sorted(names.items(),
                                           key=lambda kv: -kv[1])[:3]}
@@ -2488,8 +2590,8 @@ def gluon_net(mx, ctx, layout, **extra):
     return net
 
 
-def gluon_trainer(mx, net, opt=GLUON_OPT):
-    return mx.gluon.Trainer(net.collect_params(), "sgd", dict(opt),
+def gluon_trainer(mx, net, opt=GLUON_OPT, name="sgd"):
+    return mx.gluon.Trainer(net.collect_params(), name, dict(opt),
                             kvstore="device")
 
 
@@ -2522,20 +2624,25 @@ def bias_noise(grads):
         for n, g in grads.items() if "_conv" in n and n.endswith("_bias")}
 
 
-def phase_gluon_check(mx, rng):
+def phase_gluon_check(mx, rng, opt_name="sgd", opt=GLUON_CHECK_OPT,
+                      tag="phase 19"):
     """Part 1: f32 at batch 4, NHWC, the gate on, TF32 off: 2 steps of the
     example's loop on gpu(0) against the same on cpu(), each from the
     card's weights (the CPU net takes them, moving statistics included,
-    before each step). After ``loss.backward()`` the output
+    before each step), with the optimizer ``opt_name`` at ``opt``. After
+    ``loss.backward()`` the output
     probabilities, losses and moving statistics are held elementwise to
     RESNET_RTOL/ATOL and every parameter's gradient by relative norm to
     GRAD_REL; after ``trainer.step`` every parameter's change by relative
-    norm to GRAD_REL. The convolutions' biases, whose exact gradient is 0
+    norm to GRAD_REL (with Adam, the CPU steps from the card's gradients
+    and optimizer states: ``feed_host``). The convolutions' biases, whose
+    exact gradient is 0
     (``bias_noise``), are held instead to gradients below BIAS_NOISE of
-    their weights' on both sides. Two controls must fail GRAD_REL: the
-    gradients with K5's dx zeroed on the card, and a second update that
-    forgets the momentum. The readings are printed before they are
-    checked."""
+    their weights' on both sides. Controls must fail GRAD_REL: the
+    gradients with K5's dx zeroed on the card; for SGD a second update
+    that forgets the momentum; for Adam a third step whose update on the
+    card skips the bias correction. The readings are printed before they
+    are checked."""
     from mxnet_tpu_torch.ops import nn as nn_ops
     shape = gluon_shape("NHWC", GLUON_CHECK_BATCH)
     card = gluon_net(mx, mx.gpu(0), "NHWC")
@@ -2544,7 +2651,7 @@ def phase_gluon_check(mx, rng):
     host(mx.nd.zeros(shape, ctx=mx.cpu()))
     for net in (card, host):
         net.hybridize()
-    trainers = [gluon_trainer(mx, n, GLUON_CHECK_OPT) for n in (card, host)]
+    trainers = [gluon_trainer(mx, n, opt, opt_name) for n in (card, host)]
     loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
     data = [(rng.rand(*shape).astype(np.float32),
              rng.randint(0, CLASSES, GLUON_CHECK_BATCH).astype(np.float32))
@@ -2555,6 +2662,22 @@ def phase_gluon_check(mx, rng):
 
     def arrays(ctx, x, y):
         return mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+
+    def feed_host():
+        """Adam: the CPU steps from the card's gradients and states. An
+        Adam update is about lr * sign(g) elementwise, so where the two
+        packages' gradients differ by rounding on elements near 0 it flips
+        sign: stepped from its own gradients the CPU's updates read 0.50
+        and 0.26 by relative norm (H100 80GB HBM3, 700 W) where the
+        gradients agree to 0.088."""
+        host_params = host.collect_params()
+        for n, p in card.collect_params().items():
+            if p.grad_req != "null":
+                host_params[n].grad()[:] = p.grad().asnumpy()
+        src, dst = (t._updaters[0] for t in trainers)
+        dst.states = {i: tuple(mx.nd.array(v.asnumpy(), ctx=mx.cpu())
+                               for v in st) for i, st in src.states.items()}
+        dst.states_synced = dict.fromkeys(dst.states, True)
 
     steps, fails = [], []
     for step, (x, y) in enumerate(data[:2]):
@@ -2584,6 +2707,8 @@ def phase_gluon_check(mx, rng):
         for g in (grads, grads_ref):
             for n in noise:
                 del g[n]
+        if opt_name == "adam":
+            feed_host()
         for t in trainers:
             t.step(GLUON_CHECK_BATCH)
         moved, moved_ref = ({n: v - before[n] for n, v in
@@ -2601,8 +2726,9 @@ def phase_gluon_check(mx, rng):
         if noise[worst] > BIAS_NOISE:
             fails.append("step %d conv bias gradient %s: %.3g of its "
                          "weight's" % (step, worst, noise[worst]))
-        if step == 1:       # control: the update without the momentum term
-            lr, wd = GLUON_CHECK_OPT["learning_rate"], GLUON_CHECK_OPT["wd"]
+        if step == 1 and opt_name == "sgd":
+            # control: the update without the momentum term
+            lr, wd = opt["learning_rate"], opt["wd"]
             plain = {n: -lr * (g / GLUON_CHECK_BATCH + wd * before[n])
                      for n, g in grads.items()}
             row["control_update_without_momentum_rel"] = leaf_errs(
@@ -2620,24 +2746,43 @@ def phase_gluon_check(mx, rng):
     gluon_record(mx, host, loss_fn, *arrays(mx.cpu(), *data[2]))
     control_k5 = leaf_errs(*({n: v for n, v in gluon_grads(m).items()
                               if n in grads} for m in (card, host)))
+    controls = {"K5 dx zeroed": control_k5["max"]}
+    if opt_name == "sgd":
+        controls["update without momentum"] = \
+            steps[1]["control_update_without_momentum_rel"]["max"]
+    else:   # control: Adam's third update on the card without correction
+        sync_host()
+        before = gluon_values(host)
+        for n, ctx in ((card, mx.gpu(0)), (host, mx.cpu())):
+            gluon_record(mx, n, loss_fn, *arrays(ctx, *data[2]))
+        feed_host()
+        adam = trainers[0]._optimizer
+        adam._corrected_lr = lambda index, lr: lr
+        try:
+            trainers[0].step(GLUON_CHECK_BATCH)
+        finally:
+            del adam._corrected_lr
+        trainers[1].step(GLUON_CHECK_BATCH)
+        controls["Adam without bias correction"] = leaf_errs(*(
+            {n: v - before[n] for n, v in gluon_values(m).items()
+             if n in grads} for m in (card, host)))["max"]
     summary = {"batch": GLUON_CHECK_BATCH, "layout": "NHWC",
-               "opt": GLUON_CHECK_OPT, "grad_rel_limit": GRAD_REL,
-               "steps": steps,
-               "control_k5_dx_zeroed_grad_rel": control_k5}
-    log("phase 19 f32 vs cpu %s" % json.dumps(summary))
+               "optimizer": opt_name, "opt": opt,
+               "grad_rel_limit": GRAD_REL, "steps": steps,
+               "control_k5_dx_zeroed_grad_rel": control_k5,
+               "controls_max_rel": controls}
+    log("%s f32 vs cpu %s" % (tag, json.dumps(summary)))
     for step, row in enumerate(steps):
         fails += ["step %d %s of %s: %.3g" % (step, kind, row[kind]["worst"],
                                               row[kind]["max"])
                   for kind in ("grad_rel", "update_rel")
                   if not row[kind]["max"] <= GRAD_REL]
-    for what, reading in (
-            ("K5 dx zeroed", control_k5["max"]),
-            ("update without momentum",
-             steps[1]["control_update_without_momentum_rel"]["max"])):
+    for what, reading in controls.items():
         if reading <= GRAD_REL:
             fails.append("control %s passes the limit: %.3g" % (what,
                                                                 reading))
-    check(not fails, "Gluon f32 card vs cpu: " + "; ".join(fails))
+    check(not fails, "Gluon f32 card vs cpu (%s): %s" % (opt_name,
+                                                       "; ".join(fails)))
     return summary
 
 
@@ -2665,7 +2810,8 @@ def phase_second_order(mx, rng):
     return row
 
 
-def gluon_loop(mx, layout, dtype, batch, rng, first_step_only=False):
+def gluon_loop(mx, layout, dtype, batch, rng, first_step_only=False,
+               opt_name="sgd", opt=GLUON_OPT):
     """The example's loop: net, ``cast``, ``hybridize()``, Trainer, loss;
     GLUON_WARMUP warm-up steps, then GLUON_STEPS timed ones on one fixed
     batch, whose loss must fall: by the last step, or with
@@ -2678,7 +2824,7 @@ def gluon_loop(mx, layout, dtype, batch, rng, first_step_only=False):
     if dtype != "float32":
         net.cast(dtype)
     net.hybridize()
-    trainer = gluon_trainer(mx, net)
+    trainer = gluon_trainer(mx, net, opt, opt_name)
     loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
     x = mx.nd.array(rng.rand(*gluon_shape(layout, batch)).astype(np.float32),
                     ctx=ctx, dtype=dtype)
@@ -2708,8 +2854,9 @@ def gluon_loop(mx, layout, dtype, batch, rng, first_step_only=False):
           "%s %s Gluon loop compile counts %s: want the recorded signature "
           "compiled once, then hits" % (layout, dtype, counts))
     row.update(layout=layout, dtype=dtype, batch=batch, losses=means,
-               compile_counts=counts,
+               optimizer=opt_name, compile_counts=counts,
                peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    step.trainer = trainer
     return net, step, row
 
 
@@ -2971,6 +3118,348 @@ def phase_examples(mx, gluon_rate):
     return {"fgsm": fgsm, "train_resnet50": resnet}
 
 
+# ---------------------------------------------------------------------------
+# the optimizer slice: every optimizer through one multi-tensor update path,
+# U1 (csrc/multi_tensor_update.cu), with Adam and multi-precision SGD
+# ---------------------------------------------------------------------------
+def resnet_param_shapes(mx):
+    """The shapes of ResNet-50 v1's trainable parameters (NHWC)."""
+    net = gluon_net(mx, mx.gpu(0), "NHWC")
+    net(mx.nd.zeros(gluon_shape("NHWC", 1), ctx=mx.gpu(0)))
+    shapes = [p.shape for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    del net
+    return shapes
+
+
+def u1_lists(formula, dtype, shapes, seed, device="cuda"):
+    """(weight, gradient, states) on the card for every shape, from a
+    seed: states positive (Adam's variance), an mp formula's master copy
+    the weight in f32."""
+    from mxnet_tpu_torch.ops.multi_tensor import FORMULAS
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for shape in shapes:
+        w = torch.randn(shape, generator=gen, device=device)
+        g = torch.randn(shape, generator=gen, device=device) * 3
+        states = [torch.rand(shape, generator=gen, device=device) + 0.1
+                  for _ in range(FORMULAS[formula][2])]
+        if formula.startswith("mp_"):
+            states[-1] = w.to(dtype).float()
+        out.append((w.to(dtype), g.to(dtype), tuple(states)))
+    return out
+
+
+def u1_args(lists):
+    return [list(x) for x in zip(*lists)]
+
+
+def u1_clone(lists):
+    return [(w.clone(), g, tuple(s.clone() for s in st))
+            for w, g, st in lists]
+
+
+def u1_readings(got, want, dtype):
+    """(largest |kernel - plain| over weights and states, fails): f32
+    values to U1_RTOL/U1_ATOL, bf16 weights one bf16 step apart."""
+    worst, fails = 0.0, 0
+    for (w, _, st), (w_ref, _, st_ref) in zip(got, want):
+        pairs = [(w.float(), w_ref.float(), dtype == torch.bfloat16)] + [
+            (a, b, False) for a, b in zip(st, st_ref)]
+        for a, b, bf16 in pairs:
+            diff = (a - b).abs()
+            worst = max(worst, float(diff.max()))
+            rtol, atol = (2.0 ** -7, U1_ATOL) if bf16 else (U1_RTOL, U1_ATOL)
+            fails += int((diff > atol + rtol * b.abs()).sum())
+    return worst, fails
+
+
+def u1_bound(formula, dtype, values):
+    """(ms, "bytes" | "operations") of one U1 call over ``values``."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    return bound_of(values * U1_BYTES[formula](item) / PEAK_BYTES_PER_S * 1e3,
+                    values * U1_OPS[formula] / PEAK_F32_FLOPS * 1e3)
+
+
+def library_optimizer(formula, lists):
+    """One PyTorch call computing the update over the same tensors (fused
+    ``torch.optim.SGD`` or ``Adam``; never on the port's path), or None."""
+    params = []
+    for w, g, _ in lists:
+        p = w.clone().requires_grad_()
+        p.grad = g.clone()
+        params.append(p)
+    if formula == "adam":
+        return torch.optim.Adam(params, lr=1e-3, weight_decay=1e-4,
+                                fused=True)
+    return torch.optim.SGD(params, lr=0.1, momentum=0.9, weight_decay=1e-4,
+                           fused=True)
+
+
+def phase_u1(shapes):
+    """Phase 21a: U1 against its plain version on the card at ResNet-50's
+    parameter shapes, for every formula and weight dtype, clipping off and
+    on, rescale_grad 0.25, per-tensor lrs and wds, 3 updates each; U1_CALLS
+    calls from the same inputs bit-identical for (a)'s and (b)'s formulas;
+    their kernel, plain and fused-torch.optim times and the bound."""
+    from mxnet_tpu_torch.ops.multi_tensor import (
+        FORMULAS, UpdateBuffers, multi_tensor_update,
+        multi_tensor_update_plain)
+    n = len(shapes)
+    values = sum(int(np.prod(s)) for s in shapes)
+    lrs = [0.01 * (1 + k % 7) for k in range(n)]
+    wds = [1e-4 * (k % 3) for k in range(n)]
+    kw = dict(rescale_grad=0.25, momentum=0.9, beta1=0.9, beta2=0.999,
+              epsilon=1e-8)
+    rows, fails, worst = [], [], 0.0
+    for formula in FORMULAS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for clip in (-1.0, 1.0):
+                got = u1_lists(formula, dtype, shapes, SEED + 210)
+                want = u1_clone(got)
+                buffers = UpdateBuffers()
+                for _ in range(3):
+                    multi_tensor_update(formula, *u1_args(got), lrs, wds,
+                                        clip_gradient=clip, buffers=buffers,
+                                        **kw)
+                    multi_tensor_update_plain(formula, *u1_args(want), lrs,
+                                              wds, clip_gradient=clip, **kw)
+                torch.cuda.synchronize()
+                err, bad = u1_readings(got, want, dtype)
+                worst = max(worst, err)
+                rows.append({"formula": formula, "dtype": str(dtype)[6:],
+                             "clip": clip, "max_abs_err": err,
+                             "over_tolerance": bad})
+                if bad:
+                    fails.append("%s %s clip %s: %d values" % (
+                        formula, dtype, clip, bad))
+                del got, want
+    timed = {}
+    for key, formula, dtype in (("a", "mp_sgd_mom", torch.bfloat16),
+                                ("b", "adam", torch.float32)):
+        start = u1_lists(formula, dtype, shapes, SEED + 211)
+        lists = u1_clone(start)
+        buffers = UpdateBuffers()
+        outs = []
+        for _ in range(U1_CALLS):
+            for (w, _, st), (w0, _, st0) in zip(lists, start):
+                w.copy_(w0)
+                for a, b in zip(st, st0):
+                    a.copy_(b)
+            multi_tensor_update(formula, *u1_args(lists), lrs, wds,
+                                clip_gradient=1.0, buffers=buffers, **kw)
+            outs.append(torch.cat([w.float().flatten() for w, _, _ in
+                                   lists]))
+        same = all(torch.equal(o, outs[0]) for o in outs)
+        del outs
+
+        def kernel():
+            multi_tensor_update(formula, *u1_args(lists), lrs, wds,
+                                clip_gradient=1.0, buffers=buffers, **kw)
+
+        def plain():
+            multi_tensor_update_plain(formula, *u1_args(lists), lrs, wds,
+                                      clip_gradient=1.0, **kw)
+
+        library = library_optimizer(formula, lists)
+        bound, by = u1_bound(formula, dtype, values)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(U1_CALLS):
+            kernel()
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3 / U1_CALLS
+        # the card's time of the kernel alone: the wrapper's host work (the
+        # table's key, the lr/wd copy) takes longer than the kernel, and
+        # its pinned ring waits for the card, so events over queued calls
+        # would time the host
+        _, kern = device_profile(
+            lambda: [kernel() for _ in range(5)],
+            complete=lambda k: any("multi_tensor_kernel" in n for n in k))
+        seen = [v for n, v in kern.items() if "multi_tensor_kernel" in n]
+        check(seen, "the profiler saw no U1 kernel: %s" % sorted(kern))
+        count, dev_ms = seen[0]
+        timed[key] = {"formula": formula, "dtype": str(dtype)[6:],
+                      "tensors": n, "values": values,
+                      "bit_identical_calls": same,
+                      "ms": dev_ms / count, "profiled_launches": count,
+                      "call_wall_ms": call_ms,
+                      "plain_ms": time_ms(plain, 3),
+                      "library_ms": time_ms(library.step, 20),
+                      "bound_ms": bound, "bound_by": by}
+        if not same:
+            fails.append("%s: %d calls from the same inputs differ"
+                         % (formula, U1_CALLS))
+        del start, lists, library
+    summary = {"shapes": n, "values": values, "checks": rows,
+               "max_abs_err": worst, "timed": timed,
+               "rtol": U1_RTOL, "atol": U1_ATOL}
+    log("phase 21 U1 vs plain %s" % json.dumps(summary))
+    check(not fails, "U1 against its plain version: " + "; ".join(fails))
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_state_files(mx, tmp):
+    """Phase 21e: ``save_states`` / ``load_states`` on the card. An MLP
+    (784-1024-1024-10, the second layer bf16) trained 3 steps without a
+    break, and the same from the same weights for 2 steps, saved, loaded
+    into a fresh Trainer and stepped once: every parameter bit-identical,
+    for (a)'s and (b)'s optimizers."""
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(SEED + 212)
+    x = mx.nd.array(rng.randn(64, 784).astype(np.float32), ctx=ctx)
+    y = mx.nd.array(rng.randint(0, 10, 64).astype(np.float32), ctx=ctx)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    rows = {}
+    for name, opt in (("sgd", OPT_A), ("adam", OPT_B)):
+        nets = []
+        for _ in range(2):
+            mx.random.seed(SEED + 212)
+            net = mx.gluon.nn.HybridSequential(prefix="mlp_")
+            with net.name_scope():
+                net.add(mx.gluon.nn.Dense(1024, activation="relu",
+                                          in_units=784),
+                        mx.gluon.nn.Dense(1024, activation="relu",
+                                          in_units=1024),
+                        mx.gluon.nn.Dense(10, in_units=1024))
+            net.initialize(mx.init.Xavier(), ctx=ctx)
+            net[1].cast("bfloat16")
+            nets.append(net)
+
+        def step(net, trainer):
+            with mx.autograd.record():
+                h = net[1](net[0](x).astype("bfloat16")).astype("float32")
+                loss = loss_fn(net[2](h), y)
+            loss.backward()
+            trainer.step(64)
+
+        whole = gluon_trainer(mx, nets[0], opt, name)
+        for _ in range(3):
+            step(nets[0], whole)
+        first = gluon_trainer(mx, nets[1], opt, name)
+        for _ in range(2):
+            step(nets[1], first)
+        fname = os.path.join(tmp, "%s.states" % name)
+        first.save_states(fname)
+        fresh = gluon_trainer(mx, nets[1], opt, name)
+        fresh.load_states(fname)
+        step(nets[1], fresh)
+        diff = {n: float((a.data().data.detach().float()
+                          - b.data().data.detach().float()).abs().max())
+                for (n, a), (_, b) in zip(
+                    sorted(nets[0].collect_params().items()),
+                    sorted(nets[1].collect_params().items()))}
+        rows[name] = {"max_abs_diff": max(diff.values()),
+                      "bytes": os.path.getsize(fname)}
+        check(not any(diff.values()), "%s: the step after load_states "
+              "differs from the uninterrupted one: %s" % (name, diff))
+    return rows
+
+
+def phase_adam_examples(mx):
+    """Phase 21f: the five Adam examples through ``tools/run_example`` on
+    gpu(0) at their tests' arguments: each prints its asserted line, its
+    net and data on cuda:0, one U1 launch a Trainer step (one f32 group)."""
+    from mxnet_tpu_torch.ops.multi_tensor import multi_tensor_update
+    rows = {}
+    for rel, argv, line in ADAM_EXAMPLES:
+        before = multi_tensor_update.launches
+        run = run_example_captured(mx, rel, argv, "gpu")
+        hit = [ln for ln in run["lines"] if line in ln]
+        rows[rel] = {"line": hit[0] if hit else None,
+                     "devices": run["seen"], "seconds": run["seconds"],
+                     "u1_launches": multi_tensor_update.launches - before}
+        check(hit, "%s printed no %r line: %s" % (rel, line,
+                                                  run["lines"][-5:]))
+        check(run["seen"]["data"] == ["cuda:0"]
+              and run["seen"]["params"] == ["cuda:0"]
+              and rows[rel]["u1_launches"] == run["seen"]["steps"] > 0,
+              "%s on gpu(0): %s" % (rel, rows[rel]))
+    return rows
+
+
+def u1_groups(net):
+    """The (formula, dtype) groups of a net under (a)'s or (b)'s
+    optimizer: one a weight dtype."""
+    return len({p.data().data.dtype for p in net.collect_params().values()
+                if p.grad_req != "null"})
+
+
+def phase_optimizer(mx, rng, gluon, tmp):
+    """Phase 21 after part a: the path of this slice. 2 f32 batch-4 steps
+    on the card against the CPU with (a)'s and with (b)'s optimizer (phase
+    19's check and controls, Adam's own control); the example's loop at
+    full width for (a) (NHWC bf16 batch 128, the gate on: K5 exactly 6
+    launches a step, U1 one a group a step) and (b) (NCHW f32 batch 32,
+    Adam), img/s beside phase 19's SGD loops; one profiled step of each
+    (the optimizer's kernels and share); the state files; the five Adam
+    examples. Returns the summary and the U1 and K5 launches."""
+    from mxnet_tpu_torch.ops.multi_tensor import multi_tensor_update
+    k5 = mx.ops.conv1x1_s2_dgrad
+    os.environ["MXNET_CONV1X1_PALLAS"] = "1"
+    t0 = time.perf_counter()
+    checks = {"a_sgd_multi_precision": phase_gluon_check(
+        mx, rng, "sgd", OPT_A_CHECK, "phase 21 (a) optimizer"),
+        "b_adam": phase_gluon_check(mx, rng, "adam", OPT_B_CHECK,
+                                    "phase 21 (b) optimizer")}
+    loops, profiles = {}, {}
+    for key, layout, dtype, batch, name, opt in (
+            ("a", "NHWC", "bfloat16", GLUON_BF16_BATCH, "sgd", OPT_A),
+            ("b", "NCHW", "float32", GLUON_BATCH, "adam", OPT_B)):
+        u1, k5_0 = multi_tensor_update.launches, k5.launches
+        net, step, row = gluon_loop(mx, layout, dtype, batch, rng,
+                                    first_step_only=key == "b",
+                                    opt_name=name, opt=opt)
+        steps = GLUON_WARMUP + GLUON_STEPS
+        groups = u1_groups(net)
+        row.update(u1_launches=multi_tensor_update.launches - u1,
+                   u1_groups=groups, k5_launches=k5.launches - k5_0)
+        loops[key] = row
+        check(row["u1_launches"] == groups * steps,
+              "(%s) launched U1 %d times in %d steps of %d groups"
+              % (key, row["u1_launches"], steps, groups))
+        want_k5 = K5_PER_STEP * steps if layout == "NHWC" else 0
+        check(row["k5_launches"] == want_k5,
+              "(%s) launched K5 %d times, want %d" % (key, row["k5_launches"],
+                                                     want_k5))
+        with ranged_ops([(step.trainer, "_update")]):
+            prof = profiled_step(step)
+        classes = prof["classes"]
+        u1_cls = classes.get("U1 multi_tensor_update",
+                             {"launches": 0, "ms": 0.0})
+        other = classes.get("optimizer update", {"launches": 0, "ms": 0.0})
+        profiles[key] = {
+            "step_wall_ms": prof["step_wall_ms"],
+            "device_busy_ms": prof["device_busy_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "kernels": prof["kernels"],
+            "u1": u1_cls, "other_update_kernels": other,
+            "optimizer_device_share": (u1_cls["ms"] + other["ms"])
+            / prof["device_busy_ms"],
+            "update_host_ms": prof["update_host_ms"],
+            "update_host_share": prof["update_host_ms"]
+            / prof["step_wall_ms"],
+            "classes": {k: {"launches": v["launches"], "ms": v["ms"]}
+                        for k, v in classes.items()}}
+        check(u1_cls["launches"] == groups,
+              "the profiled (%s) step shows %d U1 launches, want %d"
+              % (key, u1_cls["launches"], groups))
+        del net, step
+        torch.cuda.empty_cache()
+    states = phase_state_files(mx, tmp)
+    examples = phase_adam_examples(mx)
+    summary = {"card_vs_cpu": checks, "loops": loops,
+               "phase19_sgd_imgs_per_s": {
+                   "bf16_gate_on": gluon["bf16_gate_on"]["imgs_per_s"],
+                   "example_defaults": gluon["example_defaults"][
+                       "imgs_per_s"]},
+               "profiles": profiles, "state_files": states,
+               "adam_examples": examples,
+               "seconds": time.perf_counter() - t0}
+    return summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs the port on the GPU",
@@ -3022,15 +3511,19 @@ def main():
     train_rows, train_worst = phase_train_kernels(mx.ops, device)
     counters = (mx.ops.fused_lstm, mx.ops.fused_lstm_train,
                 mx.ops.lstm_bwd_recurrence)
+    u1 = mx.ops.multi_tensor_update
+    u1.launches = 0
     for c in counters:                        # the training path starts
         c.launches = 0
         c.launches_by_route.update(persistent=0, step=0)
     mod, summary = phase_train(mx, mx.gpu(0), rng)
     k1, k2, k3 = (c.launches for c in counters)   # ... and ends here
+    u1_lm = u1.launches
     routes = [dict(c.launches_by_route) for c in counters]
     steps = 4 + 2 * SCAN_STEPS + FIT_BATCHES
     summary.update(train_steps=steps, launches={
-        "fused_lstm": k1, "fused_lstm_train": k2, "lstm_bwd_recurrence": k3},
+        "fused_lstm": k1, "fused_lstm_train": k2, "lstm_bwd_recurrence": k3,
+        "multi_tensor_update": u1_lm},
         launches_by_route={"fused_lstm": routes[0],
                            "fused_lstm_train": routes[1],
                            "lstm_bwd_recurrence": routes[2]})
@@ -3044,6 +3537,8 @@ def main():
           "training launched fused_lstm_train %d and lstm_bwd_recurrence %d "
           "times, want %d each (%d layers x %d steps)"
           % (k2, k3, LAYERS * steps, LAYERS, steps))
+    check(u1_lm == steps, "the LM's SGD (momentum 0, clip 0.25) launched "
+          "U1 %d times in %d steps, want one a step" % (u1_lm, steps))
     check(summary["k1_launches_by_score"] == LAYERS * EVAL_BATCHES,
           "score launched fused_lstm %d times, want %d"
           % (summary["k1_launches_by_score"], LAYERS * EVAL_BATCHES))
@@ -3167,6 +3662,26 @@ def main():
           "the examples launched %s: no TPU kernel of the repo is on this "
           "path" % nd_launches)
     del nd_ops, examples
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    u1_summary = phase_u1(resnet_param_shapes(mx))
+    log("phase 21a seconds %.1f" % (time.perf_counter() - t0))
+    path = dict(counters, multi_tensor_update=u1)
+    for c in path.values():                   # the optimizer path starts
+        c.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        opt_summary = phase_optimizer(mx, rng, gluon, tmp)
+    opt_launches = {k: c.launches for k, c in path.items()}   # ... ends here
+    opt_summary.update(kernel_launches=opt_launches, card=card)
+    log("phase 21 optimizer %s" % json.dumps(opt_summary))
+    check(opt_launches["multi_tensor_update"] > 0
+          and opt_launches["conv1x1_s2_dgrad"] > 0
+          and not any(n for k, n in opt_launches.items()
+                      if k not in ("multi_tensor_update",
+                                   "conv1x1_s2_dgrad")),
+          "the optimizer path launched %s: want U1 and K5 only"
+          % opt_launches)
 
     top = next(r for r in rows if r["B"] == max(SERVED_BATCHES))
     train = next(r for r in train_rows if r["B"] == TRAIN_BATCH)
@@ -3224,6 +3739,16 @@ def main():
                            rtc_row["row_sum_max_abs_err"]),
         **{key: rtc_row[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")}})
+    # U1: one (a) update of ResNet-50 (mp_sgd_mom over bf16 weights)
+    u1_a = u1_summary["timed"]["a"]
+    kernels.append({
+        "name": "multi_tensor_update", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/multi_tensor_update.cu",
+        "replaces": "mxnet_tpu/optimizer.py:666",
+        "launches": opt_launches["multi_tensor_update"],
+        "max_abs_err": u1_summary["max_abs_err"],
+        **{key: u1_a[key] for key in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

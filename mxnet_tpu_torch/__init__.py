@@ -69,6 +69,8 @@ from .executor import Executor
 from . import initializer
 from . import initializer as init
 from . import optimizer
+from . import lr_scheduler
+from . import misc
 from . import io
 from . import metric
 from . import module
@@ -87,7 +89,8 @@ from . import rtc
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "cpu_pinned",
            "current_context", "num_gpus", "num_tpus", "context", "random",
            "nd", "ndarray", "ops", "sym", "symbol",
-           "Executor", "init", "initializer", "optimizer", "io", "metric",
+           "Executor", "init", "initializer", "optimizer", "lr_scheduler",
+           "misc", "io", "metric",
            "mod", "module", "model", "callback", "name", "gluon", "compiled",
            "autograd", "Predictor", "params_from_numpy", "params_to_numpy",
            "set_block_params", "serving", "rtc"]

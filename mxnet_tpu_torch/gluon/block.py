@@ -230,6 +230,9 @@ class HybridBlock(Block):
         self._cached_jit = None
         self._param_order = None
         self._param_objs = None
+        # the lineage of this block's programs: a token of its own, since
+        # the id() of a collected block is reused by later objects
+        self._lineage = object()
 
     def register_child(self, block, name=None):
         if not isinstance(block, HybridBlock):
@@ -301,7 +304,7 @@ class HybridBlock(Block):
         # other and unrelated nets never do
         self._cached_jit = compiled_mod.CompiledProgram(
             traced, "gluon.hybrid_forward", static_argnums=(2,),
-            inplace_argnums=(0,), key_argnums=(1,), lineage=id(self),
+            inplace_argnums=(0,), key_argnums=(1,), lineage=self._lineage,
             arg_names={0: names})
 
     def _call_cached(self, *args):

@@ -1,12 +1,13 @@
-"""Gluon convolution and pooling layers (the ones ResNet uses).
+"""Gluon convolution and pooling layers, 1-D and 2-D.
 
 Counterpart of `mxnet_tpu/gluon/nn/conv_layers.py` (reference
-`python/mxnet/gluon/nn/conv_layers.py`): ``Conv2D`` (over ``_Conv``;
-channel-last weights are O,kh,kw,I; an optional ``activation`` child,
-named as in the JAX package), ``MaxPool2D``, ``AvgPool2D``,
-``GlobalMaxPool2D`` and ``GlobalAvgPool2D`` (over ``_Pooling``). The 1-D
-and 3-D layers, the transposed convolutions and ``ReflectionPad2D`` are
-not ported yet (ROADMAP A.7).
+`python/mxnet/gluon/nn/conv_layers.py`): ``Conv1D`` and ``Conv2D`` (over
+``_Conv``; channel-last weights are O,k...,I; an optional ``activation``
+child, named as in the JAX package), ``MaxPool1D``/``2D``,
+``AvgPool1D``/``2D``, ``GlobalMaxPool1D``/``2D`` and
+``GlobalAvgPool1D``/``2D`` (over ``_Pooling``). The 3-D layers, the
+transposed convolutions and ``ReflectionPad2D`` are not ported yet
+(ROADMAP A.7).
 """
 from __future__ import annotations
 
@@ -15,8 +16,9 @@ import numpy as np
 from ..block import HybridBlock
 from .basic_layers import Activation
 
-__all__ = ["Conv2D", "MaxPool2D", "AvgPool2D", "GlobalMaxPool2D",
-           "GlobalAvgPool2D"]
+__all__ = ["Conv1D", "Conv2D", "MaxPool1D", "MaxPool2D", "AvgPool1D",
+           "AvgPool2D", "GlobalMaxPool1D", "GlobalMaxPool2D",
+           "GlobalAvgPool1D", "GlobalAvgPool2D"]
 
 
 def _to_tuple(v, n):
@@ -69,6 +71,18 @@ class _Conv(HybridBlock):
         return "conv"
 
 
+class Conv1D(_Conv):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 dilation=1, groups=1, layout="NCW", activation=None,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        super().__init__(channels, _to_tuple(kernel_size, 1),
+                         _to_tuple(strides, 1), _to_tuple(padding, 1),
+                         _to_tuple(dilation, 1), groups, layout, in_channels,
+                         activation, use_bias, weight_initializer,
+                         bias_initializer, **kwargs)
+
+
 class Conv2D(_Conv):
     def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
                  dilation=(1, 1), groups=1, layout="NCHW", activation=None,
@@ -103,6 +117,15 @@ class _Pooling(HybridBlock):
         return F.Pooling(x, **self._kwargs)
 
 
+class MaxPool1D(_Pooling):
+    def __init__(self, pool_size=2, strides=None, padding=0, layout="NCW",
+                 ceil_mode=False, **kwargs):
+        super().__init__(_to_tuple(pool_size, 1),
+                         None if strides is None else _to_tuple(strides, 1),
+                         _to_tuple(padding, 1), ceil_mode, False, "max",
+                         layout=layout, **kwargs)
+
+
 class MaxPool2D(_Pooling):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
                  layout="NCHW", ceil_mode=False, **kwargs):
@@ -110,6 +133,15 @@ class MaxPool2D(_Pooling):
                          None if strides is None else _to_tuple(strides, 2),
                          _to_tuple(padding, 2), ceil_mode, False, "max",
                          layout=layout, **kwargs)
+
+
+class AvgPool1D(_Pooling):
+    def __init__(self, pool_size=2, strides=None, padding=0, layout="NCW",
+                 ceil_mode=False, count_include_pad=True, **kwargs):
+        super().__init__(_to_tuple(pool_size, 1),
+                         None if strides is None else _to_tuple(strides, 1),
+                         _to_tuple(padding, 1), ceil_mode, False, "avg",
+                         count_include_pad, layout=layout, **kwargs)
 
 
 class AvgPool2D(_Pooling):
@@ -122,9 +154,21 @@ class AvgPool2D(_Pooling):
                          count_include_pad, layout=layout, **kwargs)
 
 
+class GlobalMaxPool1D(_Pooling):
+    def __init__(self, layout="NCW", **kwargs):
+        super().__init__((1,), None, (0,), True, True, "max",
+                         layout=layout, **kwargs)
+
+
 class GlobalMaxPool2D(_Pooling):
     def __init__(self, layout="NCHW", **kwargs):
         super().__init__((1, 1), None, (0, 0), True, True, "max",
+                         layout=layout, **kwargs)
+
+
+class GlobalAvgPool1D(_Pooling):
+    def __init__(self, layout="NCW", **kwargs):
+        super().__init__((1,), None, (0,), True, True, "avg",
                          layout=layout, **kwargs)
 
 

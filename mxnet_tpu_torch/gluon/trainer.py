@@ -9,11 +9,13 @@ gradient synchronisation, so ``allreduce_grads`` does nothing. A
 ``dist*`` name or a KVStore object raises: distributed training is not
 ported yet (ROADMAP.md, queue A item 10). ``step(batch_size)`` sets the
 optimizer's ``rescale_grad`` to ``rescale_grad / batch_size`` and
-applies the update to every parameter whose ``grad_req`` is not
-``null``, one ``Updater`` call a parameter, in place (the counterpart of
-the JAX package's per-parameter fallback; its one-program
-``FusedApplier`` is not ported). ``save_states``/``load_states`` raise
-until the optimizer's state can be serialised.
+updates every parameter whose ``grad_req`` is not ``null`` in place, all
+in one call of ``optimizer.FusedApplier`` (one launch of the
+multi-tensor kernel a (formula, dtype) group on the card, for SGD and
+Adam). ``save_states``/``load_states`` write and read the updater's
+states with the optimizer (its update counts, which Adam's bias
+correction reads); a loaded optimizer replaces the Trainer's, as in the
+reference, so a fresh Trainer resumes where the saved one stopped.
 """
 from __future__ import annotations
 
@@ -68,6 +70,7 @@ class Trainer:
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **optimizer_params)
         self._updaters = [opt.get_updater(self._optimizer)]
+        self._fused = None
 
     @property
     def learning_rate(self):
@@ -93,15 +96,24 @@ class Trainer:
         self._update()
 
     def _update(self):
-        upd = self._updaters[0]
-        for i, param in enumerate(self._params):
-            if param.grad_req != "null":
-                upd(i, param.grad(), param.data())
+        if self._fused is None:
+            self._fused = opt.FusedApplier.resolve(self._updaters[0])
+        live = [(i, p) for i, p in enumerate(self._params)
+                if p.grad_req != "null"]
+        if live:
+            self._fused([i for i, _ in live], [p.data() for _, p in live],
+                        [p.grad() for _, p in live])
 
     def save_states(self, fname):
-        raise MXNetError("Trainer.save_states: optimizer states cannot be "
-                         "serialised yet (ROADMAP.md, queue A item 4)")
+        """Write the optimizer's states, and the optimizer, to ``fname``."""
+        with open(fname, "wb") as fout:
+            fout.write(self._updaters[0].get_states(dump_optimizer=True))
 
     def load_states(self, fname):
-        raise MXNetError("Trainer.load_states: optimizer states cannot be "
-                         "serialised yet (ROADMAP.md, queue A item 4)")
+        """Read a ``save_states`` file: the states, and the optimizer it
+        holds, which becomes this Trainer's."""
+        with open(fname, "rb") as f:
+            self._updaters[0].set_states(f.read())
+        self._optimizer = self._updaters[0].optimizer
+        self._optimizer.param_dict = dict(enumerate(self._params))
+        self._fused = None

@@ -6,9 +6,13 @@ Counterpart of `mxnet_tpu/module/module.py` (reference
 ``set_params``/``get_params`` (arguments and auxiliary states),
 ``init_optimizer``, ``forward``, ``backward``, ``forward_backward``,
 ``update``, ``_step``, ``_step_scan``, ``get_outputs``, ``update_metric``
-and checkpoints. The auxiliary states (BatchNorm's moving statistics)
-live in the executor and are updated in place by every training forward,
-so ``_step`` and ``_step_scan`` carry them from step to step.
+and checkpoints, with the optimizer's states when asked
+(``save_optimizer_states``, ``prefix-%04d.states``). ``update`` applies
+the optimizer to every parameter in one call of
+``optimizer.FusedApplier``. The auxiliary states (BatchNorm's moving
+statistics) live in the executor and are updated in place by every
+training forward, so ``_step`` and ``_step_scan`` carry them from step to
+step.
 
 The context defaults to ``gpu(0)`` (the JAX package's to ``cpu()``), and
 a module on a GPU context without that CUDA device raises at
@@ -92,24 +96,36 @@ class Module(BaseModule):
         self._optimizer = None
         self._kvstore = None
         self._updater = None
+        self._fused = None
+        self._preload_opt_states = None
         self._exec = None
         self._data_shapes = None
         self._label_shapes = None
         self._grad_req = None
 
     @staticmethod
-    def load(prefix, epoch, **kwargs):
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module from ``prefix-symbol.json`` and ``prefix-%04d.params``;
+        with ``load_optimizer_states``, ``init_optimizer`` then reads
+        ``prefix-%04d.states``."""
         from ..model import load_checkpoint
         sym, args, auxs = load_checkpoint(prefix, epoch)
         mod = Module(symbol=sym, **kwargs)
         mod._arg_params = args
         mod._aux_params = auxs
         mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
         return mod
 
-    def save_checkpoint(self, prefix, epoch):
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        """Write the symbol and parameters, and with
+        ``save_optimizer_states`` the updater's states to
+        ``prefix-%04d.states``."""
         from ..model import save_checkpoint
         save_checkpoint(prefix, epoch, self.symbol, *self.get_params())
+        if save_optimizer_states:
+            self.save_optimizer_states("%s-%04d.states" % (prefix, epoch))
 
     # -- properties ------------------------------------------------------
     @property
@@ -314,7 +330,24 @@ class Module(BaseModule):
                 optimizer.idx2name = idx2name.copy()
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
+        self._fused = None
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
+
+    def save_optimizer_states(self, fname):
+        """Write the updater's states (numpy arrays, pickled) to
+        ``fname``, in the JAX package's format."""
+        self._check_ready(optimizer=True)
+        with open(fname, "wb") as fout:
+            fout.write(self._updater.get_states())
+
+    def load_optimizer_states(self, fname):
+        """Read a ``save_optimizer_states`` file into the updater."""
+        self._check_ready(optimizer=True)
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read())
 
     # -- compute ---------------------------------------------------------
     def forward(self, data_batch, is_train=None):
@@ -346,12 +379,17 @@ class Module(BaseModule):
         self._exec.backward(out_grads=out_grads)
 
     def update(self):
-        """Apply the optimizer to every parameter that has a gradient."""
+        """Apply the optimizer to every parameter that has a gradient, in
+        one call of ``optimizer.FusedApplier``."""
         self._check_ready(optimizer=True)
-        for i, name in enumerate(self._param_names):
-            if self._grad_req.get(name, "null") != "null":
-                self._updater(i, self._exec.grad_dict[name],
-                              self._exec.arg_dict[name])
+        if self._fused is None:
+            self._fused = opt.FusedApplier.resolve(self._updater)
+        live = [(i, name) for i, name in enumerate(self._param_names)
+                if self._grad_req.get(name, "null") != "null"]
+        if live:
+            self._fused([i for i, _ in live],
+                        [self._exec.arg_dict[n] for _, n in live],
+                        [self._exec.grad_dict[n] for _, n in live])
 
     def _step_scan(self, data_batches):
         """``len(data_batches)`` train steps, one after the other. Returns

@@ -3,21 +3,26 @@
 
 Counterpart of `mxnet_tpu/ndarray/random.py` over the ops of
 `ops/random_ops.py`. A scalar-parameter draw runs the ``_random_*`` op on
-``ctx``, which is ``gpu(0)`` unless the caller passes another context
-(``cpu()`` on a host without CUDA), as every entry point of the port;
+``ctx``, which is the enclosing ``with ctx:`` scope's context, else
+``gpu(0)``, unless the caller passes another (``cpu()`` on a host
+without CUDA), as every entry point of the port;
 NDArray parameters run the ``_sample_*`` op on their own device. The
 draws come from the seed sequence of `random.py`: ``mx.random.seed(n)``
 reproduces them bit for bit.
 """
 from __future__ import annotations
 
-from ..context import gpu
+from ..context import gpu, scope_context
 from ..ops.invoke import invoke
 from .ndarray import NDArray
 
 __all__ = ["uniform", "normal", "gamma", "exponential", "poisson",
            "negative_binomial", "generalized_negative_binomial",
            "multinomial", "shuffle", "randint", "randn"]
+
+
+def _default(ctx):
+    return ctx if ctx is not None else (scope_context() or gpu(0))
 
 
 def _store(res, out):
@@ -40,7 +45,7 @@ def _sample(dist, scalar_params, tensor_params, shape, dtype, ctx, out,
                    "dtype": dtype})
     params.update(extra)
     return _store(invoke("_random_" + dist, [], params,
-                         ctx=ctx if ctx is not None else gpu(0)), out)
+                         ctx=_default(ctx)), out)
 
 
 def uniform(low=0, high=1, shape=None, dtype=None, ctx=None, out=None,
@@ -115,4 +120,4 @@ def randint(low, high, shape=None, dtype=None, ctx=None, out=None,
     return _store(invoke("_random_randint", [],
                          {"low": low, "high": high, "shape": shape or (1,),
                           "dtype": dtype or "int32"},
-                         ctx=ctx if ctx is not None else gpu(0)), out)
+                         ctx=_default(ctx)), out)

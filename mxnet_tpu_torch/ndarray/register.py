@@ -1,7 +1,7 @@
 """Generate the ``nd.<Op>`` functions from the op registry.
 
 Counterpart of `mxnet_tpu/ndarray/register.py`: every registered op
-becomes ``op(*ndarray_inputs, ctx=None, **attrs)`` over
+becomes ``op(*ndarray_inputs, out=None, ctx=None, **attrs)`` over
 `ops/invoke.py`; trailing positional scalars take the names of the same
 table as ``sym.<Op>``.
 """
@@ -19,6 +19,7 @@ def _make_fn(name):
     pos_params = _POS_PARAMS.get(name, ())
 
     def fn(*args, **kwargs):
+        out = kwargs.pop("out", None)
         ctx = kwargs.pop("ctx", None)
         kwargs.pop("name", None)
         inputs = []
@@ -42,7 +43,7 @@ def _make_fn(name):
                 inputs.append(v)
             else:
                 attrs[k] = v
-        return invoke(name, inputs, attrs, ctx=ctx)
+        return invoke(name, inputs, attrs, ctx=ctx, out=out)
 
     fn.__name__ = name
     return fn

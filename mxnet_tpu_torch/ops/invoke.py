@@ -12,6 +12,10 @@ raises, since every replay would draw the same bits. An op that draws
 only in some modes (``Dropout`` outside training) gets no generator when
 it does not draw.
 
+With ``out=`` the outputs are copied into the given NDArrays (cast to
+their dtype), which are returned; an output on the tape rebinds its
+``out`` instead, as the JAX package rebinds it.
+
 Under ``autograd.record()`` an op with an input that requires a gradient
 runs with torch's grad mode on, so its outputs carry a ``grad_fn``: that
 is the tape (the JAX package captures a ``jax.vjp`` here). Every other
@@ -52,9 +56,9 @@ def suppress_aux_writeback(suppress=True):
         _TLS.no_aux = prev
 
 
-def invoke(op_name, inputs, params=None, ctx=None):
+def invoke(op_name, inputs, params=None, ctx=None, out=None):
     """Run an op eagerly over NDArray inputs; returns an NDArray, or a
-    list of them for an op with several outputs."""
+    list of them for an op with several outputs (``out`` when given)."""
     from ..ndarray.ndarray import NDArray
 
     op = get_op(op_name)
@@ -86,4 +90,13 @@ def invoke(op_name, inputs, params=None, ctx=None):
                 if new is not dst:
                     dst.copy_(new.detach())
     out_arrs = [NDArray(v, ctx) for v in outs[:n_out]]
+    if out is not None:
+        dsts = out if isinstance(out, (list, tuple)) else [out]
+        for dst, src in zip(dsts, out_arrs):
+            if src.data.requires_grad:
+                dst._data = src.data.to(dst.data.dtype)
+            elif dst.data is not src.data:
+                with torch.no_grad():
+                    dst.data.copy_(src.data)
+        return out
     return out_arrs[0] if len(out_arrs) == 1 else out_arrs

@@ -1223,3 +1223,152 @@ def test_fgsm_example_runs_on_the_card(cuda, monkeypatch, capsys):
                 ["--num-examples", "600", "--num-epochs", "2"], "gpu")
     assert "adversarial accuracy" in capsys.readouterr().out
     assert devices == {"cuda:0"}
+
+
+# -- U1: the multi-tensor update ----------------------------------------------
+# f32: the kernel rounds where the plain version's PyTorch ops round, so the
+# two agree to f32 rounding (rtol 1e-6, atol 1e-7); bf16 weights: at most
+# one bf16 step apart
+U1_SHAPES = [(64,), (1000, 3), (3, 3, 64, 64), (8193,), (5,)]
+
+
+def _u1_lists(formula, dtype, device, seed):
+    from mxnet_tpu_torch.ops.multi_tensor import FORMULAS
+    rng = np.random.RandomState(seed)
+    n_states = FORMULAS[formula][2]
+    out = []
+    for shape in U1_SHAPES:
+        w = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+        g = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 3)
+        states = [torch.from_numpy(np.abs(rng.randn(*shape)).astype(
+            np.float32)) for _ in range(n_states)]
+        if formula.startswith("mp_"):
+            states[-1] = w.clone()          # the master copy
+        out.append((w.to(device, dtype), g.to(device, dtype),
+                    tuple(s.to(device) for s in states)))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("formula", ["sgd", "sgd_mom", "mp_sgd",
+                                     "mp_sgd_mom", "adam"])
+@pytest.mark.parametrize("clip", [-1.0, 1.5])
+def test_u1_matches_plain(cuda, formula, dtype, clip):
+    from mxnet_tpu_torch.ops.multi_tensor import (
+        UpdateBuffers, multi_tensor_update, multi_tensor_update_plain)
+    got = _u1_lists(formula, dtype, cuda, 0)
+    want = [(w.clone(), g, tuple(s.clone() for s in st))
+            for w, g, st in got]
+    lrs = [0.05 * (k + 1) for k in range(len(got))]
+    wds = [1e-3 * k for k in range(len(got))]
+    kw = dict(rescale_grad=0.25, clip_gradient=clip, momentum=0.9,
+              beta1=0.8, beta2=0.99, epsilon=1e-6)
+    buffers = UpdateBuffers()
+    before = multi_tensor_update.launches
+    for _ in range(3):
+        multi_tensor_update(formula, *[list(x) for x in zip(*got)], lrs, wds,
+                            buffers=buffers, **kw)
+        multi_tensor_update_plain(formula, *[list(x) for x in zip(*want)],
+                                  lrs, wds, **kw)
+    torch.cuda.synchronize()
+    assert multi_tensor_update.launches - before == 3
+    for (w, _, st), (w_ref, _, st_ref) in zip(got, want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(w, w_ref, rtol=1e-6, atol=1e-7)
+        else:
+            torch.testing.assert_close(w.float(), w_ref.float(),
+                                       rtol=2 ** -7, atol=1e-7)
+        for s, s_ref in zip(st, st_ref):
+            torch.testing.assert_close(s, s_ref, rtol=1e-6, atol=1e-7)
+
+
+def test_u1_is_bitwise_deterministic_and_tracks_addresses(cuda):
+    from mxnet_tpu_torch.ops.multi_tensor import (UpdateBuffers,
+                                                  multi_tensor_update)
+    runs = []
+    for _ in range(2):
+        lists = _u1_lists("adam", torch.float32, cuda, 1)
+        buffers = UpdateBuffers()
+        for _ in range(5):
+            multi_tensor_update("adam", *[list(x) for x in zip(*lists)],
+                                [0.01] * 5, [1e-4] * 5, buffers=buffers)
+        runs.append([w.clone() for w, _, _ in lists])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    key = buffers.key
+    lists[0] = (lists[0][0], lists[0][1],
+                tuple(s.clone() for s in lists[0][2]))   # new addresses
+    multi_tensor_update("adam", *[list(x) for x in zip(*lists)],
+                        [0.01] * 5, [1e-4] * 5, buffers=buffers)
+    assert buffers.key != key
+
+
+def test_u1_bumps_the_versions_it_writes(cuda):
+    """A graph that saved the weight raises on backward after the kernel
+    wrote it, as after an in-place op."""
+    from mxnet_tpu_torch.ops.multi_tensor import multi_tensor_update
+    w = torch.randn(16, device=cuda, requires_grad=True)
+    y = (w * w).sum()
+    with torch.no_grad():
+        multi_tensor_update("sgd", [w], [torch.ones_like(w)], [()], [0.1],
+                            [0.0])
+    with pytest.raises(RuntimeError, match="modified by an inplace"):
+        y.backward()
+
+
+def test_u1_refuses_what_it_cannot_take(cuda):
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.ops.multi_tensor import multi_tensor_update
+    w = torch.zeros(8, device=cuda, dtype=torch.float16)
+    with pytest.raises(MXNetError, match="f32 or bf16"):
+        multi_tensor_update("sgd", [w], [w.clone()], [()], [0.1], [0.0])
+    w = torch.zeros(8, device=cuda)
+    with pytest.raises(MXNetError, match="gradient"):
+        multi_tensor_update("sgd", [w], [w.double()], [()], [0.1], [0.0])
+    with pytest.raises(MXNetError, match="contiguous"):
+        multi_tensor_update("sgd", [w[::2]], [w[::2]], [()], [0.1], [0.0])
+    with pytest.raises(MXNetError, match="states"):
+        multi_tensor_update("sgd_mom", [w], [w.clone()], [()], [0.1], [0.0])
+
+
+def test_trainer_on_the_card_launches_u1_once_a_group(cuda):
+    """SGD with multi_precision over f32 and bf16 parameters on the card:
+    one launch for each (formula, dtype) group a step, and the weights of
+    the same net updated index by index with the plain update ops (f32 to
+    rounding, bf16 one step)."""
+    from mxnet_tpu_torch.ops.multi_tensor import multi_tensor_update
+    opt = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+           "multi_precision": True}
+    nets = []
+    for _ in range(2):
+        mxt.random.seed(0)
+        net = mxt.gluon.nn.HybridSequential(prefix="n_")
+        with net.name_scope():
+            net.add(mxt.gluon.nn.Dense(16, in_units=8),
+                    mxt.gluon.nn.Dense(4, in_units=16))
+        net.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0))
+        net[1].cast("bfloat16")
+        nets.append(net)
+    params = [list(n.collect_params().values()) for n in nets]
+    trainer = mxt.gluon.Trainer(params[0], "sgd", dict(opt))
+    updater = mxt.optimizer.get_updater(mxt.optimizer.create(
+        "sgd", rescale_grad=1 / 5, **opt))
+    x = mxt.nd.array(np.random.RandomState(0).randn(5, 8), ctx=mxt.gpu(0))
+    before = multi_tensor_update.launches
+    for _ in range(2):
+        for net in nets:
+            with mxt.autograd.record():
+                out = net[1](net[0](x).astype("bfloat16"))
+                loss = (out.astype("float32") ** 2).sum()
+            loss.backward()
+        trainer.step(5)
+        for i, p in enumerate(params[1]):
+            updater(i, p.grad(), p.data())
+    assert multi_tensor_update.launches - before == 4
+    for a, b in zip(*params):
+        if a.data().data.dtype == torch.float32:
+            torch.testing.assert_close(a.data().data, b.data().data,
+                                       rtol=1e-6, atol=1e-7)
+        else:
+            torch.testing.assert_close(a.data().data.float(),
+                                       b.data().data.float(),
+                                       rtol=2 ** -7, atol=1e-7)

@@ -5,7 +5,8 @@ Each example runs in a subprocess (``python -m
 mxnet_tpu_torch.tools.run_example EXAMPLE --device cpu ARGS``), so that
 the check that neither ``jax`` nor ``mxnet_tpu`` was imported sees a
 process of its own, with the arguments of its JAX test in
-`tests/test_examples.py`, and must print the line that test asserts.
+`tests/test_examples.py` (the five Adam examples at smaller ones), and
+must print the line that test asserts.
 The rewriting itself is held here too.
 """
 import os
@@ -41,6 +42,30 @@ def test_gluon_resnet_tiny_on_the_port():
              "--num-classes", "10", "--num-batches", "2", "--ctx", "cpu")
     assert r.returncode == 0, r.stderr[-2000:]
     assert "img/s" in r.stdout
+
+
+#: the Gluon examples that train with Adam, each at the smallest arguments
+#: that still print the line its JAX test in tests/test_examples.py asserts
+ADAM_EXAMPLES = [
+    ("vae/train_vae.py", ["--num-examples", "500", "--num-epochs", "8"],
+     "VAE TRAINING OK"),
+    ("gan/train_gan.py", ["--num-iters", "150"], "sample mean"),
+    ("autoencoder/train_autoencoder.py",
+     ["--num-examples", "600", "--num-epochs", "12"],
+     "final reconstruction loss"),
+    ("recommenders/train_mf.py", ["--num-epochs", "8"], "final test mse"),
+    ("cnn_text_classification/train_cnn_text.py",
+     ["--num-examples", "600", "--num-epochs", "3"],
+     "final text-cnn accuracy"),
+]
+
+
+@pytest.mark.parametrize("rel,args,line", ADAM_EXAMPLES,
+                         ids=[e[0].split("/")[0] for e in ADAM_EXAMPLES])
+def test_adam_example_on_the_port(rel, args, line):
+    r = _run(rel, *args)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert line in r.stdout
 
 
 def test_rewrite_changes_only_the_imports():

@@ -6,7 +6,8 @@ child naming (``Activation(act, prefix=act + "_")``, so parameter names
 and ``collect_params()`` match); and the layers of this slice:
 ``Sequential``, ``Dropout``, ``Embedding``, ``LayerNorm``, ``Lambda``,
 ``HybridLambda``, ``LeakyReLU``, ``AvgPool2D``, ``GlobalMaxPool2D``,
-``gluon.Constant`` and ``gluon.split_and_load``. Each net is built in
+``gluon.Constant`` and ``gluon.split_and_load``; and the 1-D
+convolution and pools, NCW and NWC. Each net is built in
 both packages under one prefix, the JAX net's initial weights are copied
 into the port's, and the forward output, the input gradient and every
 parameter gradient of ``sum(out * r + out ** 2)`` (``r`` fixed draws)
@@ -167,6 +168,23 @@ LAYERS = {
     "GlobalMaxPool2D": (lambda pkg: _seq(
         pkg, lambda p: p.gluon.nn.Conv2D(3, 3, in_channels=2),
         lambda p: p.gluon.nn.GlobalMaxPool2D()), (2, 2, 6, 6)),
+    # the 1-D layers, NCW and NWC (train_cnn_text.py's Conv1D over NCW
+    # and GlobalMaxPool1D)
+    "Conv1D_GlobalMaxPool1D": (lambda pkg: _seq(
+        pkg, lambda p: p.gluon.nn.Conv1D(4, 3, activation="relu",
+                                         in_channels=2),
+        lambda p: p.gluon.nn.GlobalMaxPool1D()), (2, 2, 9)),
+    "Conv1D_NWC_MaxPool1D": (lambda pkg: _seq(
+        pkg, lambda p: p.gluon.nn.Conv1D(4, 3, strides=2, padding=1,
+                                         layout="NWC", in_channels=3),
+        lambda p: p.gluon.nn.MaxPool1D(2, layout="NWC")), (2, 11, 3)),
+    "AvgPool1D": (lambda pkg: _seq(
+        pkg, lambda p: p.gluon.nn.Conv1D(3, 2, dilation=2, in_channels=2),
+        lambda p: p.gluon.nn.AvgPool1D(3, 2, padding=1)), (2, 2, 10)),
+    "AvgPool1D_NWC_GlobalAvgPool1D": (lambda pkg: _seq(
+        pkg, lambda p: p.gluon.nn.AvgPool1D(2, ceil_mode=True,
+                                            layout="NWC"),
+        lambda p: p.gluon.nn.GlobalAvgPool1D(layout="NWC")), (2, 7, 3)),
 }
 
 

@@ -242,6 +242,22 @@ def test_compile_counts_and_retrace():
     assert net._cached_jit._cache == {}
 
 
+def test_a_new_block_is_no_retrace_of_a_collected_one():
+    """Each net's first compile is a compile, never a retrace of an
+    earlier net whose id() the new one happens to reuse (the port's
+    bench builds and drops one net per run)."""
+    import gc
+    compiled.reset()
+    x = mxt.nd.array(_x((2, 4)), ctx=CPU)
+    for _ in range(8):
+        net = _dense_net("nb_")
+        net(x)
+        del net
+        gc.collect()
+    assert compiled.compile_counts() == {"compiles": 8, "cache_hits": 0,
+                                         "retraces": 0}
+
+
 def test_tf32_switch_is_part_of_the_signature():
     """A capture bakes cuDNN's and cuBLAS's TF32 choice into the graph,
     so flipping either switch is a new signature: one retrace naming it."""

@@ -7,7 +7,8 @@ moments are held to the tolerances of the JAX package's own
 multisample family and ``multinomial`` are held to the JAX ops' output
 shapes and dtypes on the same parameter arrays. One seed reproduces a
 draw bit for bit and two draws without a reseed differ. Without a CUDA
-device, ``nd.random`` without ``ctx`` raises (its default is ``gpu(0)``).
+device, ``nd.random`` without ``ctx`` raises (its default is ``gpu(0)``)
+outside a ``with ctx:`` scope.
 """
 import numpy as np
 import pytest
@@ -161,6 +162,17 @@ def test_default_context_is_the_card():
     x = mxt.nd.random.uniform(shape=(2, 3), ctx=CPU)
     assert x.shape == (2, 3) and x.context == CPU
     assert x.dtype == np.float32
+
+
+def test_default_context_is_the_enclosing_scope():
+    """Inside ``with ctx:`` a draw without ``ctx`` lands on the scope's
+    context, as a ctx-less ``nd.array`` and ``initialize`` do
+    (``examples/vae/train_vae.py`` draws its noise so)."""
+    with mxt.cpu():
+        draws = [mxt.nd.random.normal(shape=(2, 3)),
+                 mxt.nd.random.randint(0, 5, shape=(4,))]
+    assert all(d.context == CPU and d.data.device.type == "cpu"
+               for d in draws)
 
 
 def test_seed_of_one_device():
