@@ -210,13 +210,40 @@ in one more:
     ``cnn_text_classification``) through ``run_example`` on ``gpu(0)``
     at their tests' arguments, each printing its asserted line.
 
+and then drives the detection slice: SSD and Faster-RCNN through Gluon
+with the box ops of `ops/contrib_ops.py` and `ops/detection.py`, greedy
+NMS on N1 (`mxnet_tpu_torch/csrc/greedy_nms.cu`) and ``mx.operator.Custom``,
+in one more:
+
+22. N1 against its plain version on the card, on the inputs that
+    ``Proposal`` hands it at Faster-RCNN's defaults (one 600x1000 image at
+    stride 16: 28,728 anchors, 6000 before NMS, threshold 0.7) and that
+    ``MultiBoxDetection`` hands it at SSD300's layout (8732 anchors, 21
+    classes: batch 32 with ``nms_topk`` 400, batch 2 without) and at the
+    examples' own shapes: the keep masks exactly equal, 20 calls
+    bit-identical, CUDA-event times of N1, of the whole op and of the
+    plain version, the mask pass's and the sweep's device time, the
+    bound; every op of the slice (`tools/detection_sweep.py`: the
+    examples' shapes and the MultiBox ops at SSD300's layout) on
+    ``gpu(0)`` against ``cpu()``, forward and gradients, under
+    ``torch.cuda.set_sync_debug_mode("error")``, each family within its
+    limit and its control above it; ``examples/ssd/train_ssd.py --ctx
+    tpu`` (30 batches of 8; its img/s) and ``examples/rcnn/
+    train_faster_rcnn.py`` in its four modes (plain, ``--deformable``,
+    ``--ohem``, both) through ``run_example`` on ``gpu(0)`` at their
+    tests' step counts, each printing its asserted line, with one
+    profiled training iteration of SSD and of the plain Faster-RCNN run
+    (device busy, idle share, launches, N1's and U1's share); and a Gluon
+    block calling ``F.Custom`` on ``gpu(0)`` against ``cpu()``, eager and
+    hybridized, its hybridized program counted as uncaptured.
+
 Phases 3-5 are the serving main path, phase 8 the LM training one,
 phase 11's gate-on steps on the card the ResNet one, phase 15's steps on
 the card the attention one, phase 16's first launches the rtc one,
 phase 18 the inference one, phase 19's steps on the card (its check,
-the example's loop and the bf16 gate-on loop) the Gluon training one and
-phase 20's two examples the nd-core one and phase 21 after its U1
-check the optimizer one:
+the example's loop and the bf16 gate-on loop) the Gluon training one,
+phase 20's two examples the nd-core one, phase 21 after its U1
+check the optimizer one and phase 22's examples the detection one:
 every kernel's launch count is set to 0 before each and read after it.
 The serving path must launch K1, every call by the persistent route; the
 LM training path must launch K2 and K3 exactly once per layer and step,
@@ -231,7 +258,8 @@ the wgmma route, never on NCHW or with the gate off, and no other
 kernel; the nd-core path none of them (the examples run an MLP and NCHW
 f32 ResNet-50); the LM training path U1 once a step; the optimizer path
 U1 once a (formula, dtype) group a step and K5 6 times a gate-on step,
-and none of K1-K4 and K6.
+and none of K1-K4 and K6; the detection path N1 and U1 in every example
+run and none of K1-K6.
 K5's launches in the kernels line are the ResNet path's and the Gluon
 path's. Any failed
 check exits non-zero. The last lines
@@ -475,6 +503,36 @@ ADAM_EXAMPLES = [
      ["--num-examples", "1000", "--num-epochs", "4"],
      "final text-cnn accuracy"),
 ]
+# phase 22: the detection slice. N1 (greedy NMS) at Faster-RCNN's Proposal
+# defaults (reference contrib/proposal: a 600x1000 image at stride 16, a
+# 38x63 map, scales (4, 8, 16, 32) x ratios (0.5, 1, 2) = 12 anchors a
+# cell, 28,728 anchors, 6000 before NMS, 300 after, threshold 0.7), and in
+# MultiBoxDetection at SSD300's layout (8732 anchors, 21 classes, batch 32
+# with nms_topk 400 as reference MXNet's example/ssd deploys, and batch 2
+# without it, nms_threshold 0.45)
+PROPOSAL_MAP = (38, 63)
+PROPOSAL_PARAMS = {"feature_stride": 16, "scales": (4, 8, 16, 32),
+                   "ratios": (0.5, 1, 2), "rpn_pre_nms_top_n": 6000,
+                   "rpn_post_nms_top_n": 300, "threshold": 0.7,
+                   "rpn_min_size": 16}
+N1_CALLS = 20
+# f32 operations of one IoU test of N1's mask pass: 4 min/max, 2
+# subtractions, 2 clamps, a product, a sum and a difference, a clamp, a
+# division and the comparison (the areas are per box)
+N1_OPS_PER_PAIR = 14
+# the examples at the arguments of tests/test_examples.py: SSD (30
+# batches of 8, --ctx tpu, which is cuda:0) and Faster-RCNN in its four
+# modes, each printing the line its test asserts
+SSD_EXAMPLE_ARGS = ["--ctx", "tpu", "--num-batches", "30",
+                    "--batch-size", "8"]
+RCNN_MODES = [("plain", ["--num-steps", "20"]),
+              ("deformable", ["--num-steps", "15", "--deformable"]),
+              ("ohem", ["--num-steps", "15", "--ohem"]),
+              ("ohem_deformable", ["--num-steps", "10", "--ohem",
+                                   "--deformable"])]
+# the training iteration profiled in the SSD and the plain Faster-RCNN run:
+# the one after this many Trainer steps
+PROFILED_AFTER = 10
 # the bench's inference function in phase 18: rounds of calls x iters
 INFER_ITERS, INFER_CALLS, INFER_ROUNDS = 50, 2, 2
 PEAK_TF32_FLOPS = 495e12
@@ -2385,10 +2443,10 @@ def phase_infer(mx, layout):
     counts = {"first_call": {k: first[k] - before[k] for k in first},
               "timed_calls": {k: timed[k] - first[k] for k in timed}}
     check(counts["first_call"] == {"compiles": 1, "cache_hits": 0,
-                                   "retraces": 0}
+                                   "retraces": 0, "uncaptured": 0}
           and counts["timed_calls"] == {"compiles": 0,
                                         "cache_hits": n_timed,
-                                        "retraces": 0},
+                                        "retraces": 0, "uncaptured": 0},
           "%s compile counts %s: want one compile, then %d cache hits"
           % (layout, counts, n_timed))
     check(hybrid.shape == (INFER_BATCH, CLASSES)
@@ -2563,7 +2621,7 @@ def phase_infer_rate(mx, layout, tf32):
                 calls = INFER_ITERS * (1 + INFER_CALLS * INFER_ROUNDS)
                 diff = {k: after[k] - before[k] for k in after}
                 check(diff == {"compiles": 1, "cache_hits": calls,
-                               "retraces": 0},
+                               "retraces": 0, "uncaptured": 0},
                       "bench run %s: counts %s, want 1 compile and %d "
                       "hits" % (layout, diff, calls))
     finally:
@@ -2850,7 +2908,7 @@ def gluon_loop(mx, layout, dtype, batch, rng, first_step_only=False,
           "%s %s Gluon loop: the loss did not fall: %s" % (layout, dtype,
                                                           means))
     check(counts == {"compiles": 1, "cache_hits": GLUON_WARMUP
-                     + GLUON_STEPS - 1, "retraces": 0},
+                     + GLUON_STEPS - 1, "retraces": 0, "uncaptured": 0},
           "%s %s Gluon loop compile counts %s: want the recorded signature "
           "compiled once, then hits" % (layout, dtype, counts))
     row.update(layout=layout, dtype=dtype, batch=batch, losses=means,
@@ -3459,6 +3517,363 @@ def phase_optimizer(mx, rng, gluon, tmp):
                "seconds": time.perf_counter() - t0}
     return summary
 
+# ---------------------------------------------------------------------------
+# the detection slice: SSD and Faster-RCNN through Gluon, the box ops, and
+# greedy NMS as N1 (csrc/greedy_nms.cu)
+# ---------------------------------------------------------------------------
+def n1_inputs(mx, op_fn):
+    """Run ``op_fn`` once and return the (boxes, valid, class ids, thresh)
+    it handed greedy NMS (`ops/contrib_ops.py`'s call of N1's wrapper)."""
+    from mxnet_tpu_torch.ops import contrib_ops
+    calls = []
+    wrapper = contrib_ops.greedy_nms
+
+    def spy(boxes, valid, cls, thresh):
+        calls.append((boxes, valid, cls, thresh))
+        return wrapper(boxes, valid, cls, thresh)
+
+    contrib_ops.greedy_nms = spy
+    try:
+        op_fn()
+    finally:
+        contrib_ops.greedy_nms = wrapper
+    check(len(calls) == 1, "the op called greedy NMS %d times" % len(calls))
+    return calls[0]
+
+
+def n1_bound(batch, n):
+    """(ms, "bytes" | "operations") of N1 over ``batch`` images of ``n``
+    sorted boxes: the IoU tests of the upper triangle at the f32 rate, or
+    boxes, class ids and valid flags read and the keep mask written."""
+    flops = batch * n * (n - 1) / 2 * N1_OPS_PER_PAIR
+    nbytes = batch * n * (16 + 4 + 1 + 1)
+    return bound_of(nbytes / PEAK_BYTES_PER_S * 1e3,
+                    flops / PEAK_F32_FLOPS * 1e3)
+
+
+def n1_row(mx, what, op_fn, reps=20):
+    """N1 against its plain version on one op's input on the card: the
+    mismatching keep flags (must be 0), N1_CALLS calls bit-identical, and
+    CUDA-event times of N1, of the whole op and of the plain version; the
+    device time of N1's two kernels (the mask pass and the sweep) from a
+    profile; the bound."""
+    from mxnet_tpu_torch.ops.nms_kernel import greedy_nms, greedy_nms_plain
+    boxes, valid, cls, thresh = n1_inputs(mx, op_fn)
+    batch, n = boxes.shape[0], boxes.shape[1]
+    got = greedy_nms(boxes, valid, cls, thresh)
+    want = greedy_nms_plain(boxes, valid, cls, thresh)
+    torch.cuda.synchronize()
+    mismatches = int((got != want).sum())
+    same = all(torch.equal(greedy_nms(boxes, valid, cls, thresh), got)
+               for _ in range(N1_CALLS - 1))
+    _, kern = device_profile(
+        lambda: greedy_nms(boxes, valid, cls, thresh),
+        complete=lambda k: any("nms_sweep" in name for name in k))
+    parts = {part: sum(v[1] for name, v in kern.items() if part in name)
+             for part in ("nms_mask", "nms_sweep")}
+    bound, by = n1_bound(batch, n)
+    row = {"input": what, "batch": batch, "boxes": n, "thresh": thresh,
+           "classes": cls is not None, "kept": int(got.sum()),
+           "mismatches": mismatches, "bit_identical_calls": same,
+           "ms": time_ms(lambda: greedy_nms(boxes, valid, cls, thresh), reps),
+           "mask_pass_ms": parts["nms_mask"], "sweep_ms": parts["nms_sweep"],
+           "op_ms": time_ms(op_fn, reps),
+           "plain_ms": time_ms(lambda: greedy_nms_plain(boxes, valid, cls,
+                                                        thresh), 1),
+           "bound_ms": bound, "bound_by": by, "library_ms": None,
+           "mask_bytes": batch * n * ((n + 63) // 64) * 8}
+    check(mismatches == 0 and same, "N1 on %s: %d keep flags differ from "
+          "the plain version, bit-identical calls %s" % (what, mismatches,
+                                                        same))
+    return row
+
+
+def proposal_defaults(mx, device):
+    """``_contrib_Proposal`` at Faster-RCNN's defaults on ``device``."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    rng = np.random.RandomState(SEED + 220)
+    h, w = PROPOSAL_MAP
+    a = len(PROPOSAL_PARAMS["scales"]) * len(PROPOSAL_PARAMS["ratios"])
+    logits = rng.randn(1, 2, a, h, w)
+    prob = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    ins = [prob.reshape(1, 2 * a, h, w), rng.randn(1, 4 * a, h, w) * 0.2,
+           np.array([[h * 16, w * 16 - 8, 1.0]])]
+    ins = [torch.from_numpy(x.astype(np.float32)).to(device) for x in ins]
+    params = dict(PROPOSAL_PARAMS, _ctx=mx.gpu(0))
+    op = get_op("_contrib_Proposal")
+    return lambda: op.fcompute(params, *ins)
+
+
+def case_fn(mx, case, device):
+    """One call of a detection_sweep case's op on ``device``."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    ins = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+           for a in case.arrays]
+    params = dict(case.params, _ctx=mx.gpu(0), _is_train=False)
+    op = get_op(case.name)
+    return lambda: op.fcompute(params, *ins)
+
+
+def phase_n1(mx, device):
+    """Phase 22a: N1 against its plain version on the card on the inputs
+    of Proposal at Faster-RCNN's defaults and of MultiBoxDetection at
+    SSD300's layout (batch 32 with nms_topk 400, batch 2 without), and at
+    the examples' own shapes (the RCNN example's Proposal, TinySSD's
+    MultiBoxDetection)."""
+    from mxnet_tpu_torch.tools import detection_sweep
+    ssd300 = [c for c in detection_sweep.SSD300_CASES
+              if c.name == "_contrib_MultiBoxDetection"]
+    topk = next(c for c in ssd300 if "nms_topk" in c.params)
+    full = next(c for c in ssd300 if c.params == {"nms_threshold": 0.45})
+    ex_prop = next(c for c in detection_sweep.CASES
+                   if c.name == "_contrib_Proposal")
+    ex_det = next(c for c in detection_sweep.CASES
+                  if c.name == "_contrib_MultiBoxDetection"
+                  and c.arrays[0].shape[2] == 256
+                  and c.params == {"nms_threshold": 0.45})
+    rows = [n1_row(mx, "Proposal, Faster-RCNN defaults",
+                   proposal_defaults(mx, device)),
+            n1_row(mx, "MultiBoxDetection, SSD300, nms_topk 400",
+                   case_fn(mx, topk, device)),
+            n1_row(mx, "MultiBoxDetection, SSD300, no nms_topk",
+                   case_fn(mx, full, device), reps=5),
+            n1_row(mx, "Proposal, the RCNN example",
+                   case_fn(mx, ex_prop, device)),
+            n1_row(mx, "MultiBoxDetection, the SSD example",
+                   case_fn(mx, ex_det, device))]
+    topk_probs = topk.arrays[0]
+    rows[1]["probability_bytes"] = topk_probs.size * 4
+    for row in rows:
+        log("phase 22 N1 %s" % json.dumps(row))
+    return rows
+
+
+def phase_detection_ops(mx):
+    """Phase 22b: every op of the slice (`tools/detection_sweep.py`: the
+    examples' shapes, and the MultiBox ops at SSD300's layout) on gpu(0)
+    against cpu(), forward and gradients, each under
+    ``set_sync_debug_mode("error")`` on the card, within its family's
+    limit; each family's control (the card's inputs rounded to bf16) above
+    it."""
+    from mxnet_tpu_torch.tools import detection_sweep as sweep
+    families, fails = {}, []
+    t0 = time.perf_counter()
+    for case in sweep.CASES + sweep.SSD300_CASES:
+        try:
+            fwd, grad = sweep.compare(case, mx.gpu(0), no_sync=True)
+        except RuntimeError as e:
+            fails.append("%s %s: %s" % (case.name, case.params,
+                                        str(e).splitlines()[0]))
+            continue
+        row = families.setdefault(case.family, {"cases": 0, "forward": 0.0,
+                                                "gradient": 0.0})
+        row["cases"] += 1
+        row["forward"] = max(row["forward"], fwd)
+        row["gradient"] = max(row["gradient"], grad)
+        if max(fwd, grad) > sweep.LIMITS[case.family]:
+            fails.append("%s %s: forward %.3g, gradient %.3g, limit %g"
+                         % (case.name, case.params, fwd, grad,
+                            sweep.LIMITS[case.family]))
+    controls = {f: sweep.control(mx.gpu(0), f)
+                for f in sweep.LIMITS if f != "exact"}
+    summary = {"families": families, "limits": sweep.LIMITS,
+               "controls": controls, "sync_debug_mode": "error",
+               "seconds": time.perf_counter() - t0}
+    log("phase 22 detection ops %s" % json.dumps(summary))
+    check(not fails, "detection ops on the card: " + "; ".join(fails))
+    check(all(v > sweep.LIMITS[f] for f, v in controls.items()),
+          "a detection family's control passed its limit: %s" % controls)
+    return summary
+
+
+@contextlib.contextmanager
+def step_spy(mx, profile_after=None):
+    """Stamp every Trainer step of an example run; with ``profile_after``
+    = k, profile the training iteration between the k-th and the
+    (k+1)-th step (device busy time and idle share, launches, N1's and
+    U1's device time and share)."""
+    from torch.profiler import ProfilerActivity, profile
+    rec = {"times": [], "profile": None}
+    trainer_step = mx.gluon.Trainer.step
+    state = {}
+
+    def step(self, *args, **kwargs):
+        out = trainer_step(self, *args, **kwargs)
+        k = len(rec["times"])
+        rec["times"].append(time.perf_counter())
+        if profile_after is not None and k + 1 == profile_after:
+            torch.cuda.synchronize()
+            state["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+            state["prof"].start()
+            state["t0"] = time.perf_counter()
+        elif "prof" in state and k + 1 == profile_after + 1:
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - state["t0"]) * 1e3
+            prof = state.pop("prof")
+            prof.stop()
+            rec["profile"] = iteration_profile(prof, wall)
+        return out
+
+    mx.gluon.Trainer.step = step
+    try:
+        yield rec
+    finally:
+        mx.gluon.Trainer.step = trainer_step
+
+
+def iteration_profile(prof, wall):
+    """Device busy ms, idle share and launches of one profiled iteration,
+    with N1's (nms_mask, nms_sweep) and U1's kernels apart."""
+    busy, launches, n1, u1, top = 0.0, 0, [0, 0.0], [0, 0.0], {}
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        ms = e.self_device_time_total / 1e3
+        busy += ms
+        launches += e.count
+        top[e.key[:50]] = ms
+        part = n1 if ("nms_mask" in e.key or "nms_sweep" in e.key) else \
+            u1 if "multi_tensor_kernel" in e.key else None
+        if part is not None:
+            part[0] += e.count
+            part[1] += ms
+    check(launches > 0, "the profiler saw no device kernel in the iteration")
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall, "launches": launches,
+            "n1": {"launches": n1[0], "ms": n1[1],
+                   "share": n1[1] / busy if busy else None},
+            "u1": {"launches": u1[0], "ms": u1[1],
+                   "share": u1[1] / busy if busy else None},
+            "top": sorted(top.items(), key=lambda kv: -kv[1])[:6]}
+
+
+def phase_detection_examples(mx, counters):
+    """Phase 22c: the SSD example (--ctx tpu) and the Faster-RCNN example
+    in its four modes through ``tools/run_example`` on gpu(0) at their
+    tests' arguments: each prints its asserted line, launches N1 and U1
+    and none of K1-K6; the SSD loop's img/s (host clock between its first
+    and last Trainer step); one profiled training iteration of SSD and of
+    the plain Faster-RCNN run."""
+    n1, u1 = counters["greedy_nms"], counters["multi_tensor_update"]
+    others = {k: c for k, c in counters.items()
+              if k not in ("greedy_nms", "multi_tensor_update")}
+    runs = [("ssd", "ssd/train_ssd.py", SSD_EXAMPLE_ARGS,
+             "detections kept after NMS", PROFILED_AFTER)]
+    runs += [("faster_rcnn_" + mode, "rcnn/train_faster_rcnn.py", argv,
+              "FASTER-RCNN FLOW OK", PROFILED_AFTER if mode == "plain"
+              else None) for mode, argv in RCNN_MODES]
+    rows = {}
+    for key, rel, argv, line, prof_at in runs:
+        before = {k: c.launches for k, c in counters.items()}
+        with step_spy(mx, prof_at) as rec:
+            run = run_example_captured(mx, rel, argv, "gpu")
+        got = {k: c.launches - before[k] for k, c in counters.items()}
+        hit = [ln for ln in run["lines"] if line in ln]
+        t = rec["times"]
+        row = {"line": hit[0] if hit else None, "devices": run["seen"],
+               "seconds": run["seconds"], "steps": len(t),
+               "launches": got, "profile": rec["profile"]}
+        if key == "ssd":
+            batch = int(argv[argv.index("--batch-size") + 1])
+            row["imgs_per_s"] = batch * (len(t) - 1) / (t[-1] - t[0])
+            row["kept_line"] = [ln for ln in run["lines"] if "agreement"
+                                in ln]
+        rows[key] = row
+        log("phase 22 %s %s" % (key, json.dumps(row)))
+        check(hit, "%s %s printed no %r line: %s" % (rel, argv, line,
+                                                     run["lines"][-5:]))
+        check(run["seen"]["data"] == ["cuda:0"]
+              and run["seen"]["params"] == ["cuda:0"],
+              "%s on gpu(0): its net and data lived on %s"
+              % (key, run["seen"]))
+        check(got["greedy_nms"] > 0 and got["multi_tensor_update"] > 0
+              and not any(got[k] for k in others),
+              "%s launched %s: want N1 and U1 only" % (key, got))
+    return rows
+
+
+def custom_block(mx, ctx):
+    """A Gluon block calling ``F.Custom`` (a sigmoid on the host, in
+    numpy) between two Dense layers, from seed SEED + 221."""
+    gluon = mx.gluon
+
+    class Net(gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.a = gluon.nn.Dense(64, in_units=32)
+                self.b = gluon.nn.Dense(8, in_units=64)
+
+        def hybrid_forward(self, F, x):
+            return self.b(F.Custom(self.a(x), op_type="smoke_sigmoid"))
+
+    mx.random.seed(SEED + 221)
+    net = Net(prefix="custom_")
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    return net
+
+
+def register_smoke_sigmoid(mx):
+
+    class Sigmoid(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()
+            self.assign(out_data[0], req[0], 1.0 / (1.0 + np.exp(-x)))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            y = out_data[0].asnumpy()
+            self.assign(in_grad[0], req[0],
+                        out_grad[0].asnumpy() * y * (1.0 - y))
+
+    @mx.operator.register("smoke_sigmoid")
+    class SigmoidProp(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Sigmoid()
+
+
+def phase_custom(mx):
+    """Phase 22d: ``Custom`` on the card. A block calling ``F.Custom`` on
+    gpu(0) against the same block (same weights) on cpu(): a forward and
+    the gradients of a recorded backward, eager and hybridized; the
+    hybridized program's outputs on the card and counted as uncaptured
+    (it runs eagerly on every call, outside any CUDA graph)."""
+    from mxnet_tpu_torch import compiled
+    register_smoke_sigmoid(mx)
+    x_np = np.random.RandomState(SEED + 222).randn(16, 32).astype(np.float32)
+    rows = {}
+    for hybrid in (False, True):
+        out, grads = {}, {}
+        before = compiled.compile_counts()
+        for key, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+            net = custom_block(mx, ctx)
+            if hybrid:
+                net.hybridize()
+            x = mx.nd.array(x_np, ctx=ctx)
+            with mx.autograd.record():
+                y = net(x)
+            y.backward()
+            y2 = net(x)
+            out[key] = (y.asnumpy(), y2.asnumpy(), str(y2.data.device))
+            grads[key] = [p.grad().asnumpy() for _, p in sorted(
+                net.collect_params().items())]
+        after = compiled.compile_counts()
+        err = max(float(np.abs(g - c).max()) for g, c in zip(
+            out["card"][:2] + tuple(grads["card"]),
+            out["cpu"][:2] + tuple(grads["cpu"])))
+        rows["hybridized" if hybrid else "eager"] = {
+            "max_abs_err": err, "device": out["card"][2],
+            "uncaptured": after["uncaptured"] - before["uncaptured"]}
+        check(err < 1e-5 and out["card"][2] == "cuda:0",
+              "Custom block on gpu(0) vs cpu(): %s" % rows)
+    log("phase 22 Custom %s" % json.dumps(rows))
+    check(rows["hybridized"]["uncaptured"] == 2
+          and rows["eager"]["uncaptured"] == 0,
+          "the hybridized Custom block's programs (card and CPU) were not "
+          "counted as uncaptured: %s" % rows)
+    return rows
+
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3683,6 +4098,28 @@ def main():
           "the optimizer path launched %s: want U1 and K5 only"
           % opt_launches)
 
+    t0 = time.perf_counter()
+    n1_rows = phase_n1(mx, device)
+    ops_summary = phase_detection_ops(mx)
+    n1 = mx.ops.greedy_nms
+    path = dict(counters, multi_tensor_update=u1, greedy_nms=n1)
+    for c in path.values():                   # the detection path starts
+        c.launches = 0
+    det_examples = phase_detection_examples(mx, path)
+    det_launches = {k: c.launches for k, c in path.items()}  # ... ends here
+    custom = phase_custom(mx)
+    log("phase 22 detection %s" % json.dumps({
+        "kernel_launches": det_launches, "card": card,
+        "ssd_imgs_per_s": det_examples["ssd"]["imgs_per_s"],
+        "custom": custom, "seconds": time.perf_counter() - t0}))
+    check(det_launches["greedy_nms"] > 0
+          and det_launches["multi_tensor_update"] > 0
+          and not any(n for k, n in det_launches.items()
+                      if k not in ("greedy_nms", "multi_tensor_update")),
+          "the detection path launched %s: want N1 and U1 only"
+          % det_launches)
+    del ops_summary
+
     top = next(r for r in rows if r["B"] == max(SERVED_BATCHES))
     train = next(r for r in train_rows if r["B"] == TRAIN_BATCH)
     pallas = "mxnet_tpu/ops/pallas_kernels.py"
@@ -3749,6 +4186,16 @@ def main():
         "max_abs_err": u1_summary["max_abs_err"],
         **{key: u1_a[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}})
+    # N1: Proposal at Faster-RCNN's defaults (one image, 6000 boxes)
+    n1_main = n1_rows[0]
+    kernels.append({
+        "name": "greedy_nms", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/greedy_nms.cu",
+        "replaces": "mxnet_tpu/ops/contrib_ops.py:73",
+        "launches": det_launches["greedy_nms"],
+        "max_abs_err": float(max(r["mismatches"] for r in n1_rows)),
+        **{key: n1_main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -85,6 +85,7 @@ from .weights import (params_from_numpy, params_to_numpy,
                       set_block_params)
 from . import serving
 from . import rtc
+from . import operator
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "cpu_pinned",
            "current_context", "num_gpus", "num_tpus", "context", "random",
@@ -93,4 +94,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "cpu_pinned",
            "misc", "io", "metric",
            "mod", "module", "model", "callback", "name", "gluon", "compiled",
            "autograd", "Predictor", "params_from_numpy", "params_to_numpy",
-           "set_block_params", "serving", "rtc"]
+           "set_block_params", "serving", "rtc", "operator"]

@@ -57,6 +57,14 @@ too, with the tape on: a graph's replay returns clones that carry no
 ``grad_fn``, so it cannot be differentiated. Capturing the forward and
 backward of a training step is not ported yet.
 
+A program whose function calls an op that runs Python on the host
+(``Custom``, which calls :func:`note_host_op`) cannot be captured: a
+CUDA graph cannot hold the host round trip. Its signature is not
+captured and runs eagerly on every call, counted once under
+``compile_counts()["uncaptured"]`` and logged with the ops' names; the
+warm-up runs before a capture find it. On the CPU the first run of a
+signature counts it the same way.
+
 :meth:`CompiledProgram.warmup` compiles a signature without running it
 and without changing any auxiliary state (the counterpart of the JAX
 package's AOT ``warmup``).
@@ -85,7 +93,7 @@ from .base import MXNetError
 from .ops.invoke import suppress_aux_writeback
 
 __all__ = ["CompiledProgram", "compile_counts", "explain_signature_change",
-           "last_retrace", "reset", "running"]
+           "last_retrace", "note_host_op", "reset", "running"]
 
 logger = logging.getLogger(__name__)
 
@@ -95,14 +103,16 @@ WARMUP_RUNS = 2
 _lock = threading.Lock()
 _sites = {}     # lineage -> {"compiles": int, "sig": dict}
 _state = {"last_retrace": None}
-_counts = {"compiles": 0, "cache_hits": 0, "retraces": 0}
+_counts = {"compiles": 0, "cache_hits": 0, "retraces": 0, "uncaptured": 0}
 _programs = weakref.WeakSet()
 _TLS = threading.local()
 
 
 def compile_counts():
-    """``{"compiles", "cache_hits", "retraces"}`` over every program of
-    the process since the last :func:`reset`."""
+    """``{"compiles", "cache_hits", "retraces", "uncaptured"}`` over every
+    program of the process since the last :func:`reset`; ``uncaptured``
+    counts the signatures that run eagerly because their function calls
+    a host op."""
     with _lock:
         return dict(_counts)
 
@@ -155,6 +165,29 @@ def running():
     """The site of the program whose function runs on this thread (or of
     a Gluon block's deferred-initialisation pass), else None."""
     return getattr(_TLS, "site", None)
+
+
+def note_host_op(name):
+    """Called by an op whose body runs Python on the host (``Custom``):
+    the program whose function is running is then not captured."""
+    seen = getattr(_TLS, "host_ops", None)
+    if seen is not None:
+        seen.add(name)
+
+
+@contextlib.contextmanager
+def _host_ops():
+    """Collect the names :func:`note_host_op` reports inside the scope
+    (an enclosing scope sees them too)."""
+    prev = getattr(_TLS, "host_ops", None)
+    seen = set()
+    _TLS.host_ops = seen
+    try:
+        yield seen
+    finally:
+        _TLS.host_ops = prev
+        if prev is not None:
+            prev |= seen
 
 
 # ---------------------------------------------------------------------------
@@ -336,11 +369,24 @@ def _leaves(obj, out):
 
 
 class _Eager:
-    """A CPU signature: the function runs eagerly on every call."""
+    """A signature that runs eagerly on every call: on the CPU, a recorded
+    call, or a function that calls a host op. With ``probe`` (a CPU
+    signature that does not record) its first run counts it as
+    uncaptured if the function calls a host op, as a capture would."""
+
+    def __init__(self, probe=False):
+        self.probe = probe
 
     def run(self, program, args):
         with inline(program.site), suppress_aux_writeback(False):
-            return program._fun(*args)
+            if not self.probe:
+                return program._fun(*args)
+            self.probe = False
+            with _host_ops() as seen:
+                out = program._fun(*args)
+        if seen:
+            program._uncaptured(seen)
+        return out
 
 
 class _Graph:
@@ -455,8 +501,10 @@ class CompiledProgram:
                     "%s" % (self.site, ", ".join(
                         "%s is %s" % (k, _fmt_desc(sig[k])) for k in opaque)))
             entry = self._capture(args, device)
+            if entry is None:
+                entry = _Eager()
         else:
-            entry = _Eager()
+            entry = _Eager(probe=not recording)
         self._cache[key] = entry
         sig["tf32 (cudnn, matmul)"] = ("static", repr(_math_mode()))
         sig["autograd recording"] = ("static", repr(recording))
@@ -477,7 +525,15 @@ class CompiledProgram:
                            reason)
         return entry
 
+    def _uncaptured(self, ops):
+        _count("uncaptured")
+        logger.warning("%s: not captured, runs eagerly on every call: its "
+                       "function calls host ops (%s)", self.site,
+                       ", ".join(sorted(ops)))
+
     def _capture(self, args, device):
+        """The captured graph of ``args``' signature, or None (counted as
+        uncaptured) when the warm-up runs called a host op."""
         if self._stream is None:
             self._stream = torch.cuda.Stream(device)
             self._pool = torch.cuda.graph_pool_handle()
@@ -493,9 +549,12 @@ class CompiledProgram:
         try:
             with inline(self.site), torch.cuda.device(device):
                 with torch.cuda.stream(self._stream), \
-                        suppress_aux_writeback(True):
+                        suppress_aux_writeback(True), _host_ops() as seen:
                     for _ in range(WARMUP_RUNS):
                         self._fun(*static_args)
+                if seen:
+                    self._uncaptured(seen)
+                    return None
                 gc.disable()
                 with suppress_aux_writeback(False), torch.cuda.graph(
                         graph, pool=self._pool, stream=self._stream,

@@ -783,7 +783,7 @@ def test_hybridized_call_is_a_graph_replay(f32):
     first = net(x)
     second = net(x)
     assert compiled.compile_counts() == {"compiles": 1, "cache_hits": 1,
-                                         "retraces": 0}
+                                         "retraces": 0, "uncaptured": 0}
     assert first.data.device.type == "cuda"
     (entry,) = net._cached_jit._cache.values()
     assert isinstance(entry, compiled._Graph)
@@ -939,7 +939,7 @@ def test_scalar_argument_recaptures(f32):
     for s in (0.5, 2.0, 0.5):
         assert torch.equal(net(x, s).data, want[s]), s
     assert compiled.compile_counts() == {"compiles": 2, "cache_hits": 1,
-                                         "retraces": 1}
+                                         "retraces": 1, "uncaptured": 0}
     assert compiled.last_retrace()["reason"] == \
         "arg4: python float 0.5 -> python float 2.0"
     with pytest.raises(mxt.MXNetError, match=r"arg4\[0\] is opaque NDArray"):
@@ -1109,7 +1109,7 @@ def test_inference_graph_after_a_training_step(f32):
     with mxt.autograd.predict_mode():
         eager = net._forward_impl(x).data
     assert compiled.compile_counts() == {"compiles": 2, "cache_hits": 1,
-                                         "retraces": 1}
+                                         "retraces": 1, "uncaptured": 0}
     assert not torch.equal(after, first)
     torch.testing.assert_close(after, eager, rtol=HYB_TOL, atol=HYB_TOL)
     kinds = sorted(type(e).__name__ for e in net._cached_jit._cache.values())
@@ -1372,3 +1372,97 @@ def test_trainer_on_the_card_launches_u1_once_a_group(cuda):
             torch.testing.assert_close(a.data().data.float(),
                                        b.data().data.float(),
                                        rtol=2 ** -7, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# The detection slice: N1 (greedy NMS) and the ops on the card
+# ---------------------------------------------------------------------------
+def _nms_tensors(batch, n, seed, device, **kw):
+    from mxnet_tpu_torch.tools.detection_sweep import nms_inputs
+    return [torch.from_numpy(a).to(device)
+            for a in nms_inputs(batch, n, seed, **kw)]
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 6000, 8732])
+@pytest.mark.parametrize("force", [False, True])
+def test_n1_matches_plain(cuda, n, force):
+    """N1's keep mask equals the plain version's bit for bit, for every
+    topk (applied before the sweep), with and without classes."""
+    from mxnet_tpu_torch.ops.contrib_ops import greedy_nms_keep
+    from mxnet_tpu_torch.ops.nms_kernel import greedy_nms
+    batch = 2 if n < 6000 else 1
+    cpu_in = _nms_tensors(batch, n, n, "cpu")
+    gpu_in = [t.to(cuda) for t in cpu_in]
+    topks = (-1, 1, max(1, n // 3), n, n + 5) if n < 6000 else (-1, 300)
+    for topk in topks:
+        for thresh in (0.45, 0.7):
+            before = greedy_nms.launches
+            got = greedy_nms_keep(*gpu_in[:3], gpu_in[3], thresh, topk, force)
+            want = greedy_nms_keep(*cpu_in[:3], cpu_in[3], thresh, topk,
+                                   force)
+            assert greedy_nms.launches == before + 1
+            assert torch.equal(got.cpu(), want), (topk, thresh)
+
+
+def test_n1_identical_boxes_and_determinism(cuda):
+    from mxnet_tpu_torch.ops.contrib_ops import greedy_nms_keep
+    boxes, scores, valid, _ = _nms_tensors(3, 100, 0, cuda, identical=True)
+    keep = greedy_nms_keep(boxes, scores, valid, None, 0.5, -1, True)
+    assert keep.sum(dim=1).tolist() == [1, 1, 1] and bool(keep[:, 0].all())
+    boxes, scores, valid, cls = _nms_tensors(4, 3000, 1, cuda)
+    first = greedy_nms_keep(boxes, scores, valid, cls, 0.5, -1, False)
+    for _ in range(20):
+        assert torch.equal(
+            greedy_nms_keep(boxes, scores, valid, cls, 0.5, -1, False), first)
+
+
+def test_n1_raises_when_its_library_fails_to_build(cuda, monkeypatch):
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.ops import nms_kernel
+
+    def broken(name):
+        raise MXNetError("nvcc failed for csrc/%s.cu" % name)
+
+    monkeypatch.setattr(nms_kernel._build, "library", broken)
+    boxes, scores, valid, _ = _nms_tensors(1, 10, 0, cuda)
+    with pytest.raises(MXNetError, match="nvcc failed"):
+        nms_kernel.greedy_nms(boxes, valid, None, 0.5)
+
+
+def _detection_cases():
+    from mxnet_tpu_torch.tools import detection_sweep
+    return [pytest.param(c, id="%s-%d" % (c.name, i))
+            for i, c in enumerate(detection_sweep.CASES)]
+
+
+@pytest.mark.parametrize("case", _detection_cases())
+def test_detection_op_on_the_card_matches_cpu(cuda, case):
+    """Forward and gradients against the CPU, within the family's limit,
+    with no host synchronisation on the card."""
+    from mxnet_tpu_torch.tools import detection_sweep
+    want = detection_sweep.run_case(case, mxt.cpu())
+    got = detection_sweep.run_case(case, mxt.gpu(0), no_sync=True)
+    limit = detection_sweep.LIMITS[case.family]
+    assert detection_sweep.reading(got[0], want[0], case.family) <= limit
+    assert detection_sweep.reading(got[1], want[1], case.family,
+                                   norm=True) <= limit
+
+
+@pytest.mark.parametrize("family", ["box", "pool", "sample"])
+def test_detection_controls_fail_their_limits(cuda, family):
+    from mxnet_tpu_torch.tools import detection_sweep
+    assert detection_sweep.control(mxt.gpu(0), family) > \
+        detection_sweep.LIMITS[family]
+
+
+def test_box_ops_launch_n1_on_the_card(cuda):
+    """box_nms, MultiBoxDetection and Proposal each launch N1 once a call
+    on the card."""
+    from mxnet_tpu_torch.ops.nms_kernel import greedy_nms
+    from mxnet_tpu_torch.tools import detection_sweep
+    for name in ("_contrib_box_nms", "_contrib_MultiBoxDetection",
+                 "_contrib_Proposal"):
+        case = next(c for c in detection_sweep.CASES if c.name == name)
+        before = greedy_nms.launches
+        detection_sweep.run_case(case, mxt.gpu(0))
+        assert greedy_nms.launches == before + 1, name

@@ -6,7 +6,9 @@ mxnet_tpu_torch.tools.run_example EXAMPLE --device cpu ARGS``), so that
 the check that neither ``jax`` nor ``mxnet_tpu`` was imported sees a
 process of its own, with the arguments of its JAX test in
 `tests/test_examples.py` (the five Adam examples at smaller ones), and
-must print the line that test asserts.
+must print the line that test asserts: the detection slice's SSD,
+Faster-RCNN (plain, and ``--ohem --deformable``) and ``custom_softmax``
+examples too.
 The rewriting itself is held here too.
 """
 import os
@@ -65,6 +67,28 @@ ADAM_EXAMPLES = [
 def test_adam_example_on_the_port(rel, args, line):
     r = _run(rel, *args)
     assert r.returncode == 0, r.stderr[-2000:]
+    assert line in r.stdout
+
+
+#: the detection slice's examples at their JAX tests' arguments
+DETECTION_EXAMPLES = [
+    ("ssd/train_ssd.py", ["--num-batches", "30", "--batch-size", "8"],
+     "detections kept after NMS"),
+    ("rcnn/train_faster_rcnn.py", ["--num-steps", "20"],
+     "FASTER-RCNN FLOW OK"),
+    ("rcnn/train_faster_rcnn.py", ["--num-steps", "10", "--ohem",
+                                   "--deformable"], "FASTER-RCNN FLOW OK"),
+    ("numpy-ops/custom_softmax.py", ["--num-epochs", "8"],
+     "CUSTOM NUMPY OP OK"),
+]
+
+
+@pytest.mark.parametrize("rel,args,line", DETECTION_EXAMPLES,
+                         ids=["ssd", "faster_rcnn", "faster_rcnn_ohem_deform",
+                              "custom_softmax"])
+def test_detection_example_on_the_port(rel, args, line):
+    r = _run(rel, *args)
+    assert r.returncode == 0, r.stdout[-1500:] + r.stderr[-2000:]
     assert line in r.stdout
 
 

@@ -369,7 +369,8 @@ def test_recorded_signature_and_the_inference_one():
     for _ in range(2):
         _one_backward(net, "NCHW")
     counts = compiled.compile_counts()
-    assert counts == {"compiles": 2, "cache_hits": 1, "retraces": 1}
+    assert counts == {"compiles": 2, "cache_hits": 1, "retraces": 1,
+                      "uncaptured": 0}
     assert "autograd recording: static value False -> True" in \
         compiled.last_retrace()["reason"]
     # the optimizer writes the parameters in place: the inference
@@ -378,7 +379,7 @@ def test_recorded_signature_and_the_inference_one():
     trainer.step(BATCH)
     out = net(x)
     assert compiled.compile_counts() == {"compiles": 2, "cache_hits": 2,
-                                         "retraces": 1}
+                                         "retraces": 1, "uncaptured": 0}
     assert out.grad is None and not out.data.requires_grad
 
 

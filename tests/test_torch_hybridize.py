@@ -222,11 +222,11 @@ def test_compile_counts_and_retrace():
     net(x2)
     net(x2)
     assert compiled.compile_counts() == {"compiles": 1, "cache_hits": 1,
-                                         "retraces": 0}
+                                         "retraces": 0, "uncaptured": 0}
     assert compiled.last_retrace() is None
     net(mxt.nd.array(_x((3, 4)), ctx=CPU))
     assert compiled.compile_counts() == {"compiles": 2, "cache_hits": 1,
-                                         "retraces": 1}
+                                         "retraces": 1, "uncaptured": 0}
     retrace = compiled.last_retrace()
     assert retrace["site"] == "gluon.hybrid_forward"
     assert retrace["compiles"] == 2
@@ -238,7 +238,7 @@ def test_compile_counts_and_retrace():
         compiled.last_retrace()["reason"]
     compiled.reset()
     assert compiled.compile_counts() == {"compiles": 0, "cache_hits": 0,
-                                         "retraces": 0}
+                                         "retraces": 0, "uncaptured": 0}
     assert net._cached_jit._cache == {}
 
 
@@ -255,7 +255,7 @@ def test_a_new_block_is_no_retrace_of_a_collected_one():
         del net
         gc.collect()
     assert compiled.compile_counts() == {"compiles": 8, "cache_hits": 0,
-                                         "retraces": 0}
+                                         "retraces": 0, "uncaptured": 0}
 
 
 def test_tf32_switch_is_part_of_the_signature():
@@ -416,7 +416,7 @@ def test_scalar_argument_reaches_every_call():
     for s in (0.5, 2.0, 0.5):
         np.testing.assert_array_equal(net(x, s).asnumpy(), want[s])
     assert compiled.compile_counts() == {"compiles": 1, "cache_hits": 2,
-                                         "retraces": 0}
+                                         "retraces": 0, "uncaptured": 0}
 
 
 @pytest.mark.parametrize("by_value,reason", [
