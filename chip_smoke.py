@@ -237,13 +237,38 @@ in one more:
     block calling ``F.Custom`` on ``gpu(0)`` against ``cpu()``, eager and
     hybridized, its hybridized program counted as uncaptured.
 
+and then drives the sparse slice: ``nd.sparse`` arrays over their
+compact payload, ``kv.create("local")`` with ``row_sparse_pull`` and the
+optimizers' lazy row-sparse updates, one launch of S1 a push
+(`mxnet_tpu_torch/csrc/sparse_row_update.cu`), in one more:
+
+23. S1 against its plain version on the card at the sparse-embedding
+    example's push (a 1M x 32 table, 192 rows), at 1M x 128 with 65,536
+    rows and at nnz 0, for ``sgd``, ``sgd_mom``, ``adam`` and ``adagrad``
+    (f32 weights, bf16 too for the SGD formulas), clipping off and on, wd
+    0 and 1e-4: bit for bit, every untouched row of the weight and states
+    unchanged, 20 calls bit-identical under
+    ``set_sync_debug_mode("error")``; S1's, the plain version's and
+    ``torch.optim.SparseAdam``'s / ``SGD``'s times over a sparse COO
+    gradient (a yardstick only) and the bound, and S1 at one push over 1M
+    and 8M rows (ratio below 1.5); the same pushes, CSR ``dot`` and its
+    backward at wide-deep's shapes, and a ``Trainer`` and a ``Module`` step
+    with a KVStore object on ``gpu(0)`` against ``cpu()``; the example's
+    loop at its defaults (1M x 32, batch 64, 150 steps, lazy Adam): its
+    loss criterion, ms a step, one S1 launch a step, and one profiled
+    step (S1 once, U1 never, device busy time below one dense full-table
+    Adam update's); ``factorization_machine``, ``wide_deep`` and
+    ``sparse_embedding`` through ``run_example`` on ``gpu(0)``, and
+    ``sparse_embedding`` at its defaults, its outcome recorded.
+
 Phases 3-5 are the serving main path, phase 8 the LM training one,
 phase 11's gate-on steps on the card the ResNet one, phase 15's steps on
 the card the attention one, phase 16's first launches the rtc one,
 phase 18 the inference one, phase 19's steps on the card (its check,
 the example's loop and the bf16 gate-on loop) the Gluon training one,
 phase 20's two examples the nd-core one, phase 21 after its U1
-check the optimizer one and phase 22's examples the detection one:
+check the optimizer one, phase 22's examples the detection one and phase
+23's loop and examples the sparse one:
 every kernel's launch count is set to 0 before each and read after it.
 The serving path must launch K1, every call by the persistent route; the
 LM training path must launch K2 and K3 exactly once per layer and step,
@@ -259,7 +284,8 @@ kernel; the nd-core path none of them (the examples run an MLP and NCHW
 f32 ResNet-50); the LM training path U1 once a step; the optimizer path
 U1 once a (formula, dtype) group a step and K5 6 times a gate-on step,
 and none of K1-K4 and K6; the detection path N1 and U1 in every example
-run and none of K1-K6.
+run and none of K1-K6; the sparse path S1 once a push and none of
+K1-K6 or N1.
 K5's launches in the kernels line are the ResNet path's and the Gluon
 path's. Any failed
 check exits non-zero. The last lines
@@ -533,6 +559,50 @@ RCNN_MODES = [("plain", ["--num-steps", "20"]),
 # the training iteration profiled in the SSD and the plain Faster-RCNN run:
 # the one after this many Trainer steps
 PROFILED_AFTER = 10
+# phase 23: the sparse slice. S1 (the lazy row-sparse update) at
+# examples/sparse/sparse_embedding/train.py's push (a 1M x 32 table, 192
+# stored rows: batch 64 x 3 ids, deduplicated), at a wide one (1M x 128,
+# 65,536 rows) and at nnz 0; every formula, f32 weights (bf16 too for the
+# two SGD formulas), clipping off and on, wd 0 and 1e-4
+S1_SHAPES = [(1_000_000, 32, 192), (1_000_000, 128, 65_536),
+             (1_000_000, 32, 0)]
+S1_CASES = [("sgd", torch.float32), ("sgd", torch.bfloat16),
+            ("sgd_mom", torch.float32), ("sgd_mom", torch.bfloat16),
+            ("adam", torch.float32), ("adagrad", torch.float32)]
+S1_FLAGS = [(None, 0.0), (None, 1e-4), (0.75, 0.0), (0.75, 1e-4)]
+S1_KW = {"lr": 0.05, "rescale_grad": 0.5, "momentum": 0.9, "beta1": 0.9,
+         "beta2": 0.999, "epsilon": 1e-8}
+S1_CALLS = 20
+# the same push over tables of 1M and 8M rows: the update is O(nnz)
+S1_TABLES = (1_000_000, 8_000_000)
+S1_TABLE_RATIO = 1.5
+# bytes a stored value moves (the f32 gradient value, the weight (w bytes)
+# read and written, the f32 states read and written) and f32 operations
+S1_BYTES = {"sgd": lambda w: 4 + 2 * w, "sgd_mom": lambda w: 12 + 2 * w,
+            "adam": lambda w: 20 + 2 * w, "adagrad": lambda w: 12 + 2 * w}
+S1_OPS = {"sgd": 5, "sgd_mom": 7, "adam": 15, "adagrad": 10}
+# the example's loop at its defaults, on gpu(0)
+SPARSE_ROWS, SPARSE_DIM, SPARSE_BATCH = 1_000_000, 32, 64
+SPARSE_HOT, SPARSE_STEPS, SPARSE_LR = 500, 150, 0.05
+# card against CPU: 5 pushes of about 192 rows over a 100k x 32 table
+SPARSE_CHECK_ROWS, SPARSE_CHECK_PUSHES = 100_000, 5
+SPARSE_RTOL, SPARSE_ATOL = 1e-6, 1e-7
+# wide-deep's CSR dot: batch 64 x 2000 features, 10 stored a row, x 2000 x 8
+CSR_SHAPE, CSR_PER_ROW, CSR_COLS = (64, 2000), 10, 8
+# index_add_ sums with atomics, in an order that varies from run to run
+CSR_RTOL, STEP_RTOL = 1e-5, 1e-5
+# the examples at the arguments of tests/test_examples.py (the two Module
+# examples bind to mx.cpu() unless given --ctx tpu, which is cuda:0), and
+# sparse_embedding at its defaults
+SPARSE_EXAMPLES = [
+    ("factorization_machine", "sparse/factorization_machine/train.py",
+     ["--num-epochs", "15", "--num-examples", "2400", "--num-features",
+      "200", "--lr", "0.01", "--ctx", "tpu"], "final val accuracy", 0.6),
+    ("wide_deep", "sparse/wide_deep/train.py",
+     ["--num-epochs", "6", "--num-examples", "1200", "--num-sparse", "400",
+      "--ctx", "tpu"], "final val accuracy", 0.7),
+    ("sparse_embedding", "sparse/sparse_embedding/train.py",
+     ["--rows", "100000", "--steps", "80"], "SPARSE EMBEDDING OK", None)]
 # the bench's inference function in phase 18: rounds of calls x iters
 INFER_ITERS, INFER_CALLS, INFER_ROUNDS = 50, 2, 2
 PEAK_TF32_FLOPS = 495e12
@@ -3875,6 +3945,421 @@ def phase_custom(mx):
 
 
 
+def s1_inputs(formula, dtype, shape, seed, device="cuda"):
+    """(weight, states, values, indices) of one push on ``device`` from a
+    seed: states positive (Adam's variance), unique row ids."""
+    from mxnet_tpu_torch.ops.sparse_update import FORMULAS
+    rows, d, nnz = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn((rows, d), generator=gen, device=device).to(dtype)
+    states = tuple(torch.rand((rows, d), generator=gen, device=device) + 0.1
+                   for _ in range(FORMULAS[formula][1]))
+    idx = torch.randperm(rows, generator=gen, device=device)[:nnz]
+    vals = torch.randn((nnz, d), generator=gen, device=device) * 3
+    return w, states, vals, idx
+
+
+def s1_bound(formula, dtype, d, nnz):
+    """(ms, "bytes" | "operations") of one S1 call: each touched value
+    read and written once, the row ids read once."""
+    w = 2 if dtype == torch.bfloat16 else 4
+    values = d * nnz
+    return bound_of((values * S1_BYTES[formula](w) + 8 * nnz)
+                    / PEAK_BYTES_PER_S * 1e3,
+                    values * S1_OPS[formula] / PEAK_F32_FLOPS * 1e3)
+
+
+def library_sparse(formula, w, vals, idx):
+    """One PyTorch optimizer step over a ``torch.sparse_coo_tensor``
+    gradient with the same rows (``SparseAdam`` for adam, ``SGD`` with
+    momentum 0 otherwise): a yardstick of time only, whose formulas
+    differ; never on the port's path."""
+    p = torch.nn.Parameter(w.clone())
+    p.grad = torch.sparse_coo_tensor(idx[None], vals, tuple(w.shape))
+    if formula == "adam":
+        return torch.optim.SparseAdam([p], lr=S1_KW["lr"])
+    return torch.optim.SGD([p], lr=S1_KW["lr"])
+
+
+def phase_s1(mx, device="cuda"):
+    """Phase 23a: S1 against its plain version on the card at S1_SHAPES
+    for every formula and weight dtype, clipping off and on, wd 0 and
+    1e-4: the weight and states bit for bit, every untouched row
+    bit-identical to its value before the push; S1_CALLS calls from the
+    same inputs bit-identical under set_sync_debug_mode("error"); S1's
+    CUDA-event ms, the plain version's, the bound and
+    SparseAdam's / SGD's over a sparse COO gradient at each shape; S1 at
+    one push over tables of 1M and 8M rows."""
+    from mxnet_tpu_torch.ops.sparse_update import (sparse_row_update,
+                                                   sparse_row_update_plain)
+    checks, fails = [], []
+    for shape in S1_SHAPES:
+        for formula, dtype in S1_CASES:
+            for clip, wd in S1_FLAGS:
+                w, states, vals, idx = s1_inputs(formula, dtype, shape,
+                                                 SEED + 230, device)
+                w0, s0 = w.clone(), tuple(s.clone() for s in states)
+                ref_w, ref_s = w.clone(), tuple(s.clone() for s in states)
+                before = sparse_row_update.launches
+                sparse_row_update(formula, w, vals, idx, states, wd=wd,
+                                  clip_gradient=clip, **S1_KW)
+                sparse_row_update_plain(formula, ref_w, vals, idx, ref_s,
+                                        wd=wd, clip_gradient=clip, **S1_KW)
+                launched = sparse_row_update.launches - before
+                rest = torch.ones(shape[0], dtype=torch.bool, device=device)
+                rest[idx] = False
+                same = torch.equal(w, ref_w) and all(
+                    torch.equal(a, b) for a, b in zip(states, ref_s))
+                kept = torch.equal(w[rest], w0[rest]) and all(
+                    torch.equal(a[rest], b[rest])
+                    for a, b in zip(states, s0))
+                err = float((w.float() - ref_w.float()).abs().max())
+                row = {"shape": shape, "formula": formula,
+                       "dtype": str(dtype)[6:], "clip": clip, "wd": wd,
+                       "bit_equal": same, "untouched_kept": kept,
+                       "launches": launched, "max_abs_err": err}
+                checks.append(row)
+                if not (same and kept and launched == int(shape[2] > 0)):
+                    fails.append(row)
+                del w, states, w0, s0, ref_w, ref_s
+    timed = []
+    for shape in S1_SHAPES[:2]:
+        for formula in ("adam", "sgd"):
+            w0, s0, vals, idx = s1_inputs(formula, torch.float32, shape,
+                                          SEED + 231, device)
+            outs = []
+            for _ in range(S1_CALLS):
+                w, states = w0.clone(), tuple(s.clone() for s in s0)
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    sparse_row_update(formula, w, vals, idx, states, **S1_KW)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                outs.append(torch.cat([w.flatten()] +
+                                      [s.flatten() for s in states]))
+            identical = all(torch.equal(o, outs[0]) for o in outs)
+            del outs
+            w, states = w0.clone(), tuple(s.clone() for s in s0)
+            library = library_sparse(formula, w, vals, idx)
+            bound, by = s1_bound(formula, torch.float32, shape[1], shape[2])
+            row = {"shape": shape, "formula": formula, "dtype": "float32",
+                   "bit_identical_calls": identical,
+                   "ms": time_ms(lambda: sparse_row_update(
+                       formula, w, vals, idx, states, **S1_KW), S1_CALLS),
+                   "plain_ms": time_ms(lambda: sparse_row_update_plain(
+                       formula, w, vals, idx, states, **S1_KW), S1_CALLS),
+                   "library_ms": time_ms(library.step, S1_CALLS),
+                   "library": type(library).__name__,
+                   "bound_ms": bound, "bound_by": by}
+            timed.append(row)
+            if not identical:
+                fails.append(row)
+            del w0, s0, w, states, library
+    tables = {}
+    for rows in S1_TABLES:
+        shape = (rows,) + S1_SHAPES[0][1:]
+        w, states, vals, idx = s1_inputs("adam", torch.float32, shape,
+                                         SEED + 232, device)
+        tables[rows] = time_ms(lambda: sparse_row_update(
+            "adam", w, vals, idx, states, **S1_KW), S1_CALLS)
+        del w, states
+    ratio = tables[S1_TABLES[1]] / tables[S1_TABLES[0]]
+    summary = {"checks": len(checks), "failed": fails, "timed": timed,
+               "table_ms": tables, "table_ratio": ratio,
+               "max_abs_err": max(r["max_abs_err"] for r in checks)}
+    log("phase 23 S1 vs plain %s" % json.dumps(summary))
+    check(not fails, "S1 against its plain version: %s" % fails[:3])
+    check(ratio < S1_TABLE_RATIO, "S1 at one push over %d rows took %.4f ms "
+          "and over %d rows %.4f ms: ratio %.2f, want below %.1f"
+          % (S1_TABLES[0], tables[S1_TABLES[0]], S1_TABLES[1],
+             tables[S1_TABLES[1]], ratio, S1_TABLE_RATIO))
+    torch.cuda.empty_cache()
+    return summary
+
+
+def sparse_embedding_setup(mx, rng):
+    """The example's table, store and Adam updater on gpu(0)."""
+    from mxnet_tpu_torch.ndarray import sparse
+    ctx = mx.gpu(0)
+    hot = rng.choice(SPARSE_ROWS, SPARSE_HOT, replace=False)
+    cluster = rng.randint(0, 8, SPARSE_HOT)
+    kv = mx.kv.create("local")
+    kv.init("emb", mx.nd.array(rng.randn(SPARSE_ROWS, SPARSE_DIM)
+                               .astype(np.float32) * 0.05, ctx=ctx))
+    opt = mx.optimizer.Adam(learning_rate=SPARSE_LR, rescale_grad=1.0)
+    kv._set_updater(mx.optimizer.get_updater(opt))
+    out_buf = sparse.zeros("row_sparse", (SPARSE_ROWS, SPARSE_DIM), ctx=ctx)
+    return hot, cluster, kv, opt, out_buf
+
+
+def sparse_embedding_step(mx, rng, hot, cluster, kv, out_buf):
+    """One step of examples/sparse/sparse_embedding/train.py's loop, as it
+    is written (row_sparse_pull, the gathered rows' forward and backward,
+    the row-sparse gradient pushed into lazy Adam): its loss."""
+    from mxnet_tpu_torch.ndarray import sparse
+    ctx = mx.gpu(0)
+    ci = rng.randint(0, 8, SPARSE_BATCH)
+    a = hot[np.array([rng.choice(np.where(cluster == c)[0]) for c in ci])]
+    b = hot[np.array([rng.choice(np.where(cluster == c)[0]) for c in ci])]
+    n = hot[rng.randint(0, SPARSE_HOT, SPARSE_BATCH)]
+    rows = np.unique(np.concatenate([a, b, n]))
+    remap = {r: i for i, r in enumerate(rows)}
+    kv.row_sparse_pull("emb", out=out_buf, row_ids=mx.nd.array(
+        rows.astype(np.float32), ctx=ctx))
+    W = mx.nd.array(np.asarray(out_buf._ensure_aux()["values"]), ctx=ctx)
+    W.attach_grad()
+    ia, ib, inn = (mx.nd.array(np.array([remap[r] for r in s], np.float32),
+                               ctx=ctx) for s in (a, b, n))
+    with mx.autograd.record():
+        ea, eb, en = (mx.nd.take(W, i) for i in (ia, ib, inn))
+        pos = mx.nd.sum(ea * eb, axis=1)
+        neg = mx.nd.sum(ea * en, axis=1)
+        loss = mx.nd.relu(1.0 - pos + neg).mean()
+    loss.backward()
+    kv.push("emb", sparse.row_sparse_array(
+        (W.grad.asnumpy(), rows.astype(np.int64)),
+        shape=(SPARSE_ROWS, SPARSE_DIM), ctx=ctx))
+    return float(loss.asnumpy())
+
+
+def phase_sparse_loop(mx):
+    """Phase 23b: the sparse-embedding loop at the example's defaults on
+    gpu(0) (1M x 32 table, batch 64, 500 hot rows, 150 steps, lazy Adam
+    at lr 0.05 through kv.create("local")): the example's loss criterion,
+    ms a step on the host's clock bracketed by synchronize, one S1 launch
+    a step; one more step under torch.profiler (S1 once, U1 never, its
+    device busy time below one dense full-table Adam update's device
+    time on the same table)."""
+    s1, u1 = mx.ops.sparse_row_update, mx.ops.multi_tensor_update
+    rng = np.random.RandomState(0)
+    hot, cluster, kv, opt, out_buf = sparse_embedding_setup(mx, rng)
+    before = s1.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [sparse_embedding_step(mx, rng, hot, cluster, kv, out_buf)
+              for _ in range(SPARSE_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / SPARSE_STEPS
+    launches = s1.launches - before
+    s1_before, u1_before = s1.launches, u1.launches
+    wall, kern = device_profile(
+        lambda: sparse_embedding_step(mx, rng, hot, cluster, kv, out_buf),
+        complete=lambda k: any("sparse_row_update_kernel" in n for n in k))
+    s1_prof = s1.launches - s1_before
+    u1_prof = u1.launches - u1_before
+    busy = sum(v[1] for v in kern.values())
+    in_trace = [v for n, v in kern.items() if "sparse_row_update_kernel" in n]
+    wd = mx.nd.zeros((SPARSE_ROWS, SPARSE_DIM), ctx=mx.gpu(0))
+    gd = mx.nd.ones((SPARSE_ROWS, SPARSE_DIM), ctx=mx.gpu(0))
+    st = opt.create_state(1, wd)
+    dense_ms = time_ms(lambda: opt.update(1, wd, gd, st), 10)
+    summary = {"loss_first": losses[0], "loss_last10": float(np.mean(
+        losses[-10:])), "step_ms": step_ms, "s1_launches": launches,
+        "profiled_step": {"wall_ms": wall, "device_busy_ms": busy,
+                          "s1_launches": s1_prof, "u1_launches": u1_prof,
+                          "s1_in_trace": in_trace,
+                          "kernels": len(kern)},
+        "dense_full_table_update_device_ms": dense_ms}
+    log("phase 23 sparse embedding loop %s" % json.dumps(summary))
+    check(np.mean(losses[-10:]) < losses[0] * 0.7,
+          "the loss went from %.4f to %.4f: the example wants below 0.7x"
+          % (losses[0], np.mean(losses[-10:])))
+    check(launches == SPARSE_STEPS, "S1 launched %d times in %d steps"
+          % (launches, SPARSE_STEPS))
+    check(s1_prof == 1 and u1_prof == 0 and in_trace and in_trace[0][0] == 1,
+          "the profiled step launched S1 %d times (trace %s) and U1 %d "
+          "times: want 1 and 0" % (s1_prof, in_trace, u1_prof))
+    check(busy < dense_ms, "a sparse step kept the card busy %.4f ms, one "
+          "dense full-table Adam update takes %.4f" % (busy, dense_ms))
+    del kv, wd, gd, st, out_buf
+    torch.cuda.empty_cache()
+    return summary
+
+
+def sparse_mlp(mx, ctx, params):
+    net = mx.gluon.nn.HybridSequential(prefix="mlp_")
+    with net.name_scope():
+        net.add(mx.gluon.nn.Dense(64, activation="relu", in_units=32),
+                mx.gluon.nn.Dense(10, in_units=64))
+    net.initialize(ctx=ctx)
+    for name, p in net.collect_params().items():
+        p.set_data(mx.nd.array(params[name], ctx=ctx))
+    return net
+
+
+def phase_sparse_card_vs_cpu(mx):
+    """Phase 23c: gpu(0) against cpu() from the same inputs: 5 row-sparse
+    pushes through a local kvstore with lazy Adam and with SGD momentum
+    (weights and states, SPARSE_RTOL / SPARSE_ATOL); CSR dot at
+    wide-deep's shapes and its taped backward (CSR_RTOL); one Trainer
+    step and one Module step with a KVStore object (STEP_RTOL)."""
+    from mxnet_tpu_torch.ndarray import sparse
+    rng = np.random.RandomState(SEED + 233)
+    cpu, gpu = mx.cpu(), mx.gpu(0)
+    w0 = rng.randn(SPARSE_CHECK_ROWS, SPARSE_DIM).astype("f")
+    pushes = []
+    for _ in range(SPARSE_CHECK_PUSHES):
+        rows = np.unique(rng.randint(0, SPARSE_CHECK_ROWS, 3 * SPARSE_BATCH))
+        pushes.append((rows, (rng.randn(len(rows), SPARSE_DIM) * 2)
+                       .astype("f")))
+    out, fails = {}, []
+
+    def close(name, got, want, rtol, atol):
+        err = float(np.abs(got - want).max())
+        out[name] = err
+        if not np.allclose(got, want, rtol=rtol, atol=atol):
+            fails.append("%s: max abs err %.3g" % (name, err))
+
+    for name, kw in (("adam", {"learning_rate": 0.05}),
+                     ("sgd", {"learning_rate": 0.1, "momentum": 0.9,
+                              "wd": 1e-4})):
+        res = {}
+        for side, ctx in (("cpu", cpu), ("gpu", gpu)):
+            kv = mx.kv.create("local")
+            kv.init("emb", mx.nd.array(w0, ctx=ctx))
+            kv.set_optimizer(mx.optimizer.create(name, **kw))
+            for rows, vals in pushes:
+                kv.push("emb", sparse.row_sparse_array(
+                    (vals, rows), shape=w0.shape, ctx=ctx))
+            st = kv._updater.states["emb"]
+            st = st if isinstance(st, tuple) else (st,)
+            res[side] = [kv._store["emb"].asnumpy()] + \
+                [s.asnumpy() for s in st]
+        for k, (a, b) in enumerate(zip(res["cpu"], res["gpu"])):
+            close("%s_%s" % (name, ["weight", "state0", "state1"][k]), b, a,
+                  SPARSE_RTOL, SPARSE_ATOL)
+    cols = np.stack([rng.choice(CSR_SHAPE[1], CSR_PER_ROW, replace=False)
+                     for _ in range(CSR_SHAPE[0])])
+    dense = np.zeros(CSR_SHAPE, "f")
+    dense[np.arange(CSR_SHAPE[0])[:, None], cols] = rng.rand(
+        CSR_SHAPE[0], CSR_PER_ROW)
+    rhs0 = rng.randn(CSR_SHAPE[1], CSR_COLS).astype("f")
+    res = {}
+    for side, ctx in (("cpu", cpu), ("gpu", gpu)):
+        csr = sparse.csr_matrix(dense, ctx=ctx)
+        rhs = mx.nd.array(rhs0, ctx=ctx)
+        rhs.attach_grad()
+        with mx.autograd.record():
+            y = sparse.dot(csr, rhs)
+            loss = (y * y).sum()
+        loss.backward()
+        res[side] = (y.asnumpy(), rhs.grad.asnumpy(),
+                                csr._dense is None)
+    close("csr_dot", res["gpu"][0], res["cpu"][0], CSR_RTOL, 1e-6)
+    close("csr_dot_backward", res["gpu"][1], res["cpu"][1], CSR_RTOL, 1e-6)
+    if not (res["gpu"][2] and res["cpu"][2]):
+        fails.append("the CSR lhs was made dense")
+    params = {"mlp_dense0_weight": rng.randn(64, 32).astype("f") * 0.2,
+              "mlp_dense0_bias": np.zeros(64, "f"),
+              "mlp_dense1_weight": rng.randn(10, 64).astype("f") * 0.2,
+              "mlp_dense1_bias": np.zeros(10, "f")}
+    x = rng.randn(16, 32).astype("f")
+    y = rng.randint(0, 10, 16).astype("f")
+    res = {}
+    for side, ctx in (("cpu", cpu), ("gpu", gpu)):
+        net = sparse_mlp(mx, ctx, params)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": 0.01},
+                                   kvstore=mx.kv.create("local"))
+        with mx.autograd.record():
+            loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(
+                net(mx.nd.array(x, ctx=ctx)), mx.nd.array(y, ctx=ctx))
+        loss.backward()
+        trainer.step(16)
+        res[side] = {n: p.data().asnumpy() for n, p in
+                                net.collect_params().items()}
+    for n in params:
+        close("trainer_" + n, res["gpu"][n], res["cpu"][n], STEP_RTOL, 1e-6)
+    sym = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(mx.sym.Activation(
+        mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=64,
+                              name="fc1"), act_type="relu"), num_hidden=10,
+        name="fc2"), name="softmax")
+    args = {"fc1_weight": params["mlp_dense0_weight"],
+            "fc1_bias": params["mlp_dense0_bias"],
+            "fc2_weight": params["mlp_dense1_weight"],
+            "fc2_bias": params["mlp_dense1_bias"]}
+    res = {}
+    for side, ctx in (("cpu", cpu), ("gpu", gpu)):
+        mod = mx.mod.Module(sym, context=ctx)
+        mod.bind([("data", x.shape)], [("softmax_label", y.shape)])
+        mod.init_params(arg_params={k: mx.nd.array(v, ctx=ctx)
+                                    for k, v in args.items()})
+        mod.init_optimizer(kvstore=mx.kv.create("local"), optimizer="sgd",
+                           optimizer_params=(("learning_rate", 0.1),
+                                             ("momentum", 0.9)))
+        mod.forward(mx.io.DataBatch([mx.nd.array(x, ctx=ctx)],
+                                    [mx.nd.array(y, ctx=ctx)]),
+                    is_train=True)
+        mod.backward()
+        mod.update()
+        res[side] = {k: v.asnumpy() for k, v in
+                                mod.get_params()[0].items()}
+    for n in args:
+        close("module_" + n, res["gpu"][n], res["cpu"][n], STEP_RTOL, 1e-6)
+    log("phase 23 card vs CPU %s" % json.dumps({"max_abs_err": out,
+                                                "failed": fails}))
+    check(not fails, "the sparse slice on the card against the CPU: "
+          + "; ".join(fails))
+    return out
+
+
+def phase_sparse_examples(mx, counters):
+    """Phase 23d: the sparse examples through ``tools/run_example`` on
+    gpu(0): factorization_machine and wide_deep at their tests' arguments
+    with ``--ctx tpu`` (their accuracy above the tests' limits, their
+    Module's Adam on U1), sparse_embedding at
+    ``--rows 100000 --steps 80`` (its OK line, one S1 launch a step), none
+    of K1-K6 or N1; then sparse_embedding at its defaults, its outcome
+    recorded whatever it is (its wall-clock assert times ``opt.update``
+    without a synchronize)."""
+    s1 = counters["sparse_row_update"]
+    rows = {}
+    for key, rel, argv, line, acc in SPARSE_EXAMPLES:
+        before = {k: c.launches for k, c in counters.items()}
+        run = run_example_captured(mx, rel, argv, "gpu")
+        got = {k: c.launches - before[k] for k, c in counters.items()}
+        hit = [ln for ln in run["lines"] if line in ln]
+        row = {"line": hit[0] if hit else None, "seconds": run["seconds"],
+               "devices": run["seen"], "launches": got}
+        rows[key] = row
+        log("phase 23 %s %s" % (key, json.dumps(row)))
+        check(hit, "%s printed no %r line: %s" % (rel, line,
+                                                  run["lines"][-5:]))
+        if acc is not None:
+            check(float(hit[0].split()[-1]) > acc, "%s: %s, want above %s"
+                  % (key, hit[0], acc))
+            check(got["multi_tensor_update"] > 0, "%s launched no U1: its "
+                  "Module did not train on the card" % key)
+        else:
+            steps = int(argv[argv.index("--steps") + 1])
+            check(got["sparse_row_update"] == steps,
+                  "%s launched S1 %d times in %d steps"
+                  % (key, got["sparse_row_update"], steps))
+        check(not any(n for k, n in got.items() if k not in (
+            "sparse_row_update", "multi_tensor_update")),
+            "%s launched %s: want S1 and U1 only" % (key, got))
+    from mxnet_tpu_torch.tools.run_example import run_example
+    buf = io.StringIO()
+    before = s1.launches
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            run_example("examples/sparse/sparse_embedding/train.py", [],
+                        "gpu")
+        outcome = "ok"
+    except AssertionError as exc:
+        outcome = "AssertionError: %s" % (exc,)
+    lines = buf.getvalue().splitlines()
+    timing = [ln for ln in lines if "dense full-table update" in ln]
+    rows["sparse_embedding_defaults"] = {
+        "outcome": outcome, "lines": lines[-3:], "timing": timing,
+        "s1_launches": s1.launches - before,
+        "seconds": time.perf_counter() - t0}
+    log("phase 23 sparse_embedding defaults %s"
+        % json.dumps(rows["sparse_embedding_defaults"]))
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs the port on the GPU",
@@ -4119,6 +4604,29 @@ def main():
           "the detection path launched %s: want N1 and U1 only"
           % det_launches)
     del ops_summary
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    s1_summary = phase_s1(mx)
+    phase_sparse_card_vs_cpu(mx)
+    s1 = mx.ops.sparse_row_update
+    path = dict(counters, multi_tensor_update=u1, greedy_nms=n1,
+                sparse_row_update=s1)
+    for c in path.values():                   # the sparse path starts
+        c.launches = 0
+    loop = phase_sparse_loop(mx)
+    sparse_examples = phase_sparse_examples(mx, path)
+    sp_launches = {k: c.launches for k, c in path.items()}   # ... ends here
+    log("phase 23 sparse %s" % json.dumps({
+        "kernel_launches": sp_launches, "card": card,
+        "step_ms": loop["step_ms"],
+        "defaults_outcome": sparse_examples["sparse_embedding_defaults"][
+            "outcome"], "seconds": time.perf_counter() - t0}))
+    check(sp_launches["sparse_row_update"] > 0
+          and not any(n for k, n in sp_launches.items()
+                      if k not in ("sparse_row_update",
+                                   "multi_tensor_update")),
+          "the sparse path launched %s: want S1 (and U1) only" % sp_launches)
 
     top = next(r for r in rows if r["B"] == max(SERVED_BATCHES))
     train = next(r for r in train_rows if r["B"] == TRAIN_BATCH)
@@ -4195,6 +4703,17 @@ def main():
         "launches": det_launches["greedy_nms"],
         "max_abs_err": float(max(r["mismatches"] for r in n1_rows)),
         **{key: n1_main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}})
+    # S1: the example's push (1M x 32 table, 192 rows), lazy Adam, f32
+    s1_main = next(r for r in s1_summary["timed"] if r["formula"] == "adam"
+                   and r["shape"] == S1_SHAPES[0])
+    kernels.append({
+        "name": "sparse_row_update", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/sparse_row_update.cu",
+        "replaces": "mxnet_tpu/optimizer.py:38",
+        "launches": sp_launches["sparse_row_update"],
+        "max_abs_err": s1_summary["max_abs_err"],
+        **{key: s1_main[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")}})
     log(card)
     log(json.dumps({"kernels": kernels}))

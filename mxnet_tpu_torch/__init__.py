@@ -2,7 +2,7 @@
 
 A second package beside the JAX one, with the same module names, so an
 ``import mxnet_tpu_torch as mx`` script reads like one written against
-`mxnet_tpu`. It imports neither JAX nor `mxnet_tpu`. It holds six paths
+`mxnet_tpu`. It imports neither JAX nor `mxnet_tpu`. It holds seven paths
 so far:
 
 - serving: ``sym`` -> ``Executor`` -> ``Predictor`` ->
@@ -43,7 +43,12 @@ so far:
   its ``.grad`` buffer, and with ``MXNET_CONV1X1_PALLAS`` on the NHWC
   stride-2 1x1 convolutions take their input gradient from the same
   hand-written kernel as in ``Module`` training; ``gluon.data`` and
-  ``gluon.utils`` feed it.
+  ``gluon.utils`` feed it;
+- sparse training: ``nd.sparse`` (row-sparse and CSR arrays over their
+  compact payload, ``dot`` on it under the tape), ``kv`` (the local
+  ``KVStore`` with ``row_sparse_pull``) and the optimizers' lazy
+  row-sparse updates, one launch of a hand-written CUDA kernel a push
+  (`csrc/sparse_row_update.cu`, bound by `ops/sparse_update.py`).
 
 ``rtc`` compiles and launches user CUDA kernels at runtime (NVRTC and
 ``libcuda``), the reference's ``mx.rtc.CudaModule``.
@@ -69,6 +74,9 @@ from .executor import Executor
 from . import initializer
 from . import initializer as init
 from . import optimizer
+from . import kvstore
+from . import kvstore as kv
+from .kvstore import create as kvstore_create
 from . import lr_scheduler
 from . import misc
 from . import io
@@ -90,7 +98,8 @@ from . import operator
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "cpu_pinned",
            "current_context", "num_gpus", "num_tpus", "context", "random",
            "nd", "ndarray", "ops", "sym", "symbol",
-           "Executor", "init", "initializer", "optimizer", "lr_scheduler",
+           "Executor", "init", "initializer", "optimizer", "kv", "kvstore",
+           "kvstore_create", "lr_scheduler",
            "misc", "io", "metric",
            "mod", "module", "model", "callback", "name", "gluon", "compiled",
            "autograd", "Predictor", "params_from_numpy", "params_to_numpy",

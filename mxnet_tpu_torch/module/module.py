@@ -21,8 +21,11 @@ module's device. The JAX package fuses a train step into one compiled
 program and ``_step_scan`` runs K of them in one ``lax.scan`` dispatch;
 here both run eagerly (K steps in a Python loop, their batches staged on
 the device up front as the JAX package stages them) with the same
-semantics. Multi-device contexts, kvstores other than a local one on one
-device, SPMD sharding, ``group2ctxs``, bucketing and the monitor wait for
+semantics. With a ``KVStore`` object (`kvstore.py`) the module updates on
+the store, as the reference does: ``init_optimizer`` initializes every
+parameter's key and sets the optimizer there, and ``update`` pushes the
+gradients as one list and pulls the weights back. Multi-device contexts,
+the distributed kvstores, SPMD sharding, ``group2ctxs``, bucketing and the monitor wait for
 later slices.
 """
 from __future__ import annotations
@@ -32,6 +35,7 @@ import warnings
 
 import torch
 
+from .. import kvstore as kvs
 from .. import optimizer as opt
 from ..base import MXNetError
 from ..context import Context, gpu
@@ -44,13 +48,18 @@ from .base_module import BaseModule, _check_input_names
 
 def _create_kvstore(kvstore, num_device):
     """Reference `python/mxnet/model.py:_create_kvstore`, for one device:
-    a local kvstore (or none) is no kvstore at all."""
+    (kvstore, update_on_kvstore). A KVStore object is used as it is and
+    updates on the store; None, or a single-process name on one device,
+    means no kvstore; a ``dist*`` name raises (ROADMAP A.10)."""
     if kvstore is None:
-        return None
-    if isinstance(kvstore, str) and num_device == 1 and "dist" not in kvstore:
-        return None
-    raise MXNetError("kvstore %r is not ported yet: the port trains on one "
-                     "device without a kvstore" % (kvstore,))
+        return None, False
+    if isinstance(kvstore, kvs.KVStore):
+        return kvstore, True
+    if isinstance(kvstore, str):
+        if num_device == 1 and "dist" not in kvstore:
+            return None, False
+        kvs.create(kvstore)         # raises: distributed, not ported yet
+    raise TypeError("kvstore must be KVStore, str or None")
 
 
 def _norm_shapes(shapes):
@@ -95,6 +104,7 @@ class Module(BaseModule):
         self._aux_params = None
         self._optimizer = None
         self._kvstore = None
+        self._update_on_kvstore = False
         self._updater = None
         self._fused = None
         self._preload_opt_states = None
@@ -306,7 +316,7 @@ class Module(BaseModule):
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
-        self._kvstore = _create_kvstore(kvstore, 1)
+        kvstore, update_on_kvstore = _create_kvstore(kvstore, 1)
         # data is batch-major for most graphs; the word LM's is (T, B),
         # and the reference takes dim 0 all the same
         rescale_grad = 1.0 / self._data_shapes[0][1][0]
@@ -329,8 +339,17 @@ class Module(BaseModule):
                 optimizer.param_dict = {}
                 optimizer.idx2name = idx2name.copy()
         self._optimizer = optimizer
-        self._updater = opt.get_updater(optimizer)
+        self._kvstore = kvstore
+        self._update_on_kvstore = update_on_kvstore
+        self._updater = None
         self._fused = None
+        if kvstore:
+            for i, name in enumerate(self._param_names):
+                kvstore.init(i, self._exec.arg_dict[name])
+            if update_on_kvstore:
+                kvstore.set_optimizer(self._optimizer)
+        if not update_on_kvstore:
+            self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
@@ -338,14 +357,21 @@ class Module(BaseModule):
 
     def save_optimizer_states(self, fname):
         """Write the updater's states (numpy arrays, pickled) to
-        ``fname``, in the JAX package's format."""
+        ``fname``, in the JAX package's format (the store's updater when
+        updating on a kvstore)."""
         self._check_ready(optimizer=True)
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         with open(fname, "wb") as fout:
             fout.write(self._updater.get_states())
 
     def load_optimizer_states(self, fname):
         """Read a ``save_optimizer_states`` file into the updater."""
         self._check_ready(optimizer=True)
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as f:
             self._updater.set_states(f.read())
 
@@ -379,17 +405,31 @@ class Module(BaseModule):
         self._exec.backward(out_grads=out_grads)
 
     def update(self):
-        """Apply the optimizer to every parameter that has a gradient, in
-        one call of ``optimizer.FusedApplier``."""
+        """Apply the optimizer to every parameter that has a gradient: on
+        the kvstore (a list push of the gradients, a list pull of the
+        weights), or in one call of ``optimizer.FusedApplier``, after a
+        push and pull of the gradients where a kvstore reduces them
+        (reference module.py ``update`` and model.py
+        ``_update_params``)."""
         self._check_ready(optimizer=True)
+        live = [(i, name) for i, name in enumerate(self._param_names)
+                if self._grad_req.get(name, "null") != "null"
+                and self._exec.grad_dict.get(name) is not None]
+        if not live:
+            return
+        idx = [i for i, _ in live]
+        grads = [self._exec.grad_dict[n] for _, n in live]
+        if self._update_on_kvstore:
+            self._kvstore.push(idx, grads)
+            self._kvstore.pull(idx, [self._exec.arg_dict[n]
+                                     for _, n in live])
+            return
+        if self._kvstore:
+            self._kvstore.push(idx, grads)
+            self._kvstore.pull(idx, grads)
         if self._fused is None:
             self._fused = opt.FusedApplier.resolve(self._updater)
-        live = [(i, name) for i, name in enumerate(self._param_names)
-                if self._grad_req.get(name, "null") != "null"]
-        if live:
-            self._fused([i for i, _ in live],
-                        [self._exec.arg_dict[n] for _, n in live],
-                        [self._exec.grad_dict[n] for _, n in live])
+        self._fused(idx, [self._exec.arg_dict[n] for _, n in live], grads)
 
     def _step_scan(self, data_batches):
         """``len(data_batches)`` train steps, one after the other. Returns

@@ -37,3 +37,4 @@ maximum = _with_scalar(globals()["maximum"], "_maximum_scalar")
 minimum = _with_scalar(globals()["minimum"], "_minimum_scalar")
 from . import contrib  # noqa: E402,F401
 from . import random  # noqa: E402,F401
+from . import sparse  # noqa: E402,F401

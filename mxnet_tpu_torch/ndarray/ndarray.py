@@ -9,9 +9,9 @@ and ``@`` operators, the JAX package's methods over the registered ops
 (`ops/invoke.py`, so they are recorded under ``autograd.record()``), the
 autograd surface (``attach_grad``, ``grad``, ``backward``, ``detach``)
 and the constructors (``array``, ``zeros``, ``ones``, ``full``,
-``empty``, ``arange``, ``concatenate``, ``moveaxis``). Storage is dense
-only: ``stype`` is ``"default"`` and ``tostype`` refuses any other
-(sparse storage is ROADMAP A.13). Unlike the JAX
+``empty``, ``arange``, ``concatenate``, ``moveaxis``). ``stype`` is
+``"default"``; ``tostype`` converts to the sparse storage types of
+`ndarray/sparse.py`, whose arrays are NDArrays too. Unlike the JAX
 package, whose arrays are immutable and rebound on assignment,
 ``arr[:] = value`` here copies into the existing tensor (under
 ``torch.no_grad()``: the tensor may be an autograd leaf), so every
@@ -89,10 +89,13 @@ class NDArray:
         return self.transpose()
 
     def tostype(self, stype):
-        if stype != "default":
-            raise MXNetError("storage type %r is not ported yet (ROADMAP "
-                             "A.13); the port's arrays are dense" % (stype,))
-        return self
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
+
+    def _wrote(self):
+        """Called after a write into this array's tensor from outside
+        (an op's ``out=``, a scatter): a sparse array drops its compact
+        form here."""
 
     def as_np(self):
         """The underlying tensor (the JAX package returns its array)."""

@@ -9,11 +9,13 @@ from . import contrib_ops  # noqa: F401  (registers ops)
 from . import detection  # noqa: F401  (registers ops)
 from . import random_ops  # noqa: F401  (registers ops)
 from . import optimizer_ops  # noqa: F401  (registers ops)
+from . import compat_ops  # noqa: F401  (registers ops)
 from .attention_kernel import (FlashAttention, dense_attention_plain,
                                flash_attention, flash_attention_plain)
 from .conv_kernel import conv1x1_s2_dgrad, conv1x1_s2_dgrad_plain
 from .nms_kernel import greedy_nms, greedy_nms_plain
 from .multi_tensor import multi_tensor_update, multi_tensor_update_plain
+from .sparse_update import sparse_row_update, sparse_row_update_plain
 from .lstm_kernel import (FusedLSTM, fused_lstm, fused_lstm_backward,
                           fused_lstm_backward_plain, fused_lstm_plain,
                           fused_lstm_train, fused_lstm_train_plain,
@@ -22,6 +24,7 @@ from .lstm_kernel import (FusedLSTM, fused_lstm, fused_lstm_backward,
 
 __all__ = ["registry", "conv1x1_s2_dgrad", "conv1x1_s2_dgrad_plain",
            "multi_tensor_update", "multi_tensor_update_plain",
+           "sparse_row_update", "sparse_row_update_plain",
            "greedy_nms", "greedy_nms_plain",
            "FlashAttention", "flash_attention", "flash_attention_plain",
            "dense_attention_plain",

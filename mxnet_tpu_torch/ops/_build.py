@@ -28,7 +28,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 #: every kernel source of the package, by name (``csrc/<name>.cu``)
 SOURCES = ("fused_lstm", "fused_lstm_train", "conv1x1_s2_dgrad",
-           "flash_attention", "multi_tensor_update", "greedy_nms")
+           "flash_attention", "multi_tensor_update", "greedy_nms",
+           "sparse_row_update")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -79,24 +79,26 @@ def invoke(op_name, inputs, params=None, ctx=None, out=None):
         gen.manual_seed(_random.op_seed(ctx))
         params["_generator"] = gen
     recording = autograd.is_recording() and any(
-        a.data.requires_grad for a in in_arrs)
+        a._data.requires_grad for a in in_arrs)
     with torch.enable_grad() if recording else torch.no_grad():
-        outs = tuple(op.fcompute(params, *[a.data for a in in_arrs]))
+        outs = tuple(op.fcompute(params, *[a._data for a in in_arrs]))
     n_out = op.n_out(params)
     if not getattr(_TLS, "no_aux", False):
         with torch.no_grad():
             for idx, new in zip(op.mutate_aux, outs[n_out:]):
-                dst = in_arrs[idx].data
+                dst = in_arrs[idx]._data
                 if new is not dst:
                     dst.copy_(new.detach())
+                    in_arrs[idx]._wrote()
     out_arrs = [NDArray(v, ctx) for v in outs[:n_out]]
     if out is not None:
         dsts = out if isinstance(out, (list, tuple)) else [out]
         for dst, src in zip(dsts, out_arrs):
             if src.data.requires_grad:
-                dst._data = src.data.to(dst.data.dtype)
-            elif dst.data is not src.data:
+                dst._data = src.data.to(dst._data.dtype)
+            elif dst._data is not src.data:
                 with torch.no_grad():
-                    dst.data.copy_(src.data)
+                    dst._data.copy_(src.data)
+                dst._wrote()
         return out
     return out_arrs[0] if len(out_arrs) == 1 else out_arrs

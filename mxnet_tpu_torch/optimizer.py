@@ -9,8 +9,12 @@ thirteen optimizers of the JAX package (``SGD``, ``NAG``, ``Signum``,
 ``Adam``, ``AdaGrad``, ``AdaDelta``, ``RMSProp``, ``Ftrl``, ``FTML``,
 ``DCASGD``, ``SGLD``, ``LBSGD``, ``Test``), ``Updater`` with its state
 files, and ``FusedApplier``, the one update path of ``Module`` and
-``gluon.Trainer``. The JAX package's lazy row-sparse updates are not
-ported: the port has no row-sparse gradient yet (ROADMAP A.13).
+``gluon.Trainer``. A compact row-sparse gradient
+(`ndarray/sparse.py`) takes the lazy update of ``SGD``, ``Adam`` (unless
+``lazy_update=False``) and ``AdaGrad``: only its rows of the weight and
+states change, in one launch of S1 on the card
+(`ops/sparse_update.py`); every other update reads a gradient's dense
+view (``_data``).
 
 The per-tensor arithmetic of every optimizer that has an update op is
 `ops/optimizer_ops.py`, in place on the weight and its states; the others
@@ -38,6 +42,7 @@ from .ops.optimizer_ops import (adam_update, ftml_update, ftrl_update,
                                 sgd_mom_update, sgd_update, signsgd_update,
                                 signum_update)
 from .ops.registry import get_op
+from .ops.sparse_update import sparse_row_update
 
 __all__ = ["Optimizer", "SGD", "NAG", "Signum", "Adam", "AdaGrad",
            "AdaDelta", "FusedApplier", "RMSProp", "Ftrl", "FTML", "DCASGD",
@@ -53,6 +58,25 @@ def _state_zeros(weight, dtype=None):
     dt = torch_dtype(dtype) if dtype is not None else weight.data.dtype
     return NDArray(torch.zeros(weight.shape, dtype=dt,
                                device=weight.data.device), weight.context)
+
+
+def _is_lazy_rowsparse(grad):
+    """Whether ``grad`` is row-sparse and still carries its compact
+    payload: the state the lazy row updates take."""
+    from .ndarray.sparse import RowSparseNDArray
+    return isinstance(grad, RowSparseNDArray) and grad.has_compact()
+
+
+def _sparse_row_update(kind, weight, grad, states, scalars):
+    """The lazy row update of ``kind`` over a compact row-sparse gradient
+    (reference `src/operator/optimizer_op.cc` SGDUpdateRspImpl,
+    AdamUpdateRspImpl, AdagradUpdateRspImpl): only the gradient's rows of
+    ``weight`` and of ``states`` (NDArrays) change, in place. The work
+    scales with nnz, not with the weight's rows."""
+    vals, idx = grad.compact()
+    dev = weight.data.device
+    sparse_row_update(kind, weight.data, vals.to(dev), idx.to(dev),
+                      tuple(s.data for s in states), **scalars)
 
 
 class Optimizer:
@@ -218,11 +242,18 @@ class SGD(Optimizer):
     def update(self, index, weight, grad, state):
         self._update_count(index)
         kw = self._common_kwargs(index)
+        if self.lazy_update and _is_lazy_rowsparse(grad):
+            if state is not None:
+                kw["momentum"] = self.momentum
+                _sparse_row_update("sgd_mom", weight, grad, (state,), kw)
+            else:
+                _sparse_row_update("sgd", weight, grad, (), kw)
+            return
         if state is not None:
-            sgd_mom_update(weight.data, grad.data, state.data,
+            sgd_mom_update(weight.data, grad._data, state.data,
                            momentum=self.momentum, **kw)
         else:
-            sgd_update(weight.data, grad.data, **kw)
+            sgd_update(weight.data, grad._data, **kw)
 
     def update_multi_precision(self, index, weight, grad, state):
         if not _is_master(self, weight, state):
@@ -232,10 +263,10 @@ class SGD(Optimizer):
         self._update_count(index)
         kw = self._common_kwargs(index)
         if mom is not None:
-            mp_sgd_mom_update(weight.data, grad.data, mom.data, weight32.data,
+            mp_sgd_mom_update(weight.data, grad._data, mom.data, weight32.data,
                               momentum=self.momentum, **kw)
         else:
-            mp_sgd_update(weight.data, grad.data, weight32.data, **kw)
+            mp_sgd_update(weight.data, grad._data, weight32.data, **kw)
 
 
 @register
@@ -274,10 +305,10 @@ class Signum(Optimizer):
         self._update_count(index)
         kw = self._common_kwargs(index)
         if state is not None:
-            signum_update(weight.data, grad.data, state.data,
+            signum_update(weight.data, grad._data, state.data,
                           momentum=self.momentum, wd_lh=self.wd_lh, **kw)
         else:
-            signsgd_update(weight.data, grad.data, **kw)
+            signsgd_update(weight.data, grad._data, **kw)
 
 
 @register
@@ -305,7 +336,12 @@ class Adam(Optimizer):
         kw = self._common_kwargs(index)
         kw["lr"] = self._corrected_lr(index, kw["lr"])
         mean, var = state
-        adam_update(weight.data, grad.data, mean.data, var.data,
+        if self.lazy_update and _is_lazy_rowsparse(grad):
+            kw.update(beta1=self.beta1, beta2=self.beta2,
+                      epsilon=self.epsilon)
+            _sparse_row_update("adam", weight, grad, (mean, var), kw)
+            return
+        adam_update(weight.data, grad._data, mean.data, var.data,
                     beta1=self.beta1, beta2=self.beta2,
                     epsilon=self.epsilon, **kw)
 
@@ -323,6 +359,13 @@ class AdaGrad(Optimizer):
         self._update_count(index)
         lr = self._get_lr(index)
         wd = self._get_wd(index)
+        if _is_lazy_rowsparse(grad):
+            kw = {"lr": lr, "wd": wd, "rescale_grad": self.rescale_grad,
+                  "epsilon": self.float_stable_eps}
+            if self.clip_gradient is not None:
+                kw["clip_gradient"] = self.clip_gradient
+            _sparse_row_update("adagrad", weight, grad, (state,), kw)
+            return
         g = grad.astype("float32") * self.rescale_grad
         if self.clip_gradient is not None:
             g = g.clip(-self.clip_gradient, self.clip_gradient)
@@ -378,10 +421,10 @@ class RMSProp(Optimizer):
         kw.update(gamma1=self.gamma1, epsilon=self.epsilon)
         if self.centered:
             n, g, delta = state
-            rmspropalex_update(weight.data, grad.data, n.data, g.data,
+            rmspropalex_update(weight.data, grad._data, n.data, g.data,
                                delta.data, gamma2=self.gamma2, **kw)
         else:
-            rmsprop_update(weight.data, grad.data, state.data, **kw)
+            rmsprop_update(weight.data, grad._data, state.data, **kw)
 
 
 @register
@@ -398,7 +441,7 @@ class Ftrl(Optimizer):
     def update(self, index, weight, grad, state):
         self._update_count(index)
         z, n = state
-        ftrl_update(weight.data, grad.data, z.data, n.data,
+        ftrl_update(weight.data, grad._data, z.data, n.data,
                     lamda1=self.lamda1, beta=self.beta,
                     **self._common_kwargs(index))
 
@@ -417,7 +460,7 @@ class FTML(Optimizer):
     def update(self, index, weight, grad, state):
         self._update_count(index)
         d, v, z = state
-        ftml_update(weight.data, grad.data, d.data, v.data, z.data,
+        ftml_update(weight.data, grad._data, d.data, v.data, z.data,
                     beta1=self.beta1, beta2=self.beta2,
                     epsilon=self.epsilon,
                     t=self._index_update_count[index],
@@ -503,10 +546,10 @@ class LBSGD(SGD):
         if self.clip_gradient:
             kw["clip_gradient"] = self.clip_gradient
         if state is not None:
-            sgd_mom_update(weight.data, grad.data, state.data,
+            sgd_mom_update(weight.data, grad._data, state.data,
                            momentum=self.momentum, **kw)
         else:
-            sgd_update(weight.data, grad.data, **kw)
+            sgd_update(weight.data, grad._data, **kw)
 
 
 @register
@@ -725,7 +768,7 @@ class FusedApplier:
             ws = [w for _, w, _ in items]
             lrs, wds, rescale, states = self.prepare(idx, ws)
             multi_tensor_update(
-                key[0], [w.data for w in ws], [g.data for _, _, g in items],
+                key[0], [w.data for w in ws], [g._data for _, _, g in items],
                 [tuple(s.data for s in st) for st in states], lrs, wds,
                 rescale_grad=rescale, clip_gradient=opt.clip_gradient or -1.0,
                 buffers=self._buffers.setdefault(key, UpdateBuffers()),

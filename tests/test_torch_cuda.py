@@ -1466,3 +1466,178 @@ def test_box_ops_launch_n1_on_the_card(cuda):
         before = greedy_nms.launches
         detection_sweep.run_case(case, mxt.gpu(0))
         assert greedy_nms.launches == before + 1, name
+
+
+# -- S1, the lazy row-sparse update -------------------------------------------
+#: (rows, columns, stored rows): the example's push, ragged widths, one column
+S1_SHAPES = [(20000, 32, 192), (5000, 300, 77), (3000, 1, 500),
+             (4096, 128, 4096)]
+S1_CASES = [(f, torch.float32) for f in ("sgd", "sgd_mom", "adam",
+                                         "adagrad")] + \
+    [(f, torch.bfloat16) for f in ("sgd", "sgd_mom")]
+S1_KW = dict(lr=0.05, rescale_grad=0.5, momentum=0.9, beta1=0.8, beta2=0.99,
+             epsilon=1e-6)
+
+
+def _s1_inputs(formula, dtype, shape, device, seed, vdtype=torch.float32,
+               idtype=torch.int64):
+    from mxnet_tpu_torch.ops.sparse_update import FORMULAS
+    rows, d, nnz = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn((rows, d), generator=gen, device=device).to(dtype)
+    states = tuple(torch.rand((rows, d), generator=gen, device=device) + 0.1
+                   for _ in range(FORMULAS[formula][1]))
+    idx = torch.randperm(rows, generator=gen, device=device)[:nnz]
+    vals = (torch.randn((nnz, d), generator=gen, device=device) * 3)
+    return w, states, vals.to(vdtype), idx.to(idtype)
+
+
+@pytest.mark.parametrize("shape", S1_SHAPES, ids=str)
+@pytest.mark.parametrize("formula,dtype", S1_CASES,
+                         ids=["%s-%s" % (f, str(d)[6:]) for f, d in S1_CASES])
+@pytest.mark.parametrize("clip,wd", [(None, 0.0), (0.75, 1e-4)])
+def test_s1_matches_plain_bit_for_bit(cuda, formula, dtype, shape, clip, wd):
+    """3 pushes: S1 and its plain version on the same card inputs agree
+    bit for bit, and every row no push names keeps its bits."""
+    from mxnet_tpu_torch.ops.sparse_update import (sparse_row_update,
+                                                   sparse_row_update_plain)
+    w, states, _, _ = _s1_inputs(formula, dtype, shape, cuda, 0)
+    w0, s0 = w.clone(), tuple(s.clone() for s in states)
+    ref_w, ref_s = w.clone(), tuple(s.clone() for s in states)
+    touched = torch.zeros(shape[0], dtype=torch.bool, device=cuda)
+    before = sparse_row_update.launches
+    for push in range(3):
+        _, _, vals, idx = _s1_inputs(formula, dtype, shape, cuda, 1 + push)
+        sparse_row_update(formula, w, vals, idx, states, wd=wd,
+                          clip_gradient=clip, **S1_KW)
+        sparse_row_update_plain(formula, ref_w, vals, idx, ref_s, wd=wd,
+                                clip_gradient=clip, **S1_KW)
+        touched[idx] = True
+    torch.cuda.synchronize()
+    assert sparse_row_update.launches - before == 3
+    assert torch.equal(w, ref_w)
+    for s, r in zip(states, ref_s):
+        assert torch.equal(s, r)
+    rest = ~touched
+    assert torch.equal(w[rest], w0[rest])
+    for s, r in zip(states, s0):
+        assert torch.equal(s[rest], r[rest])
+
+
+@pytest.mark.parametrize("vdtype,idtype", [(torch.bfloat16, torch.int64),
+                                           (torch.float32, torch.int32)])
+def test_s1_takes_the_payloads_dtypes(cuda, vdtype, idtype):
+    from mxnet_tpu_torch.ops.sparse_update import (sparse_row_update,
+                                                   sparse_row_update_plain)
+    w, states, vals, idx = _s1_inputs("adam", torch.float32, (1000, 40, 64),
+                                      cuda, 3, vdtype, idtype)
+    ref_w, ref_s = w.clone(), tuple(s.clone() for s in states)
+    sparse_row_update("adam", w, vals, idx, states, **S1_KW)
+    sparse_row_update_plain("adam", ref_w, vals, idx, ref_s, **S1_KW)
+    assert torch.equal(w, ref_w)
+    assert all(torch.equal(a, b) for a, b in zip(states, ref_s))
+
+
+def test_s1_is_deterministic_without_host_reads(cuda):
+    """20 calls from the same inputs give the same bits; the launch reads
+    nothing back from the card; nnz 0 launches nothing."""
+    from mxnet_tpu_torch.ops.sparse_update import sparse_row_update
+    w0, s0, vals, idx = _s1_inputs("adam", torch.float32, (20000, 32, 192),
+                                   cuda, 4)
+    outs = []
+    for _ in range(20):
+        w, states = w0.clone(), tuple(s.clone() for s in s0)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sparse_row_update("adam", w, vals, idx, states, **S1_KW)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        outs.append((w, states))
+    for w, states in outs[1:]:
+        assert torch.equal(w, outs[0][0])
+        assert all(torch.equal(a, b) for a, b in zip(states, outs[0][1]))
+    before = sparse_row_update.launches
+    sparse_row_update("adam", w, vals[:0], idx[:0], states, **S1_KW)
+    assert sparse_row_update.launches == before
+
+
+def test_s1_bumps_versions_and_refuses_what_it_cannot_take(cuda):
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.ops.sparse_update import sparse_row_update
+    w = torch.randn(16, 4, device=cuda, requires_grad=True)
+    y = (w * w).sum()
+    ones, idx = torch.ones(2, 4, device=cuda), torch.tensor([3, 9],
+                                                              device=cuda)
+    with torch.no_grad():
+        sparse_row_update("sgd", w, ones, idx, (), lr=0.1)
+    with pytest.raises(RuntimeError, match="modified by an inplace"):
+        y.backward()
+    w = torch.zeros(16, 4, device=cuda)
+    with pytest.raises(MXNetError, match="f32 or bf16"):
+        sparse_row_update("sgd", w.half(), ones, idx, (), lr=0.1)
+    with pytest.raises(MXNetError, match="do not match"):
+        sparse_row_update("sgd", w, torch.ones(3, 4, device=cuda), idx, (),
+                          lr=0.1)
+    with pytest.raises(MXNetError, match="states"):
+        sparse_row_update("adam", w, ones, idx, (torch.zeros_like(w),),
+                          lr=0.1)
+    with pytest.raises(MXNetError, match="must be on"):
+        sparse_row_update("sgd", w, ones, idx.cpu(), (), lr=0.1)
+
+
+def test_lazy_pushes_on_the_card_match_the_cpu(cuda):
+    """5 row-sparse pushes through a local kvstore with lazy Adam and with
+    SGD momentum, on gpu(0) and on cpu(): weights and states to rtol 1e-6,
+    atol 1e-7; one S1 launch a push on the card."""
+    from mxnet_tpu_torch.ndarray import sparse
+    from mxnet_tpu_torch.ops.sparse_update import sparse_row_update
+    rng = np.random.RandomState(9)
+    w0 = rng.randn(5000, 16).astype("f")
+    pushes = [(np.unique(rng.randint(0, 5000, 300)),) for _ in range(5)]
+    pushes = [(r, (rng.randn(len(r), 16) * 2).astype("f"))
+              for (r,) in pushes]
+    for opt_name, kw in (("adam", {"learning_rate": 0.05}),
+                         ("sgd", {"learning_rate": 0.1, "momentum": 0.9,
+                                  "wd": 1e-4})):
+        out = {}
+        for ctx in (mxt.cpu(), mxt.gpu(0)):
+            kv = mxt.kv.create("local")
+            kv.init("emb", mxt.nd.array(w0, ctx=ctx))
+            kv.set_optimizer(mxt.optimizer.create(opt_name, **kw))
+            before = sparse_row_update.launches
+            for rows, vals in pushes:
+                kv.push("emb", sparse.row_sparse_array(
+                    (vals, rows), shape=w0.shape, ctx=ctx))
+            launched = sparse_row_update.launches - before
+            assert launched == (5 if ctx == mxt.gpu(0) else 0)
+            st = kv._updater.states["emb"]
+            st = st if isinstance(st, tuple) else (st,)
+            out[ctx.device_type] = [kv._store["emb"].asnumpy()] + \
+                [s.asnumpy() for s in st]
+        for a, b in zip(out["cpu"], out["gpu"]):
+            np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-7)
+
+
+def test_csr_dot_and_its_backward_on_the_card(cuda):
+    """CSR x dense and its taped backward at wide-deep's shapes (batch 64
+    x 2000 features, 10 stored a row, x 2000 x 8) against the CPU, rtol
+    1e-5 (index_add_'s atomics sum in another order)."""
+    from mxnet_tpu_torch.ndarray import sparse
+    rng = np.random.RandomState(2)
+    cols = np.stack([rng.choice(2000, 10, replace=False) for _ in range(64)])
+    dense = np.zeros((64, 2000), "f")
+    dense[np.arange(64)[:, None], cols] = rng.rand(64, 10)
+    rhs0 = rng.randn(2000, 8).astype("f")
+    out = {}
+    for ctx in (mxt.cpu(), mxt.gpu(0)):
+        csr = sparse.csr_matrix(dense, ctx=ctx)
+        rhs = mxt.nd.array(rhs0, ctx=ctx)
+        rhs.attach_grad()
+        with mxt.autograd.record():
+            y = sparse.dot(csr, rhs)
+            loss = (y * y).sum()
+        loss.backward()
+        out[ctx.device_type] = (y.asnumpy(), rhs.grad.asnumpy())
+        assert csr.has_compact() and csr._dense is None
+    for a, b in zip(out["cpu"], out["gpu"]):
+        np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-6)

@@ -8,7 +8,9 @@ process of its own, with the arguments of its JAX test in
 `tests/test_examples.py` (the five Adam examples at smaller ones), and
 must print the line that test asserts: the detection slice's SSD,
 Faster-RCNN (plain, and ``--ohem --deformable``) and ``custom_softmax``
-examples too.
+examples too, and the sparse slice's three (``sparse_embedding`` at
+``--rows 2000 --steps 60``: at 20 steps its loss criterion fails in the
+JAX package as in the port).
 The rewriting itself is held here too.
 """
 import os
@@ -90,6 +92,31 @@ def test_detection_example_on_the_port(rel, args, line):
     r = _run(rel, *args)
     assert r.returncode == 0, r.stdout[-1500:] + r.stderr[-2000:]
     assert line in r.stdout
+
+
+#: the sparse slice's examples; factorization_machine and wide_deep at
+#: their JAX tests' arguments, printing their accuracy last
+SPARSE_EXAMPLES = [
+    ("sparse/sparse_embedding/train.py", ["--rows", "2000", "--steps", "60"],
+     None),
+    ("sparse/factorization_machine/train.py",
+     ["--num-epochs", "15", "--num-examples", "2400", "--num-features",
+      "200", "--lr", "0.01"], 0.6),
+    ("sparse/wide_deep/train.py", ["--num-epochs", "6", "--num-examples",
+                                   "1200", "--num-sparse", "400"], 0.7),
+]
+
+
+@pytest.mark.parametrize("rel,args,acc", SPARSE_EXAMPLES,
+                         ids=["sparse_embedding", "factorization_machine",
+                              "wide_deep"])
+def test_sparse_example_on_the_port(rel, args, acc):
+    r = _run(rel, *args)
+    assert r.returncode == 0, r.stdout[-1500:] + r.stderr[-2000:]
+    if acc is None:
+        assert "SPARSE EMBEDDING OK" in r.stdout
+    else:
+        assert float(r.stdout.strip().split()[-1]) > acc, r.stdout
 
 
 def test_rewrite_changes_only_the_imports():

@@ -386,9 +386,11 @@ def test_recorded_signature_and_the_inference_one():
 def test_trainer_kvstore_update_and_learning_rate(tmp_path):
     net, _ = _port_net("NCHW", False)
     params = net.collect_params()
-    for kv in ("dist_sync", "dist_device_sync", object()):
+    for kv in ("dist_sync", "dist_device_sync"):
         with pytest.raises(mxt.MXNetError, match="queue A item 10"):
             gluon.Trainer(params, "sgd", dict(OPT), kvstore=kv)
+    with pytest.raises(mxt.MXNetError, match="must be a KVStore"):
+        gluon.Trainer(params, "sgd", dict(OPT), kvstore=object())
     trainer = gluon.Trainer(params, "sgd", dict(OPT), kvstore=None)
     assert trainer.learning_rate == OPT["learning_rate"]
     trainer.set_learning_rate(0.01)

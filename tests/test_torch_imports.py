@@ -37,6 +37,8 @@ GLUON_TRAINING = ["autograd.py", "ops/reduce.py", "gluon/loss.py",
                   "gluon/data/__init__.py", "gluon/data/dataset.py",
                   "gluon/data/sampler.py", "gluon/data/dataloader.py"]
 ND_CORE = ["ops/init_ops.py", "tools/run_example.py"]
+SPARSE = ["kvstore.py", "ndarray/sparse.py", "ops/compat_ops.py",
+          "ops/sparse_update.py"]
 
 
 def test_port_files_found():
@@ -45,6 +47,11 @@ def test_port_files_found():
     port = {str(p.relative_to(ROOT / "mxnet_tpu_torch")) for p in PORT_FILES}
     assert set(GLUON_TRAINING) <= port
     assert set(ND_CORE) <= port
+    assert set(SPARSE) <= port
+    assert (ROOT / "mxnet_tpu_torch" / "csrc" /
+            "sparse_row_update.cu").exists()
+    from mxnet_tpu_torch.ops import _build
+    assert "sparse_row_update" in _build.SOURCES
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],

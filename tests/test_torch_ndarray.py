@@ -277,9 +277,16 @@ def test_method(name):
 
 
 def test_tostype_refuses_sparse_storage():
+    """``tostype`` converts to the sparse storage types
+    (`ndarray/sparse.py`, where they are held against the JAX package)
+    and refuses only a storage type that does not exist."""
     a = mxt.nd.array(X, ctx=CPU)
-    with pytest.raises(MXNetError, match="A.13"):
-        a.tostype("row_sparse")
+    rs = a.tostype("row_sparse")
+    assert rs.stype == "row_sparse" and rs.has_compact()
+    np.testing.assert_array_equal(rs.asnumpy(), X)
+    assert a.tostype("default") is a
+    with pytest.raises(MXNetError, match="unknown storage type"):
+        a.tostype("no_such_storage")
 
 
 # -- operators ---------------------------------------------------------------
