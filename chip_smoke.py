@@ -261,6 +261,40 @@ optimizers' lazy row-sparse updates, one launch of S1 a push
     ``sparse_embedding`` through ``run_example`` on ``gpu(0)``, and
     ``sparse_embedding`` at its defaults, its outcome recorded.
 
+and then drives the RNN layer: ``mx.rnn`` cells, ``BucketSentenceIter``
+and ``BucketingModule`` (`mxnet_tpu_torch/rnn/`,
+`module/bucketing_module.py`) and ``gluon.rnn`` (`gluon/rnn/`), the 2x650
+LM at the benchmark's widths (vocab 10000, embed 650, batch 32, SGD with
+lr 1 and ``clip_gradient`` 0.25, f32, TF32 off), in one more:
+
+24. (a) the bucketed LM (a ``FusedRNNCell`` stack, a
+    ``BucketSentenceIter`` over 1,600 synthetic sentences of 5-35 tokens,
+    buckets 10, 20 and 35) through ``BucketingModule.fit`` on ``gpu(0)``
+    for one epoch, a second epoch timed step by step (tokens/s) and
+    ``score`` (K2 and K3 once a layer and step, U1 once a step, K1 once a
+    layer and eval batch; every bucket's executor holding the default
+    bucket's arrays and updater), and 3 steps of the example's unrolled
+    ``LSTMCell`` stack (tokens/s; none of K1-K3); (b) 2 steps over two
+    buckets on ``gpu(0)`` from the seed and on ``cpu()`` from the card's
+    weights, at phase 8's limits; (c) ``gluon.rnn.LSTM`` between ``Embedding`` and
+    ``Dense`` at (T, B) = (35, 32), hybridized: 2 recorded steps on the
+    card against the CPU (every gradient and update by relative norm to
+    LSTM_GRAD_REL, two controls that must fail it), 20 timed steps
+    (tokens/s, K2 and K3 once a layer and step, U1 once a step) and a
+    profiled one, and the call outside ``record()``: one captured CUDA
+    graph holding K1's cooperative launches (its logits against the eager
+    call and the CPU's to INFER_REL; a replay one ``cudaGraphLaunch``
+    with K1's kernels inside, which the wrapper's counter does not
+    count); (d) K1-K3 against their plain versions at bi-lstm-sort's
+    shape in both directions with the routes they took, ``gru`` and
+    ``rnn_tanh`` forward and backward on the card against the CPU, and
+    the op's inter-layer dropout (keep rate within 4 sigma, the output
+    equal to the layers run one by one around the same mask scaled by
+    1/(1-p), the same seed the same output); (e) ``word_lm`` (on its
+    default ``cpu()`` and with ``--ctx tpu``), ``bi-lstm-sort``, LSTNet
+    and ``rnn-time-major`` through ``run_example`` on ``gpu(0)``, each
+    printing its JAX test's line, with their K1-K3 and U1 launches.
+
 Phases 3-5 are the serving main path, phase 8 the LM training one,
 phase 11's gate-on steps on the card the ResNet one, phase 15's steps on
 the card the attention one, phase 16's first launches the rtc one,
@@ -268,8 +302,8 @@ phase 18 the inference one, phase 19's steps on the card (its check,
 the example's loop and the bf16 gate-on loop) the Gluon training one,
 phase 20's two examples the nd-core one, phase 21 after its U1
 check the optimizer one, phase 22's examples the detection one and phase
-23's loop and examples the sparse one:
-every kernel's launch count is set to 0 before each and read after it.
+23's loop and examples the sparse one, and phase 24 but its kernel
+checks (24d) the RNN one: every kernel's launch count is set to 0 before each and read after it.
 The serving path must launch K1, every call by the persistent route; the
 LM training path must launch K2 and K3 exactly once per layer and step,
 and K1 once per layer and eval batch, K1, K2 and K3 by the persistent
@@ -285,9 +319,9 @@ f32 ResNet-50); the LM training path U1 once a step; the optimizer path
 U1 once a (formula, dtype) group a step and K5 6 times a gate-on step,
 and none of K1-K4 and K6; the detection path N1 and U1 in every example
 run and none of K1-K6; the sparse path S1 once a push and none of
-K1-K6 or N1.
+K1-K6 or N1; the RNN path K1, K2, K3 and U1, and no other.
 K5's launches in the kernels line are the ResNet path's and the Gluon
-path's. Any failed
+path's; K1's, K2's and K3's add the RNN path's. Any failed
 check exits non-zero. The last lines
 are the card's name and power limit (``nvidia-smi``), one JSON line with
 every ported kernel's numbers, and the result line
@@ -299,6 +333,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import logging
 import os
 import re
 import subprocess
@@ -606,6 +641,66 @@ SPARSE_EXAMPLES = [
 # the bench's inference function in phase 18: rounds of calls x iters
 INFER_ITERS, INFER_CALLS, INFER_ROUNDS = 50, 2, 2
 PEAK_TF32_FLOPS = 495e12
+# phase 24, the RNN layer: the bucketed word LM of examples/rnn/word_lm at
+# the benchmark's widths (a FusedRNNCell stack; BucketSentenceIter over
+# RNN_SENTENCES synthetic sentences of RNN_LENGTHS tokens, buckets
+# RNN_BUCKETS, batch 32), UNROLLED_STEPS steps of the example's own
+# unrolled LSTMCell stack, and gluon.rnn.LSTM between an Embedding and a
+# Dense at the same widths (GLUON_LM_WARMUP + GLUON_LM_STEPS steps)
+RNN_BUCKETS = (10, 20, 35)
+RNN_SENTENCES, RNN_LENGTHS = 1600, (5, 35)
+UNROLLED_STEPS = 3
+GLUON_LM_WARMUP, GLUON_LM_STEPS = 2, 20
+# the Gluon LSTM's 2 f32 steps on the card against the CPU, each
+# parameter's gradient and update by relative norm: near the geometric
+# middle of the sound readings (<= 1.4e-4) and two controls that must
+# fail it (K3's dWh product zeroed on the card; the card's second update
+# against the CPU's first: 1.0 and 1.5), all printed in phase 24; a TF32
+# product in the layer reads about 1e-3 and fails it
+LSTM_GRAD_REL = 2e-3
+# phase 24b from 24a's trained weights: no f32 run holds phase 8's limits
+# against the same 2 steps in f64 there (in some trained states the CPU's
+# own falls outside them), and the f32 runs' distances to f64 scatter over
+# orders of magnitude with the state, the CPU's and the card's apart
+# (mxnet_tpu_torch/tools/rnn_rounding_study.py; readings in PERF.md). Those
+# distances are printed; each parameter of the card must lie this many
+# times nearer the f64 run than the control, the card with its last step
+# dropped (the study's smallest margin is in PERF.md)
+RNN_CONTROL = 10.0
+# K1-K3 at bi-lstm-sort's shape (T, B, embed, hidden), both directions
+RNN_SORT_SHAPE = (6, 100, 16, 64)
+# gru and rnn_tanh (2 layers, bidirectional, the LM's widths) on the card
+# against the CPU: the largest difference over the largest magnitude
+RNN_MODE_REL = 1e-5
+RNN_DROPOUT = 0.5
+WORD_LM_ARGS = ["--num-epochs", "1", "--max-sentences", "300",
+                "--batch-size", "25", "--num-hidden", "32", "--num-embed",
+                "16", "--data", "/nonexistent"]
+RNN_PATH = ("fused_lstm", "fused_lstm_train", "lstm_bwd_recurrence",
+            "multi_tensor_update")
+# (key, example, arguments, the line its JAX test asserts, the kernels of
+# RNN_PATH it must launch: the others it must not). word_lm runs on
+# mx.cpu() unless --ctx tpu; its unrolled LSTMCells are elementwise ops
+RNN_EXAMPLES = [
+    ("word_lm", "rnn/word_lm/train.py", WORD_LM_ARGS,
+     "final train perplexity", ()),
+    ("word_lm_tpu", "rnn/word_lm/train.py", WORD_LM_ARGS + ["--ctx", "tpu"],
+     "final train perplexity", ("multi_tensor_update",)),
+    ("bi_lstm_sort", "bi-lstm-sort/train_sort.py",
+     ["--num-examples", "2000", "--num-epochs", "20"], "token accuracy",
+     RNN_PATH),
+    ("lstnet", "multivariate_time_series/train_lstnet.py", [],
+     "LSTNET FORECAST OK", ("multi_tensor_update",)),
+    ("rnn_time_major", "rnn-time-major/readme_bench.py", ["--steps", "10"],
+     "RNN TIME-MAJOR OK", ("fused_lstm_train", "lstm_bwd_recurrence",
+                           "multi_tensor_update"))]
+
+
+# device_profile's attempts, the k-th a pause of k * PROFILE_PAUSE_S after
+# the one before: the tracer returned empty traces at phase 21a in two runs
+# on an H100 at 700 W, three in a row in one and six a second apart in the
+# other (U1's time then falls back to CUDA events)
+PROFILE_ATTEMPTS, PROFILE_PAUSE_S = 6, 1.0
 
 
 def log(msg):
@@ -645,15 +740,37 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_profile(fn, attempts=3, complete=None):
+def queued_call_ms(fn, reps):
+    """Mean device time of one call of ``fn`` in ms, by CUDA events, each
+    call queued alone while the card sleeps (QUEUE_CYCLES): for a wrapper
+    whose calls wait for the card's earlier ones (U1's pinned ring), where
+    ``time_ms``'s queue of calls would time the host."""
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def device_profile(fn, attempts=PROFILE_ATTEMPTS, complete=None):
     """Run ``fn`` under torch.profiler. Returns the profiled wall time in
     ms and {kernel name: [launches, device ms]}; the kernels are empty
     when the profiler saw no device activity. A run whose trace holds no
     device activity at all, or that ``complete`` (a test of the kernels)
-    rejects, is run again, up to ``attempts`` runs: the tracer now and
-    then returns an empty trace, or one that lost part of the run."""
+    rejects, is run again, up to ``attempts`` runs, 1, 2, ... s apart: the
+    tracer now and then returns an empty trace, or one that lost part of
+    the run, and has done so three times in a row."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(attempts):
+    for attempt in range(attempts):
+        if attempt:
+            time.sleep(PROFILE_PAUSE_S * attempt)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1881,13 +1998,19 @@ def profiled_step(step):
     share and the launches."""
     from torch.profiler import ProfilerActivity, profile
     step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
+    for attempt in range(PROFILE_ATTEMPTS):   # see device_profile
+        if attempt:
+            time.sleep(PROFILE_PAUSE_S * attempt)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        if any(str(getattr(e, "device_type", "")).endswith("CUDA")
+               for e in prof.key_averages()):
+            break
     classes = {}
     launches = 0
     update_host_ms = 0.0
@@ -2439,25 +2562,31 @@ def call_profile(fn):
     """One call of ``fn`` under torch.profiler: profiled wall ms, device
     busy ms (kernels and copies; None if the trace held no device
     activity), device events, the host's CUDA runtime calls by name and
-    the eight longest kernels (launches, device ms)."""
+    the eight longest kernels (launches, device ms). A trace without
+    device activity is taken again, as ``device_profile`` does."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(PROFILE_ATTEMPTS):
+        if attempt:
+            time.sleep(PROFILE_PAUSE_S * attempt)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    busy, events, api, kernels = 0.0, 0, {}, {}
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            busy += e.self_device_time_total / 1e3
-            events += e.count
-            row = kernels.setdefault(e.key[:60], [0, 0.0])
-            row[0] += e.count
-            row[1] += e.self_device_time_total / 1e3
-        elif e.key.startswith("cuda"):
-            api[e.key] = e.count
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy, events, api, kernels = 0.0, 0, {}, {}
+        for e in prof.key_averages():
+            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                busy += e.self_device_time_total / 1e3
+                events += e.count
+                row = kernels.setdefault(e.key[:60], [0, 0.0])
+                row[0] += e.count
+                row[1] += e.self_device_time_total / 1e3
+            elif e.key.startswith("cuda"):
+                api[e.key] = e.count
+        if events:
+            break
     return {"wall_ms": wall, "device_busy_ms": busy if events else None,
             "device_idle_share": 1 - busy / wall if events else None,
             "device_events": events, "runtime_calls": api,
@@ -3405,12 +3534,15 @@ def phase_u1(shapes):
             lambda: [kernel() for _ in range(5)],
             complete=lambda k: any("multi_tensor_kernel" in n for n in k))
         seen = [v for n, v in kern.items() if "multi_tensor_kernel" in n]
-        check(seen, "the profiler saw no U1 kernel: %s" % sorted(kern))
-        count, dev_ms = seen[0]
+        if seen:
+            count, dev_ms = seen[0]
+            ms, timed_by = dev_ms / count, "profiler"
+        else:       # only empty traces: CUDA events, the lr/wd copy in too
+            count, ms, timed_by = 0, queued_call_ms(kernel, 5), "events"
         timed[key] = {"formula": formula, "dtype": str(dtype)[6:],
                       "tensors": n, "values": values,
-                      "bit_identical_calls": same,
-                      "ms": dev_ms / count, "profiled_launches": count,
+                      "bit_identical_calls": same, "ms": ms,
+                      "timed_by": timed_by, "profiled_launches": count,
                       "call_wall_ms": call_ms,
                       "plain_ms": time_ms(plain, 3),
                       "library_ms": time_ms(library.step, 20),
@@ -3767,22 +3899,32 @@ def step_spy(mx, profile_after=None):
     trainer_step = mx.gluon.Trainer.step
     state = {}
 
+    def start():
+        torch.cuda.synchronize()
+        state["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+        state["prof"].start()
+        state["t0"] = time.perf_counter()
+
     def step(self, *args, **kwargs):
         out = trainer_step(self, *args, **kwargs)
         k = len(rec["times"])
         rec["times"].append(time.perf_counter())
         if profile_after is not None and k + 1 == profile_after:
-            torch.cuda.synchronize()
-            state["prof"] = profile(activities=[ProfilerActivity.CPU,
-                                                ProfilerActivity.CUDA])
-            state["prof"].start()
-            state["t0"] = time.perf_counter()
-        elif "prof" in state and k + 1 == profile_after + 1:
+            state["tries"] = 1
+            start()
+        elif "prof" in state:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - state["t0"]) * 1e3
             prof = state.pop("prof")
             prof.stop()
-            rec["profile"] = iteration_profile(prof, wall)
+            if state["tries"] < PROFILE_ATTEMPTS and not any(
+                    str(getattr(e, "device_type", "")).endswith("CUDA")
+                    for e in prof.key_averages()):
+                state["tries"] += 1         # an empty trace: the next one
+                start()
+            else:
+                rec["profile"] = iteration_profile(prof, wall)
         return out
 
     mx.gluon.Trainer.step = step
@@ -3790,6 +3932,8 @@ def step_spy(mx, profile_after=None):
         yield rec
     finally:
         mx.gluon.Trainer.step = trainer_step
+        if "prof" in state:             # the run ended inside a retry
+            state.pop("prof").stop()
 
 
 def iteration_profile(prof, wall):
@@ -4360,11 +4504,771 @@ def phase_sparse_examples(mx, counters):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the RNN slice: mx.rnn, BucketSentenceIter, BucketingModule and gluon.rnn
+# at the PTB LM's widths (phase 24)
+# ---------------------------------------------------------------------------
+def rnn_sentences(rng):
+    """RNN_SENTENCES sentences of token ids, lengths RNN_LENGTHS."""
+    lo, hi = RNN_LENGTHS
+    return [list(rng.randint(1, VOCAB, n))
+            for n in rng.randint(lo, hi + 1, RNN_SENTENCES)]
+
+
+def bucket_lm_gen(mx, fused):
+    """The bucketed word LM's ``sym_gen`` at the benchmark's widths: a
+    ``FusedRNNCell`` stack (``fused``), or the unrolled ``LSTMCell``
+    stack of `examples/rnn/word_lm/train.py:67-85`."""
+    if fused:
+        cell = mx.rnn.FusedRNNCell(HIDDEN, num_layers=LAYERS, mode="lstm",
+                                   prefix="lstm_")
+    else:
+        cell = mx.rnn.SequentialRNNCell()
+        for i in range(LAYERS):
+            cell.add(mx.rnn.LSTMCell(num_hidden=HIDDEN,
+                                     prefix="lstm_l%d_" % i))
+
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        embed = mx.sym.Embedding(data, input_dim=VOCAB, output_dim=EMBED,
+                                 name="embed")
+        cell.reset()
+        out, _ = cell.unroll(seq_len, inputs=embed, layout="NTC",
+                             merge_outputs=True)
+        pred = mx.sym.FullyConnected(mx.sym.Reshape(out, shape=(-1, HIDDEN)),
+                                     num_hidden=VOCAB, name="pred")
+        pred = mx.sym.SoftmaxOutput(
+            pred, mx.sym.Reshape(label, shape=(-1,)), name="softmax")
+        return pred, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def bucketing_module(mx, ctx, fused, key, arg_params=None):
+    """A bound BucketingModule with SGD (lr 1, clip 0.25), from
+    ``arg_params`` or seeded Xavier."""
+    mod = mx.mod.BucketingModule(bucket_lm_gen(mx, fused),
+                                 default_bucket_key=key, context=ctx)
+    mod.bind(data_shapes=[("data", (TRAIN_BATCH, key))],
+             label_shapes=[("softmax_label", (TRAIN_BATCH, key))])
+    mx.random.seed(SEED)
+    mod.init_params(initializer=mx.init.Xavier(), arg_params=arg_params)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=TRAIN_OPT)
+    return mod
+
+
+def launches_of(counters):
+    return {k: c.launches for k, c in counters.items()}
+
+
+def launched(counters, before):
+    return {k: c.launches - before[k] for k, c in counters.items()}
+
+
+def bucket_tokens(it):
+    """Tokens of one epoch of ``it``."""
+    return sum(TRAIN_BATCH * it.buckets[i] for i, _ in it.idx)
+
+
+def phase_rnn_lm(mx, counters, rng):
+    """Phase 24a: the bucketed 2x650 LM through ``BucketingModule.fit``
+    on gpu(0), one epoch of a ``BucketSentenceIter`` (buckets RNN_BUCKETS,
+    batch 32), then one more epoch timed step by step and ``score``: K2
+    and K3 once a layer and step, U1 once a step, K1 once a layer and
+    eval batch; the buckets' executors share the parameter arrays. Then
+    the example's unrolled LSTMCell stack, UNROLLED_STEPS timed steps:
+    none of K1-K3. Returns (the module, the iterator, the summary)."""
+    it = mx.rnn.BucketSentenceIter(rnn_sentences(rng), TRAIN_BATCH,
+                                   buckets=list(RNN_BUCKETS),
+                                   invalid_label=0)
+    steps, tokens = len(it.idx), bucket_tokens(it)
+    mod = mx.mod.BucketingModule(bucket_lm_gen(mx, True),
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=mx.gpu(0))
+    before = launches_of(counters)
+    mx.random.seed(SEED)
+    train_ppl = mx.metric.Perplexity()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=TRAIN_OPT,
+            eval_metric=train_ppl, initializer=mx.init.Xavier())
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    fit = launched(counters, before)
+    it.reset()
+    before = launches_of(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in it:
+        mod.forward_backward(batch)
+        mod.update()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    epoch2 = launched(counters, before)
+    before = launches_of(counters)
+    (_, eval_ppl), = mod.score(it, mx.metric.Perplexity())
+    score = launched(counters, before)
+    default = mod._buckets[it.default_bucket_key]
+    shared = all(m._exec.arg_dict[n] is default._exec.arg_dict[n]
+                 and m._exec.grad_dict[n] is default._exec.grad_dict[n]
+                 for m in mod._buckets.values() for n in m._param_names)
+    summary = {
+        "buckets": list(RNN_BUCKETS), "batches_an_epoch": steps,
+        "tokens_an_epoch": tokens, "fit_wall_s": fit_wall,
+        "fit_tokens_per_s": tokens / fit_wall,
+        "tokens_per_s": tokens / wall, "steady_epoch_wall_s": wall,
+        "fit_train_perplexity": train_ppl.get()[1],
+        "eval_perplexity": eval_ppl, "launches_fit": fit,
+        "launches_second_epoch": epoch2, "launches_score": score,
+        "bucket_modules": sorted(mod._buckets), "arrays_shared": shared,
+        "updater_shared": all(m._updater is default._updater
+                              for m in mod._buckets.values())}
+    log("phase 24a bucketed LM %s" % json.dumps(summary))
+    for what, got in (("fit", fit), ("the second epoch", epoch2)):
+        check(got["fused_lstm_train"] == LAYERS * steps
+              and got["lstm_bwd_recurrence"] == LAYERS * steps,
+              "%s launched K2 %d and K3 %d times in %d steps, want %d each"
+              % (what, got["fused_lstm_train"], got["lstm_bwd_recurrence"],
+                 steps, LAYERS * steps))
+        check(got["multi_tensor_update"] == steps,
+              "%s launched U1 %d times in %d steps, want one a step"
+              % (what, got["multi_tensor_update"], steps))
+    check(score["fused_lstm"] == LAYERS * steps,
+          "score launched K1 %d times over %d batches, want %d"
+          % (score["fused_lstm"], steps, LAYERS * steps))
+    check(shared and summary["updater_shared"]
+          and summary["bucket_modules"] == sorted(RNN_BUCKETS),
+          "the buckets %s do not share one set of arrays and one updater"
+          % summary["bucket_modules"])
+    check(np.isfinite(eval_ppl), "eval perplexity %s" % eval_ppl)
+
+    unrolled = bucketing_module(mx, mx.gpu(0), False, max(RNN_BUCKETS))
+    it.reset()
+    batches = [b for b, _ in zip(it, range(UNROLLED_STEPS + 1))]
+    unrolled.forward_backward(batches[0])       # binds its bucket
+    unrolled.update()
+    before = launches_of(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches[1:]:
+        unrolled.forward_backward(batch)
+        unrolled.update()
+    torch.cuda.synchronize()
+    u_wall = time.perf_counter() - t0
+    got = launched(counters, before)
+    row = {"steps": UNROLLED_STEPS,
+           "tokens_per_s": sum(TRAIN_BATCH * b.bucket_key
+                               for b in batches[1:]) / u_wall,
+           "launches": got}
+    log("phase 24a unrolled LSTMCell stack %s" % json.dumps(row))
+    check(got["fused_lstm"] == got["fused_lstm_train"]
+          == got["lstm_bwd_recurrence"] == 0,
+          "the unrolled LSTMCells launched %s: they build elementwise "
+          "symbols, no fused RNN op" % got)
+    check(got["multi_tensor_update"] == UNROLLED_STEPS,
+          "the unrolled stack launched U1 %d times in %d steps"
+          % (got["multi_tensor_update"], UNROLLED_STEPS))
+    summary["unrolled"] = row
+    del unrolled
+    return mod, it, summary
+
+
+def rnn_f64_steps(mx, params, batches):
+    """``batches`` in order, one SGD step each (lr 1, clip 0.25), on
+    cpu() in f64 from ``params``: a Module a bucket, as SGD without
+    momentum carries no state from one step to the next. Returns the
+    parameters."""
+    gen = bucket_lm_gen(mx, True)
+    for batch in batches:
+        k = batch.bucket_key
+        sym, _, _ = gen(k)
+        mod = mx.mod.Module(sym, context=mx.cpu())
+        mod.bind(data_shapes=[("data", (TRAIN_BATCH, k))],
+                 label_shapes=[("softmax_label", (TRAIN_BATCH, k))],
+                 type_dict={n: np.float64 for n in sym.list_arguments()})
+        mod.init_params(arg_params={
+            n: mx.nd.array(v, ctx=mx.cpu(), dtype=np.float64)
+            for n, v in params.items()})
+        mod.init_optimizer(optimizer="sgd", optimizer_params=TRAIN_OPT)
+        mod.forward_backward(mx.io.DataBatch(
+            [batch.data[0].astype(np.float64)],
+            [batch.label[0].astype(np.float64)]))
+        mod.update()
+        params = {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
+    return params
+
+
+@contextlib.contextmanager
+def plain_rnn_kernels():
+    """While the block runs, K2, K3 and U1 are their plain versions, on
+    whatever device the tensors lie: the bucketed path on the card with no
+    hand kernel, which launches none and counts none."""
+    from mxnet_tpu_torch import optimizer
+    from mxnet_tpu_torch.ops import lstm_kernel, multi_tensor
+    saved = (lstm_kernel.fused_lstm_train, lstm_kernel.lstm_bwd_recurrence,
+             optimizer.multi_tensor_update)
+
+    def plain_u1(*args, buffers=None, **kw):
+        multi_tensor.multi_tensor_update_plain(*args, **kw)
+    lstm_kernel.fused_lstm_train = lstm_kernel.fused_lstm_train_plain
+    lstm_kernel.lstm_bwd_recurrence = lstm_kernel.lstm_bwd_recurrence_plain
+    optimizer.multi_tensor_update = plain_u1
+    try:
+        yield
+    finally:
+        (lstm_kernel.fused_lstm_train, lstm_kernel.lstm_bwd_recurrence,
+         optimizer.multi_tensor_update) = saved
+
+
+def bucket_steps(mx, ctx, weights, batches):
+    """The bucketed LM on ``ctx`` from ``weights``, one step each over
+    ``batches``: its parameters after them."""
+    mod = bucketing_module(mx, ctx, True, max(RNN_BUCKETS), weights)
+    for batch in batches:
+        mod.forward_backward(batch)
+        mod.update()
+    return {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
+
+
+def trained_witness(mx, counters, trained, batches):
+    """From ``trained``, the same steps over ``batches`` on gpu(0) and on
+    cpu() in f32 (``bucket_pair_steps``), on gpu(0) with K2, K3 and U1 in
+    their plain versions, and on cpu() in f64; and the control, the card
+    with the last step dropped. Returns (the steps' rows, each parameter's
+    readings: card vs CPU, each run's relative distance to the f64 run,
+    whether the card's values are finite)."""
+    rows, card, host = bucket_pair_steps(mx, trained, batches,
+                                         "from 24a's weights")
+    got = {n: a.asnumpy() for n, a in card.get_params()[0].items()}
+    want = {n: a.asnumpy() for n, a in host.get_params()[0].items()}
+    del card, host
+    dropped = bucket_steps(mx, mx.gpu(0), trained, batches[:-1])
+    before = launches_of(counters)
+    with plain_rnn_kernels():
+        plain = bucket_steps(mx, mx.gpu(0), trained, batches)
+    plain_launches = launched(counters, before)
+    check(not any(plain_launches.values()),
+          "the plain witness run launched %s" % plain_launches)
+    exact = rnn_f64_steps(mx, trained, batches)
+    witness = {}
+    for name in got:
+        witness[name] = {
+            "card_vs_cpu_max_abs": float(np.abs(got[name] - want[name]).max()),
+            "within_phase8_limits": bool(np.allclose(
+                got[name], want[name], rtol=PARAM_RTOL, atol=PARAM_ATOL)),
+            **{key + "_vs_f64_rel": rel_err(run[name].astype(np.float64),
+                                            exact[name])
+               for key, run in (("card", got), ("plain_card", plain),
+                                ("cpu", want), ("control", dropped))},
+            "cpu_within_phase8_limits_of_f64": bool(np.allclose(
+                want[name], exact[name], rtol=PARAM_RTOL, atol=PARAM_ATOL)),
+            "card_finite": bool(np.isfinite(got[name]).all())}
+    return rows, witness
+
+
+def bucket_pair_steps(mx, weights, batches, what):
+    """The bucketed LM on gpu(0) and on cpu() from ``weights`` (None:
+    the seed's), one step
+    each over ``batches``: the step outputs' largest difference, and the
+    two modules."""
+    key = max(RNN_BUCKETS)
+    card = bucketing_module(mx, mx.gpu(0), True, key, weights)
+    if weights is None:                 # the seed's
+        weights = {n: a.asnumpy() for n, a in card.get_params()[0].items()}
+    host = bucketing_module(mx, mx.cpu(), True, key, weights)
+    rows = []
+    for batch in batches:
+        for m in (card, host):
+            m.forward_backward(batch)
+            m.update()
+        got, want = (m.get_outputs()[0].asnumpy() for m in (card, host))
+        rows.append({"bucket": batch.bucket_key, "output_max_abs_err":
+                     float(np.abs(got - want).max()),
+                     "outputs_close": bool(np.allclose(
+                         got, want, rtol=TRAIN_RTOL, atol=TRAIN_ATOL))})
+        log("phase 24b %s, step over bucket %d: output max abs err %.3g"
+            % (what, batch.bucket_key, rows[-1]["output_max_abs_err"]))
+        check(got.shape == (TRAIN_BATCH * batch.bucket_key, VOCAB)
+              and bool(np.isfinite(got).all()),
+              "the bucket-%d step's outputs: %s" % (batch.bucket_key,
+                                                   got.shape))
+    return rows, card, host
+
+
+def phase_rnn_card_vs_cpu(mx, counters, it, trained):
+    """Phase 24b: 2 steps over two buckets (the two shortest) on gpu(0)
+    and on cpu() from the same weights, twice. From the seed (phase 8's
+    starting point): outputs at TRAIN_RTOL/ATOL and parameters at
+    PARAM_RTOL/ATOL, phase 8's limits. From 24a's ``trained`` weights,
+    where no f32 run holds those limits against f64: each f32 run's
+    distance to the same steps in f64 (the card, the card with plain K2,
+    K3 and U1, the CPU), printed, and each parameter of the card
+    RNN_CONTROL times nearer the f64 run than the card with its last step
+    dropped."""
+    key = max(RNN_BUCKETS)
+    it.reset()
+    picked = {}
+    for batch in it:
+        if batch.bucket_key in RNN_BUCKETS[:2]:
+            picked.setdefault(batch.bucket_key, batch)
+        if len(picked) == 2:
+            break
+    batches = [picked[k] for k in sorted(picked)]
+    rows, card, host = bucket_pair_steps(mx, None, batches, "from the seed")
+    errs = {}
+    for name, arr in card.get_params()[0].items():
+        got, want = arr.asnumpy(), host.get_params()[0][name].asnumpy()
+        errs[name] = (float(np.abs(got - want).max()),
+                      bool(np.allclose(got, want, rtol=PARAM_RTOL,
+                                       atol=PARAM_ATOL)))
+    default = card._buckets[key]
+    shared = all(card._buckets[k]._exec.arg_dict[n] is
+                 default._exec.arg_dict[n] for k in picked
+                 for n in default._param_names)
+    summary = {"steps": rows, "param_max_abs_err":
+               {n: e for n, (e, _) in errs.items()},
+               "bucket_arrays_are_the_default_buckets": shared}
+    log("phase 24b card vs cpu from the seed %s" % json.dumps(summary))
+    check(all(r["outputs_close"] for r in rows),
+          "the bucketed steps' outputs differ from the CPU's: %s" % rows)
+    check(all(ok for _, ok in errs.values()),
+          "parameters after 2 bucketed steps differ from the CPU's: %s"
+          % [n for n, (_, ok) in errs.items() if not ok])
+    check(shared, "a bucket's executor holds copies of the parameters")
+    del card, host
+
+    rows, witness = trained_witness(mx, counters, trained, batches)
+    summary["trained"] = {"steps": rows, "params": witness,
+                          "control_limit": RNN_CONTROL}
+    log("phase 24b card vs cpu from 24a's weights, f64 witness %s"
+        % json.dumps(summary["trained"]))
+    check(all(w["card_finite"] for w in witness.values()),
+          "the card's parameters from 24a's weights are not finite")
+    check(all(w["control_vs_f64_rel"] > RNN_CONTROL * w["card_vs_f64_rel"]
+              for w in witness.values()),
+          "from 24a's weights the card lies less than %g times nearer the "
+          "f64 run than the card with its last step dropped: %s"
+          % (RNN_CONTROL, witness))
+    return summary
+
+
+def gluon_lm(mx, ctx, prefix="glm_"):
+    """Embedding(10000, 650) -> gluon.rnn.LSTM(650, 2 layers, TNC) ->
+    Dense(10000, flatten=False), deferred shapes finished, hybridized."""
+    net = mx.gluon.nn.HybridSequential(prefix=prefix)
+    with net.name_scope():
+        net.add(mx.gluon.nn.Embedding(VOCAB, EMBED),
+                mx.gluon.rnn.LSTM(HIDDEN, num_layers=LAYERS),
+                mx.gluon.nn.Dense(VOCAB, flatten=False))
+    mx.random.seed(SEED)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    with mx.autograd.pause():
+        net(mx.nd.zeros((SEQ, TRAIN_BATCH), ctx=ctx))
+    net.hybridize()
+    return net
+
+
+def gluon_lm_step(mx, net, trainer, loss_fn, x, y):
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(TRAIN_BATCH)
+    return loss
+
+
+def phase_gluon_lstm(mx, counters, rng):
+    """Phase 24c: the Gluon LSTM LM at full width. 2 recorded SGD steps
+    (lr 1, clip 0.25) on gpu(0) and cpu() from the card's weights: every
+    gradient and update by relative norm to LSTM_GRAD_REL, with two
+    controls that must fail it (the card's h2h gradients with K3's dWh
+    product zeroed; the card's second update against the CPU's first).
+    Then GLUON_LM_WARMUP + GLUON_LM_STEPS steps (tokens/s, K2 and K3 once
+    a layer and step, U1 once a step) and a profiled one; then the
+    hybridized call outside ``record()``: one captured CUDA graph holding
+    K1's cooperative launches, its logits against the eager call and the
+    CPU's by relative norm to INFER_REL, its replays one
+    ``cudaGraphLaunch`` each with K1's kernels inside, which K1's
+    counter adds at each replay (ops/launch_count.py): the counter
+    against the profiler's count of the kernels in a replay."""
+    from mxnet_tpu_torch.ops import lstm_kernel
+    card = gluon_lm(mx, mx.gpu(0))
+    host = gluon_lm(mx, mx.cpu())
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainers = [mx.gluon.Trainer(n.collect_params(), "sgd", dict(TRAIN_OPT))
+                for n in (card, host)]
+    data = [(rng.randint(0, VOCAB, (SEQ, TRAIN_BATCH)).astype(np.float32),
+             rng.randint(0, VOCAB, (SEQ, TRAIN_BATCH)).astype(np.float32))
+            for _ in range(2 + GLUON_LM_WARMUP + GLUON_LM_STEPS)]
+
+    def values(net):
+        return {n: p.data().asnumpy() for n, p in
+                net.collect_params().items()}
+
+    def grads(net):
+        return {n: p.grad().asnumpy() for n, p in
+                net.collect_params().items()}
+
+    def backward(net, ctx, x, y):
+        with mx.autograd.record():
+            loss = loss_fn(net(mx.nd.array(x, ctx=ctx)),
+                           mx.nd.array(y, ctx=ctx))
+        loss.backward()
+        return loss
+
+    before_all = launches_of(counters)
+    rows, controls, moved_prev = [], {}, None
+    for step, (x, y) in enumerate(data[:2]):
+        mx.set_block_params(host, values(card))
+        start = values(card)
+        backward(host, mx.cpu(), x, y)
+        want = grads(host)
+        if step == 0:
+            saved = lstm_kernel._backward_products
+
+            def no_dwh(*args):
+                dx, dwx, dwh, db = saved(*args)
+                return dx, dwx, torch.zeros_like(dwh), db
+            lstm_kernel._backward_products = no_dwh
+            try:
+                backward(card, mx.gpu(0), x, y)
+            finally:
+                lstm_kernel._backward_products = saved
+            cut = grads(card)
+            controls["dwh_zeroed"] = max(
+                rel_err(cut[n], want[n]) for n in want if "h2h_weight" in n)
+        backward(card, mx.gpu(0), x, y)
+        got = grads(card)
+        for t in trainers:
+            t.step(TRAIN_BATCH)
+        moved = {n: v - start[n] for n, v in values(card).items()}
+        moved_ref = {n: v - start[n] for n, v in values(host).items()}
+        if moved_prev is not None:
+            controls["second_update_vs_first"] = max(
+                rel_err(moved[n], moved_prev[n]) for n in moved)
+        moved_prev = moved_ref
+        rows.append({"grad_rel": leaf_errs(got, want),
+                     "update_rel": leaf_errs(moved, moved_ref)})
+        log("phase 24c step %d vs cpu %s" % (step, json.dumps(rows[-1])))
+    log("phase 24c controls %s (limit %g)" % (json.dumps(controls),
+                                               LSTM_GRAD_REL))
+    check(all(r[k]["max"] < LSTM_GRAD_REL for r in rows
+              for k in ("grad_rel", "update_rel")),
+          "the Gluon LSTM's gradients or updates differ from the CPU's "
+          "beyond %g" % LSTM_GRAD_REL)
+    check(all(v > LSTM_GRAD_REL for v in controls.values())
+          and len(controls) == 2,
+          "a control passed the limit %g: %s" % (LSTM_GRAD_REL, controls))
+    del host
+    torch.cuda.empty_cache()
+
+    batches = [(mx.nd.array(x, ctx=mx.gpu(0)), mx.nd.array(y, ctx=mx.gpu(0)))
+               for x, y in data[2:]]
+    losses = [float(gluon_lm_step(mx, card, trainers[0], loss_fn,
+                                  *b).mean().asscalar())
+              for b in batches[:GLUON_LM_WARMUP]]
+    before = launches_of(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[GLUON_LM_WARMUP:]:
+        loss = gluon_lm_step(mx, card, trainers[0], loss_fn, *b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timed = launched(counters, before)
+    losses.append(float(loss.mean().asscalar()))
+    prof_wall, kern = device_profile(
+        lambda: gluon_lm_step(mx, card, trainers[0], loss_fn, *batches[-1]))
+    busy = sum(ms for _, ms in kern.values())
+    train = {"steps": GLUON_LM_STEPS,
+             "tokens_per_s": GLUON_LM_STEPS * SEQ * TRAIN_BATCH / wall,
+             "step_ms": wall * 1e3 / GLUON_LM_STEPS, "losses": losses,
+             "launches": timed, "profiled_step_wall_ms": prof_wall,
+             "device_busy_ms": busy,
+             "device_idle_share": (1 - busy / prof_wall) if kern else None,
+             "k2": kernel_share(kern, K2_KERNELS, busy),
+             "k3": kernel_share(kern, K3_KERNELS, busy)}
+    log("phase 24c gluon LSTM training %s" % json.dumps(train))
+    check(timed["fused_lstm_train"] == LAYERS * GLUON_LM_STEPS
+          and timed["lstm_bwd_recurrence"] == LAYERS * GLUON_LM_STEPS,
+          "the Gluon LSTM launched K2 %d and K3 %d times in %d steps"
+          % (timed["fused_lstm_train"], timed["lstm_bwd_recurrence"],
+             GLUON_LM_STEPS))
+    check(timed["multi_tensor_update"] == GLUON_LM_STEPS,
+          "the Gluon LSTM's Trainer launched U1 %d times in %d steps"
+          % (timed["multi_tensor_update"], GLUON_LM_STEPS))
+    check(all(np.isfinite(losses)), "losses %s" % losses)
+
+    x = batches[0][0]
+    with mx.compiled.inline("chip_smoke.eager"):
+        eager = card(x).data.clone()
+    mx.compiled.reset()
+    k1 = counters["fused_lstm"]
+    before_k1 = k1.launches
+    first = card(x).data.clone()        # warm-up runs, the capture, a replay
+    k1_first = k1.launches - before_k1
+    counts = mx.compiled.compile_counts()
+    before_k1 = k1.launches
+    second = card(x).data.clone()         # a replay
+    k1_replay = k1.launches - before_k1
+    (entry,) = [e for e in card._cached_jit._cache.values()
+                if type(e).__name__ == "_Graph"] or [None]
+    recorded = None if entry is None else [
+        "fused_lstm" if w is k1 else w.__name__ for w, _ in entry.launches]
+    replay = call_profile(lambda: card(x))
+    counted = []
+
+    def profiled_replay():
+        n = k1.launches
+        card(x)
+        counted.append(k1.launches - n)
+    _, replay_kern = device_profile(
+        profiled_replay, complete=lambda k: any(f in n for n in k
+                                                for f in K1_KERNELS))
+    host = gluon_lm(mx, mx.cpu(), prefix=card.prefix)
+    mx.set_block_params(host, values(card))
+    want = host(mx.nd.array(x.asnumpy(), ctx=mx.cpu())).asnumpy()
+    k1_in_graph = kernel_share(replay_kern, K1_KERNELS, 1.0)["launches"]
+    infer = {"compile_counts": counts,
+             "captured": entry is not None,
+             "launches_recorded_at_capture": recorded,
+             "k1_counted_first_call": k1_first,
+             "k1_counted_a_replay": k1_replay,
+             "k1_counted_profiled_replay": counted[-1],
+             "rel_vs_eager": rel_err(first.cpu().numpy(),
+                                     eager.cpu().numpy()),
+             "rel_vs_cpu": rel_err(first.cpu().numpy(), want),
+             "replay_bit_identical": bool(torch.equal(first, second)),
+             "replay_runtime_calls": replay["runtime_calls"],
+             "replay_wall_ms": replay["wall_ms"],
+             "replay_device_busy_ms": replay["device_busy_ms"],
+             "k1_kernels_in_a_replay": k1_in_graph}
+    log("phase 24c hybridized inference %s" % json.dumps(infer))
+    check(entry is not None and counts["uncaptured"] == 0
+          and counts["compiles"] == 1,
+          "the hybridized LSTM was not captured: %s" % counts)
+    check(infer["rel_vs_eager"] < INFER_REL and infer["rel_vs_cpu"]
+          < INFER_REL, "the captured logits read %.3g against the eager "
+          "call and %.3g against the CPU (limit %g)"
+          % (infer["rel_vs_eager"], infer["rel_vs_cpu"], INFER_REL))
+    check(recorded == ["fused_lstm"] * LAYERS
+          and k1_first == LAYERS * (mx.compiled.WARMUP_RUNS + 1)
+          and k1_replay == LAYERS,
+          "the capture recorded %s; K1's counter moved %d at the first "
+          "call (warm-ups and a replay) and %d at a replay"
+          % (recorded, k1_first, k1_replay))
+    check(replay["runtime_calls"].get("cudaGraphLaunch") == 1
+          and sum(k1_in_graph.values()) == LAYERS == counted[-1],
+          "a replay made %s runtime calls with K1 kernels %s and K1's "
+          "counter moved %d, want one cudaGraphLaunch holding %d"
+          % (replay["runtime_calls"], k1_in_graph, counted[-1], LAYERS))
+    summary = {"vs_cpu": rows, "controls": controls, "limit": LSTM_GRAD_REL,
+               "train": train, "inference": infer,
+               "launches": launched(counters, before_all)}
+    del card, host
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_rnn_modes(mx, counters, device):
+    """Phase 24d: K1, K2 and K3 against their plain versions at
+    bi-lstm-sort's shape, both directions, each call's route recorded;
+    ``gru`` and ``rnn_tanh`` (2 layers, bidirectional, the LM's widths)
+    forward and backward on the card against the CPU, by the largest
+    difference over the largest magnitude, to RNN_MODE_REL; and the RNN
+    op's inter-layer dropout (p = 0.5, 2 LSTM layers) on the card: the
+    same seed the same output, another seed another, the output equal
+    to the layers run one by one with the first one's output masked by
+    the same draw and scaled by 1/(1-p), the keep rate within 4 sigma."""
+    from mxnet_tpu_torch.ops import lstm_kernel as lk
+    from mxnet_tpu_torch.ops.registry import get_op
+    ops = mx.ops
+    t, b, i, h = RNN_SORT_SHAPE
+    x, h0, c0, wx, wh, bias = lstm_inputs(t, b, i, h, device, SEED + 24)
+    cots = cotangents(t, b, h, device, SEED + 25)
+    rows = []
+    for direction in ("forward", "reverse"):
+        xs = torch.flip(x, (0,)) if direction == "reverse" else x
+        routes = {k: dict(c.launches_by_route) for k, c in (
+            ("k1", ops.fused_lstm), ("k2", ops.fused_lstm_train),
+            ("k3", ops.lstm_bwd_recurrence))}
+        _, cseq, gates = lk.fused_lstm_train_plain(xs, h0, c0, wx, wh, bias)
+        pairs = {"k1": (ops.fused_lstm(xs, h0, c0, wx, wh, bias),
+                        lk.fused_lstm_plain(xs, h0, c0, wx, wh, bias)),
+                 "k2": (ops.fused_lstm_train(xs, h0, c0, wx, wh, bias),
+                        lk.fused_lstm_train_plain(xs, h0, c0, wx, wh, bias)),
+                 "k3": (ops.lstm_bwd_recurrence(*cots, gates, cseq, c0, wh),
+                        lk.lstm_bwd_recurrence_plain(*cots, gates, cseq, c0,
+                                                     wh))}
+        torch.cuda.synchronize()
+        errs = {k: max(float((g - w).abs().max()) for g, w in zip(*pair))
+                for k, pair in pairs.items()}
+        close = {k: all(bool(torch.isfinite(g).all())
+                         and bool(torch.allclose(g, w, rtol=LSTM_ATOL,
+                                                 atol=LSTM_ATOL))
+                         for g, w in zip(*pair))
+                 for k, pair in pairs.items()}
+        took = {k: {r: n - routes[k][r] for r, n in c.launches_by_route.items()
+                    if n - routes[k][r]}
+                for k, c in (("k1", ops.fused_lstm),
+                             ("k2", ops.fused_lstm_train),
+                             ("k3", ops.lstm_bwd_recurrence))}
+        rows.append({"direction": direction, "shape": RNN_SORT_SHAPE,
+                     "max_abs_err": errs, "routes": took})
+        log("phase 24d bi-lstm-sort shape %s" % json.dumps(rows[-1]))
+        check(all(close.values()), "K1-K3 at bi-lstm-sort's shape (%s) "
+              "differ from their plain versions: %s" % (direction, errs))
+
+    op = get_op("RNN")
+    modes = {}
+    for mode in ("gru", "rnn_tanh"):
+        gen = np.random.RandomState(SEED + 26)
+        n = mx.ops.nn.rnn_param_size(LAYERS, EMBED, HIDDEN, True, mode)
+        host = [torch.from_numpy(a.astype(np.float32)) for a in (
+            gen.randn(SEQ, TRAIN_BATCH, EMBED), gen.randn(n) * 0.05,
+            gen.randn(2 * LAYERS, TRAIN_BATCH, HIDDEN) * 0.5)]
+        cot = [torch.from_numpy(gen.randn(SEQ, TRAIN_BATCH, 2 * HIDDEN)
+                                .astype(np.float32)),
+               torch.from_numpy(gen.randn(2 * LAYERS, TRAIN_BATCH, HIDDEN)
+                                .astype(np.float32))]
+        params = {"mode": mode, "state_size": HIDDEN, "num_layers": LAYERS,
+                  "bidirectional": True, "state_outputs": True,
+                  "_is_train": True, "_generator": None}
+        res = {}
+        for dev in ("cpu", device):
+            ins = [a.detach().to(dev).requires_grad_(True) for a in host]
+            outs = op.fcompute(dict(params), *ins)
+            torch.autograd.backward(outs, [c.to(dev) for c in cot])
+            res[str(dev)] = [o.detach().cpu().numpy() for o in outs] + \
+                [a.grad.cpu().numpy() for a in ins]
+        names = ["output", "h_n", "d_data", "d_parameters", "d_state"]
+        errs = {nm: float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+                for nm, g, w in zip(names, res[str(device)], res["cpu"])}
+        modes[mode] = errs
+        log("phase 24d %s card vs cpu %s (limit %g)"
+            % (mode, json.dumps(errs), RNN_MODE_REL))
+    check(all(e < RNN_MODE_REL for m in modes.values() for e in m.values()),
+          "gru / rnn_tanh on the card differ from the CPU: %s" % modes)
+
+    base = {"mode": "lstm", "state_size": HIDDEN, "num_layers": LAYERS,
+            "p": RNN_DROPOUT, "_is_train": True, "_ctx": mx.gpu(0)}
+    gen = np.random.RandomState(SEED + 27)
+    layer = [[torch.from_numpy((gen.randn(*s) * 0.05).astype(np.float32))
+              .to(device) for s in ((4 * HIDDEN, EMBED),
+                                    (4 * HIDDEN, HIDDEN), (4 * HIDDEN,),
+                                    (4 * HIDDEN,))] for _ in range(LAYERS)]
+    flat = torch.cat([w.reshape(-1) for lw in layer for w in lw[:2]]
+                     + [w for lw in layer for w in lw[2:]])
+    xd = torch.from_numpy(gen.randn(SEQ, TRAIN_BATCH, EMBED)
+                          .astype(np.float32)).to(device)
+    z = torch.zeros(LAYERS, 1, HIDDEN, device=device)
+
+    def run(seed):
+        g = torch.Generator(device=device).manual_seed(seed)
+        return op.fcompute(dict(base, _generator=g), xd, flat, z, z)[0]
+
+    def one(data, lw):
+        w = torch.cat([lw[0].reshape(-1), lw[1].reshape(-1), lw[2], lw[3]])
+        return op.fcompute(dict(base, num_layers=1), data, w, z[:1],
+                           z[:1])[0]
+    with torch.no_grad():
+        a, a2, c = run(7), run(7), run(8)
+        y1 = one(xd, layer[0])
+        mask = torch.bernoulli(torch.full_like(y1, 1 - RNN_DROPOUT),
+                               generator=torch.Generator(device=device)
+                               .manual_seed(7))
+        want = one(y1 * mask / (1 - RNN_DROPOUT), layer[1])
+    keep = float(mask.mean())
+    sigma = float(np.sqrt(RNN_DROPOUT * (1 - RNN_DROPOUT) / mask.numel()))
+    drop = {"elements": mask.numel(), "keep_rate": keep,
+            "keep_sigmas": abs(keep - (1 - RNN_DROPOUT)) / sigma,
+            "same_seed_same": bool(torch.equal(a, a2)),
+            "other_seed_differs": not bool(torch.equal(a, c)),
+            "equals_scaled_layers": bool(torch.equal(a, want)),
+            "max_abs_vs_scaled_layers": float((a - want).abs().max())}
+    log("phase 24d RNN dropout %s" % json.dumps(drop))
+    check(drop["keep_sigmas"] < 4 and drop["same_seed_same"]
+          and drop["other_seed_differs"] and drop["equals_scaled_layers"],
+          "the RNN op's dropout on the card: %s" % drop)
+    return {"bi_lstm_sort_shape": rows, "modes_vs_cpu": modes,
+            "dropout": drop}
+
+
+def phase_rnn_examples(mx, counters):
+    """Phase 24e: the four RNN examples through ``tools/run_example`` on
+    gpu(0), each printing its JAX test's line, with K1-K3 and U1
+    launches and its own clock line where it prints one."""
+    from mxnet_tpu_torch.tools.run_example import run_example
+    rows = {}
+    root = logging.getLogger()
+    for key, rel, argv, line, want in RNN_EXAMPLES:
+        before = launches_of(counters)
+        buf = io.StringIO()
+        handler, level = logging.StreamHandler(buf), root.level
+        root.addHandler(handler)           # word_lm's clock lines log
+        root.setLevel(logging.INFO)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                run_example(os.path.join("examples", rel), argv, "gpu")
+        finally:
+            root.removeHandler(handler)
+            root.setLevel(level)
+        lines = buf.getvalue().splitlines()
+        got = launched(counters, before)
+        hit = [ln for ln in lines if line in ln]
+        clock = [ln for ln in lines if "tokens/s" in ln or "Time cost" in ln
+                 or "samples/sec" in ln]
+        rows[key] = {"line": hit[0] if hit else None, "clock": clock[-2:],
+                     "launches": got, "seconds": time.perf_counter() - t0}
+        log("phase 24e %s %s" % (key, json.dumps(rows[key])))
+        check(hit, "%s printed no %r line: %s" % (rel, line, lines[-5:]))
+        check(all((got[k] > 0) == (k in want) for k in RNN_PATH),
+              "%s launched %s: want %s" % (key, got, sorted(want)))
+        check(not any(n for k, n in got.items() if k not in RNN_PATH),
+              "%s launched %s: want K1-K3 and U1 only" % (key, got))
+    return rows
+
+
+def phase_rnn(mx, counters, rng, device):
+    """Phase 24: the RNN layer on the card. Every kernel's count is set to
+    0 before its main path (24a, 24c's steps, 24e) and read after it;
+    only K1-K3 and U1 may launch."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    for c in counters.values():               # the RNN path starts here
+        c.launches = 0
+    mod, it, lm = phase_rnn_lm(mx, counters, rng)
+    trained = {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
+    del mod
+    vs_cpu = phase_rnn_card_vs_cpu(mx, counters, it, trained)
+    gluon = phase_gluon_lstm(mx, counters, rng)
+    path = launches_of(counters)
+    modes = phase_rnn_modes(mx, counters, device)
+    for k, c in counters.items():             # 24d's kernel checks are
+        c.launches = path[k]                  # not the main path
+    examples = phase_rnn_examples(mx, counters)
+    rnn_launches = launches_of(counters)      # ... and ends here
+    seconds = time.perf_counter() - t0
+    log("phase 24 rnn %s" % json.dumps({
+        "kernel_launches": rnn_launches, "seconds": seconds,
+        "bucketed_tokens_per_s": lm["tokens_per_s"],
+        "gluon_tokens_per_s": gluon["train"]["tokens_per_s"],
+        "k1_captured": gluon["inference"]["captured"]}))
+    check(all(rnn_launches[k] > 0 for k in RNN_PATH)
+          and not any(n for k, n in rnn_launches.items()
+                      if k not in RNN_PATH),
+          "the RNN path launched %s: want K1-K3 and U1, and no other"
+          % rnn_launches)
+    return rnn_launches, {"lm": lm, "card_vs_cpu": vs_cpu, "gluon": gluon,
+                          "modes": modes, "examples": examples,
+                          "seconds": seconds}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs the port on the GPU",
               file=sys.stderr)
         return 2
+    script_t0 = time.perf_counter()
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import _build
 
@@ -4628,6 +5532,9 @@ def main():
                                    "multi_tensor_update")),
           "the sparse path launched %s: want S1 (and U1) only" % sp_launches)
 
+    rnn_launches, _ = phase_rnn(mx, path, np.random.RandomState(SEED + 24),
+                                device)
+
     top = next(r for r in rows if r["B"] == max(SERVED_BATCHES))
     train = next(r for r in train_rows if r["B"] == TRAIN_BATCH)
     pallas = "mxnet_tpu/ops/pallas_kernels.py"
@@ -4636,19 +5543,22 @@ def main():
     kernels = [{
         "name": "fused_lstm", "route": "cuda", "source": recurrence_src,
         "replaces": pallas + ":295",
-        "launches": launches, "max_abs_err": worst,
+        "launches": launches + rnn_launches["fused_lstm"],
+        "max_abs_err": worst,
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": top["library_ms"]}, {
         "name": "fused_lstm_train", "route": "cuda",
         "source": recurrence_src,
-        "replaces": pallas + ":348", "launches": k2,
+        "replaces": pallas + ":348",
+        "launches": k2 + rnn_launches["fused_lstm_train"],
         "max_abs_err": train_worst, "ms": train["k2_ms"],
         "plain_ms": train["k2_plain_ms"], "bound_ms": train["k2_bound_ms"],
         "bound_by": train["k2_bound_by"],
         "library_ms": train["cudnn_fwd_ms"]}, {
         "name": "lstm_bwd_recurrence", "route": "cuda", "source": k3_src,
-        "replaces": pallas + ":382", "launches": k3,
+        "replaces": pallas + ":382",
+        "launches": k3 + rnn_launches["lstm_bwd_recurrence"],
         "max_abs_err": train_worst, "ms": train["k3_ms"],
         "plain_ms": train["k3_plain_ms"], "bound_ms": train["k3_bound_ms"],
         "bound_by": train["k3_bound_by"],
@@ -4715,6 +5625,7 @@ def main():
         "max_abs_err": s1_summary["max_abs_err"],
         **{key: s1_main[key] for key in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")}})
+    log("script seconds %.1f" % (time.perf_counter() - script_t0))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 
 A second package beside the JAX one, with the same module names, so an
 ``import mxnet_tpu_torch as mx`` script reads like one written against
-`mxnet_tpu`. It imports neither JAX nor `mxnet_tpu`. It holds seven paths
+`mxnet_tpu`. It imports neither JAX nor `mxnet_tpu`. It holds eight paths
 so far:
 
 - serving: ``sym`` -> ``Executor`` -> ``Predictor`` ->
@@ -48,7 +48,13 @@ so far:
   compact payload, ``dot`` on it under the tape), ``kv`` (the local
   ``KVStore`` with ``row_sparse_pull``) and the optimizers' lazy
   row-sparse updates, one launch of a hand-written CUDA kernel a push
-  (`csrc/sparse_row_update.cu`, bound by `ops/sparse_update.py`).
+  (`csrc/sparse_row_update.cu`, bound by `ops/sparse_update.py`);
+- the RNN layer: ``rnn`` (the symbolic cells, ``BucketSentenceIter`` and
+  the checkpoint helpers), ``mod.BucketingModule`` (one executor a
+  bucket, all sharing one set of parameters and one updater) and
+  ``gluon.rnn`` (the fused ``RNN``/``LSTM``/``GRU`` layers and the
+  cells), whose LSTM layers run the same hand-written kernels as the LM
+  paths above.
 
 ``rtc`` compiles and launches user CUDA kernels at runtime (NVRTC and
 ``libcuda``), the reference's ``mx.rtc.CudaModule``.
@@ -84,6 +90,7 @@ from . import metric
 from . import module
 from . import module as mod
 from . import model
+from . import rnn
 from . import callback
 from . import name
 from . import gluon
@@ -101,6 +108,6 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "cpu_pinned",
            "Executor", "init", "initializer", "optimizer", "kv", "kvstore",
            "kvstore_create", "lr_scheduler",
            "misc", "io", "metric",
-           "mod", "module", "model", "callback", "name", "gluon", "compiled",
+           "mod", "module", "model", "rnn", "callback", "name", "gluon", "compiled",
            "autograd", "Predictor", "params_from_numpy", "params_to_numpy",
            "set_block_params", "serving", "rtc", "operator"]

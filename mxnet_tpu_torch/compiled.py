@@ -27,7 +27,9 @@ executable:
    not step;
 2. it is captured over static input buffers (a copy of every input
    tensor), into one memory pool that all the program's signatures share;
-3. the static outputs are kept.
+3. the static outputs are kept, and the hand kernels that the capture
+   recorded, which each replay adds to their wrappers' launch counts
+   (`ops/launch_count.py`).
 
 A call then copies its inputs into the static buffers, replays the graph
 and returns clones of the outputs (a replay overwrites the static ones),
@@ -90,6 +92,7 @@ import torch
 
 from . import autograd
 from .base import MXNetError
+from .ops import launch_count
 from .ops.invoke import suppress_aux_writeback
 
 __all__ = ["CompiledProgram", "compile_counts", "explain_signature_change",
@@ -393,16 +396,19 @@ class _Graph:
     """A CUDA signature: the captured graph, its static input buffers
     and its static outputs."""
 
-    def __init__(self, graph, buffers, outputs):
+    def __init__(self, graph, buffers, outputs, launches):
         self.graph = graph
         self.buffers = buffers
         self.outputs = outputs
+        self.launches = launches    # the hand kernels it holds, counted
+                                    # at each replay (ops/launch_count.py)
 
     def run(self, program, args):
         for buf, x in zip(self.buffers, program._copied(args)):
             if x is not buf:
                 buf.copy_(x)
         self.graph.replay()
+        launch_count.replayed(self.launches)
         return _map(self.outputs, torch.clone)
 
 
@@ -556,9 +562,11 @@ class CompiledProgram:
                     self._uncaptured(seen)
                     return None
                 gc.disable()
-                with suppress_aux_writeback(False), torch.cuda.graph(
-                        graph, pool=self._pool, stream=self._stream,
-                        capture_error_mode="thread_local"):
+                with suppress_aux_writeback(False), \
+                        launch_count.recording() as launches, \
+                        torch.cuda.graph(graph, pool=self._pool,
+                                         stream=self._stream,
+                                         capture_error_mode="thread_local"):
                     outputs = self._fun(*static_args)
         except Exception as exc:
             raise MXNetError("%s: CUDA graph capture failed: %s: %s"
@@ -567,4 +575,4 @@ class CompiledProgram:
             if collecting:
                 gc.enable()
             current.wait_stream(self._stream)
-        return _Graph(graph, self._copied(static_args), outputs)
+        return _Graph(graph, self._copied(static_args), outputs, launches)

@@ -1,9 +1,9 @@
 """Gluon: the imperative neural-network front end of the port (reference
 `python/mxnet/gluon/`): blocks, parameters with gradient buffers and
 ``Constant``, the layers of ``nn``, the ResNet model zoo, ``Trainer``,
-the losses, ``data`` (datasets, samplers, ``DataLoader``) and ``utils``
-(``split_and_load`` also at the top). The other layers, ``rnn`` and
-``contrib`` are not ported yet."""
+the losses, ``data`` (datasets, samplers, ``DataLoader``), ``utils``
+(``split_and_load`` also at the top) and the recurrent layers and cells
+of ``rnn``. ``contrib`` is not ported yet."""
 from .parameter import (Parameter, Constant, ParameterDict,
                         DeferredInitializationError)
 from .block import Block, HybridBlock
@@ -13,8 +13,10 @@ from . import loss
 from . import data
 from . import utils
 from . import model_zoo
+from . import rnn
 from .utils import split_and_load
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError", "Block", "HybridBlock", "Trainer",
-           "nn", "loss", "data", "utils", "model_zoo", "split_and_load"]
+           "nn", "loss", "data", "utils", "model_zoo", "rnn",
+           "split_and_load"]

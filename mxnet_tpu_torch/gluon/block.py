@@ -218,6 +218,26 @@ def _context_of(tensor):
     return cpu() if device.type == "cpu" else gpu(device.index or 0)
 
 
+def _unwrap(obj):
+    """``obj`` with the NDArrays of its lists and tuples (a recurrent
+    cell's states) replaced by their tensors."""
+    if isinstance(obj, NDArray):
+        return obj.data
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_unwrap(v) for v in obj)
+    return obj
+
+
+def _wrap(obj, ctx=None):
+    """The inverse of :func:`_unwrap`: tensors as NDArrays on ``ctx``,
+    else on their own device."""
+    if isinstance(obj, torch.Tensor):
+        return NDArray(obj, ctx or _context_of(obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_wrap(v, ctx) for v in obj)
+    return obj
+
+
 class HybridBlock(Block):
     """Reference gluon/block.py:486: the forward runs eagerly, given a
     Symbol builds the graph, and after ``hybridize()`` runs as one
@@ -286,15 +306,12 @@ class HybridBlock(Block):
                 with _random.key_scope(key), (autograd.train_mode()
                                               if is_train
                                               else autograd.predict_mode()):
-                    out = block._forward_impl(*[
-                        NDArray(x, _context_of(x))
-                        if isinstance(x, torch.Tensor) else x
-                        for x in inputs])
+                    out = block._forward_impl(*_wrap(inputs))
             finally:
                 for p, d in zip(objs, saved):
                     p._data = d
             if isinstance(out, (list, tuple)):
-                return tuple(o.data for o in out), {}
+                return _unwrap(tuple(out)), {}
             return (out.data,), {}
 
         if self._flags.get("remat") or \
@@ -311,12 +328,11 @@ class HybridBlock(Block):
         if self._cached_jit is None:
             self._build_jit()
         param_vals = [p.data().data for p in self._param_objs]
-        inputs = [a.data if isinstance(a, NDArray) else a for a in args]
         ctx = args[0].context if args and isinstance(args[0], NDArray) \
             else None
         outs, _ = self._cached_jit(param_vals, _random.executor_seed(ctx),
-                                   autograd.is_training(), *inputs)
-        out_nds = [NDArray(o, ctx or _context_of(o)) for o in outs]
+                                   autograd.is_training(), *_unwrap(args))
+        out_nds = _wrap(outs, ctx)
         return out_nds[0] if len(out_nds) == 1 else tuple(out_nds)
 
     def _forward_impl(self, *args):

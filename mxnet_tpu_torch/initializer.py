@@ -3,12 +3,13 @@
 Counterpart of `mxnet_tpu/initializer.py` (reference
 `python/mxnet/initializer.py`): ``InitDesc``, the name dispatch of
 ``Initializer.__call__``, and ``Zero``, ``One``, ``Constant``,
-``Uniform``, ``Normal``, ``Xavier`` with ``register``/``create``. Values
+``Uniform``, ``Normal``, ``Xavier``, ``LSTMBias`` with
+``register``/``create``. Values
 are drawn with numpy's global generator in the JAX package's order and
 cast to the array's dtype on the host, then copied to the array's
 device, so one ``np.random`` seed gives bit-identical parameters in both
-packages. ``Orthogonal``, ``MSRAPrelu``, ``Bilinear``, ``LSTMBias``,
-``Mixed`` and ``Load`` wait for a later slice.
+packages. ``Orthogonal``, ``MSRAPrelu``, ``Bilinear``, ``Mixed`` and
+``Load`` wait for a later slice.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 __all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
-           "Normal", "Xavier", "register", "create"]
+           "Normal", "Xavier", "LSTMBias", "register", "create"]
 
 _INIT_REGISTRY = {}
 
@@ -179,6 +180,22 @@ class Xavier(Initializer):
             self._set(arr, np.random.normal(0, scale, shape))
         else:
             raise ValueError("Unknown random type")
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros, with the forget gate's quarter (gate order i, f, g, o) at
+    ``forget_bias`` (reference initializer.py LSTMBias)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        b = np.zeros(arr.shape, dtype=np.float32)
+        num_hidden = int(b.shape[0] / 4)
+        b[num_hidden:2 * num_hidden] = self.forget_bias
+        self._set(arr, b)
 
 
 # reference registers these under plural/alternate names

@@ -14,8 +14,9 @@ statistics) live in the executor and are updated in place by every
 training forward, so ``_step`` and ``_step_scan`` carry them from step to
 step.
 
-The context defaults to ``gpu(0)`` (the JAX package's to ``cpu()``), and
-a module on a GPU context without that CUDA device raises at
+The context defaults to the enclosing ``with ctx:`` scope's, else
+``gpu(0)`` (the JAX package's to the scope's, else ``cpu()``), and a
+module on a GPU context without that CUDA device raises at
 construction. Batches may live anywhere: ``forward`` copies them onto the
 module's device. The JAX package fuses a train step into one compiled
 program and ``_step_scan`` runs K of them in one ``lax.scan`` dispatch;
@@ -25,8 +26,12 @@ semantics. With a ``KVStore`` object (`kvstore.py`) the module updates on
 the store, as the reference does: ``init_optimizer`` initializes every
 parameter's key and sets the optimizer there, and ``update`` pushes the
 gradients as one list and pulls the weights back. Multi-device contexts,
-the distributed kvstores, SPMD sharding, ``group2ctxs``, bucketing and the monitor wait for
-later slices.
+the distributed kvstores, SPMD sharding, ``group2ctxs`` and the monitor
+wait for later slices. ``bind(shared_module=...)`` shares the other
+module's parameter and gradient arrays by identity and
+``borrow_optimizer`` its optimizer and updater states, which is how
+``BucketingModule`` (`bucketing_module.py`) trains one set of
+parameters through one executor per bucket.
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ import torch
 from .. import kvstore as kvs
 from .. import optimizer as opt
 from ..base import MXNetError
-from ..context import Context, gpu
+from ..context import Context, gpu, scope_context
 from ..executor import Executor
 from ..initializer import InitDesc, Uniform
 from ..io import DataBatch
@@ -72,7 +77,7 @@ class Module(BaseModule):
                  context=None, fixed_param_names=None, state_names=None):
         super().__init__(logger=logger)
         if context is None:
-            context = gpu(0)
+            context = scope_context() or gpu(0)
         if isinstance(context, (list, tuple)):
             if len(context) != 1:
                 raise MXNetError("Module runs on one device; got %d contexts"
@@ -355,6 +360,18 @@ class Module(BaseModule):
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
 
+    def borrow_optimizer(self, shared_module):
+        """Use ``shared_module``'s optimizer, kvstore and updater (so its
+        states too), as a bucket of ``BucketingModule`` does."""
+        if not shared_module.optimizer_initialized:
+            raise MXNetError("the shared module has no optimizer yet")
+        self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
+        self._updater = shared_module._updater
+        self._fused = None
+        self.optimizer_initialized = True
+
     def save_optimizer_states(self, fname):
         """Write the updater's states (numpy arrays, pickled) to
         ``fname``, in the JAX package's format (the store's updater when
@@ -478,6 +495,22 @@ class Module(BaseModule):
         if not self.inputs_need_grad:
             raise MXNetError("bind with inputs_need_grad=True first")
         return [self._exec.grad_dict.get(n) for n in self._data_names]
+
+    def get_states(self, merge_multi_context=True):
+        """The arrays bound to ``state_names``."""
+        self._check_ready()
+        return [self._exec.arg_dict[n] for n in self._state_names]
+
+    def set_states(self, states=None, value=None):
+        """Copy ``states`` (in ``state_names`` order) into the state
+        arrays, or fill them all with ``value``."""
+        self._check_ready()
+        if states is not None:
+            for name, arr in zip(self._state_names, states):
+                self._exec.arg_dict[name][:] = arr
+        else:
+            for name in self._state_names:
+                self._exec.arg_dict[name][:] = value
 
     def update_metric(self, eval_metric, labels):
         eval_metric.update_dict(dict(zip(self._label_names, labels or [])),

@@ -32,6 +32,7 @@ import torch
 
 from ..base import MXNetError
 from . import _build
+from .launch_count import count
 
 __all__ = ["flash_attention", "flash_attention_plain",
            "dense_attention_plain", "tma_operands", "FlashAttention"]
@@ -175,8 +176,7 @@ def flash_attention(q, k, v, scale=None, causal=False, block_q=512,
         raise MXNetError("flash_attention kernel launch failed: %s (%d)"
                          % (lib.flash_attention_error_name(err).decode(),
                             err))
-    with _lock:
-        flash_attention.launches += 1
+    count(flash_attention)
     return out if out.shape[-1] == d else out[..., :d].contiguous()
 
 

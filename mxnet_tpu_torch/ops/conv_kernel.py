@@ -30,6 +30,7 @@ import torch
 
 from ..base import MXNetError
 from . import _build
+from .launch_count import count
 
 __all__ = ["conv1x1_s2_dgrad", "conv1x1_s2_dgrad_plain", "K5Plan",
            "conv1x1_s2_dgrad_plan"]
@@ -205,9 +206,7 @@ def conv1x1_s2_dgrad(dy, w2, H, W):
         raise MXNetError("conv1x1_s2_dgrad kernel launch failed: %s (%d)"
                          % (lib.conv1x1_s2_dgrad_error_name(err).decode(),
                             err))
-    with _lock:
-        conv1x1_s2_dgrad.launches += 1
-        conv1x1_s2_dgrad.launches_by_route[plan.route] += 1
+    count(conv1x1_s2_dgrad, plan.route)
     return dx
 
 

@@ -23,7 +23,8 @@ same math, which is also the kernel's reference on the card) on a CPU
 tensor, launches its kernel on a CUDA tensor, and raises on any other
 device. ``<wrapper>.launches`` counts the calls that launched a kernel
 (one call is one layer), and ``launches_by_route`` the same calls by
-route.
+route; a call captured in a CUDA graph counts at each replay
+(`launch_count.py`).
 
 :class:`FusedLSTM` is the layer's ``torch.autograd.Function`` (the JAX
 package's ``custom_vjp``): forward K2, backward K3 plus the four
@@ -36,13 +37,13 @@ the recurrence works in f32 and returns x's dtype.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import NamedTuple
 
 import torch
 
 from ..base import MXNetError
 from . import _build
+from .launch_count import count
 
 __all__ = ["fused_lstm", "fused_lstm_plain", "fused_lstm_train",
            "fused_lstm_train_plain", "lstm_bwd_recurrence",
@@ -154,7 +155,6 @@ def fused_lstm_backward(dhseq, dhn, dcn, x, h0, c0, wx, wh, hseq, cseq,
 # ---------------------------------------------------------------------------
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
-_count_lock = threading.Lock()
 
 
 def _library(name, signatures):
@@ -176,13 +176,6 @@ def _raise_on(lib, name, err):
     if err:
         raise MXNetError("%s kernel launch failed: %s (%d)" % (
             name, getattr(lib, name + "_error_name")(err).decode(), err))
-
-
-def _count(wrapper, route=None):
-    with _count_lock:
-        wrapper.launches += 1
-        if route is not None:
-            wrapper.launches_by_route[route] += 1
 
 
 def _stream(t):
@@ -387,7 +380,7 @@ def _forward(wrapper, name, x, h0, c0, wx, wh, b, residuals):
             hid, int(persistent), plan.grid, plan.units, plan.rows,
             plan.smem, _stream(x))
     _raise_on(lib, name, err)
-    _count(wrapper, plan.route)
+    count(wrapper, plan.route)
     return hseq, cout, gates
 
 
@@ -474,7 +467,7 @@ def lstm_bwd_recurrence(dhseq, dhn, dcn, gates, cseq, c0, wh):
             *strides, int(persistent), plan.grid, plan.units, plan.rows,
             plan.smem, _stream(gates))
     _raise_on(lib, "fused_lstm_train", err)
-    _count(lstm_bwd_recurrence, plan.route)
+    count(lstm_bwd_recurrence, plan.route)
     return dgates, dh0, dc
 
 

@@ -37,6 +37,7 @@ from torch.autograd.graph import increment_version
 
 from ..base import MXNetError
 from . import _build
+from .launch_count import count
 from .optimizer_ops import (adam_update, mp_sgd_mom_update, mp_sgd_update,
                             sgd_mom_update, sgd_update)
 
@@ -220,8 +221,7 @@ def multi_tensor_update(formula, weights, grads, states, lrs, wds,
                             err))
     increment_version([t for w, st in zip(weights, states)
                        for t in (w,) + st])
-    with _lock:
-        multi_tensor_update.launches += 1
+    count(multi_tensor_update)
 
 
 #: calls that launched the CUDA kernel (the plain version does not count)

@@ -22,6 +22,7 @@ import torch
 
 from ..base import MXNetError
 from . import _build
+from .launch_count import count
 
 __all__ = ["greedy_nms", "greedy_nms_plain", "box_iou_xyxy", "MAX_BOXES"]
 
@@ -124,8 +125,7 @@ def greedy_nms(boxes, valid, class_id, thresh):
     if err:
         raise MXNetError("greedy_nms kernel launch failed: %s (%d)"
                          % (lib.greedy_nms_error_name(err).decode(), err))
-    with _lock:
-        greedy_nms.launches += 1
+    count(greedy_nms)
     return keep
 
 

@@ -243,14 +243,25 @@ def _rnn_cell_scan(mode, x_seq, h0, c0, w_i2h, w_h2h, b_i2h, b_h2h,
     return torch.stack(ys), h, c
 
 
-@register("RNN", num_outputs=_rnn_nout, need_train_flag=True, need_rng=True)
+def _rnn_draws(params):
+    """Whether a call draws its inter-layer dropout masks: in training,
+    with ``p > 0`` and more than one layer. Otherwise the op takes no
+    generator, so it runs inside a CUDA graph capture."""
+    return (float(params.get("p", 0.0)) > 0
+            and int(params.get("num_layers", 1)) > 1
+            and params.get("_is_train", False))
+
+
+@register("RNN", num_outputs=_rnn_nout, need_train_flag=True,
+          need_rng=_rnn_draws)
 def _rnn(params, data, parameters, state, *state_cell):
-    """Fused multi-layer (bi)RNN over time-major data (T, B, I)."""
+    """Fused multi-layer (bi)RNN over time-major data (T, B, I); between
+    layers, in training, dropout at ``p`` from the op's generator."""
     mode = params["mode"]
     H = params["state_size"]
     num_layers = params.get("num_layers", 1)
     bidir = params.get("bidirectional", False)
-    p_drop = params.get("p", 0.0)
+    p_drop = float(params.get("p", 0.0))
     d = 2 if bidir else 1
     T, B, I = data.shape
     if state.shape[1] == 1 and B != 1:
@@ -278,8 +289,7 @@ def _rnn(params, data, parameters, state, *state_cell):
             h_finals.append(h_f)
             c_finals.append(c_f)
         x = torch.cat(outs, dim=-1) if d == 2 else outs[0]
-        if p_drop > 0 and params.get("_is_train", False) \
-                and layer < num_layers - 1:
+        if layer < num_layers - 1 and _rnn_draws(params):
             keep = torch.full_like(x, 1 - p_drop)
             mask = torch.bernoulli(keep, generator=params["_generator"])
             x = x * mask / (1 - p_drop)

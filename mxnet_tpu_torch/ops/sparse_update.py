@@ -28,6 +28,7 @@ from torch.autograd.graph import increment_version
 
 from ..base import MXNetError
 from . import _build
+from .launch_count import count
 from .multi_tensor import _hyper
 
 __all__ = ["FORMULAS", "sparse_row_update", "sparse_row_update_plain"]
@@ -167,8 +168,7 @@ def sparse_row_update(kind, weight, values, indices, states, lr, wd=0.0,
                          % (lib.sparse_row_update_error_name(err).decode(),
                             err))
     increment_version([weight, *states])
-    with _lock:
-        sparse_row_update.launches += 1
+    count(sparse_row_update)
 
 
 #: calls that launched the CUDA kernel (the plain version does not count)

@@ -47,6 +47,7 @@ import torch
 from .base import MXNetError
 from .context import Context
 from .ndarray.ndarray import NDArray, zeros
+from .ops.launch_count import count
 
 __all__ = ["CudaModule", "Kernel"]
 
@@ -384,8 +385,7 @@ class Kernel:
             _cu(lib.cuLaunchKernel(func, *grid, *block, int(shared_mem),
                                    ctypes.c_void_p(stream), params, None),
                 "cuLaunchKernel(%s)" % self._name)
-        with _lock:
-            Kernel.launches += 1
+        count(Kernel)
         if out_shapes is None:
             return None
         return outs[0] if len(outs) == 1 else outs

@@ -12,6 +12,12 @@ net.collect_params().items()})`` reads either package's net, and
 ``set_block_params`` fills a port net from such a dict, deferred
 parameters included. Both packages read and write the same ``.params``
 container (`ndarray/utils.py`), which is the other way across.
+
+Recurrent models cross the same way: a Gluon ``rnn.RNN``/``LSTM``/``GRU``
+layer's per-(layer, direction) parameters by name, and a
+``FusedRNNCell``'s flat ``parameters`` vector as it is. Per-gate arrays
+(the form ``save_rnn_checkpoint`` writes) go through the cell's
+``pack_weights``, as ``load_rnn_checkpoint`` does.
 """
 from __future__ import annotations
 

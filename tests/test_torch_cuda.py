@@ -929,7 +929,9 @@ def test_scalar_argument_recaptures(f32):
     """A graph keeps the Python scalar it was captured with, so on the
     card a new value is a new signature: one recapture, named in the
     retrace, and each call equals the eager call with its own value. A
-    leaf that is neither a tensor nor a scalar cannot be captured."""
+    leaf that is neither a tensor nor a scalar cannot be captured (an
+    NDArray in a list is a tensor leaf, as a recurrent layer's states
+    are)."""
     from mxnet_tpu_torch import compiled
     net = _Scale()
     x = _image(11)
@@ -942,8 +944,8 @@ def test_scalar_argument_recaptures(f32):
                                          "retraces": 1, "uncaptured": 0}
     assert compiled.last_retrace()["reason"] == \
         "arg4: python float 0.5 -> python float 2.0"
-    with pytest.raises(mxt.MXNetError, match=r"arg4\[0\] is opaque NDArray"):
-        net(x, [x])
+    with pytest.raises(mxt.MXNetError, match=r"arg4\[0\] is opaque ndarray"):
+        net(x, [np.ones(2)])
 
 
 def test_two_threads_share_one_graph(f32):
@@ -1641,3 +1643,108 @@ def test_csr_dot_and_its_backward_on_the_card(cuda):
         assert csr.has_compact() and csr._dense is None
     for a, b in zip(out["cpu"], out["gpu"]):
         np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The RNN slice: K1-K3 at bi-lstm-sort's shapes (T = 6, B = 100, embed 16,
+# hidden 64; both directions of its bidirectional LSTM), and a hybridized
+# Gluon LSTM's call outside record(), the first capture of K1's cooperative
+# launch in a CUDA graph. Tolerances as the LSTM kernels' above (1e-4); the
+# captured call against the eager one HYB_TOL.
+# ---------------------------------------------------------------------------
+SORT_SHAPE = (6, 100, 16, 64)
+
+
+@pytest.mark.parametrize("direction", ["forward", "reverse"])
+def test_rnn_kernels_at_bi_lstm_sort_shape(cuda, direction):
+    x, h0, c0, wx, wh, b = _inputs(*SORT_SHAPE, device=cuda, seed=4)
+    if direction == "reverse":          # the op flips the sequence
+        x = torch.flip(x, (0,))
+    counts = [k.launches for k in (fused_lstm, fused_lstm_train,
+                                   lstm_bwd_recurrence)]
+    for got, want in ((fused_lstm(x, h0, c0, wx, wh, b),
+                       fused_lstm_plain(x, h0, c0, wx, wh, b)),
+                      (fused_lstm_train(x, h0, c0, wx, wh, b),
+                       fused_lstm_train_plain(x, h0, c0, wx, wh, b))):
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+    _, cseq, gates = fused_lstm_train_plain(x, h0, c0, wx, wh, b)
+    dhseq, dhn, dcn = _cotangents(SORT_SHAPE[0], SORT_SHAPE[1],
+                                  SORT_SHAPE[3], cuda, seed=5)
+    got = lstm_bwd_recurrence(dhseq, dhn, dcn, gates, cseq, c0, wh)
+    want = lstm_bwd_recurrence_plain(dhseq, dhn, dcn, gates, cseq, c0, wh)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+    assert [k.launches for k in (fused_lstm, fused_lstm_train,
+                                 lstm_bwd_recurrence)] == \
+        [n + 1 for n in counts]
+
+
+def _sort_net(ctx=None):
+    from mxnet_tpu_torch import gluon
+    net = gluon.nn.HybridSequential(prefix="sort_")
+    with net.name_scope():
+        net.add(gluon.nn.Embedding(20, 16),
+                gluon.rnn.LSTM(64, layout="NTC", bidirectional=True),
+                gluon.nn.Dense(20, flatten=False))
+    mxt.random.seed(0)
+    net.initialize(mxt.init.Xavier(), ctx=ctx or mxt.gpu(0))
+    return net
+
+
+def test_hybridized_lstm_is_a_captured_graph(f32):
+    """bi-lstm-sort's net outside ``record()``: one captured graph whose
+    replay matches the eager call; the wrapper counts K1 at the warm-up
+    runs and at each replay (one a direction), never at the capture."""
+    from mxnet_tpu_torch import compiled
+    net = _sort_net()
+    x = mxt.nd.array(np.random.RandomState(0).randint(0, 20, (100, 6)),
+                     ctx=mxt.gpu(0), dtype="float32")
+    eager = net(x).data.clone()
+    net.hybridize()
+    compiled.reset()
+    before = fused_lstm.launches
+    first = net(x).data.clone()           # warm-ups, capture, a replay
+    at_first = fused_lstm.launches - before
+    second = net(x).data
+    torch.cuda.synchronize()
+    assert compiled.compile_counts() == {"compiles": 1, "cache_hits": 1,
+                                         "retraces": 0, "uncaptured": 0}
+    (entry,) = net._cached_jit._cache.values()
+    assert isinstance(entry, compiled._Graph)
+    assert entry.launches == [(fused_lstm, "persistent")] * 2
+    assert at_first == 2 * (compiled.WARMUP_RUNS + 1)
+    assert fused_lstm.launches - before == at_first + 2
+    torch.testing.assert_close(first, eager, rtol=HYB_TOL, atol=HYB_TOL)
+    assert torch.equal(first, second)
+
+
+def test_gluon_lstm_step_on_gpu_matches_cpu(f32):
+    """A recorded step of the same net launches K2 and K3 once a
+    direction, and its gradients match the CPU's (1e-4 of each
+    gradient's largest magnitude)."""
+    from mxnet_tpu_torch import autograd
+    x = np.random.RandomState(1).randint(0, 20, (100, 6)).astype("f")
+    ref = _sort_net(mxt.cpu())
+    with autograd.pause():
+        ref(mxt.nd.array(x, ctx=mxt.cpu()))     # finish deferred shapes
+    net = _sort_net(mxt.gpu(0))
+    mxt.set_block_params(net, mxt.params_to_numpy(
+        {k: v.data() for k, v in ref.collect_params().items()}))
+    grads = {}
+    for ctx, block in ((mxt.cpu(), ref), (mxt.gpu(0), net)):
+        before = (fused_lstm_train.launches, lstm_bwd_recurrence.launches)
+        a = mxt.nd.array(x, ctx=ctx)
+        with autograd.record():
+            loss = (block(a) ** 2).sum()
+        loss.backward()
+        launched = (fused_lstm_train.launches - before[0],
+                    lstm_bwd_recurrence.launches - before[1])
+        assert launched == ((2, 2) if ctx == mxt.gpu(0) else (0, 0))
+        grads[ctx.device_type] = {k: v.grad().asnumpy() for k, v in
+                                  block.collect_params().items()}
+    for k, want in grads["cpu"].items():
+        np.testing.assert_allclose(grads["gpu"][k], want, rtol=TOL,
+                                   atol=TOL * max(1.0, np.abs(want).max()),
+                                   err_msg=k)

@@ -36,6 +36,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 import mxnet_tpu as mx
 from mxnet_tpu import compiled as jcompiled
@@ -459,3 +460,38 @@ def test_retrace_explanation_matches_jax(old, new):
         compiled._describe_args(torch_args(old), frozenset()),
         compiled._describe_args(torch_args(new), frozenset()))
     assert got == want
+
+
+def test_kernel_launches_count_at_each_graph_replay(monkeypatch):
+    """A hand kernel launched while its stream captures is counted at no
+    capture, and once at each replay of the graph that recorded it
+    (`ops/launch_count.py`, ``compiled._Graph.run``)."""
+    from mxnet_tpu_torch.ops import launch_count
+
+    def kernel():
+        pass
+    kernel.launches, kernel.launches_by_route = 0, {"persistent": 0}
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    launch_count.count(kernel, "persistent")    # captured elsewhere
+    with launch_count.recording() as held:
+        launch_count.count(kernel, "persistent")
+        launch_count.count(kernel, "persistent")
+    assert (kernel.launches, len(held)) == (0, 2)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    launch_count.count(kernel)
+    assert kernel.launches == 1
+
+    class Graph:
+        replays = 0
+
+        def replay(self):
+            self.replays += 1
+    program = compiled.CompiledProgram(lambda x: x, "test.replay")
+    graph = compiled._Graph(Graph(), [torch.zeros(2)], torch.zeros(2), held)
+    for _ in range(3):
+        graph.run(program, (torch.ones(2),))
+    assert graph.graph.replays == 3
+    assert kernel.launches == 1 + 3 * 2
+    assert kernel.launches_by_route == {"persistent": 6}

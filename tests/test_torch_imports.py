@@ -39,6 +39,9 @@ GLUON_TRAINING = ["autograd.py", "ops/reduce.py", "gluon/loss.py",
 ND_CORE = ["ops/init_ops.py", "tools/run_example.py"]
 SPARSE = ["kvstore.py", "ndarray/sparse.py", "ops/compat_ops.py",
           "ops/sparse_update.py"]
+RNN = ["rnn/__init__.py", "rnn/rnn_cell.py", "rnn/io.py", "rnn/rnn.py",
+       "module/bucketing_module.py", "gluon/rnn/__init__.py",
+       "gluon/rnn/rnn_cell.py", "gluon/rnn/rnn_layer.py"]
 
 
 def test_port_files_found():
@@ -48,6 +51,7 @@ def test_port_files_found():
     assert set(GLUON_TRAINING) <= port
     assert set(ND_CORE) <= port
     assert set(SPARSE) <= port
+    assert set(RNN) <= port
     assert (ROOT / "mxnet_tpu_torch" / "csrc" /
             "sparse_row_update.cu").exists()
     from mxnet_tpu_torch.ops import _build
