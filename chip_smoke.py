@@ -14,8 +14,10 @@ through the port's user entry points, in six phases:
 
 1. build the kernels (one ``nvcc`` per source, all at once);
 2. ``fused_lstm`` kernel vs plain version at the served shapes
-   (T=35, B in {1, 8, 32}, I=H=650), at B = 3 and 64, at T = 1, at a
-   shape that takes the step route and at a ragged small shape, with
+   (T=35, B in {1, 8, 32}, I=H=650), at B = 3 and 64, at T = 1, at the
+   speech model's (phase 25) T = 100, 200, 300 with B=32 and its decode's
+   T = 300 with B=1, at a shape that takes the step route and at a ragged small
+   shape, with
    kernel, plain and cuDNN (``torch.nn.LSTM``, timed as a yardstick only)
    times and the kernel's bound at the served shapes; each call's route
    against its plan (grid, units a block, rows, shared memory; every
@@ -38,8 +40,9 @@ and then trains the same LM, the configuration of the training benchmark
 7. the training kernels ``fused_lstm_train`` (K2) and
    ``lstm_bwd_recurrence`` (K3) vs their plain versions, and a
    ``FusedLSTM`` layer's six gradients vs the plain backward, at T=35,
-   B in {8, 32}, I=H=650 and a ragged shape, with kernel, plain and cuDNN
-   (forward, backward, both; timed as a yardstick only) times; K2 and K3
+   B in {8, 32}, I=H=650, at the speech model's three buckets (B=32) and
+   a ragged shape, with kernel, plain and cuDNN (forward, backward,
+   both; timed as a yardstick only) times; K2 and K3
    at phase 2's extra shapes and the step route's, their routes against
    their plans, the recurrence kernels' launches a call (one each on the
    persistent routes) and µs a step, ptxas reports and 20 bit-identical
@@ -295,6 +298,43 @@ lr 1 and ``clip_gradient`` 0.25, f32, TF32 off), in one more:
     and ``rnn-time-major`` through ``run_example`` on ``gpu(0)``, each
     printing its JAX test's line, with their K1-K3 and U1 launches.
 
+and then drives the CTC speech model of
+``examples/speech_recognition/train_am.py`` (``am_symbol``:
+FullyConnected + relu -> ``RNN(mode="lstm")`` -> FullyConnected ->
+``CTCLoss``, blank first) at the input and alphabet of Deep Speech 2's
+English model (161 spectrogram bins, 29 characters with the blank) and
+the PTB LM's 650-wide LSTM, batch 32, buckets of 100, 200 and 300
+frames, f32 with TF32 off, and the rest of ``ops/nn.py``, in one more:
+
+25. (a) 960 utterances of the
+    example's ``make_utterance`` (labels of 25-75 symbols, 2-4 frames a
+    symbol) through ``BucketingModule`` on ``gpu(0)`` with Adam: a warm-up
+    step a bucket, then one epoch of ``forward_backward`` + ``update``
+    (frames/s by the host's clock between synchronizes; K2, K3 and U1
+    exactly once a step); the example's decode ``Module`` at batch 1 and
+    32 (K1 once a forward, softmax rows summing to 1, greedy decodes
+    counted); ``torch.profiler`` over one step of the longest bucket, in
+    a process of its own (busy, wall, idle share, the CTC kernels beside
+    K2's and K3's); (b) 2 SGD steps from the seed over buckets 100 and 200
+    on ``gpu(0)`` and on ``cpu()``: the per-sample CTC losses elementwise
+    (SPEECH_LOSS_REL), every gradient and update by relative norm per
+    parameter (SPEECH_GRAD_REL), and a control (each label's last symbol
+    dropped on the card) that must fail both; (c) the rest of
+    ``ops/nn.py`` at full size (`tools/nn_rest_sweep.py`'s card cases:
+    ``Deconvolution`` at FCN's upsampling layers with bilinear and Xavier
+    weights, ``CTCLoss`` at (a)'s shapes with both blank conventions, with
+    and without lengths, 20 calls each, the heads, ``InstanceNorm``,
+    ``LRN``, ``UpSampling`` and the resize ops at ResNet-50 stage widths)
+    on ``gpu(0)`` against ``cpu()``, forward and gradients, each family
+    within its limit and its control (the card's inputs rounded to bf16)
+    above it; which CTC route PyTorch takes on the op's arguments; a
+    hybridized ``gluon.loss.CTCLoss`` counted as uncaptured;
+    (d) the six examples the slice unblocked (``svm_mnist``,
+    ``kaggle-ndsb2``, ``fcn-xs``, the adversarial VAE, the CTC OCR,
+    ``train_am.py``) and the eleven that ran untested before it, through
+    ``run_example`` on ``gpu(0)`` at their JAX tests' arguments, each
+    printing its JAX test's line, with their kernel launches.
+
 Phases 3-5 are the serving main path, phase 8 the LM training one,
 phase 11's gate-on steps on the card the ResNet one, phase 15's steps on
 the card the attention one, phase 16's first launches the rtc one,
@@ -302,8 +342,10 @@ phase 18 the inference one, phase 19's steps on the card (its check,
 the example's loop and the bf16 gate-on loop) the Gluon training one,
 phase 20's two examples the nd-core one, phase 21 after its U1
 check the optimizer one, phase 22's examples the detection one and phase
-23's loop and examples the sparse one, and phase 24 but its kernel
-checks (24d) the RNN one: every kernel's launch count is set to 0 before each and read after it.
+23's loop and examples the sparse one, phase 24 but its kernel
+checks (24d) the RNN one, and phase 25's training, decoding, card-vs-CPU
+steps and examples (not its kernel and op checks) the speech one: every
+kernel's launch count is set to 0 before each and read after it.
 The serving path must launch K1, every call by the persistent route; the
 LM training path must launch K2 and K3 exactly once per layer and step,
 and K1 once per layer and eval batch, K1, K2 and K3 by the persistent
@@ -319,9 +361,11 @@ f32 ResNet-50); the LM training path U1 once a step; the optimizer path
 U1 once a (formula, dtype) group a step and K5 6 times a gate-on step,
 and none of K1-K4 and K6; the detection path N1 and U1 in every example
 run and none of K1-K6; the sparse path S1 once a push and none of
-K1-K6 or N1; the RNN path K1, K2, K3 and U1, and no other.
-K5's launches in the kernels line are the ResNet path's and the Gluon
-path's; K1's, K2's and K3's add the RNN path's. Any failed
+K1-K6 or N1; the RNN path K1, K2, K3 and U1, and no other; the speech
+path K1, K2, K3 and U1, and no other. K5's launches in the kernels line
+are the ResNet path's and the Gluon path's; K1's, K2's and K3's add the
+RNN path's and the speech path's; U1's are the optimizer path's, the
+RNN path's and the speech path's. Any failed
 check exits non-zero. The last lines
 are the card's name and power limit (``nvidia-smi``), one JSON line with
 every ported kernel's numbers, and the result line
@@ -695,6 +739,76 @@ RNN_EXAMPLES = [
      "RNN TIME-MAJOR OK", ("fused_lstm_train", "lstm_bwd_recurrence",
                            "multi_tensor_update"))]
 
+# phase 25, the CTC speech model of examples/speech_recognition/train_am.py
+# (am_symbol: FullyConnected + relu -> RNN(lstm) -> FullyConnected ->
+# CTCLoss, blank first; BucketingModule over utterance-length buckets,
+# Adam) at the input and alphabet of Deep Speech 2's English model
+# (arXiv:1512.02595: 161 spectrogram bins, 29 characters with the blank)
+# and the repository's widest LSTM (the PTB LM's 650), batch 32, f32. The
+# example's make_utterance: labels of SPEECH_LABELS symbols, 2-4 frames a
+# symbol, so SPEECH_UTTS utterances fill the three buckets
+SPEECH_FEAT, SPEECH_PHONES, SPEECH_HIDDEN = 161, 29, 650
+SPEECH_BATCH = 32
+SPEECH_BUCKETS = (100, 200, 300)
+SPEECH_LABELS = (25, 75)
+SPEECH_UTTS = 960
+SPEECH_OPT = {"learning_rate": 1e-3}
+SPEECH_DECODE = 6                   # utterances decoded one at a time
+# the speech model's LSTM layer (I = H = 650) at each bucket with B=32:
+# K1 held to LSTM_ATOL in phase 2; K2, K3 and the layer's gradients held
+# and timed in phase 7. Decoding one utterance of the longest runs K1
+# alone, held in phase 2
+SPEECH_LSTM_SHAPES = [(t, SPEECH_BATCH, SPEECH_HIDDEN, SPEECH_HIDDEN)
+                      for t in SPEECH_BUCKETS]
+SPEECH_DECODE_SHAPE = (max(SPEECH_BUCKETS), 1, SPEECH_HIDDEN, SPEECH_HIDDEN)
+# the profiled speech step's process: start, build nothing, 2 steps and
+# up to PROFILE_ATTEMPTS traces
+SPEECH_PROFILE_TIMEOUT_S = 300
+# 25b: 2 SGD steps from the seed on the card against the CPU. The
+# per-sample losses' largest relative difference, and each parameter's
+# gradient and update by relative norm: between the sound readings and the
+# control (each label's last symbol dropped on the card), both in PERF.md
+SPEECH_CHECK_OPT = {"learning_rate": 0.01}
+SPEECH_LOSS_REL = 1e-4
+SPEECH_GRAD_REL = 2e-3
+# 25d: (key, example, arguments of its JAX test, the line it asserts): the
+# six examples of this slice, then the eleven that ran on the port
+# untested before it
+SPEECH_EXAMPLES = [
+    ("svm_mnist", "svm_mnist/train_svm.py",
+     ["--num-examples", "800", "--num-epochs", "6"], "final svm accuracy"),
+    ("kaggle_ndsb2", "kaggle-ndsb2/train_ndsb2.py",
+     ["--num-examples", "200", "--num-epochs", "6"], "final NDSB2 val CRPS"),
+    ("fcn_xs", "fcn-xs/train_fcn.py",
+     ["--num-examples", "32", "--num-epochs", "10"], "FCN SEGMENTATION OK"),
+    ("adversarial_vae", "mxnet_adversarial_vae/vaegan.py",
+     ["--num-examples", "512", "--num-epochs", "6", "--batch-size", "32"],
+     "final VAE-GAN pixel recon MSE"),
+    ("ctc_ocr", "ctc/train_ctc_ocr.py",
+     ["--num-examples", "800", "--num-epochs", "25"], "sequence accuracy"),
+    ("speech_am", "speech_recognition/train_am.py", [], "SPEECH AM OK")]
+A14_EXAMPLES = [
+    ("train_mnist", "image-classification/train_mnist.py",
+     ["--num-epochs", "4", "--num-examples", "600", "--batch-size", "50"],
+     "final validation"),
+    ("nce_loss", "nce-loss/train_nce.py", [], "rank-1 accuracy"),
+    ("neural_style", "neural-style/neural_style.py",
+     ["--size", "32", "--iters", "40"], "NEURAL STYLE OK"),
+    ("actor_critic", "reinforcement-learning/parallel_actor_critic.py",
+     ["--updates", "400"], "PARALLEL ACTOR-CRITIC OK"),
+    ("stochastic_depth", "stochastic-depth/train_sd.py",
+     ["--num-epochs", "8"], "STOCHASTIC DEPTH OK"),
+    ("captcha", "captcha/train_captcha.py", ["--num-epochs", "6"],
+     "CAPTCHA OK"),
+    ("sgld", "bayesian-methods/sgld_regression.py", [], "SGLD OK"),
+    ("memcost", "memcost/memonger_demo.py", [], "MEMCOST REMAT OK"),
+    ("capsnet", "capsnet/train_capsnet.py", ["--num-epochs", "6"],
+     "CAPSNET OK"),
+    ("dec", "deep-embedded-clustering/dec.py", [], "DEC OK"),
+    ("text_cnn_zh", "cnn_chinese_text_classification/text_cnn_zh.py",
+     ["--num-examples", "800", "--num-epochs", "4"],
+     "final chinese text-cnn accuracy")]
+
 
 # device_profile's attempts, the k-th a pause of k * PROFILE_PAUSE_S after
 # the one before: the tracer returned empty traces at phase 21a in two runs
@@ -817,9 +931,14 @@ def recurrence_kernel(plan, kernel):
 
 def recurrence_profile(fn, t, plan, kernel):
     """Launches of K1's, K2's or K3's (``kernel``) recurrence kernel in one
-    call of ``fn`` over ``t`` steps, and its device µs a step."""
-    _, kern = device_profile(fn)
+    call of ``fn`` over ``t`` steps, and its device µs a step. A trace
+    without it is taken again (``device_profile``): the tracer has
+    returned traces of K3's call that held its other kernels and not the
+    recurrence's, more often the more traces the process had taken
+    before, on an H100 at 700 W."""
     name = recurrence_kernel(plan, kernel)
+    _, kern = device_profile(fn, complete=lambda kern: any(
+        name in k for k in kern))
     hits = [v for k, v in kern.items() if name in k]
     check(len(hits) == 1, "one call's profile shows %d %s kernels"
           % (len(hits), name))
@@ -911,13 +1030,14 @@ def cudnn_lstm(x, h0, c0, wx, wh, b):
 
 def phase_kernel(ops, device):
     """fused_lstm kernel vs plain at the served shapes (timed), the extra
-    shapes, the step route's and a ragged one; each call's route against
-    its plan; bitwise determinism at B=32."""
+    shapes, the speech model's, the step route's and a ragged one; each
+    call's route against its plan; bitwise determinism at B=32."""
     fused_lstm, plain = ops.fused_lstm, ops.fused_lstm_plain
     rows = []
     worst = 0.0
     served = [(SEQ, b, EMBED, HIDDEN) for b in SERVED_BATCHES]
-    shapes = served + EXTRA_SHAPES + [STEP_ROUTE_SHAPE, RAGGED]
+    shapes = served + EXTRA_SHAPES + SPEECH_LSTM_SHAPES + [
+        SPEECH_DECODE_SHAPE, STEP_ROUTE_SHAPE, RAGGED]
     log("phase 2 fused_lstm ptxas %s" % json.dumps({
         "lstm_persistent": ptxas_of("fused_lstm", "lstm_persistent"),
         "lstm_step": ptxas_of("fused_lstm", "lstm_step")}))
@@ -1239,8 +1359,9 @@ def k3_check(ops, plan, bwd_args, shape):
 def phase_train_kernels(ops, device):
     """K2 (fused_lstm_train) and K3 (lstm_bwd_recurrence) against their
     plain versions, and the six gradients of a FusedLSTM layer against
-    the plain backward, at T=35, B in {8, 32}, I=H=650 and a ragged
-    shape; kernel, plain and cuDNN times with each kernel's bound. K2 and
+    the plain backward, at T=35, B in {8, 32}, I=H=650, at the speech
+    model's shapes and a ragged shape; kernel, plain and cuDNN times with
+    each kernel's bound. K2 and
     K3 at the extra shapes and the step route's; each call's route
     against its plan; K2's and K3's recurrence launches a call, µs a step
     and bitwise determinism at B=32."""
@@ -1276,7 +1397,8 @@ def phase_train_kernels(ops, device):
             "T": t, "B": b, "I": i, "H": h, "k2_max_abs_err": err,
             "route": route, "plan": plan._asdict(), "k3_max_abs_err": err3,
             "k3_route": route3, "k3_plan": bplan._asdict()}))
-    shapes = [(SEQ, b, EMBED, HIDDEN) for b in TRAIN_BATCHES] + [RAGGED]
+    shapes = [(SEQ, b, EMBED, HIDDEN) for b in TRAIN_BATCHES] + \
+        SPEECH_LSTM_SHAPES + [RAGGED]
     for n, (t, b, i, h) in enumerate(shapes):
         args = lstm_inputs(t, b, i, h, device, SEED + 10 + n)
         plan = ops.lstm_plan(b, h, device)
@@ -1328,16 +1450,17 @@ def phase_train_kernels(ops, device):
                     k3_bound_ms=k3b, k3_bound_by=k3by,
                     backward_ms=time_ms(lambda: ops.fused_lstm_backward(
                         *cots, x, h0, c0, wx, wh, *res), 20))
-                launches, us = recurrence_profile(
-                    lambda: ops.fused_lstm_train(*args), t, plan, "k2")
-                row.update(k2_recurrence_launches_per_call=launches,
-                           k2_recurrence_us_per_step=us)
-                # K3's recurrence kernel: one launch a call on its route
-                launches, us = recurrence_profile(
-                    lambda: ops.lstm_bwd_recurrence(*bwd_args), t, bplan,
-                    "k3")
-                row.update(k3_recurrence_launches_per_call=launches,
-                           k3_step_us=us)
+                if t == SEQ:    # at the speech shapes: by route only
+                    launches, us = recurrence_profile(
+                        lambda: ops.fused_lstm_train(*args), t, plan, "k2")
+                    row.update(k2_recurrence_launches_per_call=launches,
+                               k2_recurrence_us_per_step=us)
+                    # K3's recurrence kernel: one launch a call on its route
+                    launches, us = recurrence_profile(
+                        lambda: ops.lstm_bwd_recurrence(*bwd_args), t,
+                        bplan, "k3")
+                    row.update(k3_recurrence_launches_per_call=launches,
+                               k3_step_us=us)
                 if b == TRAIN_BATCH:
                     row["k2_bitwise_identical_calls"] = check_deterministic(
                         ops.fused_lstm_train, args, "fused_lstm_train %s"
@@ -5263,6 +5386,521 @@ def phase_rnn(mx, counters, rng, device):
                           "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# the CTC speech model and the rest of ops/nn.py (phase 25)
+# ---------------------------------------------------------------------------
+def speech_utterances(rng, n):
+    """``n`` utterances by the example's ``make_utterance``
+    (`examples/speech_recognition/train_am.py:32-43`): a label of
+    SPEECH_LABELS symbols (1..28; 0 is the blank), each symbol's noisy
+    template repeated for 2-4 frames. Returns [(frames (t, F), label)]."""
+    templates = rng.randn(SPEECH_PHONES, SPEECH_FEAT).astype(np.float32) * 2
+    lo, hi = SPEECH_LABELS
+    utts = []
+    for _ in range(n):
+        labels = rng.randint(1, SPEECH_PHONES, size=rng.randint(lo, hi + 1))
+        frames = []
+        for ph in labels:
+            reps = rng.randint(2, 5)
+            frames.append(np.tile(templates[ph], (reps, 1))
+                          + 0.15 * rng.randn(reps, SPEECH_FEAT))
+        utts.append((np.concatenate(frames).astype(np.float32), labels))
+    return utts
+
+
+def speech_batches(mx, utts, ctx, buckets=None):
+    """The example's bucketed batches on ``ctx``: each utterance in the
+    shortest bucket that holds it, frames zero-padded to the bucket's
+    length, labels 0-padded to the longest label, whole batches only,
+    bucket by bucket (``buckets``, SPEECH_BUCKETS by default). Returns
+    (batches, [(frames, label)] of each)."""
+    buckets = buckets or SPEECH_BUCKETS
+    by_bucket = {b: [] for b in buckets}
+    for f, lab in utts:
+        fit = [b for b in buckets if b >= len(f)]
+        if fit:
+            by_bucket[fit[0]].append((f, lab))
+    batches, items = [], []
+    for b in buckets:
+        group = by_bucket[b]
+        for i in range(0, len(group) - SPEECH_BATCH + 1, SPEECH_BATCH):
+            chunk = group[i:i + SPEECH_BATCH]
+            x = np.zeros((SPEECH_BATCH, b, SPEECH_FEAT), np.float32)
+            y = np.zeros((SPEECH_BATCH, SPEECH_LABELS[1]), np.float32)
+            for j, (f, lab) in enumerate(chunk):
+                x[j, :len(f)] = f
+                y[j, :len(lab)] = lab
+            batches.append(mx.io.DataBatch(
+                [mx.nd.array(x, ctx=ctx)], [mx.nd.array(y, ctx=ctx)],
+                bucket_key=b, pad=0,
+                provide_data=[("data", (SPEECH_BATCH, b, SPEECH_FEAT))],
+                provide_label=[("ctc_label", (SPEECH_BATCH,
+                                              SPEECH_LABELS[1]))]))
+            items.append(chunk)
+    return batches, items
+
+
+def speech_symbol(mx, t, decode=False):
+    """``am_symbol`` (`train_am.py:46-67`) at bucket length ``t``:
+    FullyConnected + relu -> RNN(lstm, one layer) -> FullyConnected ->
+    CTCLoss (blank first); with ``decode``, the example's scores-only
+    graph (`train_am.py:138-153`) ending in a softmax."""
+    data = mx.sym.Variable("data")
+    proj = mx.sym.FullyConnected(
+        mx.sym.Reshape(data, shape=(-1, SPEECH_FEAT)),
+        num_hidden=SPEECH_HIDDEN, name="proj")
+    proj = mx.sym.Activation(proj, act_type="relu")
+    proj = mx.sym.Reshape(proj, shape=(-1, t, SPEECH_HIDDEN))
+    rnn = mx.sym.RNN(mx.sym.transpose(proj, axes=(1, 0, 2)),
+                     state_size=SPEECH_HIDDEN, num_layers=1, mode="lstm",
+                     name="lstm")
+    scores = mx.sym.FullyConnected(
+        mx.sym.Reshape(rnn, shape=(-1, SPEECH_HIDDEN)),
+        num_hidden=SPEECH_PHONES, name="cls")
+    scores = mx.sym.Reshape(scores, shape=(t, -1, SPEECH_PHONES))
+    if decode:
+        return mx.sym.softmax(scores, axis=-1)
+    return mx.sym.CTCLoss(scores, mx.sym.Variable("ctc_label"), name="ctc")
+
+
+def speech_module(mx, ctx, optimizer, opt_params, arg_params=None):
+    """The speech model's BucketingModule on ``ctx``, bound at the longest
+    bucket, from ``arg_params`` or seeded Xavier."""
+    def sym_gen(t):
+        return speech_symbol(mx, t), ("data",), ("ctc_label",)
+    key = max(SPEECH_BUCKETS)
+    mod = mx.mod.BucketingModule(sym_gen, default_bucket_key=key,
+                                 context=ctx)
+    mod.bind(data_shapes=[("data", (SPEECH_BATCH, key, SPEECH_FEAT))],
+             label_shapes=[("ctc_label", (SPEECH_BATCH, SPEECH_LABELS[1]))])
+    mx.random.seed(SEED)
+    np.random.seed(SEED)
+    mod.init_params(initializer=mx.init.Xavier(), arg_params=arg_params)
+    mod.init_optimizer(optimizer=optimizer, optimizer_params=opt_params)
+    return mod
+
+
+def greedy_decode(probs):
+    """The example's greedy CTC decode of (t, C) probabilities."""
+    out, prev = [], -1
+    for p in probs.argmax(axis=-1):
+        if p != prev and p != 0:
+            out.append(int(p))
+        prev = p
+    return out
+
+
+def speech_profile():
+    """Phase 25a's profiled step, run by ``chip_smoke.py --speech-profile``
+    in a process of its own (``speech_profile_main``); returns its row.
+    Late in this script's long process the tracer has lost kernels that
+    the counters saw (K2 in six traces of a row, CTC's kernels in every
+    trace, on an H100 at 700 W), while a fresh process traced them all."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--speech-profile"],
+        capture_output=True, text=True, timeout=SPEECH_PROFILE_TIMEOUT_S)
+    check(out.returncode == 0, "the speech profile's process exited %d: %s"
+          % (out.returncode, out.stderr[-3000:]))
+    return json.loads(out.stdout.splitlines()[-1])
+
+
+def speech_profile_main():
+    """The speech model on gpu(0) with Adam (TF32 off), two steps of a
+    300-frame batch, then one profiled step: device busy and wall ms, the
+    idle share, the CTC kernels' device time beside K2's and K3's, and
+    the step's launches by the wrappers' counters (K2, K3 and U1 exactly
+    one each, no other). Up to PROFILE_ATTEMPTS traces are taken for one
+    that holds K2, K3 and CTC's kernels; if none does, busy and the idle
+    share are null. Prints the row as one JSON line."""
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops = mx.ops
+    counters = {"fused_lstm": ops.fused_lstm,
+                "fused_lstm_train": ops.fused_lstm_train,
+                "lstm_bwd_recurrence": ops.lstm_bwd_recurrence,
+                "conv1x1_s2_dgrad": ops.conv1x1_s2_dgrad,
+                "flash_attention": ops.flash_attention, "rtc": mx.rtc.Kernel,
+                "multi_tensor_update": ops.multi_tensor_update,
+                "greedy_nms": ops.greedy_nms,
+                "sparse_row_update": ops.sparse_row_update}
+    utts = speech_utterances(np.random.RandomState(SEED + 25), SPEECH_UTTS)
+    batches, _ = speech_batches(mx, utts, mx.gpu(0))
+    batch = next(b for b in batches if b.bucket_key == max(SPEECH_BUCKETS))
+    mod = speech_module(mx, mx.gpu(0), "adam", SPEECH_OPT)
+    counted = {}
+
+    def step():
+        before = launches_of(counters)
+        mod.forward_backward(batch)
+        mod.update()
+        counted.update(launched(counters, before))
+    step()
+    step()
+    wall, kern = device_profile(
+        step, complete=lambda kern: all(
+            any(f in k for k in kern for f in frags)
+            for frags in (K2_KERNELS, K3_KERNELS, ("ctc_loss",))))
+    check(kern, "the profiler saw no device kernel in the speech step")
+    busy = sum(v[1] for v in kern.values())
+    ctc = {k: v for k, v in kern.items() if "ctc" in k.lower()}
+    row = {"k2": kernel_share(kern, K2_KERNELS, busy),
+           "k3": kernel_share(kern, K3_KERNELS, busy),
+           "u1": kernel_share(kern, ("multi_tensor_kernel",), busy),
+           "ctc": {"kernels": ctc, "ms": sum(v[1] for v in ctc.values())},
+           "launches_counted": {k: n for k, n in counted.items() if n},
+           "top": sorted(((k, v[1]) for k, v in kern.items()),
+                         key=lambda kv: -kv[1])[:8]}
+    row["traced"] = {"k2": bool(row["k2"]["launches"]),
+                     "k3": bool(row["k3"]["launches"]), "ctc": bool(ctc)}
+    whole = all(row["traced"].values())
+    row.update(wall_ms=wall, device_busy_ms=busy if whole else None,
+               device_idle_share=1 - busy / wall if whole else None)
+    check(row["launches_counted"] == {"fused_lstm_train": 1,
+                                      "lstm_bwd_recurrence": 1,
+                                      "multi_tensor_update": 1},
+          "the profiled step launched %s, want K2, K3 and U1 once each"
+          % row["launches_counted"])
+    print(json.dumps(row), flush=True)
+    return 0
+
+
+def phase_speech_train(mx, counters, rng):
+    """Phase 25a: the speech model bucketed on gpu(0): a warm-up step on
+    each bucket, then one epoch of ``forward_backward`` + ``update`` with
+    Adam (frames/s by the host's clock between two synchronizes), the
+    example's decode Module at batch 1 and 32, and one profiled step in a
+    process of its own. K2 and K3 once a step, U1 once a step, K1 once a
+    decode forward, and no other kernel."""
+    utts = speech_utterances(rng, SPEECH_UTTS)
+    batches, items = speech_batches(mx, utts, mx.gpu(0))
+    check(sorted({b.bucket_key for b in batches}) == list(SPEECH_BUCKETS),
+          "the utterances fill buckets %s, want %s"
+          % (sorted({b.bucket_key for b in batches}), SPEECH_BUCKETS))
+    mod = speech_module(mx, mx.gpu(0), "adam", SPEECH_OPT)
+    before = launches_of(counters)
+    warm = [next(b for b in batches if b.bucket_key == k)
+            for k in SPEECH_BUCKETS]
+    for batch in warm:
+        mod.forward_backward(batch)
+        mod.update()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches:
+        mod.forward_backward(batch)
+        mod.update()
+        losses.append(mod.get_outputs()[0].copy())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train = launched(counters, before)
+    steps = len(warm) + len(batches)
+    losses = [l.asnumpy() for l in losses]
+    padded = sum(SPEECH_BATCH * b.bucket_key for b in batches)
+    spoken = sum(len(f) for chunk in items for f, _ in chunk)
+    # the loss a label symbol: batches of longer buckets carry longer labels
+    per_symbol = [float(l.sum()) / sum(len(lab) for _, lab in chunk)
+                  for l, chunk in zip(losses, items)]
+    n_first = max(1, len(losses) // 5)
+    summary = {
+        "utterances": SPEECH_UTTS, "buckets": list(SPEECH_BUCKETS),
+        "batches_an_epoch": len(batches),
+        "batches_by_bucket": {k: sum(b.bucket_key == k for b in batches)
+                              for k in SPEECH_BUCKETS},
+        "epoch_wall_s": wall, "frames_per_s": padded / wall,
+        "utterance_frames_per_s": spoken / wall,
+        "steps_per_s": len(batches) / wall,
+        "first_batches_loss_a_symbol": float(np.mean(per_symbol[:n_first])),
+        "last_batches_loss_a_symbol": float(np.mean(per_symbol[-n_first:])),
+        "launches_train": train, "steps": steps}
+    check(all(np.isfinite(l).all() and l.shape == (SPEECH_BATCH,)
+              for l in losses), "the speech model's losses: not finite or "
+          "not one a sample")
+    check(summary["last_batches_loss_a_symbol"]
+          < summary["first_batches_loss_a_symbol"],
+          "the epoch did not lower the CTC loss a label symbol: %s"
+          % per_symbol)
+    check(train["fused_lstm_train"] == steps
+          and train["lstm_bwd_recurrence"] == steps,
+          "training launched K2 %d and K3 %d times in %d steps, want one a "
+          "step" % (train["fused_lstm_train"], train["lstm_bwd_recurrence"],
+                    steps))
+    check(train["multi_tensor_update"] == steps,
+          "Adam launched U1 %d times in %d steps, want one a step"
+          % (train["multi_tensor_update"], steps))
+    check(not any(n for k, n in train.items()
+                  if k not in ("fused_lstm_train", "lstm_bwd_recurrence",
+                               "multi_tensor_update")),
+          "training launched %s: want K2, K3 and U1 only" % train)
+
+    arg_params, aux_params = mod.get_params()
+    arg_params = {k: v for k, v in arg_params.items()
+                  if not k.endswith("state") and not k.endswith("state_cell")}
+    t = max(SPEECH_BUCKETS)
+    longest = [b for b in batches if b.bucket_key == t]
+    decode = {}
+    for bs in (1, SPEECH_BATCH):
+        infer = mx.mod.Module(speech_symbol(mx, t, decode=True),
+                              data_names=("data",), label_names=None,
+                              context=mx.gpu(0))
+        infer.bind(data_shapes=[("data", (bs, t, SPEECH_FEAT))],
+                   for_training=False)
+        infer.set_params(arg_params, aux_params, allow_missing=True)
+        x = longest[0].data[0].asnumpy()
+        inputs = [x[j:j + 1] for j in range(SPEECH_DECODE)] if bs == 1 \
+            else [x]
+        before = launches_of(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs = []
+        for xi in inputs:
+            infer.forward(mx.io.DataBatch([mx.nd.array(xi, ctx=mx.gpu(0))]),
+                          is_train=False)
+            probs.append(infer.get_outputs()[0].asnumpy())
+        ms = (time.perf_counter() - t0) * 1e3 / len(inputs)
+        got = launched(counters, before)
+        chunk = items[batches.index(longest[0])]
+        hyps = [greedy_decode(p[:len(chunk[j][0]), 0]) for j, p in
+                enumerate(probs)] if bs == 1 else \
+            [greedy_decode(probs[0][:len(f), j]) for j, (f, _) in
+             enumerate(chunk)]
+        right = sum(h == list(chunk[j][1]) for j, h in enumerate(hyps))
+        decode[bs] = {"forwards": len(inputs), "host_ms_a_forward": ms,
+                      "launches": got, "sequences_right": right,
+                      "sequences": len(hyps)}
+        check(all(p.shape == (t, bs, SPEECH_PHONES) and np.isfinite(p).all()
+                  and np.allclose(p.sum(-1), 1.0, atol=1e-4) for p in probs),
+              "the decode Module's probabilities at batch %d" % bs)
+        check(got["fused_lstm"] == len(inputs)
+              and not any(n for k, n in got.items() if k != "fused_lstm"),
+              "decoding at batch %d launched %s: want K1 once a forward"
+              % (bs, got))
+    summary["decode"] = decode
+    summary["profile"] = speech_profile()
+    log("phase 25a speech model %s" % json.dumps(summary))
+    return summary
+
+
+def speech_steps(mx, ctx, weights, batches):
+    """2 SGD steps (SPEECH_CHECK_OPT) of the speech model on ``ctx`` from
+    ``weights``, one a batch: [(per-sample losses, gradients, updates)]."""
+    mod = speech_module(mx, ctx, "sgd", SPEECH_CHECK_OPT, weights)
+    out = []
+    for batch in batches:
+        before = {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
+        mod.forward_backward(batch)
+        loss = mod.get_outputs()[0].asnumpy()
+        grads = grads_of(mod._curr_module)
+        mod.update()
+        after = {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
+        out.append((loss, grads, {n: after[n] - before[n] for n in after}))
+    return out
+
+
+def drop_last_symbol(mx, batch):
+    """The (host) batch with the last symbol of each label dropped (set
+    to the padding 0): a control."""
+    y = batch.label[0].asnumpy().copy()
+    for row in y:
+        row[np.flatnonzero(row)[-1]] = 0.0
+    return mx.io.DataBatch(batch.data, [mx.nd.array(y, ctx=mx.cpu())],
+                           bucket_key=batch.bucket_key, pad=0,
+                           provide_data=batch.provide_data,
+                           provide_label=batch.provide_label)
+
+
+def speech_readings(got, want):
+    """Per step: the per-sample losses' largest relative difference, and
+    the largest relative norm over the parameters of the gradients and of
+    the updates."""
+    rows = []
+    for (gl, gg, gu), (wl, wg, wu) in zip(got, want):
+        rows.append({
+            "loss_rel": float(np.max(np.abs(gl - wl) / np.abs(wl))),
+            "grad_rel": leaf_errs(gg, wg)["max"],
+            "update_rel": leaf_errs(gu, wu)["max"]})
+    return {k: max(r[k] for r in rows) for k in rows[0]}, rows
+
+
+def phase_speech_card_vs_cpu(mx, rng):
+    """Phase 25b: 2 SGD steps from the seed over buckets 100 and 200 on
+    gpu(0) and on cpu(): the per-sample CTC losses elementwise, each
+    parameter's gradient and update by relative norm, within
+    SPEECH_LOSS_REL / SPEECH_GRAD_REL; the control (the card's steps with
+    each label's last symbol dropped) must fail both."""
+    utts = speech_utterances(rng, 12 * SPEECH_BATCH)
+    batches, _ = speech_batches(mx, utts, mx.cpu(), SPEECH_BUCKETS[:2])
+    picked = [next(b for b in batches if b.bucket_key == k)
+              for k in SPEECH_BUCKETS[:2]]
+    seed_mod = speech_module(mx, mx.gpu(0), "sgd", SPEECH_CHECK_OPT)
+    weights = {n: a.asnumpy() for n, a in seed_mod.get_params()[0].items()}
+    del seed_mod
+    want = speech_steps(mx, mx.cpu(), weights, picked)
+    got = speech_steps(mx, mx.gpu(0), weights, picked)
+    ctrl = speech_steps(mx, mx.gpu(0), weights,
+                        [drop_last_symbol(mx, b) for b in picked])
+    sound, sound_steps = speech_readings(got, want)
+    control, _ = speech_readings(ctrl, want)
+    summary = {"buckets": [b.bucket_key for b in picked], "sound": sound,
+               "sound_steps": sound_steps, "control": control,
+               "limits": {"loss_rel": SPEECH_LOSS_REL,
+                          "grad_rel": SPEECH_GRAD_REL,
+                          "update_rel": SPEECH_GRAD_REL}}
+    log("phase 25b speech card vs cpu %s" % json.dumps(summary))
+    for key, limit in summary["limits"].items():
+        check(sound[key] <= limit, "25b %s %.3g above its limit %g"
+              % (key, sound[key], limit))
+        check(control[key] > limit, "25b's control %s %.3g does not fail "
+              "its limit %g" % (key, control[key], limit))
+    return summary
+
+
+def phase_nn_rest_ops(mx):
+    """Phase 25c: the rest of ops/nn.py at full size on gpu(0) against
+    cpu() (`tools/nn_rest_sweep.py`'s card cases, TF32 off): each case's
+    forward and gradient readings within its family's limit, each
+    family's control (the card's inputs rounded to bf16) above it;
+    CTCLoss 20 calls on the card within the limit, and the CTC route
+    PyTorch takes on the op's arguments; a hybridized
+    ``gluon.loss.CTCLoss`` counted as uncaptured."""
+    from mxnet_tpu_torch import compiled
+    from mxnet_tpu_torch.tools import detection_sweep, nn_rest_sweep as sw
+    rows, controls, worst = [], {}, {}
+    cases = sw.card_cases()
+    for case in cases:
+        want = sw.run_case(case, mx.cpu())
+        got = sw.run_case(case, mx.gpu(0))
+        bad = sw.run_case(case, mx.gpu(0), detection_sweep._bf16_rounded)
+        fwd, grad = (sw.reading(got[0], want[0], case.family),
+                     sw.reading(got[1], want[1], case.family, norm=True))
+        ctl = max(sw.reading(bad[0], want[0], case.family),
+                  sw.reading(bad[1], want[1], case.family, norm=True))
+        if case.name == "CTCLoss":
+            for _ in range(DETERMINISM_CALLS - 1):
+                again = sw.run_case(case, mx.gpu(0))
+                fwd = max(fwd, sw.reading(again[0], want[0], case.family))
+                grad = max(grad, sw.reading(again[1], want[1], case.family,
+                                            norm=True))
+        worst[case.family] = max(worst.get(case.family, 0.0), fwd, grad)
+        controls[case.family] = max(controls.get(case.family, 0.0), ctl)
+        rows.append({"op": case.name, "params": {
+            k: v for k, v in case.params.items()},
+            "shapes": [list(a.shape) for a in case.arrays],
+            "forward": fwd, "gradient": grad, "control": ctl})
+    log("phase 25c ops %s" % json.dumps(rows))
+    for fam, limit in sw.LIMITS.items():
+        check(worst.get(fam, 0.0) <= limit, "25c family %s reads %.3g, "
+              "limit %g" % (fam, worst.get(fam, 0.0), limit))
+        check(controls.get(fam, 0.0) > limit, "25c family %s's control "
+              "%.3g does not fail its limit %g"
+              % (fam, controls.get(fam, 0.0), limit))
+
+    # the route: PyTorch's own choice on the arguments the op passes it
+    # (cuDNN takes only int32 targets on the host); 25a's profiled step
+    # shows the kernels it ran
+    from mxnet_tpu_torch.ops.nn import _ctc_label_lengths
+    ctc = next(c for c in cases if c.name == "CTCLoss")
+    dev = mx.gpu(0).torch_device()
+    data, label = (torch.from_numpy(a).to(dev) for a in ctc.arrays[:2])
+    lab = label.long()
+    T, B, _ = data.shape
+    cudnn = bool(torch._use_cudnn_ctc_loss(
+        torch.log_softmax(data.float(), -1), lab.clamp(min=0),
+        torch.full((B,), T, dtype=torch.long, device=dev),
+        _ctc_label_lengths(lab, lab == 0), 0))
+    route = "cudnn" if cudnn else "native"
+
+    rng = np.random.RandomState(SEED + 253)
+    pred = rng.randn(SPEECH_BATCH, 50, SPEECH_PHONES).astype(np.float32)
+    label = np.full((SPEECH_BATCH, 12), -1.0, np.float32)
+    for j in range(SPEECH_BATCH):
+        n = rng.randint(1, 13)
+        label[j, :n] = rng.randint(0, SPEECH_PHONES - 1, n)
+    before = compiled.compile_counts()
+    loss = mx.gluon.loss.CTCLoss()
+    loss.hybridize()
+    outs = [loss(mx.nd.array(pred, ctx=mx.gpu(0)),
+                 mx.nd.array(label, ctx=mx.gpu(0))).asnumpy()
+            for _ in range(2)]
+    after = compiled.compile_counts()
+    host = mx.gluon.loss.CTCLoss()(mx.nd.array(pred, ctx=mx.cpu()),
+                                   mx.nd.array(label, ctx=mx.cpu()))
+    hybrid = {"uncaptured": after["uncaptured"] - before["uncaptured"],
+              "vs_cpu": max(float(np.abs(o - host.asnumpy()).max()
+                                  / np.abs(host.asnumpy()).max())
+                            for o in outs)}
+    summary = {"worst": worst, "controls": controls, "limits": sw.LIMITS,
+               "ctc_route": route,
+               "ctc_calls_within_limit": DETERMINISM_CALLS,
+               "hybridized_gluon_ctc": hybrid}
+    log("phase 25c summary %s" % json.dumps(summary))
+    check(hybrid["uncaptured"] >= 1 and hybrid["vs_cpu"] <= sw.LIMITS["ctc"],
+          "the hybridized gluon CTCLoss on the card: %s" % hybrid)
+    return summary
+
+
+def phase_speech_examples(mx, counters):
+    """Phase 25d: the six examples of this slice and the eleven that ran
+    on the port untested before it, through ``tools/run_example`` on
+    gpu(0) at their JAX tests' arguments, each printing its JAX test's
+    line, with their kernel launches."""
+    from mxnet_tpu_torch.tools.run_example import run_example
+    rows = {}
+    for key, rel, argv, line in SPEECH_EXAMPLES + A14_EXAMPLES:
+        before = launches_of(counters)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            run_example(os.path.join("examples", rel), argv, "gpu")
+        lines = buf.getvalue().splitlines()
+        got = launched(counters, before)
+        hit = [ln for ln in lines if line in ln]
+        rows[key] = {"line": hit[0] if hit else None,
+                     "launches": {k: n for k, n in got.items() if n},
+                     "seconds": time.perf_counter() - t0}
+        log("phase 25d %s %s" % (key, json.dumps(rows[key])))
+        check(hit, "%s printed no %r line: %s" % (rel, line, lines[-5:]))
+    speech = rows["speech_am"]["launches"]
+    check(all(speech.get(k, 0) > 0 for k in RNN_PATH),
+          "train_am.py launched %s: want K1-K3 and U1" % speech)
+    return rows
+
+
+def phase_speech(mx, counters, rng):
+    """Phase 25: the CTC speech model and the rest of ops/nn.py on the
+    card. Every kernel's count is set to 0 before its main path (25a's
+    training and decoding, 25b's steps, 25d's examples) and read after
+    it; only K1-K3 and U1 may launch."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    for c in counters.values():               # the speech path starts here
+        c.launches = 0
+    train = phase_speech_train(mx, counters, rng)
+    vs_cpu = phase_speech_card_vs_cpu(mx, rng)
+    path = launches_of(counters)
+    ops = phase_nn_rest_ops(mx)
+    for k, c in counters.items():             # 25c's op checks are not
+        c.launches = path[k]                  # the main path
+    examples = phase_speech_examples(mx, counters)
+    launches = launches_of(counters)          # ... and ends here
+    seconds = time.perf_counter() - t0
+    log("phase 25 speech %s" % json.dumps({
+        "kernel_launches": launches, "seconds": seconds,
+        "frames_per_s": train["frames_per_s"],
+        "epoch_wall_s": train["epoch_wall_s"],
+        "epoch_steps": train["batches_an_epoch"],
+        "device_idle_share": train["profile"]["device_idle_share"],
+        "ctc_route": ops["ctc_route"]}))
+    check(all(launches[k] > 0 for k in RNN_PATH)
+          and not any(n for k, n in launches.items() if k not in RNN_PATH),
+          "the speech path launched %s: want K1-K3 and U1, and no other"
+          % launches)
+    return launches, {"train": train, "card_vs_cpu": vs_cpu,
+                      "ops": ops, "examples": examples, "seconds": seconds}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs the port on the GPU",
@@ -5534,16 +6172,21 @@ def main():
 
     rnn_launches, _ = phase_rnn(mx, path, np.random.RandomState(SEED + 24),
                                 device)
+    speech_launches, _ = phase_speech(
+        mx, path, np.random.RandomState(SEED + 25))
 
-    top = next(r for r in rows if r["B"] == max(SERVED_BATCHES))
-    train = next(r for r in train_rows if r["B"] == TRAIN_BATCH)
+    top = next(r for r in rows
+               if (r["T"], r["B"]) == (SEQ, max(SERVED_BATCHES)))
+    train = next(r for r in train_rows if (r["T"], r["B"]) == (SEQ,
+                                                              TRAIN_BATCH))
     pallas = "mxnet_tpu/ops/pallas_kernels.py"
     k3_src = "mxnet_tpu_torch/csrc/lstm_bwd_persistent.cuh"
     recurrence_src = "mxnet_tpu_torch/csrc/lstm_persistent.cuh"
     kernels = [{
         "name": "fused_lstm", "route": "cuda", "source": recurrence_src,
         "replaces": pallas + ":295",
-        "launches": launches + rnn_launches["fused_lstm"],
+        "launches": (launches + rnn_launches["fused_lstm"]
+                     + speech_launches["fused_lstm"]),
         "max_abs_err": worst,
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
@@ -5551,14 +6194,16 @@ def main():
         "name": "fused_lstm_train", "route": "cuda",
         "source": recurrence_src,
         "replaces": pallas + ":348",
-        "launches": k2 + rnn_launches["fused_lstm_train"],
+        "launches": (k2 + rnn_launches["fused_lstm_train"]
+                     + speech_launches["fused_lstm_train"]),
         "max_abs_err": train_worst, "ms": train["k2_ms"],
         "plain_ms": train["k2_plain_ms"], "bound_ms": train["k2_bound_ms"],
         "bound_by": train["k2_bound_by"],
         "library_ms": train["cudnn_fwd_ms"]}, {
         "name": "lstm_bwd_recurrence", "route": "cuda", "source": k3_src,
         "replaces": pallas + ":382",
-        "launches": k3 + rnn_launches["lstm_bwd_recurrence"],
+        "launches": (k3 + rnn_launches["lstm_bwd_recurrence"]
+                     + speech_launches["lstm_bwd_recurrence"]),
         "max_abs_err": train_worst, "ms": train["k3_ms"],
         "plain_ms": train["k3_plain_ms"], "bound_ms": train["k3_bound_ms"],
         "bound_by": train["k3_bound_by"],
@@ -5600,7 +6245,9 @@ def main():
         "name": "multi_tensor_update", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/multi_tensor_update.cu",
         "replaces": "mxnet_tpu/optimizer.py:666",
-        "launches": opt_launches["multi_tensor_update"],
+        "launches": (opt_launches["multi_tensor_update"]
+                     + rnn_launches["multi_tensor_update"]
+                     + speech_launches["multi_tensor_update"]),
         "max_abs_err": u1_summary["max_abs_err"],
         **{key: u1_a[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}})
@@ -5635,4 +6282,5 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(speech_profile_main() if sys.argv[1:] == ["--speech-profile"]
+             else main())

@@ -43,12 +43,13 @@ cast, a re-initialisation) is a new key, so one recapture, reported as a
 retrace that names the tensor. A new value of a Python scalar argument
 is a new signature on CUDA, so one recapture, reported as a retrace
 naming the argument; the arguments named by ``key_argnums`` (a Gluon
-call's random seed) stay keyed by type, since no graph reads them: an op
-that draws random numbers raises at capture (`ops/invoke.py`), as a
-replay would repeat its bits. An argument leaf that is neither a tensor
-nor a Python scalar raises at capture. A capture that fails raises
-:class:`MXNetError` naming the site and the error; nothing falls back to
-running eagerly.
+call's random seed) stay keyed by type, since no graph reads them: a
+program whose function calls an op that draws random numbers runs
+uncaptured (below), as a replay would repeat its bits. An argument leaf
+that is neither a tensor nor a Python scalar raises at capture. A
+capture that fails for any other reason raises :class:`MXNetError`
+naming the site and the error; it does not fall back to running
+eagerly.
 
 On the CPU there is no graph: the same cache, keys and counters, and a
 call runs the function eagerly.
@@ -60,9 +61,11 @@ too, with the tape on: a graph's replay returns clones that carry no
 backward of a training step is not ported yet.
 
 A program whose function calls an op that runs Python on the host
-(``Custom``, which calls :func:`note_host_op`) cannot be captured: a
-CUDA graph cannot hold the host round trip. Its signature is not
-captured and runs eagerly on every call, counted once under
+(``Custom``, ``CTCLoss``, which call :func:`note_host_op`) cannot be
+captured: a CUDA graph cannot hold the host round trip. Nor can one
+whose function draws random numbers (`ops/invoke.py` notes every op
+that draws): a replay would repeat the captured draws. Its signature is
+not captured and runs eagerly on every call, counted once under
 ``compile_counts()["uncaptured"]`` and logged with the ops' names; the
 warm-up runs before a capture find it. On the CPU the first run of a
 signature counts it the same way.
@@ -171,8 +174,10 @@ def running():
 
 
 def note_host_op(name):
-    """Called by an op whose body runs Python on the host (``Custom``):
-    the program whose function is running is then not captured."""
+    """Called by an op that a CUDA graph cannot hold: one whose body runs
+    on the host (``Custom``, ``CTCLoss``'s lengths), or one that draws
+    random numbers. The program whose function is running is then not
+    captured."""
     seen = getattr(_TLS, "host_ops", None)
     if seen is not None:
         seen.add(name)
@@ -534,8 +539,8 @@ class CompiledProgram:
     def _uncaptured(self, ops):
         _count("uncaptured")
         logger.warning("%s: not captured, runs eagerly on every call: its "
-                       "function calls host ops (%s)", self.site,
-                       ", ".join(sorted(ops)))
+                       "function calls ops a graph cannot hold (%s)",
+                       self.site, ", ".join(sorted(ops)))
 
     def _capture(self, args, device):
         """The captured graph of ``args``' signature, or None (counted as

@@ -3,12 +3,13 @@
 Counterpart of `mxnet_tpu/gluon/loss.py` (reference
 `python/mxnet/gluon/loss.py`): ``L2Loss``, ``L1Loss``,
 ``SigmoidBinaryCrossEntropyLoss``, ``SoftmaxCrossEntropyLoss``,
-``KLDivLoss``, ``HuberLoss``, ``HingeLoss``, ``SquaredHingeLoss``,
-``LogisticLoss`` and ``TripletLoss``, each a ``HybridBlock`` with
-``weight``, ``sample_weight`` and ``batch_axis``, computed in the data
-dtype by the registered ops (so a call under ``autograd.record()`` is on
-the tape). Each returns one loss per sample: the mean over every axis
-but the batch axis. ``CTCLoss`` raises: its op is not ported yet.
+``KLDivLoss``, ``CTCLoss``, ``HuberLoss``, ``HingeLoss``,
+``SquaredHingeLoss``, ``LogisticLoss`` and ``TripletLoss``, each a
+``HybridBlock`` with ``weight``, ``sample_weight`` and ``batch_axis``,
+computed in the data dtype by the registered ops (so a call under
+``autograd.record()`` is on the tape). Each returns one loss per
+sample: the mean over every axis but the batch axis (``CTCLoss``: the
+sequence's loss).
 """
 from __future__ import annotations
 
@@ -140,13 +141,40 @@ class KLDivLoss(Loss):
 
 
 class CTCLoss(Loss):
-    """Connectionist temporal classification loss: not ported yet (the
-    ``CTCLoss`` op waits in ROADMAP.md, queue A item 7)."""
+    """Connectionist temporal classification loss over ``pred`` in
+    ``layout`` (``NTC`` or ``TNC``; scores before the softmax) and
+    ``label`` in ``label_layout`` (``NT`` or ``TN``), padded with -1: the
+    blank is the last class. ``pred_lengths`` and ``label_lengths`` are
+    optional per-sample lengths."""
 
     def __init__(self, layout="NTC", label_layout="NT", weight=None,
                  **kwargs):
-        raise MXNetError("gluon.loss.CTCLoss needs the CTCLoss op, which "
-                         "the port does not have yet")
+        if layout not in ("NTC", "TNC"):
+            raise ValueError("Only 'NTC' and 'TNC' layouts for pred are "
+                             "supported. Got: %s" % layout)
+        if label_layout not in ("NT", "TN"):
+            raise ValueError("Only 'NT' and 'TN' layouts for label are "
+                             "supported. Got: %s" % label_layout)
+        self._layout = layout
+        self._label_layout = label_layout
+        super().__init__(weight, label_layout.find("N"), **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, dim1=0, dim2=1)
+        if self._batch_axis == 1:
+            label = F.swapaxes(label, dim1=0, dim2=1)
+        extra = []
+        kwargs = {"blank_label": "last"}
+        if pred_lengths is not None:
+            extra.append(pred_lengths)
+            kwargs["use_data_lengths"] = True
+        if label_lengths is not None:
+            extra.append(label_lengths)
+            kwargs["use_label_lengths"] = True
+        loss = F.CTCLoss(pred, label, *extra, **kwargs)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
 
 
 class HuberLoss(Loss):

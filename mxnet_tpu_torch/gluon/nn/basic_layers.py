@@ -5,9 +5,10 @@ Counterpart of `mxnet_tpu/gluon/nn/basic_layers.py` (reference
 ``HybridSequential``, ``Dense`` (with an optional ``activation`` child,
 named as in the JAX package), ``Activation``, ``Dropout``, ``BatchNorm``
 (moving statistics as parameters that take no gradient), ``Embedding``,
-``LayerNorm``, ``Flatten``, ``Lambda``, ``HybridLambda`` and
-``LeakyReLU``. ``InstanceNorm``, ``PReLU``, ``ELU``, ``SELU`` and
-``Swish`` are not ported yet (ROADMAP A.7).
+``InstanceNorm``, ``LayerNorm``, ``Flatten``, ``Lambda``,
+``HybridLambda`` and the activations of the reference's
+`gluon/nn/activations.py`, merged here as in the JAX package:
+``LeakyReLU``, ``PReLU``, ``ELU``, ``SELU`` and ``Swish``.
 """
 from __future__ import annotations
 
@@ -17,9 +18,10 @@ import numpy as np
 
 from ..block import Block, HybridBlock
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
-           "Dropout", "BatchNorm", "Embedding", "LayerNorm", "Flatten",
-           "Lambda", "HybridLambda", "LeakyReLU"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "Embedding",
+           "BatchNorm", "InstanceNorm", "LayerNorm", "Flatten", "Lambda",
+           "HybridLambda", "Activation", "LeakyReLU", "PReLU", "ELU", "SELU",
+           "Swish"]
 
 
 def _first(out):
@@ -210,14 +212,14 @@ class Embedding(HybridBlock):
         return F.Embedding(x, weight, **self._kwargs)
 
 
-class LayerNorm(HybridBlock):
-    """``LayerNorm`` over ``axis``, with ``gamma`` and ``beta`` of that
-    axis's size (taking no gradient without ``scale`` / ``center``)."""
+class _NormScaleShift(HybridBlock):
+    """``gamma`` and ``beta`` of the size of ``axis`` (taking no gradient
+    without ``scale`` / ``center``), their size read from the data at
+    deferred initialisation."""
 
-    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
-                 beta_initializer="zeros", gamma_initializer="ones",
-                 in_channels=0, prefix=None, params=None):
-        super().__init__(prefix=prefix, params=params)
+    def __init__(self, axis, epsilon, center, scale, beta_initializer,
+                 gamma_initializer, in_channels, **kwargs):
+        super().__init__(**kwargs)
         self._axis = axis
         self._epsilon = epsilon
         self.gamma = self.params.get(
@@ -234,6 +236,36 @@ class LayerNorm(HybridBlock):
         for p in (self.gamma, self.beta):
             if not p.shape or p.shape[0] == 0:
                 p.shape = (c,)
+
+
+class InstanceNorm(_NormScaleShift):
+    """``InstanceNorm`` over the spatial axes of each sample and channel;
+    ``axis`` names the channel axis (swapped to axis 1 around the op)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(axis, epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, **kwargs)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        if self._axis == 1:
+            return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+        x = F.swapaxes(x, dim1=1, dim2=self._axis)
+        return F.swapaxes(F.InstanceNorm(x, gamma, beta, eps=self._epsilon),
+                          dim1=1, dim2=self._axis)
+
+
+class LayerNorm(_NormScaleShift):
+    """``LayerNorm`` over ``axis``, with ``gamma`` and ``beta`` of that
+    axis's size (taking no gradient without ``scale`` / ``center``)."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(axis, epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, prefix=prefix,
+                         params=params)
 
     def hybrid_forward(self, F, data, gamma, beta):
         return _first(F.LayerNorm(data, gamma, beta, axis=self._axis,
@@ -291,3 +323,41 @@ class LeakyReLU(HybridBlock):
 
     def hybrid_forward(self, F, x):
         return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """``LeakyReLU`` with one learned slope ``alpha``."""
+
+    def __init__(self, alpha_initializer="zeros", **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.alpha = self.params.get("alpha", shape=(1,),
+                                         init=alpha_initializer)
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, alpha, act_type="prelu")
+
+
+class ELU(HybridBlock):
+    def __init__(self, alpha=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
+
+
+class Swish(HybridBlock):
+    """``x * sigmoid(beta * x)``."""
+
+    def __init__(self, beta=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._beta = beta
+
+    def hybrid_forward(self, F, x):
+        return x * F.sigmoid(self._beta * x)

@@ -3,23 +3,28 @@
 Counterpart of `mxnet_tpu/initializer.py` (reference
 `python/mxnet/initializer.py`): ``InitDesc``, the name dispatch of
 ``Initializer.__call__``, and ``Zero``, ``One``, ``Constant``,
-``Uniform``, ``Normal``, ``Xavier``, ``LSTMBias`` with
-``register``/``create``. Values
-are drawn with numpy's global generator in the JAX package's order and
-cast to the array's dtype on the host, then copied to the array's
-device, so one ``np.random`` seed gives bit-identical parameters in both
-packages. ``Orthogonal``, ``MSRAPrelu``, ``Bilinear``, ``Mixed`` and
-``Load`` wait for a later slice.
+``Uniform``, ``Normal``, ``Orthogonal``, ``Xavier``, ``MSRAPrelu``,
+``Bilinear``, ``LSTMBias``, ``Mixed`` (initializers by name pattern) and
+``Load`` (values from a dict of arrays), with ``register``/``create``.
+Values are drawn with numpy's global generator in the JAX package's
+order and cast to the array's dtype on the host, then copied to the
+array's device, so one ``np.random`` seed gives bit-identical
+parameters in both packages.
 """
 from __future__ import annotations
 
 import json
 
+import re
+
 import numpy as np
 import torch
 
+from .base import MXNetError
+
 __all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
-           "Normal", "Xavier", "LSTMBias", "register", "create"]
+           "Normal", "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear",
+           "LSTMBias", "Mixed", "Load", "register", "create"]
 
 _INIT_REGISTRY = {}
 
@@ -152,6 +157,28 @@ class Normal(Initializer):
 
 
 @register
+class Orthogonal(Initializer):
+    """``scale`` times an orthonormal factor (numpy's SVD) of a uniform
+    or normal (``rand_type``) draw of the weight's (out, in) shape."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = np.random.uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = np.random.normal(0.0, 1.0, (nout, nin))
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        res = u if u.shape == tmp.shape else v
+        self._set(arr, self.scale * res.reshape(arr.shape))
+
+
+@register
 class Xavier(Initializer):
     """Reference initializer.py Xavier (uniform/gaussian; avg/in/out)."""
 
@@ -183,6 +210,33 @@ class Xavier(Initializer):
 
 
 @register
+class MSRAPrelu(Xavier):
+    """Gaussian ``Xavier`` with magnitude ``2 / (1 + slope**2)`` (He et
+    al.'s PReLU initialisation)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    """Bilinear upsampling weights for a ``Deconvolution`` (every filter
+    pair the same 2-D kernel of the last two axes)."""
+
+    def _init_weight(self, _, arr):
+        shape = arr.shape
+        weight = np.zeros(int(np.prod(shape)), dtype=np.float32)
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        for i in range(weight.size):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            weight[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        self._set(arr, weight.reshape(shape))
+
+
+@register
 class LSTMBias(Initializer):
     """Zeros, with the forget gate's quarter (gate order i, f, g, o) at
     ``forget_bias`` (reference initializer.py LSTMBias)."""
@@ -198,6 +252,52 @@ class LSTMBias(Initializer):
         self._set(arr, b)
 
 
+@register
+class Mixed:
+    """The first initializer whose pattern (a regular expression matched
+    at the start of the name) matches."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise MXNetError("patterns and initializers must have same "
+                             "length")
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise ValueError("Parameter name %s did not match any pattern"
+                         % name)
+
+
+@register
+class Load:
+    """Values from ``param`` (names may carry the ``arg:``/``aux:``
+    prefixes of a saved file), else ``default_init``."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        self.param = {(name[4:] if name.startswith(("arg:", "aux:"))
+                       else name): arr for name, arr in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name not in self.param:
+            if self.default_init is None:
+                raise MXNetError("Cannot Initialize parameter %s" % name)
+            self.default_init(name, arr)
+            return
+        src = self.param[name]
+        if tuple(src.shape) != tuple(arr.shape):
+            raise MXNetError("Parameter %s cannot be initialized from "
+                             "loading. Shape mismatch, target %s vs loaded "
+                             "%s" % (name, str(arr.shape), str(src.shape)))
+        arr[:] = src.asnumpy() if hasattr(src, "asnumpy") else src
+
+
 # reference registers these under plural/alternate names
 _INIT_REGISTRY["zeros"] = Zero
 _INIT_REGISTRY["ones"] = One
@@ -205,6 +305,8 @@ _INIT_REGISTRY["gaussian"] = Normal
 
 
 def create(name, **kwargs):
-    if isinstance(name, Initializer):
+    """The initializer registered as ``name``; an initializer object or
+    any callable ``init(desc, arr)`` (``Mixed``, ``Load``) as it is."""
+    if not isinstance(name, str):
         return name
     return _INIT_REGISTRY[name.lower()](**kwargs)

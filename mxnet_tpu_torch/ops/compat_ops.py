@@ -1,12 +1,14 @@
 """The sparse-storage ops of `mxnet_tpu/ops/compat_ops.py`.
 
-Counterparts of the JAX file's sparse block (reference
+The legacy aliases ``Convolution_v1`` and ``CuDNNBatchNorm`` are
+registered with ``Convolution`` and ``BatchNorm`` in `ops/nn.py`. The
+rest are counterparts of the JAX file's sparse block (reference
 `tensor/cast_storage-inl.h`, `sparse_retain.cc`, `square_sum`,
 `optimizer_op.cc` ``_sparse_adagrad_update``, `indexing_op.cc`
 ``_contrib_SparseEmbedding``) and ``_identity_with_attr_like_rhs``. As in
 the JAX package they compute on the dense layout: the storage type is the
-array's, and the math is the same. The rest of the JAX file (legacy
-aliases, image ops, samplers, slice assignment) waits for ROADMAP A.7.
+array's, and the math is the same. The rest of the JAX file (image
+ops, samplers, slice assignment) waits for ROADMAP A.7.
 """
 from __future__ import annotations
 

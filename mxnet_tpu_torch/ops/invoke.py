@@ -70,6 +70,10 @@ def invoke(op_name, inputs, params=None, ctx=None, out=None):
     if op.need_train_flag:
         params.setdefault("_is_train", autograd.is_training())
     if op.need_rng and "_generator" not in params and op.draws(params):
+        # a graph's replay would repeat the draws: the program holding the
+        # op runs uncaptured, as one holding a host op does
+        from .. import compiled
+        compiled.note_host_op(op_name)
         if torch.cuda.is_initialized() and \
                 torch.cuda.is_current_stream_capturing():
             raise MXNetError(

@@ -84,48 +84,82 @@ def _attr_bool(params, key, default=False):
     return bool(v)
 
 
-def _softmax_output_grad(out, label, params):
-    """(p - onehot(label)), masked and scaled as the attributes say
-    (`mxnet_tpu/ops/nn.py::_so_grad` and ``_normalize_grad``). Labels
-    outside [0, C) give a zero one-hot row, as ``jax.nn.one_hot`` does."""
-    classes = torch.arange(out.shape[-1], device=out.device)
-    onehot = (label.long()[..., None] == classes).to(out.dtype)
-    grad = out - onehot
-    ignore = _attr_num(params, "ignore_label", -1)
-    if _attr_bool(params, "use_ignore"):
-        grad = grad * (label != ignore).to(out.dtype)[..., None]
+def _normalize_grad(grad, label, params):
+    """A head's gradient scaled by ``grad_scale`` and divided as
+    ``normalization`` says: by nothing (``null``), the batch (``batch``)
+    or the count of labels other than ``ignore_label`` (``valid``)
+    (`mxnet_tpu/ops/nn.py::_normalize_grad`)."""
     scale = _attr_num(params, "grad_scale", 1.0)
     norm = params.get("normalization", "null")
     if norm == "batch":
         scale = scale / label.shape[0]
     elif norm == "valid":
-        valid = torch.clamp((label != ignore).sum(), min=1).to(out.dtype)
+        ignore = _attr_num(params, "ignore_label", -1)
+        valid = torch.clamp((label != ignore).sum(), min=1).to(grad.dtype)
         return grad * (scale / valid)
     return grad * scale
 
 
-class _SoftmaxOutputHead(torch.autograd.Function):
-    """Softmax over the last axis forward; backward (p - y) whatever the
-    incoming gradient, as the reference's loss heads."""
+def _one_hot(label, out):
+    """One-hot rows of ``label`` over ``out``'s last axis; labels outside
+    [0, C) give a zero row, as ``jax.nn.one_hot`` does."""
+    classes = torch.arange(out.shape[-1], device=out.device)
+    return (label.long()[..., None] == classes).to(out.dtype)
 
-    @staticmethod
-    def forward(ctx, data, label, params):
-        out = torch.softmax(data, dim=-1)
-        ctx.save_for_backward(out, label)
-        ctx.params = params
-        return out
 
-    @staticmethod
-    def backward(ctx, _):
-        out, label = ctx.saved_tensors
-        return _softmax_output_grad(out, label, ctx.params), None, None
+def _softmax_output_grad(out, label, params):
+    """(p - onehot(label)), masked and scaled as the attributes say
+    (`mxnet_tpu/ops/nn.py::_so_grad`)."""
+    grad = out - _one_hot(label, out)
+    if _attr_bool(params, "use_ignore"):
+        ignore = _attr_num(params, "ignore_label", -1)
+        grad = grad * (label != ignore).to(out.dtype)[..., None]
+    return _normalize_grad(grad, label, params)
+
+
+def _output_head(forward, grad):
+    """A loss head as a ``torch.autograd.Function``: ``forward(data)``
+    forward, and ``grad(out, label, params)`` backward whatever the
+    incoming gradient, as the reference's loss heads
+    (`mxnet_tpu/ops/nn.py::_make_output_head`). The label takes no
+    gradient. A gradient whose shape is not the data's (a label that
+    broadcasts against the output) raises, as the JAX head's VJP does."""
+
+    class _Head(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, data, label, params):
+            out = forward(data)
+            ctx.save_for_backward(out, label)
+            ctx.params = params
+            return out
+
+        @staticmethod
+        def backward(ctx, _):
+            out, label = ctx.saved_tensors
+            g = grad(out, label, ctx.params)
+            if g.shape != out.shape:
+                raise MXNetError(
+                    "output head: the label of shape %s gives a gradient "
+                    "of shape %s for an output of shape %s"
+                    % (tuple(label.shape), tuple(g.shape), tuple(out.shape)))
+            return g.to(out.dtype), None, None
+
+    return _Head.apply
+
+
+def _head_attrs(params):
+    return {k: v for k, v in params.items() if not k.startswith("_")}
+
+
+_softmax_head = _output_head(lambda x: torch.softmax(x, dim=-1),
+                             _softmax_output_grad)
 
 
 @register("SoftmaxOutput", aliases=("Softmax",))
 def _softmax_output(params, data, label):
     """Reference softmax_output-inl.h: forward softmax, backward (p - y)."""
-    attrs = {k: v for k, v in params.items() if not k.startswith("_")}
-    head = _SoftmaxOutputHead.apply
+    attrs = _head_attrs(params)
+    head = _softmax_head
     if _attr_bool(params, "multi_output"):
         # data (N, C, d...) label (N, d...): softmax over axis 1
         perm = (0,) + tuple(range(2, data.dim())) + (1,)
@@ -135,6 +169,109 @@ def _softmax_output(params, data, label):
         out = head(data.reshape(-1, data.shape[-1]), label.reshape(-1), attrs)
         return (out.reshape(data.shape),)
     return (head(data, label, attrs),)
+
+
+def _svm_grad(out, label, params):
+    """Reference svm_output-inl.h: the hinge loss's gradient with
+    ``margin``, ``regularization_coefficient`` (C) and ``use_linear``
+    (L1-SVM: -C*y*1{margin - y*f > 0}; L2-SVM: -2C*y*max(0, margin - y*f)),
+    y = +1 for the label's class and -1 elsewhere."""
+    margin = _attr_num(params, "margin", 1.0)
+    coef = _attr_num(params, "regularization_coefficient", 1.0)
+    sign = 2 * _one_hot(label, out) - 1
+    viol = torch.clamp(margin - out * sign, min=0.0)
+    if _attr_bool(params, "use_linear"):
+        return -coef * sign * (viol > 0).to(out.dtype)
+    return -2.0 * coef * sign * viol
+
+
+def _regression_grad(out, label, params):
+    """``out - label`` with numpy broadcasting, as the JAX heads take it
+    (not the reference's ``grad_scale / num_output``)."""
+    return out - label
+
+
+def _register_head(name, forward, grad):
+    """An output head over ``_output_head``; its gradient is then scaled
+    as ``normalization`` and ``grad_scale`` say."""
+    head = _output_head(forward, lambda o, l, p: _normalize_grad(
+        grad(o, l, p), l, p))
+
+    @register(name)
+    def _op(params, data, label):
+        return (head(data, label, _head_attrs(params)),)
+    return _op
+
+
+_register_head("LinearRegressionOutput", lambda x: x, _regression_grad)
+_register_head("LogisticRegressionOutput", torch.sigmoid, _regression_grad)
+_register_head("MAERegressionOutput", lambda x: x,
+               lambda o, l, p: torch.sign(o - l))
+_register_head("SVMOutput", lambda x: x, _svm_grad)
+
+
+# ---------------------------------------------------------------------------
+# CTCLoss (reference contrib/ctc_loss-inl.h)
+# ---------------------------------------------------------------------------
+def _ctc_label_lengths(label, pad):
+    """Each row's count of entries before its first padding entry: a
+    label ends at its first pad, as the reference's
+    ``LabelTensorToPackedVector`` reads it."""
+    L = label.shape[1]
+    idx = torch.arange(L, device=label.device).expand_as(label)
+    return torch.where(pad, idx, torch.full_like(idx, L)).amin(dim=1)
+
+
+def _ctc_needed_frames(label, lab_len):
+    """The fewest frames an alignment of each label needs: one a symbol,
+    and one blank between two equal neighbours."""
+    idx = torch.arange(1, label.shape[1], device=label.device)
+    repeat = (label[:, 1:] == label[:, :-1]) & (idx < lab_len[:, None])
+    return lab_len + repeat.sum(dim=1)
+
+
+@register("CTCLoss", aliases=("ctc_loss", "_contrib_CTCLoss",
+                              "_contrib_ctc_loss"))
+def _ctc_loss(params, data, label, *lens):
+    """Reference contrib/ctc_loss-inl.h: the per-sample CTC loss of
+    ``data`` (T, B, C) against ``label`` (B, L), in the data's dtype. The
+    blank is class 0 with labels padded by 0 (``blank_label="first"``) or
+    class C-1 with labels padded by -1 (``"last"``); the optional inputs
+    are ``data_lengths`` then ``label_lengths``, read under
+    ``use_data_lengths`` / ``use_label_lengths``. Without label lengths a
+    label ends at its first pad. The forward-backward is PyTorch's
+    ``ctc_loss`` over ``log_softmax`` in f32, as the JAX op's scan is
+    over its f32 ``log_softmax``; its gradient is right only through
+    that ``log_softmax``. A label that no alignment of its frames can
+    emit reads ``inf`` and gives no gradient.
+
+    The lengths reach the host, so a program holding the op is not
+    captured into a CUDA graph (`compiled.note_host_op`)."""
+    T, B, C = data.shape
+    if data.device.type == "meta":
+        return (torch.empty(B, dtype=data.dtype, device="meta"),)
+    from .. import compiled
+    compiled.note_host_op("CTCLoss")
+    blank_first = params.get("blank_label", "first") == "first"
+    lab = label.long().to(data.device)
+    lens = list(lens)
+    data_len = torch.full((B,), T, dtype=torch.long, device=data.device)
+    if _attr_bool(params, "use_data_lengths") and lens:
+        data_len = lens.pop(0).long().to(data.device).clamp(0, T)
+    if _attr_bool(params, "use_label_lengths") and lens:
+        lab_len = lens.pop(0).long().to(data.device)
+    else:
+        lab_len = _ctc_label_lengths(lab, lab == 0 if blank_first
+                                     else lab < 0)
+    # the loss of a label that cannot fit its frames is reported as inf
+    # below; zero_infinity keeps its NaN gradient out of the batch
+    logp = torch.log_softmax(data.float(), dim=-1)
+    loss = F.ctc_loss(logp, lab.clamp(min=0), data_len, lab_len,
+                      blank=0 if blank_first else C - 1, reduction="none",
+                      zero_infinity=True)
+    infeasible = _ctc_needed_frames(lab, lab_len) > data_len
+    loss = torch.where(infeasible, torch.full_like(loss, float("inf")), loss)
+    return (loss.to(data.dtype),)
 
 
 # ---------------------------------------------------------------------------
@@ -401,7 +538,7 @@ class _Conv1x1S2(torch.autograd.Function):
         return dx, dw
 
 
-@register("Convolution")
+@register("Convolution", aliases=("Convolution_v1",))
 def _convolution(params, data, weight, *bias):
     """Reference convolution-inl.h, channel-first or channel-last. A
     channel-last conv runs on channels-last views of its NHWC tensors, so
@@ -421,6 +558,28 @@ def _convolution(params, data, weight, *bias):
     if not _attr_bool(params, "no_bias") and bias:
         out = out + (bias[0] if channel_last
                      else bias[0].reshape((1, -1) + (1,) * nd))
+    return (out,)
+
+
+@register("Deconvolution")
+def _deconvolution(params, data, weight, *bias):
+    """Reference deconvolution-inl.h, channel-first: the transposed
+    convolution with weights (in, out/groups, k...), ``adj`` added to the
+    output's far end (PyTorch's ``output_padding``), in the data's
+    dtype. The JAX op has no channel-last form; a channel-last layout
+    raises here."""
+    kernel = tuple(int(k) for k in params["kernel"])
+    nd = len(kernel)
+    if _channel_last(params, nd):
+        raise MXNetError("Deconvolution supports only channel-first "
+                         "layouts")
+    conv = (F.conv_transpose1d, F.conv_transpose2d, F.conv_transpose3d)[nd - 1]
+    out = conv(data, weight, None, _tup(params.get("stride"), nd, 1),
+               _tup(params.get("pad"), nd, 0), _tup(params.get("adj"), nd, 0),
+               int(params.get("num_group", 1)),
+               _tup(params.get("dilate"), nd, 1)).to(data.dtype)
+    if not _attr_bool(params, "no_bias") and bias:
+        out = out + bias[0].reshape((1, -1) + (1,) * nd)
     return (out,)
 
 
@@ -494,7 +653,8 @@ class _BatchNormTrain(torch.autograd.Function):
                 sum_dy.to(ctx.beta_dtype), None, None)
 
 
-@register("BatchNorm", aliases=("BatchNorm_v1",), need_train_flag=True,
+@register("BatchNorm", aliases=("BatchNorm_v1", "CuDNNBatchNorm"),
+          need_train_flag=True,
           num_outputs=3, mutate_aux=(3, 4), num_visible_outputs=1)
 def _batch_norm(params, data, gamma, beta, moving_mean, moving_var):
     """Reference nn/batch_norm-inl.h. Outputs (out, mean, var), then the
@@ -621,6 +781,82 @@ def _pooling(params, data):
 
 
 # ---------------------------------------------------------------------------
+# Resizing: adaptive pooling, bilinear resize, UpSampling
+# ---------------------------------------------------------------------------
+def _linear_resize_weights(n_in, n_out, device):
+    """The (n_in, n_out) weights of ``jax.image.resize(method="linear")``
+    along one axis: half-pixel centres, a triangle kernel widened by the
+    shrink factor when shrinking (antialiasing), each output's weights
+    normalised to sum 1 (`jax/_src/image/scale.py::compute_weight_mat`),
+    computed in f64."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float64, device=device) + 0.5) \
+        * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float64,
+                                        device=device)[:, None]).abs() \
+        / kernel_scale
+    w = torch.clamp(1.0 - x, min=0.0)
+    total = w.sum(dim=0, keepdim=True)
+    eps = 1000.0 * torch.finfo(torch.float32).eps
+    w = torch.where(total.abs() > eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def _resize_linear(data, size):
+    """``jax.image.resize(data, (N, C) + size, method="linear")`` on an
+    NCHW tensor: one weight product per resized axis, in the data's
+    dtype (f32 for an integer input)."""
+    x = data if data.is_floating_point() else data.float()
+    for axis, n_out in zip((2, 3), size):
+        n_in = x.shape[axis]
+        if n_in == n_out:
+            continue
+        w = _linear_resize_weights(n_in, n_out, x.device).to(x.dtype)
+        x = torch.movedim(torch.matmul(torch.movedim(x, axis, -1), w),
+                          -1, axis)
+    return x
+
+
+@register("_contrib_AdaptiveAvgPooling2D")
+def _adaptive_avg_pool(params, data):
+    """The mean over equal windows when ``output_size`` divides the input
+    size; otherwise the JAX package's fallback, a linear resize (not the
+    reference's uneven windows)."""
+    oh, ow = _tup(params.get("output_size", 1), 2, 1)
+    n, c, h, w = data.shape
+    if h % oh == 0 and w % ow == 0:
+        return (data.reshape(n, c, oh, h // oh, ow, w // ow).mean(dim=(3, 5)),)
+    return (_resize_linear(data, (oh, ow)),)
+
+
+@register("_contrib_BilinearResize2D")
+def _bilinear_resize(params, data):
+    h, w = int(params["height"]), int(params["width"])
+    return (_resize_linear(data, (h, w)).to(data.dtype),)
+
+
+@register("UpSampling")
+def _upsampling(params, *inputs):
+    """Enlarge the first input's two trailing axes by ``scale``: by
+    repetition (``nearest``) or a linear resize (``bilinear``; the
+    reference's deconvolution weight input is not read, as in the JAX
+    package)."""
+    scale = int(params["scale"])
+    data = inputs[0]
+    if params.get("sample_type", "nearest") == "nearest":
+        out = data.repeat_interleave(scale, dim=2).repeat_interleave(scale,
+                                                                    dim=3)
+    else:
+        out = _resize_linear(data, (data.shape[2] * scale,
+                                    data.shape[3] * scale))
+    return (out.to(data.dtype),)
+
+
+# ---------------------------------------------------------------------------
 # Activation (reference nn/activation-inl.h)
 # ---------------------------------------------------------------------------
 _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
@@ -740,3 +976,35 @@ def _layer_norm(params, data, gamma, beta):
     shape[axis] = data.shape[axis]
     out = out * gamma.reshape(shape) + beta.reshape(shape)
     return (out, mean.squeeze(axis), torch.sqrt(var + eps).squeeze(axis))
+
+
+@register("InstanceNorm")
+def _instance_norm(params, data, gamma, beta):
+    """Normalise each sample's channel over its spatial axes (statistics
+    in the data's dtype, as in the JAX op), then scale by ``gamma`` and
+    shift by ``beta`` per channel."""
+    eps = float(params.get("eps", 1e-3))
+    axes = tuple(range(2, data.dim()))
+    mean = data.mean(axes, keepdim=True)
+    var = data.var(axes, unbiased=False, keepdim=True)
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    return (out * gamma.reshape(shape) + beta.reshape(shape),)
+
+
+@register("LRN")
+def _lrn(params, data):
+    """Reference lrn-inl.h: each value over
+    ``(knorm + alpha / nsize * sum of squares over nsize channels)**beta``,
+    the window centred on the channel and cut at the ends."""
+    nsize = int(params["nsize"])
+    alpha = float(params.get("alpha", 1e-4))
+    beta = float(params.get("beta", 0.75))
+    knorm = float(params.get("knorm", 2.0))
+    n, c = data.shape[:2]
+    sq = torch.square(data).reshape(n, 1, c, -1)
+    half = nsize // 2
+    ssum = F.avg_pool2d(sq, (nsize, 1), 1, (half, 0),
+                        count_include_pad=True) * nsize
+    return (data / torch.pow(knorm + alpha / nsize * ssum.reshape(data.shape),
+                             beta),)

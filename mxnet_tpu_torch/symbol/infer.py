@@ -71,6 +71,18 @@ def _conv(params, shapes):
     return shapes
 
 
+@filler("Deconvolution")
+def _deconv(params, shapes):
+    """Weights (in, out/groups) + kernel."""
+    nf = params["num_filter"]
+    if shapes[1] is None:
+        shapes[1] = (shapes[0][1], nf // params.get("num_group", 1)) + \
+            tuple(params["kernel"])
+    if len(shapes) > 2 and shapes[2] is None:
+        shapes[2] = (nf,)
+    return shapes
+
+
 @filler("BatchNorm", "BatchNorm_v1")
 def _bn(params, shapes):
     """gamma, beta and the two moving statistics: one value per channel."""
@@ -91,6 +103,24 @@ def _ln(params, shapes):
     return shapes
 
 
+@filler("InstanceNorm")
+def _in(params, shapes):
+    """gamma and beta: one value per channel (axis 1)."""
+    for i in (1, 2):
+        if shapes[i] is None:
+            shapes[i] = (shapes[0][1],)
+    return shapes
+
+
+@filler("LeakyReLU")
+def _prelu(params, shapes):
+    """``prelu``'s gamma: one slope per channel (axis 1)."""
+    if len(shapes) > 1 and shapes[1] is None:
+        data = shapes[0]
+        shapes[1] = (data[1] if len(data) > 1 else data[0],)
+    return shapes
+
+
 @filler("Embedding")
 def _emb(params, shapes):
     if shapes[1] is None:
@@ -98,7 +128,7 @@ def _emb(params, shapes):
     return shapes
 
 
-@filler("SoftmaxOutput", "Softmax")
+@filler("SoftmaxOutput", "Softmax", "SVMOutput")
 def _softmax_output(params, shapes):
     """The label: the data shape without its class axis (axis 1 with
     ``multi_output``, else the last)."""
@@ -108,6 +138,15 @@ def _softmax_output(params, shapes):
             shapes[1] = (data[0],) + tuple(data[2:])
         else:
             shapes[1] = tuple(data[:-1]) if len(data) >= 2 else tuple(data)
+    return shapes
+
+
+@filler("LinearRegressionOutput", "LogisticRegressionOutput",
+        "MAERegressionOutput")
+def _regression_output(params, shapes):
+    """The label: the data's shape."""
+    if shapes[1] is None:
+        shapes[1] = tuple(shapes[0])
     return shapes
 
 

@@ -239,12 +239,12 @@ def _op_input_names(op_name, attrs):
     """Per-op input names, used to create missing weight/bias/state
     variables at compose time (``{name}_weight`` ...), as the reference
     does."""
-    if op_name in ("FullyConnected", "Convolution"):
+    if op_name in ("FullyConnected", "Convolution", "Deconvolution"):
         return ["data", "weight"] + \
             ([] if attrs.get("no_bias", False) else ["bias"])
     if op_name in ("BatchNorm", "BatchNorm_v1"):
         return ["data", "gamma", "beta", "moving_mean", "moving_var"]
-    if op_name == "LayerNorm":
+    if op_name in ("LayerNorm", "InstanceNorm"):
         return ["data", "gamma", "beta"]
     if op_name == "Embedding":
         return ["data", "weight"]
@@ -253,7 +253,11 @@ def _op_input_names(op_name, attrs):
         if attrs.get("mode") == "lstm":
             names.append("state_cell")
         return names
-    if op_name in ("SoftmaxOutput", "Softmax"):
+    if op_name == "LeakyReLU" and attrs.get("act_type") == "prelu":
+        return ["data", "gamma"]
+    if op_name in ("SoftmaxOutput", "Softmax", "LinearRegressionOutput",
+                   "LogisticRegressionOutput", "MAERegressionOutput",
+                   "SVMOutput"):
         return ["data", "label"]
     return None
 

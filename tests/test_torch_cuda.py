@@ -884,8 +884,7 @@ class _Noisy(mxt.gluon.HybridBlock):
 
 
 @pytest.mark.parametrize("block,match", [
-    (_HostSync, "CUDA graph capture failed"),
-    (_Noisy, "draws random numbers")])
+    (_HostSync, "CUDA graph capture failed")])
 def test_capture_that_cannot_work_raises(f32, block, match):
     net = block()
     net.hybridize()
@@ -894,6 +893,20 @@ def test_capture_that_cannot_work_raises(f32, block, match):
     ok = _small_net("after_")          # the card is usable afterwards
     ok.hybridize()
     assert bool(torch.isfinite(ok(_image(3)).data).all())
+
+
+def test_a_program_that_draws_runs_uncaptured(f32):
+    """A replay would repeat the captured draws: the program runs eagerly,
+    counted once as uncaptured, and each call draws anew."""
+    from mxnet_tpu_torch import compiled
+    net = _Noisy()
+    net.hybridize()
+    x = _image(3)
+    before = compiled.compile_counts()
+    first, second = net(x).data.clone(), net(x).data.clone()
+    counts = compiled.compile_counts()
+    assert counts["uncaptured"] == before["uncaptured"] + 1
+    assert first.is_cuda and not torch.equal(first, second)
 
 
 def test_warmup_and_train_mode_step_once(f32):
@@ -1748,3 +1761,76 @@ def test_gluon_lstm_step_on_gpu_matches_cpu(f32):
         np.testing.assert_allclose(grads["gpu"][k], want, rtol=TOL,
                                    atol=TOL * max(1.0, np.abs(want).max()),
                                    err_msg=k)
+
+
+# -- the speech model's shapes and the rest of ops/nn.py (phase 25) ---------
+@pytest.mark.parametrize("t", [100, 200, 300])
+def test_training_kernels_at_the_speech_buckets(cuda, t):
+    """K2 and K3 at the speech model's bucket lengths (B=32, I=H=650): one
+    persistent launch a call each, within 1e-4 of their plain versions
+    after up to 300 steps."""
+    args = _inputs(t, 32, 650, 650, device=cuda, seed=t)
+    before = (dict(fused_lstm_train.launches_by_route),
+              dict(lstm_bwd_recurrence.launches_by_route))
+    with torch.no_grad():
+        got = fused_lstm_train(*args)
+        want = fused_lstm_train_plain(*args)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+        rng = np.random.RandomState(t + 1)
+        cots = [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(cuda)
+                for s in ((t, 32, 650), (32, 650), (32, 650))]
+        bwd = (*cots, got[2], got[1], args[2], args[4])
+        for g, w in zip(lstm_bwd_recurrence(*bwd),
+                        lstm_bwd_recurrence_plain(*bwd)):
+            torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+    torch.cuda.synchronize()
+    for wrapper, was in zip((fused_lstm_train, lstm_bwd_recurrence), before):
+        assert wrapper.launches_by_route == {
+            r: n + (r == "persistent") for r, n in was.items()}
+
+
+@pytest.mark.parametrize("b", [1, 32])
+def test_inference_kernel_at_the_speech_decode(cuda, b):
+    """K1 at the speech model's decode (T=300, I=H=650, one utterance and
+    a batch of 32): one persistent launch, within 1e-4 of its plain
+    version after 300 steps."""
+    args = _inputs(300, b, 650, 650, device=cuda, seed=b)
+    before = dict(fused_lstm.launches_by_route)
+    with torch.no_grad():
+        got = fused_lstm(*args)
+        want = fused_lstm_plain(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+    assert fused_lstm.launches_by_route == {
+        r: n + (r == "persistent") for r, n in before.items()}
+
+
+def _nn_rest_case(name, **params):
+    from mxnet_tpu_torch.tools import nn_rest_sweep
+    return next(c for c in nn_rest_sweep.card_cases() if c.name == name
+                and all(c.params.get(k) == v for k, v in params.items()))
+
+
+@pytest.mark.parametrize("name,params", [
+    ("Deconvolution", {"kernel": (64, 64)}),
+    ("CTCLoss", {"blank_label": "first"})], ids=["fcn32s", "ctc"])
+def test_nn_rest_op_on_the_card_matches_cpu(cuda, name, params):
+    """Phase 25c's FCN-32s upsampling (bilinear weights) and CTC at the
+    speech model's shapes, forward and gradients, card against CPU with
+    TF32 off, within the family's limit; the control above it."""
+    from mxnet_tpu_torch.tools import detection_sweep, nn_rest_sweep
+    torch.backends.cudnn.allow_tf32 = False
+    case = _nn_rest_case(name, **params)
+    limit = nn_rest_sweep.LIMITS[case.family]
+    want = nn_rest_sweep.run_case(case, mxt.cpu())
+    for _ in range(3 if name == "CTCLoss" else 1):
+        got = nn_rest_sweep.run_case(case, mxt.gpu(0))
+        assert nn_rest_sweep.reading(got[0], want[0], case.family) <= limit
+        assert nn_rest_sweep.reading(got[1], want[1], case.family,
+                                     norm=True) <= limit
+    bad = nn_rest_sweep.run_case(case, mxt.gpu(0),
+                                 detection_sweep._bf16_rounded)
+    assert max(nn_rest_sweep.reading(bad[0], want[0], case.family),
+               nn_rest_sweep.reading(bad[1], want[1], case.family,
+                                     norm=True)) > limit

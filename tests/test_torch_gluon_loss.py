@@ -12,8 +12,10 @@ once per op from f32 arithmetic. Where the two part, in
 ``KLDivLoss(from_logits=False)`` (a difference of terms several times
 the loss), the JAX package's loss is 1.6e-3 from the f32 one at a loss
 of 0.0153 and the port's 1e-4: that case holds the port to the f32 loss
-and checks that the JAX package's is the one off. ``CTCLoss`` raises,
-and a hybridized loss equals the eager one.
+and checks that the JAX package's is the one off. ``CTCLoss`` raises on
+a layout it does not take (its values are held in
+`test_torch_gluon_nn_rest.py`), and a hybridized loss equals the eager
+one.
 """
 import numpy as np
 import pytest
@@ -160,5 +162,12 @@ def test_hybridized_loss_equals_eager():
 
 
 def test_ctc_loss_raises():
-    with pytest.raises(mxt.MXNetError, match="CTCLoss"):
-        tloss.CTCLoss()
+    """``CTCLoss`` is live (`test_torch_gluon_nn_rest.py` holds it to the
+    JAX package's); it raises on a layout it does not take."""
+    with pytest.raises(ValueError, match="'NTC' and 'TNC'"):
+        tloss.CTCLoss(layout="NCT")
+    with pytest.raises(ValueError, match="'NT' and 'TN'"):
+        tloss.CTCLoss(label_layout="TNC")
+    pred = mxt.nd.array(np.zeros((N, 6, C), np.float32), ctx=CPU)
+    label = mxt.nd.array(np.full((N, 2), 1.0, np.float32), ctx=CPU)
+    assert tloss.CTCLoss()(pred, label).shape == (N,)
