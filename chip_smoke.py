@@ -333,7 +333,46 @@ frames, f32 with TF32 off, and the rest of ``ops/nn.py``, in one more:
     ``kaggle-ndsb2``, ``fcn-xs``, the adversarial VAE, the CTC OCR,
     ``train_am.py``) and the eleven that ran untested before it, through
     ``run_example`` on ``gpu(0)`` at their JAX tests' arguments, each
-    printing its JAX test's line, with their kernel launches.
+    printing its JAX test's line, with their kernel launches;
+
+and then drives the observability stack (telemetry, profiler and its
+trace table, Monitor, xla_stats, stepprof, runprof, memprof, chaos and
+threadsan) on the ResNet-50 path of phase 11 (bf16, NHWC, batch 128, the
+gate on), in a process of its own (``python3 chip_smoke.py
+--observability``: a fresh tracer, registry and ledger), in one more:
+
+26. (a) ``fit`` over staged batches, 20 steps with every layer off, then
+    20 with ``MXNET_STEPPROF=1`` (its sampled sync every 5 steps), runprof
+    and memprof on: img/s of both and the stack's cost (OBS_OVERHEAD_LIMIT);
+    the places the step synchronizes with stepprof off, none new against
+    the stack off; stepprof's shares summing to 1; the sampled
+    device_compute p50 within OBS_DEVICE_REL of a traced step's busy
+    time; the verdict; K5 6 times a step and U1 once; compile counts
+    equal on and off; (b) ``profiler`` tracing over 3 steps and
+    ``device_dumps``: K5's kernels 18 times in the table, as its counter
+    says (a trace that lost launches is taken again), their time within
+    OBS_K5_TRACE_REL of CUDA events of the same 18 calls, the table's
+    total within OBS_TABLE_BUSY_REL of the trace's busy time; (c) the
+    step's counted FLOPs within OBS_FLOP_REL of the symbol's own count,
+    the count without K5's analytic term outside it, and goodput and MFU
+    against bf16's 989 TFLOP/s at (a)'s rate; (d) the memory ledger
+    against the tensors' bytes exactly, the timeline's peak against
+    ``max_memory_allocated``, the leak sentinel on a loop that keeps an
+    output a step and not on a clean one, an over-allocation of the
+    card's free bytes and 2 GiB as ``DeviceOOMError`` with its requested
+    bytes and postmortem (the card training on after it), the same from
+    the armed ``memory.oom`` chaos site; (e) a Monitor on every
+    ``.*conv.*`` output with its stat against an f32 recomputation, K5 6
+    times in the monitored step, and ``nan_count``'s anomaly on a NaN
+    batch and not on a clean one; (f) phase 19's Gluon loop (bf16 batch
+    128) for 10 steps under the Trainer's ImplicitStepper, U1 once in
+    each opt_update; (g) 5 steps of (a)'s fit in another process with
+    ``MXNET_TELEMETRY_DIR`` and ``MXNET_THREADSAN=1``: its event log and
+    ``.prom`` snapshot, merged into a chrome trace with one step span set
+    a step, threadsan's reports (none, then one for a deliberate
+    inversion); (h) ``profiler_example.py`` (with and without ``--trace``)
+    and ``data_and_ops.py`` through ``run_example`` under ``gpu(0)``.
+    Across the phase no error is swallowed (``errors_swallowed_total``).
 
 Phases 3-5 are the serving main path, phase 8 the LM training one,
 phase 11's gate-on steps on the card the ResNet one, phase 15's steps on
@@ -343,9 +382,10 @@ the example's loop and the bf16 gate-on loop) the Gluon training one,
 phase 20's two examples the nd-core one, phase 21 after its U1
 check the optimizer one, phase 22's examples the detection one and phase
 23's loop and examples the sparse one, phase 24 but its kernel
-checks (24d) the RNN one, and phase 25's training, decoding, card-vs-CPU
-steps and examples (not its kernel and op checks) the speech one: every
-kernel's launch count is set to 0 before each and read after it.
+checks (24d) the RNN one, phase 25's training, decoding, card-vs-CPU
+steps and examples (not its kernel and op checks) the speech one, and
+phase 26 (but 26b's CUDA-event timing of K5) the observability one:
+every kernel's launch count is set to 0 before each and read after it.
 The serving path must launch K1, every call by the persistent route; the
 LM training path must launch K2 and K3 exactly once per layer and step,
 and K1 once per layer and eval batch, K1, K2 and K3 by the persistent
@@ -362,10 +402,11 @@ U1 once a (formula, dtype) group a step and K5 6 times a gate-on step,
 and none of K1-K4 and K6; the detection path N1 and U1 in every example
 run and none of K1-K6; the sparse path S1 once a push and none of
 K1-K6 or N1; the RNN path K1, K2, K3 and U1, and no other; the speech
-path K1, K2, K3 and U1, and no other. K5's launches in the kernels line
-are the ResNet path's and the Gluon path's; K1's, K2's and K3's add the
-RNN path's and the speech path's; U1's are the optimizer path's, the
-RNN path's and the speech path's. Any failed
+path K1, K2, K3 and U1, and no other; the observability path K5 and U1,
+and no other. K5's launches in the kernels line are the ResNet path's,
+the Gluon path's and the observability path's; K1's, K2's and K3's add
+the RNN path's and the speech path's; U1's are the optimizer path's, the
+RNN path's, the speech path's and the observability path's. Any failed
 check exits non-zero. The last lines
 are the card's name and power limit (``nvidia-smi``), one JSON line with
 every ported kernel's numbers, and the result line
@@ -5901,6 +5942,685 @@ def phase_speech(mx, counters, rng):
                       "ops": ops, "examples": examples, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the observability stack on the ResNet-50 path (a process of its
+# own, `python3 chip_smoke.py --observability`)
+# ---------------------------------------------------------------------------
+# 26a: fit steps with the stack off, then on (stepprof's sampled sync every
+# OBS_SYNC_EVERY steps, runprof and memprof on), after OBS_WARMUP steps that
+# count the step's FLOPs; OBS_STAGED staged batches, reused in turn
+OBS_WARMUP, OBS_STEPS, OBS_SYNC_EVERY, OBS_STAGED = 3, 20, 5, 4
+# the stack's cost at sync-every 5, as the on run's extra wall over the off
+# run's. A sampled step holds the card 1.5x a step's host time h and then
+# runs its busy time b after it, so the cost is about (0.5 h + b) / 5 h,
+# 0.24 at h = 90 ms, b = 66 ms; read 0.162-0.327 (H100 80GB HBM3, 700 W);
+# the limit above those
+OBS_OVERHEAD_LIMIT = 0.5
+# the sampled device_compute p50 against the traced step's busy time
+OBS_DEVICE_REL = 0.15
+# 26b: the trace's K5 time against CUDA events of the same calls, and the
+# trace table's total against the trace's busy time
+OBS_K5_TRACE_REL, OBS_TABLE_BUSY_REL = 0.10, 0.05
+OBS_TRACED_STEPS = 3
+# 26c: the step's counted FLOPs against the symbol's
+OBS_FLOP_REL = 0.02
+# 26d: the leak sentinel's window and the steps of the clean and the
+# leaking loops (each polls memprof once a step)
+OBS_LEAK_WINDOW, OBS_LEAK_STEPS = 8, 12
+# 26e: a bf16 stat against its f32 recomputation: the stat is rounded to
+# bf16 once (2^-8 relative), plus the f32 sum's order
+OBS_STAT_REL = 2.0 ** -7
+# 26f: Gluon steps
+OBS_GLUON_STEPS = 10
+# 26g: fit steps of the telemetry subprocess
+OBS_TELEMETRY_STEPS = 5
+OBS_TIMEOUT_S = 600
+# 26h: the examples of the slice, at their JAX tests' arguments
+OBS_EXAMPLES = [("profiler/profiler_example.py", [], "PROFILER EXAMPLE OK"),
+                ("profiler/profiler_example.py", ["--trace"],
+                 "PROFILER EXAMPLE OK"),
+                ("python-howto/data_and_ops.py", [], "PYTHON HOWTO OK")]
+K5_TRACE_KERNEL = "dgrad_wgmma"
+
+
+def staged_iter(mx, batches, steps):
+    """A DataIter over staged batches, ``steps`` of them in turn."""
+    class Staged(mx.io.DataIter):
+        def __init__(self):
+            super().__init__()
+            self.provide_data = [("data", tuple(batches[0].data[0].shape))]
+            self.provide_label = [("softmax_label",
+                                   tuple(batches[0].label[0].shape))]
+            self.i = 0
+
+        def reset(self):
+            self.i = 0
+
+        def next(self):
+            if self.i == steps:
+                raise StopIteration
+            self.i += 1
+            return batches[(self.i - 1) % len(batches)]
+    return Staged()
+
+
+def obs_stack(mx, on):
+    """The stack on (stepprof verbose with its sampled sync, runprof and
+    memprof, FLOP counting) or off (every kill switch)."""
+    for name in ("MXNET_XLA_STATS", "MXNET_RUNPROF", "MXNET_MEMPROF"):
+        os.environ[name] = "1" if on else "0"
+    if on:
+        mx.stepprof.enable(sync_every=OBS_SYNC_EVERY)
+    else:
+        mx.stepprof.disable()
+
+
+def obs_fit(mx, mod, batches, steps):
+    """``fit`` over ``steps`` staged batches: wall seconds between
+    synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.fit(staged_iter(mx, batches, steps), num_epoch=1, optimizer="sgd",
+            optimizer_params={"learning_rate": RESNET_LR, "momentum": 0.9})
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def sync_warnings(fn):
+    """The synchronizing calls PyTorch warns of while ``fn`` runs: each
+    warning's message and where it was raised."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sorted("%s:%d %s" % (os.path.basename(w.filename), w.lineno,
+                                str(w.message)[:80])
+                  for w in seen
+                  if "called a synchronizing" in str(w.message))
+
+
+def symbol_flops(sym, data_shape):
+    """The independent count of a train step's model FLOPs from the
+    traced symbol: 2 x MACs of every Convolution and FullyConnected
+    forward, plus its weight gradient, plus its input gradient unless it
+    reads the data."""
+    internals = sym.get_internals()
+    arg_shapes, out_shapes, _ = internals.infer_shape(data=data_shape)
+    shape_of = dict(zip(internals.list_outputs(), out_shapes))
+    shape_of.update(zip(internals.list_arguments(), arg_shapes))
+    total = 0
+    for node in sym._topo_nodes():
+        if node.is_var() or node.op not in ("Convolution",
+                                            "FullyConnected"):
+            continue
+        macs = int(np.prod(shape_of[node.name + "_output"])) * \
+            int(np.prod(shape_of[node.inputs[1][0].name][1:]))
+        total += 2 * macs * (2 if node.inputs[0][0].is_var() else 3)
+    return total
+
+
+def k5_step_flops():
+    """K5's analytic FLOPs of one step: 2 N Ho Wo K C at the six sites."""
+    return sum(2 * n * ho * wo * k * c for n, ho, wo, k, c in K5_SHAPES)
+
+
+def phase_obs_stack(mx, mod, batches, counters):
+    """26a: the stack off, then on; the sampled device_compute against a
+    traced step; the verdict; launches and compile counts."""
+    k5, u1 = counters["conv1x1_s2_dgrad"], counters["multi_tensor_update"]
+    obs_stack(mx, True)
+    obs_fit(mx, mod, batches, OBS_WARMUP)        # counts the FLOPs
+    syncs = {"stack_off": [], "stepprof_off": []}
+    for _ in range(2):
+        obs_stack(mx, False)
+        syncs["stack_off"].append(sync_warnings(
+            lambda: mod._step(batches[0])))
+        obs_stack(mx, True)
+        mx.stepprof.disable()                    # the default: verbose off
+        syncs["stepprof_off"].append(sync_warnings(
+            lambda: mod._step(batches[0])))
+    obs_stack(mx, False)
+    before = mx.compiled.compile_counts()
+    off_wall = obs_fit(mx, mod, batches, OBS_STEPS)
+    off_counts = {k: v - before[k]
+                  for k, v in mx.compiled.compile_counts().items()}
+    obs_stack(mx, True)
+    mx.stepprof.reset()
+    mx.memprof.reset()
+    before = mx.compiled.compile_counts()
+    k5_before, u1_before = k5.launches, u1.launches
+    on_wall = obs_fit(mx, mod, batches, OBS_STEPS)
+    on_counts = {k: v - before[k]
+                 for k, v in mx.compiled.compile_counts().items()}
+    k5_n, u1_n = k5.launches - k5_before, u1.launches - u1_before
+    shares = mx.stepprof.shares()
+    verdict, hint = mx.stepprof.verdict()
+    samples = sorted(mx.stepprof.profiler._device_samples)
+    sampled_ms = float(np.median(samples)) * 1e3 if samples else None
+    mx.stepprof.disable()
+    traced = profiled_step(lambda: mod._step(batches[0]))
+    busy = traced["device_busy_ms"]
+    row = {
+        "off_imgs_per_s": OBS_STEPS * RESNET_BATCH / off_wall,
+        "on_imgs_per_s": OBS_STEPS * RESNET_BATCH / on_wall,
+        "overhead": on_wall / off_wall - 1,
+        "syncs_a_step": syncs,
+        "shares": shares, "shares_sum": sum(shares.values()),
+        "verdict": verdict, "hint": hint,
+        "device_samples_ms": [s * 1e3 for s in samples],
+        "sampled_device_compute_p50_ms": sampled_ms,
+        "traced_busy_ms": busy, "traced_wall_ms": traced["step_wall_ms"],
+        "overlap": mx.stepprof.overlap(),
+        "k5_launches": k5_n, "u1_launches": u1_n,
+        "compile_counts": {"off": off_counts, "on": on_counts}}
+    print(json.dumps({"phase": "26a", **row}), flush=True)
+    check(row["overhead"] <= OBS_OVERHEAD_LIMIT,
+          "the stack costs %.3f of the step, limit %.2f"
+          % (row["overhead"], OBS_OVERHEAD_LIMIT))
+    # U1's pinned ring waits on a slot's event now and then (at most once
+    # a call): the calls are compared by where they come from
+    seen_off = {w for step in syncs["stack_off"] for w in step}
+    seen_on = {w for step in syncs["stepprof_off"] for w in step}
+    check(seen_on <= seen_off, "the step with stepprof off synchronizes at "
+          "%s, which the step with the stack off does not"
+          % sorted(seen_on - seen_off))
+    check(abs(row["shares_sum"] - 1) <= 0.01, "stepprof's shares sum to %s"
+          % row["shares_sum"])
+    check(sampled_ms is not None
+          and abs(sampled_ms - busy) <= OBS_DEVICE_REL * busy,
+          "the sampled device_compute p50 %s ms vs the traced busy %.3f ms"
+          % (sampled_ms, busy))
+    check(k5_n == K5_PER_STEP * OBS_STEPS and u1_n == OBS_STEPS,
+          "%d steps launched K5 %d and U1 %d times" % (OBS_STEPS, k5_n,
+                                                        u1_n))
+    check(on_counts == off_counts, "compile counts with the stack on %s, "
+          "off %s" % (on_counts, off_counts))
+    return row
+
+
+def k5_event_ms(mx):
+    """CUDA-event time of the 18 K5 calls of OBS_TRACED_STEPS steps: each
+    site's bf16 shape timed alone (``time_ms``), summed over the sites,
+    times the steps."""
+    ops = mx.ops
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    total = 0.0
+    for n, ho, wo, k, c in K5_SHAPES:
+        dy = torch.randn((n, ho, wo, k), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        w2 = torch.randn((k, c), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        total += time_ms(lambda: ops.conv1x1_s2_dgrad(dy, w2, 2 * ho,
+                                                      2 * wo), 10)
+    return total * OBS_TRACED_STEPS
+
+
+def phase_obs_trace(mx, mod, batches, counters, tmp):
+    """26b: profiler tracing over OBS_TRACED_STEPS steps, then the trace
+    table: K5's launches against the counter, its time against CUDA
+    events, the table's total against the trace's busy time. A trace
+    that lost K5 launches is taken again (PROFILE_ATTEMPTS); the table is
+    never filled in from the counters."""
+    k5 = counters["conv1x1_s2_dgrad"]
+    for attempt in range(PROFILE_ATTEMPTS):
+        if attempt:
+            time.sleep(PROFILE_PAUSE_S * attempt)
+        logdir = os.path.join(tmp, "trace%d" % attempt)
+        mx.profiler.set_config(filename=logdir + ".json")
+        torch.cuda.synchronize()
+        before = k5.launches
+        mx.profiler.set_state("run")
+        for b in batches[:OBS_TRACED_STEPS]:
+            mod._step(b)
+        torch.cuda.synchronize()
+        mx.profiler.set_state("stop")
+        counted = k5.launches - before
+        table = mx.xplane.op_table(logdir + "_trace")
+        k5_rows = {k: v for k, v in table.items() if K5_TRACE_KERNEL in k}
+        traced = sum(v["count"] for v in k5_rows.values())
+        if traced == counted:
+            break
+    k5_trace_ms = sum(v["total_ps"] for v in k5_rows.values()) / 1e9
+    total_ms = sum(v["total_ps"] for v in table.values()) / 1e9
+    busy_ms = mx.xplane.busy_us(logdir + "_trace") / 1e3
+    events_ms = k5_event_ms(mx)
+    dumps = mx.profiler.device_dumps(top=8)
+    row = {"attempts": attempt + 1, "k5_traced_launches": traced,
+           "k5_counted_launches": counted, "k5_kernels": sorted(k5_rows),
+           "k5_trace_ms": k5_trace_ms, "k5_events_ms": events_ms,
+           "table_total_ms": total_ms, "trace_busy_ms": busy_ms,
+           "table": dumps.splitlines()[:14]}
+    print(json.dumps({"phase": "26b", **row}), flush=True)
+    check(traced == counted == K5_PER_STEP * OBS_TRACED_STEPS,
+          "the trace table holds %d K5 launches, the counter %d, want %d"
+          % (traced, counted, K5_PER_STEP * OBS_TRACED_STEPS))
+    check(abs(k5_trace_ms - events_ms) <= OBS_K5_TRACE_REL * events_ms,
+          "K5's traced time %.3f ms vs CUDA events %.3f ms"
+          % (k5_trace_ms, events_ms))
+    check(abs(total_ms - busy_ms) <= OBS_TABLE_BUSY_REL * busy_ms,
+          "the table's total %.3f ms vs the trace's busy %.3f ms"
+          % (total_ms, busy_ms))
+    return row
+
+
+def phase_obs_mfu(mx, mod, row_a, card):
+    """26c: the counted FLOPs against the symbol's, a control without
+    K5's term, and goodput at 26a's rate."""
+    counted = mx.xla_stats.flops_per_batch()
+    want = symbol_flops(mod.symbol, (RESNET_BATCH,) + IMAGE)
+    control = counted - k5_step_flops()
+    rate = row_a["on_imgs_per_s"] / RESNET_BATCH
+    good = mx.xla_stats.goodput(rate, 1.0)
+    row = {"flops_per_batch": counted, "symbol_flops": want,
+           "rel": abs(counted - want) / want,
+           "control_without_k5": control,
+           "control_rel": abs(control - want) / want,
+           "peak_flops": mx.xla_stats.peak_flops_per_device(),
+           "goodput": good, "card": card}
+    print(json.dumps({"phase": "26c", **row}), flush=True)
+    check(row["rel"] <= OBS_FLOP_REL, "counted FLOPs %d vs the symbol's %d"
+          % (counted, want))
+    check(row["control_rel"] > OBS_FLOP_REL, "the control without K5's "
+          "term meets the %.2f limit" % OBS_FLOP_REL)
+    check(row["peak_flops"] == 989e12 and good is not None
+          and 0 < good["mfu"] < 1, "peak %s, goodput %s"
+          % (row["peak_flops"], good))
+    return row
+
+
+def oom_block(mx, nbytes):
+    """A hybridized block whose forward allocates ``nbytes``."""
+    class Big(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            return F.zeros((nbytes // 4,), ctx=x.context) + x.sum()
+    big = Big()
+    big.hybridize()
+    return big
+
+
+def nbytes_of(state):
+    """The bytes of an optimizer state: an NDArray, None or a tuple of
+    them."""
+    if state is None:
+        return 0
+    if isinstance(state, (list, tuple)):
+        return sum(nbytes_of(s) for s in state)
+    return state.data.nbytes
+
+
+def telemetry_count(mx, name, **labels):
+    m = mx.telemetry.get_metric(name, **labels)
+    return 0.0 if m is None else m.value
+
+
+def phase_obs_memory(mx, mod, batches, tmp):
+    """26d: the ledger, the timeline's peak, the leak sentinel and its
+    control, a real over-allocation and the chaos site."""
+    led = {sec: b for (scope, sec), b in mx.xla_stats.ledger().items()
+           if scope == mod._ledger_scope()}
+    ex = mod._exec
+    want = {"params": sum(ex.arg_dict[n].data.nbytes
+                          for n in mod._param_names),
+            "grads": sum(g.data.nbytes for g in ex.grad_dict.values()),
+            "aux": sum(a.data.nbytes for a in ex.aux_dict.values()),
+            "optimizer": sum(nbytes_of(s)
+                             for s in mod._updater.states.values())}
+    rec = mx.memprof.sample("26d", force=True)
+    peak = torch.cuda.max_memory_allocated()
+    os.environ.update(MXNET_MEMPROF_SAMPLE_EVERY="1",
+                      MXNET_MEMPROF_WINDOW=str(OBS_LEAK_WINDOW))
+    leaks = []
+    for leaking in (False, True):
+        mx.memprof.reset()
+        kept = []
+        before = telemetry_count(mx, "run_anomalies_total",
+                                 kind="memory_leak")
+        for i in range(OBS_LEAK_STEPS):
+            mod._step(batches[i % len(batches)])
+            if leaking:
+                kept.append(mod.get_outputs()[0].data.clone())
+        leaks.append(telemetry_count(mx, "run_anomalies_total",
+                                     kind="memory_leak") - before)
+        del kept
+    os.environ.pop("MXNET_MEMPROF_SAMPLE_EVERY")
+    os.environ.pop("MXNET_MEMPROF_WINDOW")
+    os.environ["MXNET_TELEMETRY_DIR"] = tmp
+    before_oom = torch.cuda.memory_allocated()
+    # the allocator's cache counts as used in mem_get_info: empty it, so
+    # that the request exceeds what the allocator could find
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    nbytes = (free // 2 ** 30 + 2) * 2 ** 30
+    big = oom_block(mx, nbytes)
+    try:
+        big(mx.nd.ones((1,), ctx=mx.gpu(0)))
+        oom = None
+    except mx.memprof.DeviceOOMError as exc:
+        oom = exc
+    allocated = {"before_oom": before_oom,
+                 "after_oom": torch.cuda.memory_allocated()}
+    real = {"requested": nbytes, "free": free,
+            "parsed": getattr(oom, "requested_bytes", None),
+            "verdict": getattr(oom, "verdict", None),
+            "dump": getattr(oom, "dump_path", None)}
+    del big
+    torch.cuda.empty_cache()
+    mod._step(batches[0])                        # the card keeps training
+    trained = bool(torch.isfinite(mod.get_outputs()[0].data).all())
+    with mx.chaos.armed("memory.oom", value=str(5 * 2 ** 30)):
+        try:
+            mod._step(batches[0])
+            chaos = None
+        except mx.memprof.DeviceOOMError as exc:
+            chaos = exc
+    os.environ.pop("MXNET_TELEMETRY_DIR")
+    chaos_row = {"parsed": getattr(chaos, "requested_bytes", None),
+                 "dump": getattr(chaos, "dump_path", None)}
+    del oom, chaos          # their tracebacks hold the failed calls' frames
+    import gc
+    gc.collect()
+    allocated["end"] = torch.cuda.memory_allocated()
+    row = {"ledger": led, "tensor_bytes": want,
+           "sample_peak": rec["devices"][0]["peak"] if rec["devices"]
+           else None,
+           "max_memory_allocated": peak, "leak_trips": {
+               "clean": leaks[0], "leaking": leaks[1]},
+           "oom": real, "trained_after_oom": trained, "chaos": chaos_row,
+           "allocated": allocated}
+    print(json.dumps({"phase": "26d", **row}), flush=True)
+    check(all(led.get(k) == v for k, v in want.items()),
+          "the ledger %s vs the tensors' bytes %s" % (led, want))
+    check(row["sample_peak"] == peak, "the timeline's peak %s vs "
+          "max_memory_allocated %d" % (row["sample_peak"], peak))
+    check(leaks == [0, 1], "leak trips clean %d, leaking %d, want 0 and 1"
+          % tuple(leaks))
+    check(allocated["end"] <= allocated["before_oom"] + 2 ** 30,
+          "memory after the OOM checks: %s" % allocated)
+    check(real["parsed"] == nbytes and real["dump"]
+          and os.path.exists(real["dump"]) and trained,
+          "the over-allocation: %s, trained after it: %s" % (real, trained))
+    check(chaos_row["parsed"] == 5 * 2 ** 30
+          and chaos_row["dump"], "the chaos site: %s" % chaos_row)
+    return row
+
+
+def phase_obs_monitor(mx, mod, batches, counters):
+    """26e: Monitor on the ResNet Module (``.*conv.*``) with the default
+    stat and with ``nan_count``; a NaN batch books its anomaly."""
+    k5 = counters["conv1x1_s2_dgrad"]
+    pattern = re.compile(".*conv.*")
+    want = sorted(n.name + "_output" for n in mod.symbol._topo_nodes()
+                  if not n.is_var() and pattern.match(n.name + "_output"))
+    f32 = {}
+
+    def stat(x):
+        f32[len(f32)] = float(x.data.float().abs().mean())
+        return x.abs().mean()
+    mon = mx.monitor.Monitor(1, stat_func=stat, pattern=".*conv.*")
+    mod.install_monitor(mon)
+    before = k5.launches
+    mon.tic()
+    mod.forward_backward(batches[0])
+    mod.update()
+    torch.cuda.synchronize()
+    launched = k5.launches - before
+    res = mon.toc()
+    worst = max(abs(float(v) - f32[i]) / max(abs(f32[i]), 1e-30)
+                for i, (_, _, v) in enumerate(res))
+    nan_mon = mx.monitor.Monitor(1, stat_func=mx.monitor.nan_count,
+                                 pattern=".*conv.*")
+    mod.install_monitor(nan_mon)
+    anomalies = []
+    bad = batches[1].data[0].data.clone()
+    bad[0, 0, 0, 0] = float("nan")
+    nan_batch = mx.io.DataBatch(data=[mx.nd.NDArray(bad, mx.gpu(0))],
+                                label=batches[1].label)
+    for batch in (batches[1], nan_batch):
+        before = telemetry_count(mx, "run_anomalies_total",
+                                 kind="nonfinite_tensor")
+        nan_mon.tic()
+        mod.forward(batch, is_train=False)
+        counts = [float(v) for _, _, v in nan_mon.toc()]
+        anomalies.append((telemetry_count(
+            mx, "run_anomalies_total", kind="nonfinite_tensor") - before,
+            sum(c > 0 for c in counts)))
+    row = {"allocated": torch.cuda.memory_allocated(),
+           "reported": len(res), "want": len(want),
+           "names_match": sorted(k for _, k, _ in res) == want,
+           "worst_stat_rel": worst, "k5_launches": launched,
+           "nan": {"clean": anomalies[0], "nan_batch": anomalies[1]}}
+    print(json.dumps({"phase": "26e", **row}), flush=True)
+    check(row["names_match"], "the monitor reported %d of %d conv outputs"
+          % (len(res), len(want)))
+    check(worst <= OBS_STAT_REL, "a bf16 stat is %.3g from its f32 "
+          "recomputation" % worst)
+    check(launched == K5_PER_STEP, "a monitored step launched K5 %d times"
+          % launched)
+    check(anomalies[0][0] == 0 and anomalies[1][0] > 0,
+          "nonfinite anomalies clean %s, NaN batch %s" % tuple(anomalies))
+    return row
+
+
+def phase_obs_gluon(mx, counters, rng):
+    """26f: the phase-19 Gluon loop (NHWC, bf16, batch 128, hybridized)
+    for OBS_GLUON_STEPS steps under the Trainer's ImplicitStepper; U1 in
+    each step's opt_update."""
+    u1 = counters["multi_tensor_update"]
+    ctx = mx.gpu(0)
+    net = gluon_net(mx, ctx, "NHWC")
+    net.cast("bfloat16")
+    net.hybridize()
+    trainer = gluon_trainer(mx, net)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    x = mx.nd.array(rng.rand(*gluon_shape("NHWC", RESNET_BATCH))
+                    .astype(np.float32), ctx=ctx, dtype="bfloat16")
+    y = mx.nd.array(rng.randint(0, CLASSES, RESNET_BATCH)
+                    .astype(np.float32), ctx=ctx)
+    in_update = []
+    impl = mx.gluon.Trainer._update_impl
+
+    def spied(self):
+        before = u1.launches
+        impl(self)
+        in_update.append(u1.launches - before)
+    mx.gluon.Trainer._update_impl = spied
+    try:
+        mx.stepprof.reset()
+        before = u1.launches
+        for _ in range(OBS_GLUON_STEPS):
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(RESNET_BATCH)
+        torch.cuda.synchronize()
+    finally:
+        mx.gluon.Trainer._update_impl = impl
+    shares = mx.stepprof.shares()
+    row = {"steps": mx.stepprof.profiler.step_stats()["steps"],
+           "shares": shares, "shares_sum": sum(shares.values()),
+           "u1_in_opt_update": in_update,
+           "u1_launches": u1.launches - before}
+    print(json.dumps({"phase": "26f", **row}), flush=True)
+    check(row["steps"] == OBS_GLUON_STEPS and
+          abs(row["shares_sum"] - 1) <= 0.01 and shares["opt_update"] > 0,
+          "Gluon steps %d, shares %s" % (row["steps"], shares))
+    check(in_update == [1] * OBS_GLUON_STEPS
+          and row["u1_launches"] == OBS_GLUON_STEPS,
+          "U1 in each opt_update %s, in all %d" % (in_update,
+                                                   row["u1_launches"]))
+    return row
+
+
+def observability_telemetry_main():
+    """26g's process (``MXNET_TELEMETRY_DIR`` and ``MXNET_THREADSAN=1``
+    set by the caller): OBS_TELEMETRY_STEPS fit steps of 26a's Module,
+    the witness's reports, then a deliberate lock-order inversion. Prints
+    one JSON line."""
+    import threading
+    import mxnet_tpu_torch as mx
+    os.environ["MXNET_CONV1X1_PALLAS"] = "1"
+    mod = resnet_module(mx, mx.gpu(0), RESNET_BATCH, "bfloat16")
+    batches = image_batches(mx, np.random.RandomState(SEED + 26),
+                            mx.gpu(0), 2, RESNET_BATCH, "bfloat16")
+    obs_fit(mx, mod, batches, OBS_TELEMETRY_STEPS)
+    mx.telemetry.flush()
+
+    def cycles():
+        return sum(r["kind"] == "potential_deadlock"
+                   for r in mx.threadsan.snapshot()["reports"])
+    clean = cycles()
+    a = mx.threadsan.register("smoke.A", threading.Lock())
+    b = mx.threadsan.register("smoke.B", threading.Lock())
+    for outer, inner in ((a, b), (b, a)):
+        with outer:
+            with inner:
+                pass
+    print(json.dumps({"armed": mx.threadsan.ARMED, "cycles_fit": clean,
+                      "cycles_inverted": cycles(),
+                      "locks": sorted(mx.threadsan.snapshot()["locks"]),
+                      "swallowed": telemetry_count(
+                          mx, "errors_swallowed_total")}), flush=True)
+    return 0
+
+
+def phase_obs_telemetry(mx, tmp):
+    """26g: the telemetry subprocess's files, merged into one chrome
+    trace with one step span set a step; the witness's reports."""
+    out_dir = os.path.join(tmp, "telemetry")
+    env = dict(os.environ, MXNET_TELEMETRY_DIR=out_dir, MXNET_THREADSAN="1")
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__),
+         "--observability-telemetry"], capture_output=True, text=True,
+        timeout=OBS_TIMEOUT_S, env=env)
+    check(out.returncode == 0, "the telemetry process exited %d: %s"
+          % (out.returncode, out.stderr[-3000:]))
+    sub = json.loads(out.stdout.splitlines()[-1])
+    files = sorted(os.listdir(out_dir))
+    trace = mx.telemetry.merge(out_dir, out=os.path.join(tmp, "merged.json"))
+    names = {}
+    for ev in trace["traceEvents"]:
+        names[ev["name"]] = names.get(ev["name"], 0) + 1
+    phases = {n: c for n, c in names.items() if n.startswith("step.")}
+    row = {"files": files, "steps": names.get("step", 0),
+           "step_phases": phases, "subprocess": sub}
+    print(json.dumps({"phase": "26g", **row}), flush=True)
+    check(any(f.startswith("events_host") and f.endswith(".jsonl")
+              for f in files) and any(f.endswith(".prom") for f in files),
+          "the telemetry dir holds %s" % files)
+    check(row["steps"] == OBS_TELEMETRY_STEPS and all(
+        phases.get("step." + p, 0) >= OBS_TELEMETRY_STEPS
+        for p in ("data_wait", "h2d", "dispatch", "opt_update",
+                  "device_compute")),
+          "the merged trace holds %d step spans and %s"
+          % (row["steps"], phases))
+    check(sub["armed"] and sub["cycles_fit"] == 0
+          and sub["cycles_inverted"] == 1 and sub["swallowed"] == 0,
+          "threadsan: %s" % sub)
+    return row
+
+
+def phase_obs_examples(mx, tmp):
+    """26h: the slice's examples through run_example under gpu(0)."""
+    from mxnet_tpu_torch.tools.run_example import run_example
+    root = os.path.dirname(os.path.abspath(__file__))
+    rows = []
+    for rel, argv, line in OBS_EXAMPLES:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.chdir(tmp), contextlib.redirect_stdout(out):
+            run_example(os.path.join(root, "examples", rel), argv, "gpu")
+        lines = out.getvalue().splitlines()
+        rows.append({"example": rel, "argv": argv,
+                     "ok": any(line in ln for ln in lines),
+                     "seconds": time.perf_counter() - t0})
+    print(json.dumps({"phase": "26h", "examples": rows}), flush=True)
+    check(all(r["ok"] for r in rows), "the examples: %s" % rows)
+    return rows
+
+
+def observability_main():
+    """Phase 26 in a process of its own: 26a-26h on the ResNet-50 path
+    (bf16, NHWC, batch 128, gate on), every kernel's count set to 0 first
+    and read last; prints a JSON line a sub-phase, then one with the
+    launches and the swallowed-error count."""
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["MXNET_CONV1X1_PALLAS"] = "1"
+    card = nvidia_smi()
+    ops = mx.ops
+    counters = {"fused_lstm": ops.fused_lstm,
+                "fused_lstm_train": ops.fused_lstm_train,
+                "lstm_bwd_recurrence": ops.lstm_bwd_recurrence,
+                "conv1x1_s2_dgrad": ops.conv1x1_s2_dgrad,
+                "flash_attention": ops.flash_attention, "rtc": mx.rtc.Kernel,
+                "multi_tensor_update": ops.multi_tensor_update,
+                "greedy_nms": ops.greedy_nms,
+                "sparse_row_update": ops.sparse_row_update}
+    rng = np.random.RandomState(SEED + 26)
+    t0 = time.perf_counter()
+    mod = resnet_module(mx, mx.gpu(0), RESNET_BATCH, "bfloat16")
+    batches = image_batches(mx, rng, mx.gpu(0), OBS_STAGED, RESNET_BATCH,
+                            "bfloat16")
+    swallowed = telemetry_count(mx, "errors_swallowed_total")
+    for c in counters.values():               # the path starts here
+        c.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        row_a = phase_obs_stack(mx, mod, batches, counters)
+        k5_event = counters["conv1x1_s2_dgrad"].launches
+        phase_obs_trace(mx, mod, batches, counters, tmp)
+        timing = counters["conv1x1_s2_dgrad"].launches - k5_event - \
+            K5_PER_STEP * OBS_TRACED_STEPS     # 26b's CUDA-event calls
+        phase_obs_mfu(mx, mod, row_a, card)
+        phase_obs_memory(mx, mod, batches, tmp)
+        phase_obs_monitor(mx, mod, batches, counters)
+        del mod, batches
+        torch.cuda.empty_cache()
+        phase_obs_gluon(mx, counters, rng)
+        phase_obs_telemetry(mx, tmp)
+        phase_obs_examples(mx, tmp)
+    launches = launches_of(counters)          # ... and ends here
+    launches["conv1x1_s2_dgrad"] -= timing    # not the main path
+    swallowed = telemetry_count(mx, "errors_swallowed_total") - swallowed
+    print(json.dumps({"phase": "26", "kernel_launches": launches,
+                      "errors_swallowed": swallowed, "card": card,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    check(swallowed == 0, "%d errors were swallowed" % swallowed)
+    check(launches["conv1x1_s2_dgrad"] > 0
+          and launches["multi_tensor_update"] > 0
+          and not any(n for k, n in launches.items()
+                      if k not in ("conv1x1_s2_dgrad",
+                                   "multi_tensor_update")),
+          "the observability path launched %s: want K5 and U1 only"
+          % launches)
+    return 0
+
+
+def phase_observability(mx):
+    """Phase 26: ``observability_main`` in a process of its own (a fresh
+    tracer, registry and ledger); its lines are logged, its launches
+    returned."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--observability"],
+        capture_output=True, text=True, timeout=OBS_TIMEOUT_S)
+    for line in out.stdout.splitlines():
+        if line.startswith("{"):
+            log("phase %s" % line)
+    check(out.returncode == 0, "the observability process exited %d: %s"
+          % (out.returncode, out.stderr[-4000:]))
+    last = json.loads(out.stdout.splitlines()[-1])
+    log("phase 26 seconds %.1f" % (time.perf_counter() - t0))
+    return last["kernel_launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs the port on the GPU",
@@ -6174,6 +6894,7 @@ def main():
                                 device)
     speech_launches, _ = phase_speech(
         mx, path, np.random.RandomState(SEED + 25))
+    obs_launches = phase_observability(mx)
 
     top = next(r for r in rows
                if (r["T"], r["B"]) == (SEQ, max(SERVED_BATCHES)))
@@ -6217,7 +6938,8 @@ def main():
         "name": "conv1x1_s2_dgrad", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/dgrad_wgmma.cuh",
         "replaces": "mxnet_tpu/ops/conv_kernels.py:66",
-        "launches": k5_launches + gluon_k5,
+        "launches": (k5_launches + gluon_k5
+                     + obs_launches["conv1x1_s2_dgrad"]),
         "max_abs_err": max(r["max_abs_err"] for r in k5_rows),
         **{key: sum(r[key] for r in step_rows)
            for key in ("ms", "plain_ms", "library_ms")},
@@ -6247,7 +6969,8 @@ def main():
         "replaces": "mxnet_tpu/optimizer.py:666",
         "launches": (opt_launches["multi_tensor_update"]
                      + rnn_launches["multi_tensor_update"]
-                     + speech_launches["multi_tensor_update"]),
+                     + speech_launches["multi_tensor_update"]
+                     + obs_launches["multi_tensor_update"]),
         "max_abs_err": u1_summary["max_abs_err"],
         **{key: u1_a[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}})
@@ -6282,5 +7005,7 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(speech_profile_main() if sys.argv[1:] == ["--speech-profile"]
-             else main())
+    sys.exit({"--speech-profile": speech_profile_main,
+              "--observability": observability_main,
+              "--observability-telemetry": observability_telemetry_main,
+              }.get(" ".join(sys.argv[1:]), main)())

@@ -64,8 +64,26 @@ Entry points run on ``gpu(0)`` (``cuda:0``) unless the caller passes
 ``tpu(i)``, the JAX package's accelerator context, is ``cuda:i`` too.
 ``python -m mxnet_tpu_torch.tools.run_example`` runs an example written
 for the JAX package with its ``mxnet_tpu`` imports rewritten.
+
+The observability stack is the JAX package's, on the port's own paths:
+``telemetry`` (the metrics registry, spans and events, Prometheus text,
+``MXNET_TELEMETRY_DIR``), ``stepprof`` (the step's phases, shares and
+verdict), ``runprof`` (the goodput ledger and health sentinels),
+``memprof`` (the device-memory timeline, leak sentinel and OOM
+forensics), ``chaos`` (fault injection), ``threadsan`` (the lock
+witness), ``profiler`` (``torch.profiler`` traces and the aggregate
+table), ``xla_stats`` (compile accounting, the memory ledger, FLOP counts
+and MFU against the card's peak, the flight recorder), ``xplane`` (the
+trace's per-kernel device-time table) and ``monitor`` (per-node tensor
+statistics).
 """
 from .base import MXNetError
+from . import threadsan
+from . import telemetry  # metrics/spans; inert unless MXNET_TELEMETRY_DIR
+from . import stepprof  # step-time anatomy; verbose layer needs MXNET_STEPPROF
+from . import runprof  # run anatomy: goodput/badput ledger + health sentinels
+from . import memprof  # memory anatomy: timeline / leak sentinel / OOM forensics
+from . import chaos  # fault injection; inert unless armed (MXNET_CHAOS)
 from .context import (Context, cpu, gpu, tpu, cpu_pinned, current_context,
                       num_gpus, num_tpus)
 from . import context
@@ -94,7 +112,12 @@ from . import rnn
 from . import callback
 from . import name
 from . import gluon
+from . import profiler
+from . import xla_stats  # compile accounting / memory ledger / MFU / flight recorder
 from . import compiled
+from . import xplane
+from . import monitor
+from .monitor import Monitor
 from .predict import Predictor
 from .weights import (params_from_numpy, params_to_numpy,
                       set_block_params)
@@ -110,4 +133,6 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "cpu_pinned",
            "misc", "io", "metric",
            "mod", "module", "model", "rnn", "callback", "name", "gluon", "compiled",
            "autograd", "Predictor", "params_from_numpy", "params_to_numpy",
-           "set_block_params", "serving", "rtc", "operator"]
+           "set_block_params", "serving", "rtc", "operator", "telemetry",
+           "stepprof", "runprof", "memprof", "chaos", "threadsan",
+           "profiler", "xla_stats", "xplane", "monitor", "Monitor"]

@@ -3,20 +3,37 @@
 Counterpart of `mxnet_tpu/callback.py` (reference
 `python/mxnet/callback.py`), cut to ``Speedometer``: every ``frequent``
 batches it logs samples/s over the batches since its last log, and the
-metric values. The JAX package reads its speed from the telemetry
-registry and appends step-anatomy shares; those layers are not ported
-yet, so the speed here is the reference's ``frequent * batch_size /
-elapsed``.
+metric values. As in the JAX package, the speed comes from the telemetry
+registry (``fit_samples_total``, counted per batch by ``Module.fit``), so
+the printed number and the exported metrics cannot disagree; outside an
+instrumented fit loop (the counter not advancing) it falls back to the
+reference's ``frequent * batch_size / elapsed``. Each log line also
+publishes goodput and MFU (`xla_stats.goodput`: the ``mfu`` and
+``model_flops_per_second`` gauges) once a train step's FLOPs are known,
+and with ``MXNET_STEPPROF=1`` appends the step-anatomy shares of the
+window and runprof's productive share.
 """
 from __future__ import annotations
 
 import logging
 import time
 
+from . import runprof, stepprof, telemetry, xla_stats
+
 __all__ = ["Speedometer"]
 
 
 class Speedometer:
+    """Throughput logger (reference callback.py Speedometer). The counter
+    is process-wide: with several fit loops in one process each
+    Speedometer reports the process's throughput over its window."""
+
+    #: short display labels for the step-anatomy phase summary
+    _PHASE_LABELS = (("data_wait", "data"), ("h2d", "h2d"),
+                     ("dispatch", "disp"), ("device_compute", "compute"),
+                     ("sync", "sync"), ("opt_update", "opt"),
+                     ("other", "other"))
+
     def __init__(self, batch_size, frequent=50, auto_reset=True):
         self.batch_size = batch_size
         self.frequent = frequent
@@ -24,8 +41,75 @@ class Speedometer:
         self.tic = 0
         self.last_count = 0
         self.auto_reset = auto_reset
+        self._samples_tic = 0.0
+        self._batches_tic = 0.0
         #: (epoch, batch, samples/s) of every log line, newest last
         self.history = []
+
+    @staticmethod
+    def _registry_samples():
+        return telemetry.counter("fit_samples_total").value
+
+    @staticmethod
+    def _registry_batches():
+        return telemetry.counter("fit_batches_total").value
+
+    def _mark(self):
+        self.tic = time.time()
+        self._samples_tic = self._registry_samples()
+        self._batches_tic = self._registry_batches()
+        self._phase_tic = stepprof.totals()
+        self._goodput_tic = runprof.state_seconds("train_productive")
+
+    def _speed(self):
+        elapsed = time.time() - self.tic
+        done = self._registry_samples() - self._samples_tic
+        if done > 0:
+            return done / elapsed
+        return self.frequent * self.batch_size / elapsed
+
+    def _goodput_suffix(self):
+        """" mfu: X% (Y model FLOP/s)" for the window since the last mark,
+        or "" until a counted train step has published its FLOPs; also
+        refreshes the ``model_flops_per_second`` / ``mfu`` gauges."""
+        elapsed = time.time() - self.tic
+        batches = self._registry_batches() - self._batches_tic
+        g = xla_stats.goodput(batches, elapsed)
+        if not g:
+            return ""
+        return "\tmfu: %.2f%% (%.3e model FLOP/s)" % (
+            g["mfu"] * 100.0, g["model_flops_per_second"])
+
+    def _phase_suffix(self):
+        """One-line step-time anatomy for the window since the last mark,
+        e.g. ``\\tdata 4% | compute 78% | sync 11%``; "" unless
+        MXNET_STEPPROF is on and a phase advanced. Phases under 1% of the
+        window are left out."""
+        if not stepprof.enabled():
+            return ""
+        cur = stepprof.totals()
+        prev = getattr(self, "_phase_tic", {})
+        delta = {k: cur.get(k, 0.0) - prev.get(k, 0.0) for k in cur}
+        total = sum(d for d in delta.values() if d > 0)
+        if total <= 0:
+            return ""
+        parts = ["%s %.0f%%" % (label, 100.0 * delta.get(name, 0.0) / total)
+                 for name, label in self._PHASE_LABELS
+                 if delta.get(name, 0.0) / total >= 0.01]
+        return "\t" + " | ".join(parts) if parts else ""
+
+    def _runprof_suffix(self):
+        """"\\tgoodput X%": runprof's productive share of the window since
+        the last mark; "" unless MXNET_STEPPROF is on and productive
+        seconds advanced."""
+        if not stepprof.enabled():
+            return ""
+        elapsed = time.time() - self.tic
+        done = runprof.state_seconds("train_productive") - \
+            getattr(self, "_goodput_tic", 0.0)
+        if elapsed <= 0 or done <= 0:
+            return ""
+        return "\tgoodput %.0f%%" % (min(1.0, done / elapsed) * 100.0)
 
     def __call__(self, param):
         count = param.nbatch
@@ -34,21 +118,24 @@ class Speedometer:
         self.last_count = count
         if not self.init:
             self.init = True
-            self.tic = time.time()
+            self._mark()
             return
         if count % self.frequent != 0:
             return
-        speed = self.frequent * self.batch_size / (time.time() - self.tic)
+        speed = self._speed()
         self.history.append((param.epoch, count, speed))
+        goodput = self._goodput_suffix()
+        phases = self._phase_suffix() + self._runprof_suffix()
         if param.eval_metric is not None:
             name_value = param.eval_metric.get_name_value()
             if self.auto_reset:
                 param.eval_metric.reset()
             msg = "Epoch[%d] Batch [%d]\tSpeed: %.2f samples/sec"
+            msg += (goodput + phases).replace("%", "%%")
             msg += "\t%s=%f" * len(name_value)
             logging.info(msg, param.epoch, count, speed,
                          *sum(name_value, ()))
         else:
-            logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",
-                         param.epoch, count, speed)
-        self.tic = time.time()
+            logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec%s%s",
+                         param.epoch, count, speed, goodput, phases)
+        self._mark()

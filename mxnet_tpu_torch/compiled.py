@@ -78,9 +78,24 @@ A program's function that calls another program (a hybridized child
 block inside its parent) runs that one's function inline: there is one
 capture at a time on a thread (:func:`running`).
 
-Not ported: the JAX package's cost and memory analysis, its
-``memprof``/``shardprof``/``runprof`` hooks, the sharding-policy slot and
-buffer donation.
+Observability, as in the JAX package: each program counts into
+``jit_compiles_total{site=}`` / ``jit_cache_hits_total{site=}`` /
+``jit_retraces_total{site=}`` (and the unlabeled totals), times each
+compile into ``jit_compile_seconds{site=}`` (on the card the capture's
+wall time, its warm-up runs included) with an ``xla.compile`` event, and
+books it as runprof's ``compile`` state. The cost of a signature, the
+counterpart of XLA's cost and memory analysis, is taken once at its
+compile: the model FLOPs of its first warm-up run (on the CPU, of its
+first run) by `xla_stats.count_flops`, kept as the program's
+``last_flops`` at every call of the signature, and on the card the bytes
+its graph pool grew by during the capture and those of its static
+outputs, booked in the memory ledger as ``xla_temp`` and ``xla_output``.
+Each call outside a capture is memprof's dispatch sample (and its
+``memory.oom`` chaos poll); a CUDA out-of-memory error at a call or a
+compile is raised as ``memprof.DeviceOOMError``; with the profiler's
+aggregate mode on, each call is one entry of its table, named by the
+site. Not ported: ``shardprof``, the sharding-policy slot and buffer
+donation.
 """
 from __future__ import annotations
 
@@ -93,7 +108,7 @@ import weakref
 
 import torch
 
-from . import autograd
+from . import autograd, telemetry, threadsan
 from .base import MXNetError
 from .ops import launch_count
 from .ops.invoke import suppress_aux_writeback
@@ -145,9 +160,24 @@ def reset():
             program._cache.clear()
 
 
-def _count(name):
+_METRICS = {
+    "compiles": ("jit_compiles_total",
+                 "signature compiles of CompiledProgram (on the card a CUDA "
+                 "graph capture)"),
+    "cache_hits": ("jit_cache_hits_total",
+                   "CompiledProgram calls served by a cached signature"),
+    "retraces": ("jit_retraces_total",
+                 "compiles beyond the first of a program"),
+}
+
+
+def _count(name, site=None):
     with _lock:
         _counts[name] += 1
+    metric = _METRICS.get(name)
+    if metric is not None:
+        telemetry.counter(metric[0], help=metric[1]).inc()
+        telemetry.counter(metric[0], help=metric[1], site=site).inc()
 
 
 # ---------------------------------------------------------------------------
@@ -380,18 +410,25 @@ class _Eager:
     """A signature that runs eagerly on every call: on the CPU, a recorded
     call, or a function that calls a host op. With ``probe`` (a CPU
     signature that does not record) its first run counts it as
-    uncaptured if the function calls a host op, as a capture would."""
+    uncaptured if the function calls a host op, as a capture would, and
+    counts its FLOPs (``flops``) when ``xla_stats`` is on."""
 
-    def __init__(self, probe=False):
+    def __init__(self, probe=False, flops=None):
         self.probe = probe
+        self.flops = flops
 
     def run(self, program, args):
         with inline(program.site), suppress_aux_writeback(False):
             if not self.probe:
                 return program._fun(*args)
             self.probe = False
-            with _host_ops() as seen:
+            from . import xla_stats
+            counting = xla_stats.enabled()
+            with _host_ops() as seen, (xla_stats.count_flops() if counting
+                                       else contextlib.nullcontext()) as fc:
                 out = program._fun(*args)
+        if counting:
+            self.flops = program.last_flops = fc.total or None
         if seen:
             program._uncaptured(seen)
         return out
@@ -401,7 +438,8 @@ class _Graph:
     """A CUDA signature: the captured graph, its static input buffers
     and its static outputs."""
 
-    def __init__(self, graph, buffers, outputs, launches):
+    def __init__(self, graph, buffers, outputs, launches, flops=None):
+        self.flops = flops
         self.graph = graph
         self.buffers = buffers
         self.outputs = outputs
@@ -445,6 +483,8 @@ class CompiledProgram:
         self._lock = threading.Lock()
         self._stream = None     # side stream of the warm-ups and captures
         self._pool = None       # one graph memory pool for all signatures
+        #: the model FLOPs of the last call's signature (None: unknown)
+        self.last_flops = None
         _programs.add(self)
 
     def _device(self, args):
@@ -480,14 +520,29 @@ class CompiledProgram:
             # inside another program's function: run inline, as the JAX
             # package falls through to plain dispatch inside a trace
             return self._fun(*args)
+        from . import memprof, profiler
+        if threadsan.ARMED:
+            threadsan.note_dispatch("compiled.%s" % self.site)
+        t0 = time.perf_counter()
         key = self._key(args)
-        with self._lock:
-            entry = self._cache.get(key)
-            if entry is None:
-                entry = self._compile(key, args)
-            else:
-                _count("cache_hits")
-            return entry.run(self, args)
+        try:
+            memprof.on_dispatch(self.site)
+            with self._lock:
+                entry = self._cache.get(key)
+                if entry is None:
+                    entry = self._compile(key, args)
+                else:
+                    _count("cache_hits", self.site)
+                self.last_flops = entry.flops
+                out = entry.run(self, args)
+        except Exception as exc:
+            oom = memprof.maybe_oom_error(exc, site=self.site)
+            if oom is not None:
+                raise oom from exc
+            raise
+        if profiler.aggregate_enabled():
+            profiler.finish_timed(self.site, t0, out)
+        return out
 
     def warmup(self, *args):
         """Compile the signature of ``args`` without running the program
@@ -499,6 +554,7 @@ class CompiledProgram:
         return self
 
     def _compile(self, key, args):
+        t0 = time.perf_counter()
         device = self._device(args)
         by_value = self._by_value(args, device)
         sig = _describe_args(args, self._static, self._inplace, self._names,
@@ -524,17 +580,34 @@ class CompiledProgram:
             st["compiles"] += 1
             n, prev = st["compiles"], st["sig"]
             st["sig"] = sig
-            _counts["compiles"] += 1
-            if prev is not None:
-                _counts["retraces"] += 1
+        reason = None
         if prev is not None:
+            _count("retraces", self.site)
             reason = explain_signature_change(prev, sig)
             with _lock:
                 _state["last_retrace"] = {"site": self.site, "reason": reason,
                                           "compiles": n, "time": time.time()}
             logger.warning("retrace [%s] (compile #%d): %s", self.site, n,
                            reason)
+        _count("compiles", self.site)
+        self._note_compile(time.perf_counter() - t0, n, reason, entry)
         return entry
+
+    def _note_compile(self, dur, n, reason, entry):
+        """The compile's accounting: its histogram, event and runprof
+        state, and the flight recorder's last compile."""
+        from . import runprof, xla_stats
+        runprof.note_state("compile", dur, site=self.site)
+        telemetry.histogram(
+            "jit_compile_seconds",
+            help="wall time of a signature's compile, by site: on the card "
+                 "the CUDA graph capture and the warm-up runs before it",
+            site=self.site).observe(dur)
+        telemetry.event("xla.compile", site=self.site, seconds=dur,
+                        compile_no=n, flops=entry.flops, retrace=reason)
+        xla_stats.flight_recorder.last["compile"] = {
+            "site": self.site, "seconds": dur, "compile_no": n,
+            "flops": entry.flops, "time": time.time(), "retrace": reason}
 
     def _uncaptured(self, ops):
         _count("uncaptured")
@@ -553,6 +626,8 @@ class CompiledProgram:
         current = torch.cuda.current_stream(device)
         self._stream.wait_stream(current)
         graph = torch.cuda.CUDAGraph()
+        from . import xla_stats
+        flops = None
         # Python's collector stays off during the capture: collecting a
         # dropped program there would free its graph's memory, which a
         # capture forbids (the capture then fails in the next library call)
@@ -561,11 +636,17 @@ class CompiledProgram:
             with inline(self.site), torch.cuda.device(device):
                 with torch.cuda.stream(self._stream), \
                         suppress_aux_writeback(True), _host_ops() as seen:
-                    for _ in range(WARMUP_RUNS):
-                        self._fun(*static_args)
+                    for i in range(WARMUP_RUNS):
+                        if i == 0 and xla_stats.enabled():
+                            with xla_stats.count_flops() as fc:
+                                self._fun(*static_args)
+                            flops = fc.total or None
+                        else:
+                            self._fun(*static_args)
                 if seen:
                     self._uncaptured(seen)
                     return None
+                before = torch.cuda.memory_allocated(device)
                 gc.disable()
                 with suppress_aux_writeback(False), \
                         launch_count.recording() as launches, \
@@ -580,4 +661,10 @@ class CompiledProgram:
             if collecting:
                 gc.enable()
             current.wait_stream(self._stream)
-        return _Graph(graph, self._copied(static_args), outputs, launches)
+        if xla_stats.enabled():
+            xla_stats.ledger_set(self.site, "xla_temp",
+                                 torch.cuda.memory_allocated(device) - before)
+            xla_stats.ledger_set(self.site, "xla_output",
+                                 xla_stats.tree_bytes(outputs))
+        return _Graph(graph, self._copied(static_args), outputs, launches,
+                      flops)

@@ -17,11 +17,22 @@ any other forward runs under ``torch.no_grad()``.
 Two graph passes of the JAX executor run at bind, on by default with the
 same switches, so both packages compute the same graph: the conv-bias ->
 BatchNorm fold (``MXNET_FOLD_CONV_BIAS_BN=0`` skips it) and the relu ->
-max-pool fold (``MXNET_FOLD_RELU_POOL=0``). The monitor is not ported.
+max-pool fold (``MXNET_FOLD_RELU_POOL=0``).
+
+``set_monitor_callback`` installs a monitor (`monitor.Monitor`): every
+forward then calls it on each node's output (``<node>_output``, or
+``<node>_output<i>`` for a node of several outputs) and, with
+``monitor_all``, on each variable, as the JAX package's monitored
+evaluation does. The graph then runs without the two folds, so that
+each node's reported output is the node's own, as in the JAX package.
+With the profiler's aggregate mode on, ``forward`` and
+``forward_backward`` are timed into its table as ``_executor_forward``
+and ``_executor_forward_backward``.
 """
 from __future__ import annotations
 
 import os
+import time
 
 import torch
 
@@ -123,16 +134,20 @@ def _plan_relu_pool_fold(sym: Symbol, nodes, folds):
         folds[id(n)] = ("fold_relu",)
 
 
-def _build_eval(sym: Symbol, ctx):
-    """eval_fn(arg_vals, aux_vals, generator, is_train) -> (list of output
-    tensors, {aux name: new value})."""
+def _build_eval(sym: Symbol, ctx, fold=True):
+    """eval_fn(arg_vals, aux_vals, generator, is_train, monitor=None) ->
+    (list of output tensors, {aux name: new value}); ``monitor`` is a
+    ``(callback, monitor_all)`` pair. ``fold=False`` leaves out the graph
+    passes."""
     nodes = sym._topo_nodes()
     sym._mark_aux()
     out_index = [(id(n), i) for n, i in sym._outputs]
-    folds = _plan_conv_bias_bn_fold(sym, nodes)
-    _plan_relu_pool_fold(sym, nodes, folds)
+    folds = {}
+    if fold:
+        folds = _plan_conv_bias_bn_fold(sym, nodes)
+        _plan_relu_pool_fold(sym, nodes, folds)
 
-    def eval_fn(arg_vals, aux_vals, generator, is_train):
+    def eval_fn(arg_vals, aux_vals, generator, is_train, monitor=None):
         env = {}
         aux_updates = {}
         for n in nodes:
@@ -141,6 +156,8 @@ def _build_eval(sym: Symbol, ctx):
                 if val is None:
                     raise MXNetError("unbound variable %s" % n.name)
                 env[id(n)] = [val]
+                if monitor is not None and monitor[1]:
+                    monitor[0](n.name, NDArray(val.detach(), ctx))
                 continue
             op = get_op(n.op)
             params = {k: v for k, v in n.attrs.items() if k != "__attrs__"}
@@ -169,6 +186,11 @@ def _build_eval(sym: Symbol, ctx):
                 if src.is_var():
                     aux_updates[src.name] = new
             env[id(n)] = list(outs[:n_out])
+            if monitor is not None:
+                for i, o in enumerate(env[id(n)]):
+                    monitor[0]("%s_output%d" % (n.name, i) if n_out > 1
+                               else n.name + "_output",
+                               NDArray(o.detach(), ctx))
         return [env[nid][i] for nid, i in out_index], aux_updates
 
     return eval_fn
@@ -217,6 +239,7 @@ class Executor:
         # `random.seed` fixes
         self._seed = _random.executor_seed(ctx)
         self._recorded = None   # (outputs, leaves) of a training forward
+        self._monitor = None    # (callback, monitor_all)
         self.outputs = []
 
     @staticmethod
@@ -298,9 +321,24 @@ class Executor:
         self._seed = (self._seed + 1) & ((1 << 63) - 1)
         return gen
 
+    def set_monitor_callback(self, callback, monitor_all=False):
+        """Call ``callback(name, NDArray)`` on every node's output of each
+        forward (and on every variable with ``monitor_all``); the graph
+        then runs without its folds (see the module docstring)."""
+        self._monitor = (callback, monitor_all)
+        self._eval_fn = _build_eval(self._symbol, self._ctx, fold=False)
+
     def forward(self, is_train=False, **kwargs):
         """Run the graph; a training forward also writes the new values of
         the auxiliary states (BatchNorm's moving statistics) in place."""
+        from . import profiler
+        t0 = time.perf_counter()
+        outs = self._forward(is_train, **kwargs)
+        if profiler.aggregate_enabled() and self._monitor is None:
+            profiler.finish_timed("_executor_forward", t0, outs)
+        return outs
+
+    def _forward(self, is_train=False, **kwargs):
         for k, v in kwargs.items():
             if k in self.arg_dict:
                 self.arg_dict[k][:] = v
@@ -313,13 +351,14 @@ class Executor:
                       for n in self._grad_names}
             arg_vals.update(leaves)
             with torch.enable_grad():
-                outs, aux_up = self._eval_fn(arg_vals, aux_vals, gen, True)
+                outs, aux_up = self._eval_fn(arg_vals, aux_vals, gen, True,
+                                             self._monitor)
             self._recorded = (outs, leaves)
             outs = [o.detach() for o in outs]
         else:
             with torch.no_grad():
                 outs, aux_up = self._eval_fn(arg_vals, aux_vals, gen,
-                                             bool(is_train))
+                                             bool(is_train), self._monitor)
         if is_train:
             with torch.no_grad():
                 for name, val in aux_up.items():
@@ -335,7 +374,7 @@ class Executor:
         ``SoftmaxOutput`` ignore it). Without a training forward since the
         last backward, it runs one first."""
         if self._recorded is None:
-            self.forward(is_train=True)
+            self._forward(is_train=True)
         if self._recorded is None:
             return      # no argument takes a gradient
         outs, leaves = self._recorded
@@ -368,8 +407,13 @@ class Executor:
 
     def forward_backward(self, out_grads=None, **kwargs):
         """One training forward and its backward."""
-        outs = self.forward(is_train=True, **kwargs)
+        from . import profiler
+        t0 = time.perf_counter()
+        outs = self._forward(is_train=True, **kwargs)
         self.backward(out_grads=out_grads)
+        if profiler.aggregate_enabled():
+            profiler.finish_timed("_executor_forward_backward", t0,
+                                  [outs, list(self.grad_dict.values())])
         return outs
 
     # -- views -----------------------------------------------------------

@@ -21,11 +21,18 @@ card, for SGD and Adam). ``save_states``/``load_states`` write and read the upda
 states with the optimizer (its update counts, which Adam's bias
 correction reads); a loaded optimizer replaces the Trainer's, as in the
 reference, so a fresh Trainer resumes where the saved one stopped.
+
+Step anatomy, as in the JAX package: each ``step`` is one stepprof step
+reaching back to the end of the previous one (`stepprof.ImplicitStepper`,
+so the user's forward and backward between calls land in ``other``),
+with the kvstore round trip as ``sync`` and the update as
+``opt_update``.
 """
 from __future__ import annotations
 
 from .. import kvstore as kvs
 from .. import optimizer as opt
+from .. import stepprof
 from ..base import MXNetError
 from .parameter import Parameter, ParameterDict
 
@@ -65,6 +72,7 @@ class Trainer:
         self._kvstore = None
         self._update_on_kvstore = update_on_kvstore
         self._kv_initialized = False
+        self._stepper = stepprof.ImplicitStepper()
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = dict(enumerate(self._params))
@@ -114,8 +122,9 @@ class Trainer:
         if not self._kv_initialized:
             self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
-        self._allreduce_grads()
-        self._update()
+        with self._stepper.bracket(via="gluon_trainer"):
+            self._allreduce_grads()
+            self._update()
 
     def allreduce_grads(self):
         """Push the gradients to the kvstore (and, unless it updates,
@@ -127,11 +136,13 @@ class Trainer:
     def _allreduce_grads(self):
         if self._kvstore is None:
             return
-        for i, param in enumerate(self._params):
-            if param.grad_req != "null":
-                self._kvstore.push(i, param.grad())
-                if not self._update_on_kvstore:
-                    self._kvstore.pull(i, param.grad())
+        # step anatomy: the kvstore round trip is gradient aggregation
+        with stepprof.phase("sync", via="gluon_trainer"):
+            for i, param in enumerate(self._params):
+                if param.grad_req != "null":
+                    self._kvstore.push(i, param.grad())
+                    if not self._update_on_kvstore:
+                        self._kvstore.pull(i, param.grad())
 
     def update(self, batch_size, ignore_stale_grad=False):
         """``step`` without the gradient synchronisation."""
@@ -145,6 +156,10 @@ class Trainer:
         self._update()
 
     def _update(self):
+        with stepprof.phase("opt_update", via="gluon_trainer"):
+            self._update_impl()
+
+    def _update_impl(self):
         if self._update_on_kvstore:
             for i, param in enumerate(self._params):
                 if param.grad_req != "null":

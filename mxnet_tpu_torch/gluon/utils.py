@@ -65,8 +65,9 @@ def split_and_load(data, ctx_list, batch_axis=0, even_split=True,
 def clip_global_norm(arrays, max_norm):
     """Scale ``arrays`` in place so that the 2-norm of all of them
     together is at most ``max_norm``; returns that norm before scaling.
-    A norm that is not finite is warned about and leaves the arrays as
-    they are."""
+    A norm that is not finite is warned about, counted in
+    ``grad_nonfinite_total`` and booked as runprof's
+    ``nonfinite_grad_norm`` anomaly, and leaves the arrays as they are."""
     if not arrays:
         raise MXNetError("clip_global_norm needs at least one array")
     total = 0.0
@@ -79,6 +80,18 @@ def clip_global_norm(arrays, max_norm):
         warnings.warn(UserWarning("nan or inf is detected. Clipping "
                                   "results will be undefined."),
                       stacklevel=2)
+        # divergence must be countable, not just printable: the counter
+        # survives scrollback and the sentinel dumps the flight recorder
+        # (MXNET_RUNPROF_HALT=1 also stops the run)
+        from .. import runprof, telemetry
+        telemetry.counter(
+            "grad_nonfinite_total",
+            help="non-finite global gradient norms observed by "
+                 "clip_global_norm").inc()
+        runprof.note_anomaly("nonfinite_grad_norm",
+                             detail="clip_global_norm over %d arrays"
+                                    % len(arrays),
+                             value=float(total_norm))
     scale = max_norm / (total_norm + 1e-8)
     if scale < 1.0:
         for arr in arrays:

@@ -17,16 +17,20 @@ S1 a key on the card), and a dense list push with the standard
 ``out`` as its compact payload, into a dense one scattered over zeros.
 
 The ``dist*`` types, ``AsyncKVStore`` and gradient compression are
-distributed training, ROADMAP A.10, and raise ``MXNetError``. The JAX
-package also folds every push and pull into its telemetry registry
-(``_record_kv``); the port has no telemetry yet (ROADMAP A.9), so nothing
-is recorded here.
+distributed training, ROADMAP A.10, and raise ``MXNetError``. Every
+``push`` and ``pull`` is folded into the telemetry registry
+(``_record_kv``: ``kvstore_<op>_total``, ``kvstore_<op>_bytes_total``,
+``kvstore_<op>_seconds``, and a ``kvstore.<op>`` event when an event log
+is configured), as in the JAX package.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
 from . import optimizer as opt
+from . import telemetry, xla_stats
 from .base import MXNetError
 from .ndarray.ndarray import NDArray
 
@@ -42,6 +46,24 @@ def _not_ported(what):
     return MXNetError("%s is distributed training, which is not ported yet "
                       "(ROADMAP A.10); use a single-process kvstore such as "
                       "'local'" % what)
+
+
+def _record_kv(op, t0, values, store_type):
+    """Fold one push/pull into the telemetry registry: call count, bytes
+    moved (a sparse array's compact payload) and latency."""
+    nbytes = xla_stats.tree_bytes(values)
+    telemetry.counter("kvstore_%s_total" % op,
+                      help="kvstore %s calls" % op).inc()
+    telemetry.counter("kvstore_%s_bytes_total" % op,
+                      help="payload bytes through kvstore %s" % op
+                      ).inc(nbytes)
+    dur = time.perf_counter() - t0
+    telemetry.histogram("kvstore_%s_seconds" % op,
+                        help="kvstore %s latency" % op).observe(dur)
+    if telemetry.configured_dir() is not None:
+        telemetry.event("kvstore.%s" % op, bytes=nbytes,
+                        dur=round(dur, 6), type=store_type)
+    return nbytes
 
 
 def _ctx_group_sum(vals):
@@ -112,6 +134,7 @@ class KVStore:
         """Sum each key's values; then run the updater on the stored value
         with the sum, or, without an updater, store the sum."""
         from .ndarray import sparse
+        t0 = time.perf_counter()
         keys, values = _normalize(key, value)
         merged_list = []
         for k, vs in zip(keys, values):
@@ -135,6 +158,7 @@ class KVStore:
                 merged.copyto(stored)
         if batch:
             self._apply_updates(batch)
+        _record_kv("push", t0, merged_list, self.type)
 
     def _apply_updates(self, batch):
         """Run the updater over the pushed keys: a compact row-sparse
@@ -158,12 +182,16 @@ class KVStore:
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         """Copy each key's stored value into its ``out`` array(s)."""
+        t0 = time.perf_counter()
         keys, outs = _normalize(key, out)
+        pulled = []
         for k, os_ in zip(keys, outs):
             if k not in self._store:
                 raise MXNetError("key %s not initialized" % str(k))
             for o in (os_ if isinstance(os_, list) else [os_]):
                 self._store[k].copyto(o)
+                pulled.append(self._store[k])
+        _record_kv("pull", t0, pulled, self.type)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
         """Pull only the rows ``row_ids`` (reference kvstore.h

@@ -6,9 +6,20 @@ Counterpart of `mxnet_tpu/module/base_module.py` (reference
 kvstore needs. The loop is the reference's: per batch a train step, then
 ``update_metric``, then the batch callbacks; at the end of an epoch the
 epoch callbacks and ``score`` on the eval data. ``fit(...,
-batches_per_dispatch=K)`` hands K batches at a time to ``_step_scan``.
-The JAX package's telemetry, step anatomy, elastic checkpoints and
-flight recorder around the loop are not ported yet.
+batches_per_dispatch=K)`` hands K batches at a time to ``_step_scan``;
+``fit(..., monitor=)`` installs a `monitor.Monitor` and brackets each
+batch with its ``tic`` and ``toc_print`` (and then steps batch by batch,
+as the JAX package does).
+
+The loop carries the JAX package's observability: each iteration is one
+stepprof step (``data_wait`` while the iterator blocks, the step's own
+phases, ``device_compute`` while the metric reads the outputs back);
+each batch counts into ``fit_batches_total`` / ``fit_samples_total``
+(which `callback.Speedometer` reads) and every
+``MXNET_RUNPROF_CHECK_EVERY``-th one sweeps the metric values through
+runprof's health sentinels; an exception out of the loop dumps the
+flight recorder before it propagates. Elastic checkpoints are
+distributed training (ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -16,6 +27,7 @@ import logging
 import time
 
 from .. import metric as metric_mod
+from .. import runprof, stepprof, telemetry, xla_stats
 
 
 class BatchEndParam:
@@ -24,6 +36,22 @@ class BatchEndParam:
         self.nbatch = nbatch
         self.eval_metric = eval_metric
         self.locals = locals
+
+
+def _count_fit_batch(batch, eval_metric=None):
+    """Per-batch throughput series (`callback.Speedometer` reads its
+    samples/s from them), and every ``MXNET_RUNPROF_CHECK_EVERY``-th
+    batch the metric values through runprof's health sentinels: a NaN or
+    Inf loss trips ``run_anomalies_total`` and a flight-recorder dump."""
+    samples = int(batch.data[0].shape[0]) if batch.data else 0
+    telemetry.counter("fit_batches_total",
+                      help="train batches completed by Module.fit").inc()
+    if samples:
+        telemetry.counter("fit_samples_total",
+                          help="train samples completed by Module.fit"
+                          ).inc(samples)
+    if eval_metric is not None and runprof.should_check():
+        runprof.observe_metrics(eval_metric.get_name_value())
 
 
 def _as_list(obj):
@@ -69,6 +97,9 @@ class BaseModule:
         self.forward_backward(data_batch)
         self.update()
 
+    def install_monitor(self, mon):
+        raise NotImplementedError("%s has no monitor" % type(self).__name__)
+
     def score(self, eval_data, eval_metric, num_batch=None,
               batch_end_callback=None, score_end_callback=None, reset=True,
               epoch=0):
@@ -102,7 +133,7 @@ class BaseModule:
             initializer=None, arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
             begin_epoch=0, num_epoch=None, validation_metric=None,
-            batches_per_dispatch=1):
+            monitor=None, batches_per_dispatch=1):
         """Reference base_module.py:395 training loop."""
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
@@ -112,6 +143,8 @@ class BaseModule:
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -120,10 +153,34 @@ class BaseModule:
         if validation_metric is None:
             validation_metric = eval_metric
         eval_metric = metric_mod.create(eval_metric)
+        if monitor is not None:
+            batches_per_dispatch = 1
+        try:
+            self._fit_loop(train_data, eval_data, eval_metric,
+                           validation_metric, epoch_end_callback,
+                           batch_end_callback, eval_end_callback,
+                           eval_batch_end_callback, monitor,
+                           batches_per_dispatch, begin_epoch, num_epoch)
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except Exception as exc:
+            # the crash flight recorder: the last telemetry events and the
+            # compile/step metadata on disk before the traceback unwinds
+            xla_stats.dump_flight_recorder(
+                "fit_exception",
+                error="%s: %s" % (type(exc).__name__, str(exc)[:400]))
+            raise
+
+    def _fit_loop(self, train_data, eval_data, eval_metric,
+                  validation_metric, epoch_end_callback, batch_end_callback,
+                  eval_end_callback, eval_batch_end_callback, monitor,
+                  batches_per_dispatch, begin_epoch, num_epoch):
+        """The epochs of :meth:`fit`."""
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             self._fit_epoch(train_data, eval_metric, epoch,
-                            batch_end_callback, batches_per_dispatch)
+                            batch_end_callback, batches_per_dispatch,
+                            monitor)
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
@@ -143,38 +200,57 @@ class BaseModule:
             train_data.reset()
 
     def _fit_epoch(self, train_data, eval_metric, epoch, batch_end_callback,
-                   batches_per_dispatch):
+                   batches_per_dispatch, monitor=None):
         """One epoch of :meth:`fit`: groups of up to ``batches_per_dispatch``
         batches of one shape, each group one ``_step_scan`` (or ``_step``
-        per batch when the module cannot scan), then the metric and the
-        batch callbacks per batch."""
+        per batch when the module cannot scan) and one stepprof step, then
+        the metric and the batch callbacks per batch."""
         eval_metric.reset()
         nbatch = 0
         data_iter = iter(train_data)
         pending = next(data_iter, None)
         while pending is not None:
             group = [pending]
-            pending = next(data_iter, None)
-            while pending is not None and len(group) < batches_per_dispatch \
-                    and pending.data[0].shape == group[0].data[0].shape:
-                group.append(pending)
-                pending = next(data_iter, None)
-            stacked = self._step_scan(group) if len(group) > 1 else False
-            for k, batch in enumerate(group):
-                if stacked is False:
-                    self._step(batch)
-                if stacked:
-                    eval_metric.update_dict(
-                        dict(zip(self.label_names, batch.label or [])),
-                        {name: out[k] for name, out in
-                         zip(self.output_names, stacked)})
-                else:
-                    self.update_metric(eval_metric, batch.label)
-                for callback in _as_list(batch_end_callback):
-                    callback(BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                           eval_metric=eval_metric,
-                                           locals=locals()))
-                nbatch += 1
+            with stepprof.step() as sp:
+                with stepprof.phase("data_wait") as wait:
+                    pending = next(data_iter, None)
+                    while pending is not None \
+                            and len(group) < batches_per_dispatch \
+                            and pending.data[0].shape == \
+                            group[0].data[0].shape:
+                        group.append(pending)
+                        pending = next(data_iter, None)
+                    if pending is None:
+                        wait["end_of_epoch"] = True
+                sp["batches"] = len(group)
+                stacked = self._step_scan(group) if len(group) > 1 \
+                    else False
+                for k, batch in enumerate(group):
+                    if stacked is False:
+                        if monitor is not None:
+                            monitor.tic()
+                            self.forward_backward(batch)
+                            self.update()
+                        else:
+                            self._step(batch)
+                    with stepprof.phase("device_compute",
+                                        via="update_metric"):
+                        if stacked:
+                            eval_metric.update_dict(
+                                dict(zip(self.label_names,
+                                         batch.label or [])),
+                                {name: out[k] for name, out in
+                                 zip(self.output_names, stacked)})
+                        else:
+                            self.update_metric(eval_metric, batch.label)
+                    _count_fit_batch(batch, eval_metric)
+                    if monitor is not None:
+                        monitor.toc_print()
+                    for callback in _as_list(batch_end_callback):
+                        callback(BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                               eval_metric=eval_metric,
+                                               locals=locals()))
+                    nbatch += 1
 
     # -- symbol/params ---------------------------------------------------
     @property

@@ -51,6 +51,7 @@ class BucketingModule(BaseModule):
         self._curr_bucket_key = None
         self._params_dirty = False
         self._grad_req = None
+        self._monitor = None
 
     def _reset_bind(self):
         self.binded = False
@@ -187,6 +188,8 @@ class BucketingModule(BaseModule):
                 module.params_initialized = True
             if self.optimizer_initialized:
                 module.borrow_optimizer(self._buckets[self._default_bucket_key])
+            if self._monitor is not None:
+                module.install_monitor(self._monitor)
             self._buckets[bucket_key] = module
         self._curr_module = self._buckets[bucket_key]
         self._curr_bucket_key = bucket_key
@@ -246,3 +249,11 @@ class BucketingModule(BaseModule):
     def update_metric(self, eval_metric, labels):
         assert self.binded and self.params_initialized
         self._curr_module.update_metric(eval_metric, labels)
+
+    def install_monitor(self, mon):
+        """Install ``mon`` on every bucket's module, and on each bucket
+        bound later."""
+        assert self.binded
+        self._monitor = mon
+        for mod in self._buckets.values():
+            mod.install_monitor(mon)

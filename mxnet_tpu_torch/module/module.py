@@ -26,8 +26,24 @@ semantics. With a ``KVStore`` object (`kvstore.py`) the module updates on
 the store, as the reference does: ``init_optimizer`` initializes every
 parameter's key and sets the optimizer there, and ``update`` pushes the
 gradients as one list and pulls the weights back. Multi-device contexts,
-the distributed kvstores, SPMD sharding, ``group2ctxs`` and the monitor
-wait for later slices. ``bind(shared_module=...)`` shares the other
+the distributed kvstores, SPMD sharding and ``group2ctxs`` wait for later
+slices.
+
+The observability layers hook in where the JAX package's do:
+``bind`` books the parameter, gradient and auxiliary bytes in the
+`xla_stats` memory ledger and the first update the optimizer states';
+the step's phases are stepprof's (``h2d`` for the batch copy,
+``dispatch`` for the forward and backward, ``sync`` for a kvstore,
+``opt_update`` for the optimizer); ``_step`` and ``_step_scan`` are
+memprof's dispatch sample (an out-of-memory error there is raised as
+``memprof.DeviceOOMError``), count the model FLOPs of their first step
+of each signature (`xla_stats.count_flops`; the hand kernels add their
+analytic counts) for ``xla_stats.note_train_step``, and, every
+``MXNET_STEPPROF_SYNC_EVERY`` steps while ``MXNET_STEPPROF=1``, measure
+the step's device time (the sampled sync, :meth:`_sampled_sync`).
+``install_monitor`` installs a `monitor.Monitor` on the executor.
+
+``bind(shared_module=...)`` shares the other
 module's parameter and gradient arrays by identity and
 ``borrow_optimizer`` its optimizer and updater states, which is how
 ``BucketingModule`` (`bucketing_module.py`) trains one set of
@@ -35,12 +51,15 @@ parameters through one executor per bucket.
 """
 from __future__ import annotations
 
+import gc
 import logging
+import time
 import warnings
 
 import torch
 
 from .. import kvstore as kvs
+from .. import memprof, stepprof, threadsan, xla_stats
 from .. import optimizer as opt
 from ..base import MXNetError
 from ..context import Context, gpu, scope_context
@@ -117,6 +136,10 @@ class Module(BaseModule):
         self._data_shapes = None
         self._label_shapes = None
         self._grad_req = None
+        self._monitor = None
+        self._step_flops = {}       # step signature -> model FLOPs
+        self._opt_bytes_noted = False
+        self._host_step_s = None    # the last step's host time, seconds
 
     @staticmethod
     def load(prefix, epoch, load_optimizer_states=False, **kwargs):
@@ -293,6 +316,8 @@ class Module(BaseModule):
         from ..symbol.symbol import _graph_infer
         _, self._out_shapes = _graph_infer(self._symbol, shapes,
                                            type_dict=type_dict)
+        self._note_bound_bytes()
+        self._opt_bytes_noted = False
         self.binded = True
         # restore parameters held before the bind (e.g. after Module.load)
         for held, dsts in ((self._arg_params, self._exec.arg_dict),
@@ -312,6 +337,42 @@ class Module(BaseModule):
         self._label_shapes = _norm_shapes(label_shapes or [])
         self._exec = self._exec.reshape(
             **dict(self._data_shapes + self._label_shapes))
+        if self._monitor is not None:
+            self._monitor.install(self._exec)
+
+    # -- memory ledger ---------------------------------------------------
+    def _ledger_scope(self):
+        """The ledger's owner label: the symbol's head name when it has
+        one, else the class name."""
+        return getattr(self._symbol, "name", None) or \
+            type(self).__name__.lower()
+
+    def _note_bound_bytes(self):
+        """Book what the bind holds on the device: the parameters, the
+        gradient buffers and the auxiliary states."""
+        if not xla_stats.enabled():
+            return
+        scope = self._ledger_scope()
+        xla_stats.ledger_set(scope, "params", xla_stats.tree_bytes(
+            [self._exec.arg_dict[n] for n in self._param_names
+             if n in self._exec.arg_dict]))
+        xla_stats.ledger_set(scope, "grads", xla_stats.tree_bytes(
+            [g for g in self._exec.grad_dict.values() if g is not None]))
+        xla_stats.ledger_set(scope, "aux", xla_stats.tree_bytes(
+            list(self._exec.aux_dict.values())))
+
+    def _note_optimizer_bytes(self):
+        """Book the optimizer states once, after the first update."""
+        if self._opt_bytes_noted or not xla_stats.enabled():
+            return
+        updater = self._kvstore._updater if self._update_on_kvstore \
+            else self._updater
+        states = getattr(updater, "states", None)
+        if states is None:
+            return
+        xla_stats.ledger_set(self._ledger_scope(), "optimizer",
+                             xla_stats.tree_bytes(list(states.values())))
+        self._opt_bytes_noted = True
 
     # -- optimizer -------------------------------------------------------
     def init_optimizer(self, kvstore="local", optimizer="sgd",
@@ -402,7 +463,15 @@ class Module(BaseModule):
 
     def _load_batch(self, data_batch):
         """Copy the batch into the bound inputs, on the module's device;
-        a batch of another shape rebinds (reference dynamic batch)."""
+        a batch of another shape rebinds (reference dynamic batch). Inside
+        a training step it is stepprof's ``h2d`` phase."""
+        if stepprof.in_step():
+            with stepprof.phase("h2d"):
+                self._load_batch_impl(data_batch)
+        else:
+            self._load_batch_impl(data_batch)
+
+    def _load_batch_impl(self, data_batch):
         data = data_batch.data
         labels = data_batch.label or []
         if any(self._exec.arg_dict[n].shape != tuple(a.shape)
@@ -416,6 +485,14 @@ class Module(BaseModule):
         for name, arr in zip(self._label_names, labels):
             if name in self._exec.arg_dict:
                 self._exec.arg_dict[name][:] = arr
+
+    def forward_backward(self, data_batch):
+        """One training forward and its backward, in one executor call
+        (stepprof's ``dispatch`` phase)."""
+        self._check_ready()
+        self._load_batch(data_batch)
+        with stepprof.phase("dispatch"):
+            self._exec.forward_backward()
 
     def backward(self, out_grads=None):
         self._check_ready()
@@ -437,16 +514,125 @@ class Module(BaseModule):
         idx = [i for i, _ in live]
         grads = [self._exec.grad_dict[n] for _, n in live]
         if self._update_on_kvstore:
-            self._kvstore.push(idx, grads)
-            self._kvstore.pull(idx, [self._exec.arg_dict[n]
-                                     for _, n in live])
+            with stepprof.phase("sync", via="kvstore_update"):
+                self._kvstore.push(idx, grads)
+                self._kvstore.pull(idx, [self._exec.arg_dict[n]
+                                         for _, n in live])
+            self._note_optimizer_bytes()
             return
         if self._kvstore:
-            self._kvstore.push(idx, grads)
-            self._kvstore.pull(idx, grads)
+            with stepprof.phase("sync", via="kvstore_reduce"):
+                self._kvstore.push(idx, grads)
+                self._kvstore.pull(idx, grads)
         if self._fused is None:
             self._fused = opt.FusedApplier.resolve(self._updater)
-        self._fused(idx, [self._exec.arg_dict[n] for _, n in live], grads)
+        with stepprof.phase("opt_update", fused=True):
+            self._fused(idx, [self._exec.arg_dict[n] for _, n in live],
+                        grads)
+        self._note_optimizer_bytes()
+
+    # -- the train step ----------------------------------------------------
+    def _signature(self, data_batch):
+        """The step's signature for the FLOP count: the shapes and dtypes
+        of its inputs."""
+        return tuple((tuple(a.shape), str(a.data.dtype))
+                     for a in list(data_batch.data) +
+                     list(data_batch.label or []))
+
+    def _compute_dtype(self):
+        """The dtype of the first parameter (the step's compute dtype,
+        which picks the card's peak for MFU)."""
+        for name in self._param_names:
+            return self._exec.arg_dict[name].data.dtype
+        return None
+
+    def _step(self, data_batch):
+        """One training step (forward, backward, update), with its
+        dispatch sample, its FLOP count and its sampled sync (see the
+        module docstring)."""
+        self._check_ready(optimizer=True)
+        try:
+            memprof.on_dispatch("module.step")
+            t0 = time.perf_counter()
+            sample = stepprof.should_sync() and self._card()
+            if sample:
+                self._hold_card()
+            key = self._signature(data_batch)
+            if xla_stats.enabled() and key not in self._step_flops:
+                with xla_stats.count_flops() as fc:
+                    self.forward_backward(data_batch)
+                self._step_flops[key] = fc.total
+            else:
+                self.forward_backward(data_batch)
+            self.update()
+        except Exception as exc:
+            oom = memprof.maybe_oom_error(exc, site="module.step")
+            if oom is not None:
+                raise oom from exc
+            raise
+        xla_stats.note_train_step(self._step_flops.get(key, 0), batches=1,
+                                  dtype=self._compute_dtype())
+        self._host_step_s = time.perf_counter() - t0
+        if sample:
+            self._sampled_sync()
+
+    def _card(self):
+        """The module's CUDA device, when it has one and no stream of
+        this thread is capturing a CUDA graph."""
+        dev = self._context.torch_device()
+        if dev.type != "cuda" or torch.cuda.is_current_stream_capturing():
+            return None
+        return dev
+
+    #: the card's clock for the sampled sync's hold, cycles a second (the
+    #: H100's boost clock; a slower card holds longer, which is harmless)
+    HOLD_CYCLES_PER_S = 1.98e9
+
+    def _hold_card(self):
+        """Start a sampled step: the card sleeps, as long as the last
+        step's host time (else 50 ms) and half again, while the host
+        queues the step's kernels behind it, and an event marks the end
+        of the sleep. The kernels then run back to back, so the span
+        from that event to the step's end is the step's device time,
+        where a plain synchronize after an eager step would time only the
+        tail the host left. The card's launch queue holds about a
+        thousand launches, fewer than a ResNet-50 step's, so the host
+        still feeds the queue after the sleep: Python's collector is off
+        until the step ends, so that no collection stalls the host there
+        (a stall would show as device time)."""
+        dev = self._card()
+        host_s = self._host_step_s or 0.05
+        self._collecting = gc.isenabled()
+        gc.disable()
+        torch.cuda.synchronize(dev)
+        torch.cuda._sleep(int(1.5 * host_s * self.HOLD_CYCLES_PER_S))
+        self._held = torch.cuda.Event(enable_timing=True)
+        self._held.record(torch.cuda.current_stream(dev))
+
+    def _sampled_sync(self, batches=1):
+        """End a sampled step: the device_compute phase waits for the
+        card, and the device time since :meth:`_hold_card`'s event is the
+        step's device sample."""
+        dev = self._card()
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(torch.cuda.current_stream(dev))
+        if self._collecting:
+            gc.enable()
+        if threadsan.ARMED:
+            threadsan.note_dispatch("module._step.sampled_sync",
+                                    kind="sync")
+        with stepprof.phase("device_compute", synced=True):
+            end.synchronize()
+        stepprof.note_device_sample(
+            self._held.elapsed_time(end) / 1e3, batches=batches,
+            flops_per_batch=xla_stats.flops_per_batch())
+
+    def install_monitor(self, mon):
+        """Install ``mon`` (a `monitor.Monitor`) on the executor."""
+        if not self.binded:
+            raise MXNetError("bind the module first")
+        self._monitor = mon
+        mon.install(self._exec)
 
     def _step_scan(self, data_batches):
         """``len(data_batches)`` train steps, one after the other. Returns
@@ -459,8 +645,10 @@ class Module(BaseModule):
             return None
         if self.inputs_need_grad:
             return False
+        with stepprof.phase("h2d", via="stack_batches"):
+            staged = self.stack_batches(data_batches)
         per_step = []
-        for batch in self.stack_batches(data_batches):
+        for batch in staged:
             self._step(batch)
             per_step.append([o.data for o in self._exec.outputs])
         return [NDArray(torch.stack(outs), self._context)

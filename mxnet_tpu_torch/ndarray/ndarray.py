@@ -111,8 +111,13 @@ class NDArray:
 
     def asnumpy(self):
         """A numpy copy of the values as they are now; later writes into
-        this NDArray do not show in it."""
-        return self._data.detach().to("cpu", copy=True).numpy()
+        this NDArray do not show in it. numpy has no bfloat16: a bf16
+        array's values come widened to float32, exactly (the JAX package
+        returns them in ``ml_dtypes.bfloat16``)."""
+        data = self._data.detach()
+        if data.dtype == torch.bfloat16:
+            return data.to("cpu", torch.float32).numpy()
+        return data.to("cpu", copy=True).numpy()
 
     def asscalar(self):
         if self.size != 1:

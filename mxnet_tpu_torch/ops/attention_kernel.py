@@ -176,7 +176,9 @@ def flash_attention(q, k, v, scale=None, causal=False, block_q=512,
         raise MXNetError("flash_attention kernel launch failed: %s (%d)"
                          % (lib.flash_attention_error_name(err).decode(),
                             err))
-    count(flash_attention)
+    # q @ k^T and p @ v; a causal mask skips half of both
+    flops = 4 * b * h * tq * tk * d
+    count(flash_attention, flops=flops // 2 if causal else flops)
     return out if out.shape[-1] == d else out[..., :d].contiguous()
 
 

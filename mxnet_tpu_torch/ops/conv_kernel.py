@@ -206,7 +206,7 @@ def conv1x1_s2_dgrad(dy, w2, H, W):
         raise MXNetError("conv1x1_s2_dgrad kernel launch failed: %s (%d)"
                          % (lib.conv1x1_s2_dgrad_error_name(err).decode(),
                             err))
-    count(conv1x1_s2_dgrad, plan.route)
+    count(conv1x1_s2_dgrad, plan.route, flops=2 * n * ho * wo * k * c)
     return dx
 
 

@@ -22,11 +22,17 @@ is the tape (the JAX package captures a ``jax.vjp`` here). Every other
 op runs under ``torch.no_grad()``. The ``mutate_aux`` write-back stays
 off the tape: the new values are detached and copied under
 ``torch.no_grad()``.
+
+With the profiler's aggregate mode on, each op is timed into its table
+(`profiler.finish_timed`), except inside a compiled program's function,
+whose call is the table's entry (as the JAX package skips an op traced
+into a program).
 """
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 
 import torch
 
@@ -84,8 +90,13 @@ def invoke(op_name, inputs, params=None, ctx=None, out=None):
         params["_generator"] = gen
     recording = autograd.is_recording() and any(
         a._data.requires_grad for a in in_arrs)
+    from .. import compiled, profiler
+    timed = profiler.aggregate_enabled() and compiled.running() is None
+    t0 = time.perf_counter() if timed else None
     with torch.enable_grad() if recording else torch.no_grad():
         outs = tuple(op.fcompute(params, *[a._data for a in in_arrs]))
+    if timed:
+        profiler.finish_timed(op_name, t0, outs)
     n_out = op.n_out(params)
     if not getattr(_TLS, "no_aux", False):
         with torch.no_grad():

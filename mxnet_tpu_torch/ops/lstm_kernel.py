@@ -380,7 +380,8 @@ def _forward(wrapper, name, x, h0, c0, wx, wh, b, residuals):
             hid, int(persistent), plan.grid, plan.units, plan.rows,
             plan.smem, _stream(x))
     _raise_on(lib, name, err)
-    count(wrapper, plan.route)
+    # the recurrence's products, h_{t-1} @ Wh at every step
+    count(wrapper, plan.route, flops=8 * t * bs * hid * hid)
     return hseq, cout, gates
 
 
@@ -467,7 +468,8 @@ def lstm_bwd_recurrence(dhseq, dhn, dcn, gates, cseq, c0, wh):
             *strides, int(persistent), plan.grid, plan.units, plan.rows,
             plan.smem, _stream(gates))
     _raise_on(lib, "fused_lstm_train", err)
-    count(lstm_bwd_recurrence, plan.route)
+    # dgates_t @ Wh^T at every step
+    count(lstm_bwd_recurrence, plan.route, flops=8 * t * bs * hid * hid)
     return dgates, dh0, dc
 
 

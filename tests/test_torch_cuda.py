@@ -1834,3 +1834,109 @@ def test_nn_rest_op_on_the_card_matches_cpu(cuda, name, params):
     assert max(nn_rest_sweep.reading(bad[0], want[0], case.family),
                nn_rest_sweep.reading(bad[1], want[1], case.family,
                                      norm=True)) > limit
+
+
+# ---------------------------------------------------------------------------
+# the observability stack on the card
+# ---------------------------------------------------------------------------
+
+def _captured_dense(cuda):
+    net = mxt.gluon.nn.HybridSequential()
+    net.add(mxt.gluon.nn.Dense(16), mxt.gluon.nn.Dense(4))
+    net.initialize(ctx=mxt.gpu(0))
+    x = mxt.nd.ones((8, 12), ctx=mxt.gpu(0))
+    net(x)
+    net.hybridize()
+    return net, x
+
+
+def test_profiler_aggregate_of_a_captured_call(cuda):
+    """The aggregate table with a captured hybridized call: the capture
+    happens with aggregate mode on and synchronizes nothing inside it
+    (torch refuses a synchronize during a capture), and each replay is one
+    entry named by the program's site."""
+    net, x = _captured_dense(cuda)
+    before = mxt.compiled.compile_counts()
+    mxt.profiler.set_config(aggregate_stats=True, profile_memory=False)
+    try:
+        for _ in range(4):
+            net(x)
+        text = mxt.profiler.dumps(reset=True)
+    finally:
+        mxt.profiler.set_config(aggregate_stats=False)
+    after = mxt.compiled.compile_counts()
+    assert after["compiles"] - before["compiles"] == 1
+    assert after["uncaptured"] == before["uncaptured"]
+    rows = [line.split() for line in text.splitlines()
+            if line.startswith("gluon.hybrid_forward")]
+    assert len(rows) == 1 and rows[0][1] == "4", text
+
+
+def test_stepprof_sampled_sync_stays_off_a_capture(cuda):
+    """A Module step with the sampled sync on measures the step's device
+    time; a hybridized call made in the same loop still captures once."""
+    net, x = _captured_dense(cuda)
+    data = mxt.sym.Variable("data")
+    out = mxt.sym.SoftmaxOutput(mxt.sym.FullyConnected(data, num_hidden=4),
+                                name="softmax")
+    mod = mxt.mod.Module(out, context=mxt.gpu(0))
+    mod.bind(data_shapes=[("data", (8, 12))],
+             label_shapes=[("softmax_label", (8,))])
+    mod.init_params()
+    mod.init_optimizer()
+    batch = mxt.io.DataBatch(data=[mxt.nd.ones((8, 12), ctx=mxt.gpu(0))],
+                             label=[mxt.nd.zeros((8,), ctx=mxt.gpu(0))])
+    mxt.stepprof.enable(sync_every=1)
+    try:
+        prof = mxt.stepprof.profiler
+        n = len(prof._device_samples)
+        with mxt.stepprof.step():
+            mod._step(batch)
+            net(x)
+        with mxt.stepprof.step():
+            mod._step(batch)
+            net(x)
+        assert len(prof._device_samples) == n + 2
+        assert all(s > 0 for s in list(prof._device_samples)[n:])
+    finally:
+        mxt.stepprof.disable()
+    counts = mxt.compiled.compile_counts()
+    assert counts["uncaptured"] == 0
+
+
+def test_real_over_allocation_is_a_device_oom_error(cuda, tmp_path,
+                                                    monkeypatch):
+    """More than the card's free bytes, asked for inside a hybridized
+    call, surfaces as memprof's DeviceOOMError with the requested bytes
+    and a postmortem; the card keeps working after it."""
+    monkeypatch.setenv("MXNET_TELEMETRY_DIR", str(tmp_path))
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    nbytes = (free // 2 ** 30 + 2) * 2 ** 30
+
+    class Big(mxt.gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            return F.zeros((nbytes // 4,), ctx=x.context) + x.sum()
+    big = Big()
+    big.hybridize()
+    with pytest.raises(mxt.memprof.DeviceOOMError) as info:
+        big(mxt.nd.ones((1,), ctx=mxt.gpu(0)))
+    assert info.value.requested_bytes == nbytes
+    assert info.value.dump_path and \
+        info.value.dump_path.startswith(str(tmp_path))
+    del info
+    gc.collect()
+    y = mxt.nd.ones((4,), ctx=mxt.gpu(0)) * 2
+    assert float(y.sum().asscalar()) == 8.0
+
+
+def test_peak_flops_of_the_card(cuda, monkeypatch):
+    monkeypatch.delenv("MXNET_PEAK_FLOPS", raising=False)
+    torch.zeros(1, device="cuda")          # CUDA initialized
+    name = torch.cuda.get_device_name(0).lower()
+    peak = mxt.xla_stats.peak_flops_per_device("bfloat16")
+    if "h100" in name:
+        assert peak in (989e12, 756e12)
+        assert mxt.xla_stats.peak_flops_per_device("float32") > 0
+    else:
+        assert peak == 0.0

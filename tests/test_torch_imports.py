@@ -39,6 +39,9 @@ GLUON_TRAINING = ["autograd.py", "ops/reduce.py", "gluon/loss.py",
 ND_CORE = ["ops/init_ops.py", "tools/run_example.py"]
 SPARSE = ["kvstore.py", "ndarray/sparse.py", "ops/compat_ops.py",
           "ops/sparse_update.py"]
+OBSERVABILITY = ["threadsan.py", "telemetry.py", "chaos.py", "profiler.py",
+                 "xplane.py", "monitor.py", "xla_stats.py", "stepprof.py",
+                 "runprof.py", "memprof.py"]
 RNN = ["rnn/__init__.py", "rnn/rnn_cell.py", "rnn/io.py", "rnn/rnn.py",
        "module/bucketing_module.py", "gluon/rnn/__init__.py",
        "gluon/rnn/rnn_cell.py", "gluon/rnn/rnn_layer.py"]
@@ -52,6 +55,7 @@ def test_port_files_found():
     assert set(ND_CORE) <= port
     assert set(SPARSE) <= port
     assert set(RNN) <= port
+    assert set(OBSERVABILITY) <= port
     assert (ROOT / "mxnet_tpu_torch" / "csrc" /
             "sparse_row_update.cu").exists()
     from mxnet_tpu_torch.ops import _build
@@ -69,3 +73,27 @@ def test_no_finished_kernels(path):
     text = path.read_text()
     for name in FORBIDDEN_CALLS:
         assert name not in text, "%s uses %s" % (_rel(path), name)
+
+
+@pytest.mark.parametrize("name", OBSERVABILITY)
+def test_observability_module_imports_no_jax(name):
+    """Each observability module, imported alone in a fresh process,
+    brings in neither JAX nor the JAX package."""
+    import subprocess
+    import sys
+    mod = "mxnet_tpu_torch." + name[:-3]
+    code = ("import importlib, sys; importlib.import_module(%r); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'mxnet_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)" % mod)
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_peak_table_holds_no_tpu_entry():
+    from mxnet_tpu_torch import xla_stats
+    assert xla_stats.PEAK_FLOPS_BY_KIND
+    for kind, peaks in xla_stats.PEAK_FLOPS_BY_KIND.items():
+        assert "tpu" not in kind.lower()
+        assert set(peaks) == {"bfloat16", "float16", "tf32", "float32"}
