@@ -24,14 +24,19 @@ through the port's user entry points, in six phases:
    shape at H=650 persistent), the recurrence kernel's launches a call
    (1 on the persistent route) and device µs a step from a profile,
    ptxas's registers and spills, and 20 calls at B=32 bit-identical;
-3. ``Predictor`` on ``gpu(0)`` vs the same ``Predictor`` on ``cpu()``;
-4. ``InferenceEngine`` on ``gpu(0)`` (buckets 1..32) under 100 concurrent
-   requests of 1-8 rows, sampled results held against the CPU reference;
+3. ``Predictor`` on ``gpu(0)`` vs the same ``Predictor`` on ``cpu()``:
+   its first forward compiles (one captured CUDA graph; K1 counted at the
+   capture's warm-up runs and its first replay), the second is one replay
+   (a cache hit, K1 once a layer);
+4. ``InferenceEngine`` on ``gpu(0)`` (buckets 1..32, each bucket's
+   forward captured at warm-up) under 100 concurrent requests of 1-8 rows,
+   sampled results held against the CPU reference, no capture under load;
 5. the HTTP server in-process: two ``/predict`` requests, ``/healthz``,
    ``/shutdown``;
-6. ``torch.profiler`` over one served forward at the top bucket: device
-   time by kernel, K1's share and launches (one persistent launch a
-   layer) and the device's idle share;
+6. ``torch.profiler`` over one served forward (a replay) at the top
+   bucket: device time by kernel, K1's share and launches (one persistent
+   launch a layer) and the device's idle share; the host's runtime calls
+   (one ``cudaGraphLaunch``, no kernel launch);
 
 and then trains the same LM, the configuration of the training benchmark
 (``examples/rnn/word_lm/benchmark.py``: batch 32, SGD with lr 1 and
@@ -374,6 +379,37 @@ gate on), in a process of its own (``python3 chip_smoke.py
     and ``data_and_ops.py`` through ``run_example`` under ``gpu(0)``.
     Across the phase no error is swallowed (``errors_swallowed_total``).
 
+and then drives the whole serving stack (`mxnet_tpu_torch/serving/`:
+the engine with every hook of the JAX engine, ``reqtrace``, the HTTP
+server, `tools/serve_bench.py`, and the ``MXPred*`` C ABI of
+`csrc/c_predict_api.cc`) on the same LM at full width, in a process of
+its own (``python3 chip_smoke.py --serving``), in one more:
+
+27. (a) an engine of 2 replicas at buckets 1..32: ``warm()`` captures one
+    graph a (replica, bucket), counted in ``warmup_compiles`` (the graph
+    pools' bytes printed), 100 requests from 16 clients with
+    ``cold_compiles()`` 0 after, K1 exactly once a layer a served batch by
+    its counter, sampled outputs against the ``Predictor`` on ``cpu()`` at
+    phase 3's limits, and one profiled batch a bucket (busy and wall; one
+    ``cudaGraphLaunch``, no kernel launch); (b) every completed request's
+    reqtrace phases summing to its wall latency (TELESCOPE_ATOL), the p50
+    and p99 phase shares and the verdict; (c) ``/predict`` with and without
+    ``X-Request-Id`` (echoed, or minted), ``/metrics`` parsed
+    (``serving_requests_total{status="ok"}`` equal to the requests sent,
+    ``serving_batches_total`` to ``stats()``'s batches), ``/healthz`` with
+    ``cold_compiles`` 0 and ``headroom_bytes``, a 404 carrying the id; (d)
+    the chaos site ``serving.worker_death`` once: only the in-flight
+    request fails, the worker respawns, one death and one respawn counted,
+    the flight recorder dumped, the next 20 requests served; and
+    ``serving.slow_request`` at 0.2 s landing in ``batch_wait``; (e)
+    ``memprof.admit`` refusing an engine whose projected parameters exceed
+    the card's free memory before any replica binds; (f) ``serve_bench``
+    on the LM: a closed loop of 16 clients for about 5 s, then open loops
+    at 0.5 and 0.9 of its rate (rps, p50/p95/p99, the p99 verdict); (g) the
+    C client (`csrc/predict_client.c`) on device type 2 at batch 4 against
+    the ``Predictor`` on ``gpu(0)``, and its bad-argument exit code. Across
+    the phase no error is swallowed.
+
 Phases 3-5 are the serving main path, phase 8 the LM training one,
 phase 11's gate-on steps on the card the ResNet one, phase 15's steps on
 the card the attention one, phase 16's first launches the rtc one,
@@ -384,7 +420,8 @@ check the optimizer one, phase 22's examples the detection one and phase
 23's loop and examples the sparse one, phase 24 but its kernel
 checks (24d) the RNN one, phase 25's training, decoding, card-vs-CPU
 steps and examples (not its kernel and op checks) the speech one, and
-phase 26 (but 26b's CUDA-event timing of K5) the observability one:
+phase 26 (but 26b's CUDA-event timing of K5) the observability one,
+and phase 27 the serving stack's:
 every kernel's launch count is set to 0 before each and read after it.
 The serving path must launch K1, every call by the persistent route; the
 LM training path must launch K2 and K3 exactly once per layer and step,
@@ -403,11 +440,14 @@ and none of K1-K4 and K6; the detection path N1 and U1 in every example
 run and none of K1-K6; the sparse path S1 once a push and none of
 K1-K6 or N1; the RNN path K1, K2, K3 and U1, and no other; the speech
 path K1, K2, K3 and U1, and no other; the observability path K5 and U1,
-and no other. K5's launches in the kernels line are the ResNet path's,
+and no other; the serving stack's K1, and no other. A compiled inference
+forward counts K1 at each replay and at each of its capture's warm-up
+runs (`compiled.WARMUP_RUNS`), so the checks of a path that compiles
+add those. K5's launches in the kernels line are the ResNet path's,
 the Gluon path's and the observability path's; K1's, K2's and K3's add
-the RNN path's and the speech path's; U1's are the optimizer path's, the
-RNN path's, the speech path's and the observability path's. Any failed
-check exits non-zero. The last lines
+the RNN path's and the speech path's, and K1's the serving stack's;
+U1's are the optimizer path's, the RNN path's, the speech path's and
+the observability path's. Any failed check exits non-zero. The last lines
 are the card's name and power limit (``nvidia-smi``), one JSON line with
 every ported kernel's numbers, and the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -425,6 +465,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1189,21 +1230,42 @@ def compare(got, want, what):
 
 
 def phase_predictor(mx, sym_json, params, ref, rng, ctx):
+    """The Predictor's first forward compiles its signature (on the card:
+    the warm-up runs, the capture and a replay), the second is one replay
+    of the captured graph, with K1 once a layer."""
     n = 4
     pred = mx.Predictor(sym_json, params, ctx=ctx,
                         input_shapes={"data": (n, SEQ)})
     toks = tokens(rng, n)
+    counts = mx.compiled.compile_counts()
+    before = mx.ops.fused_lstm.launches
+    pred.forward(data=toks)
+    first = mx.ops.fused_lstm.launches - before
     before = mx.ops.fused_lstm.launches
     pred.forward(data=toks)
     out = pred.get_output(0)
     grew = mx.ops.fused_lstm.launches - before
+    after = mx.compiled.compile_counts()
+    counts = {k: after[k] - counts[k] for k in after}
+    entry = next(iter(pred._exec._program._cache.values()))
     if ctx.device_type == "gpu":
-        check(grew == LAYERS, "one forward launched fused_lstm %d times, "
-              "want %d (one per layer)" % (grew, LAYERS))
+        check(counts == {"compiles": 1, "cache_hits": 1, "retraces": 0,
+                         "uncaptured": 0}
+              and isinstance(entry, mx.compiled._Graph),
+              "the served forward was not one captured graph: compile "
+              "counts %s" % counts)
+        check(first == LAYERS * (mx.compiled.WARMUP_RUNS + 1)
+              and grew == LAYERS,
+              "fused_lstm launched %d times at the first forward (warm-ups "
+              "and a replay) and %d at a replay, want %d and %d (one per "
+              "layer)" % (first, grew,
+                          LAYERS * (mx.compiled.WARMUP_RUNS + 1), LAYERS))
     check_probs(out, n, "Predictor output")
     err = compare(out, ref(toks), "Predictor output")
     log("phase 3 predictor %s" % json.dumps({
-        "rows": n, "fused_lstm_launches_per_forward": grew,
+        "rows": n, "compile_counts": counts,
+        "fused_lstm_launches_first_forward": first,
+        "fused_lstm_launches_per_replay": grew,
         "max_abs_err_vs_cpu": err}))
 
 
@@ -1226,6 +1288,9 @@ def phase_engine(mx, sym_json, params, ref, rng, ctx):
     with ThreadPoolExecutor(ENGINE_CLIENTS) as pool:
         results = list(pool.map(one, reqs))
     wall = time.perf_counter() - t0
+    # before the CPU reference runs: its predictors' compiles count in
+    # the process-wide compile count that cold_compiles reads
+    st = engine.stats()
     for toks, (out, _) in zip(reqs, results):
         check_probs(out, toks.shape[0], "engine output")
     sample = range(0, ENGINE_REQUESTS, ENGINE_REQUESTS // 8)
@@ -1233,9 +1298,11 @@ def phase_engine(mx, sym_json, params, ref, rng, ctx):
               for i in sample)
     lat = np.array([lat for _, lat in results]) * 1e3
     rows = sum(r.shape[0] for r in reqs)
-    st = engine.stats()
     check(st["requests"].get("ok") == ENGINE_REQUESTS,
           "engine request counts %s" % st["requests"])
+    check(st["cold_compiles"] == 0 and st["warmup_compiles"] == len(
+        engine.buckets), "the engine compiled %d signatures at warm-up "
+          "and %d under load" % (st["warmup_compiles"], st["cold_compiles"]))
     log("phase 4 engine %s" % json.dumps({
         "requests": ENGINE_REQUESTS, "clients": ENGINE_CLIENTS,
         "rows": rows, "wall_s": wall,
@@ -1244,6 +1311,8 @@ def phase_engine(mx, sym_json, params, ref, rng, ctx):
         "p50_ms": float(np.percentile(lat, 50)),
         "p99_ms": float(np.percentile(lat, 99)),
         "warmup_s": st["warmup_seconds"],
+        "warmup_compiles": st["warmup_compiles"],
+        "cold_compiles": st["cold_compiles"],
         "pad_waste": st["padding"]["waste_ratio"],
         "batches": {b: v["batches"]
                     for b, v in st["padding"]["buckets"].items()},
@@ -1286,12 +1355,16 @@ def phase_http(mx, engine, ref, rng):
 
 
 def phase_profile(mx, sym_json, params, rng):
-    """Where a served forward's device time goes, at the top bucket."""
+    """Where a served forward's device time goes, at the top bucket: the
+    forward is one replay of its captured graph, so the host makes one
+    ``cudaGraphLaunch`` and no kernel launch, and the trace shows the
+    graph's kernels, K1 once a layer among them."""
     n = ENGINE_MAX_BATCH
     pred = mx.Predictor(sym_json, params, ctx=mx.gpu(0),
                         input_shapes={"data": (n, SEQ)})
     toks = tokens(rng, n)
-    pred.forward(data=toks)      # warm: allocations, first launches
+    pred.forward(data=toks)      # the capture
+    pred.forward(data=toks)      # warm: a first replay
     # a trace that lost K1's launches (seen once on the process's first
     # profile) is taken again, as the other phases' profiles are
     wall, kern = device_profile(
@@ -1300,16 +1373,22 @@ def phase_profile(mx, sym_json, params, rng):
     busy = sum(ms for _, ms in kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:6]
     k1 = kernel_share(kern, K1_KERNELS, busy)
+    host = call_profile(lambda: pred.forward(data=toks))
     log("phase 6 profile %s" % json.dumps({
         "rows": n, "forward_wall_ms": wall, "device_busy_ms": busy,
         "device_idle_share": (1 - busy / wall) if kern else None,
-        "k1": k1,
+        "k1": k1, "runtime_calls": host["runtime_calls"],
         "top_kernels": [{"kernel": k, "launches": c, "ms": ms,
                          "share": ms / busy} for k, (c, ms) in top]}))
     check(list(k1["launches"].values()) == [LAYERS]
           and "lstm_persistent" in next(iter(k1["launches"])),
           "a served forward's profile shows K1 kernels %s, want one "
           "lstm_persistent launch per layer (%d)" % (k1["launches"], LAYERS))
+    calls = host["runtime_calls"]
+    check(calls.get("cudaGraphLaunch") == 1
+          and not any("LaunchKernel" in k for k in calls),
+          "a served forward made host calls %s, want one cudaGraphLaunch "
+          "and no kernel launch" % calls)
 
 
 # ---------------------------------------------------------------------------
@@ -1642,9 +1721,11 @@ def phase_train(mx, ctx, rng):
     sync(ctx)
     fit_wall = time.perf_counter() - t1
     k1_before = mx.ops.fused_lstm.launches
+    compiles = mx.compiled.compile_counts()["compiles"]
     (_, eval_ppl), = fit_mod.score(lm_iter(mx, rng, EVAL_BATCHES),
                                    mx.metric.Perplexity())
     k1_by_score = mx.ops.fused_lstm.launches - k1_before
+    score_compiles = mx.compiled.compile_counts()["compiles"] - compiles
     check(np.isfinite(train_ppl.get()[1]) and np.isfinite(eval_ppl),
           "perplexity not finite: train %s, eval %s"
           % (train_ppl.get()[1], eval_ppl))
@@ -1661,7 +1742,8 @@ def phase_train(mx, ctx, rng):
         "fit_train_perplexity": train_ppl.get()[1],
         "speedometer_samples_per_s": [s for _, _, s in speedo.history],
         "eval_batches": EVAL_BATCHES, "eval_perplexity": eval_ppl,
-        "k1_launches_by_score": k1_by_score}
+        "k1_launches_by_score": k1_by_score,
+        "score_compiles": score_compiles}
     return mod, summary
 
 
@@ -4770,8 +4852,10 @@ def phase_rnn_lm(mx, counters, rng):
     wall = time.perf_counter() - t0
     epoch2 = launched(counters, before)
     before = launches_of(counters)
+    compiles = mx.compiled.compile_counts()["compiles"]
     (_, eval_ppl), = mod.score(it, mx.metric.Perplexity())
     score = launched(counters, before)
+    score_compiles = mx.compiled.compile_counts()["compiles"] - compiles
     default = mod._buckets[it.default_bucket_key]
     shared = all(m._exec.arg_dict[n] is default._exec.arg_dict[n]
                  and m._exec.grad_dict[n] is default._exec.grad_dict[n]
@@ -4784,6 +4868,7 @@ def phase_rnn_lm(mx, counters, rng):
         "fit_train_perplexity": train_ppl.get()[1],
         "eval_perplexity": eval_ppl, "launches_fit": fit,
         "launches_second_epoch": epoch2, "launches_score": score,
+        "score_compiles": score_compiles,
         "bucket_modules": sorted(mod._buckets), "arrays_shared": shared,
         "updater_shared": all(m._updater is default._updater
                               for m in mod._buckets.values())}
@@ -4797,9 +4882,13 @@ def phase_rnn_lm(mx, counters, rng):
         check(got["multi_tensor_update"] == steps,
               "%s launched U1 %d times in %d steps, want one a step"
               % (what, got["multi_tensor_update"], steps))
-    check(score["fused_lstm"] == LAYERS * steps,
-          "score launched K1 %d times over %d batches, want %d"
-          % (score["fused_lstm"], steps, LAYERS * steps))
+    # a replay a batch, and the warm-up runs of each bucket's capture
+    want = LAYERS * (steps + mx.compiled.WARMUP_RUNS * score_compiles)
+    check(1 <= score_compiles <= len(RNN_BUCKETS)
+          and score["fused_lstm"] == want,
+          "score compiled %d signatures and launched K1 %d times over %d "
+          "batches, want one a bucket and %d"
+          % (score_compiles, score["fused_lstm"], steps, want))
     check(shared and summary["updater_shared"]
           and summary["bucket_modules"] == sorted(RNN_BUCKETS),
           "the buckets %s do not share one set of arrays and one updater"
@@ -5693,6 +5782,7 @@ def phase_speech_train(mx, counters, rng):
         inputs = [x[j:j + 1] for j in range(SPEECH_DECODE)] if bs == 1 \
             else [x]
         before = launches_of(counters)
+        compiles = mx.compiled.compile_counts()["compiles"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         probs = []
@@ -5702,6 +5792,7 @@ def phase_speech_train(mx, counters, rng):
             probs.append(infer.get_outputs()[0].asnumpy())
         ms = (time.perf_counter() - t0) * 1e3 / len(inputs)
         got = launched(counters, before)
+        new = mx.compiled.compile_counts()["compiles"] - compiles
         chunk = items[batches.index(longest[0])]
         hyps = [greedy_decode(p[:len(chunk[j][0]), 0]) for j, p in
                 enumerate(probs)] if bs == 1 else \
@@ -5709,15 +5800,20 @@ def phase_speech_train(mx, counters, rng):
              enumerate(chunk)]
         right = sum(h == list(chunk[j][1]) for j, h in enumerate(hyps))
         decode[bs] = {"forwards": len(inputs), "host_ms_a_forward": ms,
-                      "launches": got, "sequences_right": right,
+                      "launches": got, "compiles": new,
+                      "sequences_right": right,
                       "sequences": len(hyps)}
         check(all(p.shape == (t, bs, SPEECH_PHONES) and np.isfinite(p).all()
                   and np.allclose(p.sum(-1), 1.0, atol=1e-4) for p in probs),
               "the decode Module's probabilities at batch %d" % bs)
-        check(got["fused_lstm"] == len(inputs)
+        # the first forward compiles: its capture's warm-up runs launch K1
+        # too, then a replay a forward
+        want = len(inputs) + mx.compiled.WARMUP_RUNS * new
+        check(new == 1 and got["fused_lstm"] == want
               and not any(n for k, n in got.items() if k != "fused_lstm"),
-              "decoding at batch %d launched %s: want K1 once a forward"
-              % (bs, got))
+              "decoding at batch %d compiled %d signatures and launched %s: "
+              "want one, and K1 %d times (once a forward and a warm-up run)"
+              % (bs, new, got, want))
     summary["decode"] = decode
     summary["profile"] = speech_profile()
     log("phase 25a speech model %s" % json.dumps(summary))
@@ -6621,6 +6717,487 @@ def phase_observability(mx):
     return last["kernel_launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the serving stack
+# ---------------------------------------------------------------------------
+SERVING_REPLICAS = 2
+# every completed request's reqtrace phases sum to its wall latency
+TELESCOPE_ATOL = 1e-6
+SLOW_REQUEST_S = 0.2
+REQUESTS_AFTER_DEATH = 20
+HTTP_REQUESTS = 6
+# serve_bench on the LM: a closed loop of about this many seconds, then
+# open loops at these fractions of its rate, as long each
+SERVE_BENCH_CLIENTS, SERVE_BENCH_S, SERVE_BENCH_OPEN = 16, 5.0, (0.5, 0.9)
+# the C client on device type 2 against the Predictor on gpu(0): the same
+# graph, but the probabilities cross the C boundary as f32 bytes
+C_CLIENT_BATCH, C_CLIENT_RTOL, C_CLIENT_ATOL = 4, 1e-4, 1e-5
+
+
+def prom_value(text, name, **labels):
+    """The sum of the Prometheus samples of ``name`` whose labels hold
+    ``labels``."""
+    total = 0.0
+    for m in re.finditer(r"^%s(\{[^}]*\})? (\S+)$" % re.escape(name), text,
+                         re.M):
+        got = dict(re.findall(r'(\w+)="([^"]*)"', m.group(1) or ""))
+        if all(got.get(k) == v for k, v in labels.items()):
+            total += float(m.group(2))
+    return total
+
+
+def http_call(port, path, doc=None, rid=None):
+    """(status, headers, body bytes) of one request to a local server."""
+    body = None if doc is None else json.dumps(doc).encode()
+    headers = {"Content-Type": "application/json"}
+    if rid:
+        headers["X-Request-Id"] = rid
+    req = urllib.request.Request("http://127.0.0.1:%d%s" % (port, path),
+                                 data=body, headers=headers,
+                                 method="GET" if doc is None else "POST")
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    try:
+        with opener.open(req, timeout=300) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as err:
+        return err.code, dict(err.headers), err.read()
+
+
+def serving_engine(mx, sym_json, params, warmup=True, **cfg):
+    cfg = dict(dict(max_batch_size=ENGINE_MAX_BATCH, max_batch_delay_ms=2.0,
+                    max_queue=2 * ENGINE_REQUESTS,
+                    replicas=SERVING_REPLICAS), **cfg)
+    return mx.serving.InferenceEngine(
+        sym_json, params, input_shapes={"data": (SEQ,)}, ctx=mx.gpu(0),
+        config=mx.serving.EngineConfig(**cfg), warmup=warmup)
+
+
+def phase_serving_compiles(mx, engine, ref, rng):
+    """27a: warm-up captures, 100 requests from 16 clients with no capture
+    under load, K1 twice a served batch, a profiled replay per bucket."""
+    mem0 = torch.cuda.memory_allocated()
+    engine.warm()
+    torch.cuda.synchronize()
+    pool_bytes = torch.cuda.memory_allocated() - mem0
+    ledger = {sec: n for (scope, sec), n in mx.xla_stats.ledger().items()
+              if scope == "executor.forward"}
+    want = SERVING_REPLICAS * len(engine.buckets)
+    check(engine.warmup_compiles == want and engine.cold_compiles() == 0,
+          "warm() compiled %d signatures, want %d (replicas x buckets)"
+          % (engine.warmup_compiles, want))
+    graphs = [type(e).__name__ for rep in engine._replicas
+              for e in rep.preds[1]._exec._program._cache.values()]
+    check(graphs == ["_Graph"] * want, "the served forwards are %s, want "
+          "%d captured graphs" % (graphs, want))
+    mx.serving.reqtrace.reset()
+    reqs = [tokens(rng, int(rng.randint(1, 9)))
+            for _ in range(ENGINE_REQUESTS)]
+    k1 = mx.ops.fused_lstm.launches
+
+    def one(i):
+        return engine.predict({"data": reqs[i]}, timeout=300,
+                              rid="smoke-%d" % i)[0]
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(ENGINE_CLIENTS) as pool:
+        outs = list(pool.map(one, range(ENGINE_REQUESTS)))
+    wall = time.perf_counter() - t0
+    k1 = mx.ops.fused_lstm.launches - k1
+    # read before the CPU reference compiles its own predictors (the
+    # compile count is the process's)
+    cold = engine.cold_compiles()
+    st = engine.stats()
+    batches = sum(v["batches"] for v in st["padding"]["buckets"].values())
+    check(cold == 0, "%d compiles under load: %s"
+          % (cold, mx.compiled.last_retrace()))
+    sample = range(0, ENGINE_REQUESTS, ENGINE_REQUESTS // 8)
+    errs = [compare(outs[i], ref(reqs[i]), "served request %d" % i)
+            for i in sample]
+    check(k1 == LAYERS * batches, "K1 launched %d times in %d served "
+          "batches, want %d (once a layer)" % (k1, batches,
+                                               LAYERS * batches))
+    profiles = {}
+    for b, pred in sorted(engine._replicas[0].preds.items()):
+        toks = tokens(rng, b)
+        # the forward (input copy, replay, output clone) to a synchronize,
+        # as phase 6 profiles it; the readback to the host apart
+        prof = call_profile(lambda: pred.forward(data=toks))
+        t0 = time.perf_counter()
+        pred.get_output(0)
+        readback = (time.perf_counter() - t0) * 1e3
+        calls = prof["runtime_calls"]
+        profiles[b] = {"wall_ms": prof["wall_ms"],
+                       "device_busy_ms": prof["device_busy_ms"],
+                       "device_idle_share": prof["device_idle_share"],
+                       "readback_ms": readback,
+                       "graph_launches": calls.get("cudaGraphLaunch"),
+                       "kernel_launches": sum(
+                           n for k, n in calls.items()
+                           if "LaunchKernel" in k)}
+        check(calls.get("cudaGraphLaunch") == 1
+              and not any("LaunchKernel" in k for k in calls),
+              "a served batch of bucket %d made host calls %s, want one "
+              "cudaGraphLaunch and no kernel launch" % (b, calls))
+    return {"warmup_compiles": engine.warmup_compiles,
+            "warmup_s": engine.warmup_seconds,
+            "graph_pool_bytes_two_replicas": pool_bytes,
+            "ledger_last_capture": ledger,
+            "requests": ENGINE_REQUESTS, "clients": ENGINE_CLIENTS,
+            "wall_s": wall, "requests_per_s": ENGINE_REQUESTS / wall,
+            "batches": batches, "k1_launches": k1, "cold_compiles": cold,
+            "sampled": len(errs),
+            "max_abs_err_vs_cpu": max(errs), "rtol": SERVE_RTOL,
+            "atol": SERVE_ATOL, "forward_by_bucket": profiles}
+
+
+def phase_serving_anatomy(mx):
+    """27b: the reqtrace phases of every completed request telescope."""
+    rt = mx.serving.reqtrace
+    recs = rt.tracer.records()
+    worst = max(abs(sum(r["phases"].values()) - r["total"]) for r in recs)
+    att = rt.tracer.attribution()
+    verdict, _ = rt.classify(att["p99_shares"],
+                             shed_fraction=att["shed_fraction"],
+                             pad_waste=att["pad"].get("waste_ratio"))
+    check(len(recs) == ENGINE_REQUESTS and worst <= TELESCOPE_ATOL
+          and all(set(r["phases"]) == set(rt.PHASES) for r in recs),
+          "%d traces, phases off their wall latency by up to %.3g s"
+          % (len(recs), worst))
+    return {"traces": len(recs), "worst_telescope_error_s": worst,
+            "latency_s": att["latency"], "p50_shares": att["p50_shares"],
+            "p99_shares": att["p99_shares"], "pad": att["pad"],
+            "verdict": verdict}
+
+
+def phase_serving_http(mx, engine, ref, rng):
+    """27c: /predict with and without X-Request-Id, /metrics, /healthz,
+    an unknown route."""
+    server = mx.serving.serve(engine, port=0)
+    try:
+        echoed, served = [], []
+        for i in range(HTTP_REQUESTS):
+            toks = tokens(rng, 1 + i % 3)
+            rid = "smoke-http-%d" % i if i else None
+            code, headers, body = http_call(
+                server.port, "/predict", {"inputs": {"data": toks.tolist()}},
+                rid=rid)
+            check(code == 200, "/predict answered %d" % code)
+            served.append((toks, np.asarray(json.loads(body)["outputs"][0],
+                                            np.float32)))
+            echoed.append(headers.get("X-Request-Id"))
+        code, headers, body = http_call(server.port, "/nope", rid="lost-1")
+        missing = (code, headers.get("X-Request-Id"),
+                   json.loads(body).get("request_id"))
+        code, _, text = http_call(server.port, "/metrics")
+        text = text.decode()
+        code_h, _, health = http_call(server.port, "/healthz")
+        health = json.loads(health)
+    finally:
+        server.shutdown()
+        server.server_close()
+    for toks, out in served:      # after /healthz read cold_compiles
+        compare(out, ref(toks), "/predict output")
+    st = engine.stats()
+    batches = sum(v["batches"] for v in st["padding"]["buckets"].values())
+    ok = prom_value(text, "serving_requests_total", status="ok")
+    sent = ENGINE_REQUESTS + HTTP_REQUESTS
+    row = {"ok_requests_in_metrics": ok, "requests_sent": sent,
+           "batches_in_metrics": prom_value(text, "serving_batches_total"),
+           "batches_in_stats": batches, "echoed_ids": echoed,
+           "unknown_route": missing, "healthz": {
+               k: health.get(k) for k in (
+                   "status", "cold_compiles", "warmup_compiles",
+                   "headroom_bytes", "peak_fraction", "queue_depth",
+                   "pending", "workers_alive", "slo")}}
+    check(code == 200 and ok == sent
+          and row["batches_in_metrics"] == batches,
+          "/metrics counts %s" % row)
+    check(re.fullmatch(r"[0-9a-f]{16}", echoed[0] or "") is not None
+          and echoed[1:] == ["smoke-http-%d" % i
+                             for i in range(1, HTTP_REQUESTS)],
+          "X-Request-Id echoed as %s" % echoed)
+    check(missing == (404, "lost-1", "lost-1"), "an unknown route answered "
+          "%s" % (missing,))
+    check(code_h == 200 and health["cold_compiles"] == 0
+          and isinstance(health.get("headroom_bytes"), int),
+          "/healthz answered %d %s" % (code_h, row["healthz"]))
+    return row
+
+
+def phase_serving_chaos(mx, engine, tmp):
+    """27d: one worker death fails only its batch and respawns; a slow
+    request's stall lands in batch_wait."""
+    tel = mx.telemetry
+    os.environ["MXNET_TELEMETRY_DIR"] = tmp
+    try:
+        deaths = telemetry_count(mx, "serving_worker_deaths_total",
+                                 replica="0") + telemetry_count(
+            mx, "serving_worker_deaths_total", replica="1")
+        errors = telemetry_count(mx, "serving_requests_total",
+                                 status="error")
+        mx.chaos.arm("serving.worker_death")
+        died = None
+        try:
+            engine.predict({"data": tokens(np.random.RandomState(0), 3)},
+                           timeout=300, rid="smoke-death")
+        except mx.MXNetError as exc:
+            died = str(exc)
+        ok = 0
+        for i in range(REQUESTS_AFTER_DEATH):
+            out = engine.predict({"data": tokens(np.random.RandomState(i),
+                                                 1 + i % 4)}, timeout=300)[0]
+            ok += out.shape == (1 + i % 4, SEQ, VOCAB)
+        deaths = telemetry_count(mx, "serving_worker_deaths_total",
+                                 replica="0") + telemetry_count(
+            mx, "serving_worker_deaths_total", replica="1") - deaths
+        respawns = telemetry_count(mx, "serving_worker_respawns_total")
+        errors = telemetry_count(mx, "serving_requests_total",
+                                 status="error") - errors
+        dump = os.path.join(tmp, "flightrecorder-host%d.json"
+                            % tel.host_id())
+        reason = json.load(open(dump))["reason"] if os.path.exists(dump) \
+            else None
+    finally:
+        os.environ.pop("MXNET_TELEMETRY_DIR", None)
+        mx.chaos.clear()
+    row = {"failed_request": died, "deaths": deaths, "respawns": respawns,
+           "error_requests": errors, "ok_after": ok,
+           "workers_alive": engine.stats()["workers_alive"],
+           "flight_recorder_reason": reason,
+           "cold_compiles": engine.cold_compiles()}
+    check(died is not None and "worker died" in died and deaths == 1
+          and respawns == 1 and errors == 1
+          and ok == REQUESTS_AFTER_DEATH
+          and row["workers_alive"] == SERVING_REPLICAS
+          and reason == "serving.worker_death"
+          and row["cold_compiles"] == 0,
+          "a worker death: %s" % row)
+    mx.serving.reqtrace.reset()
+    with mx.chaos.armed("serving.slow_request", value=str(SLOW_REQUEST_S)):
+        engine.predict({"data": tokens(np.random.RandomState(1), 2)},
+                       timeout=300)
+    rec, = mx.serving.reqtrace.tracer.records()
+    row["slow_request_phases"] = rec["phases"]
+    check(rec["phases"]["batch_wait"] >= SLOW_REQUEST_S
+          and max(rec["phases"], key=rec["phases"].get) == "batch_wait",
+          "the %.1f s stall landed in %s" % (SLOW_REQUEST_S, rec["phases"]))
+    return row
+
+
+def phase_serving_admission(mx, sym_json, params):
+    """27e: a projection above the card's free memory is refused before
+    any replica binds."""
+    free, total = torch.cuda.mem_get_info()
+    per_replica = mx.xla_stats.tree_shard_bytes(params)
+    replicas = int(total // per_replica) + 1
+    mem0 = torch.cuda.memory_allocated()
+    compiles = mx.compiled.compile_counts()["compiles"]
+    refused = None
+    try:
+        mx.serving.InferenceEngine(sym_json, params,
+                                   input_shapes={"data": (SEQ,)},
+                                   ctx=[mx.gpu(0)] * replicas)
+    except mx.memprof.MemoryAdmissionError as exc:
+        refused = exc.decision
+    row = {"replicas": replicas, "projected_bytes": per_replica * replicas,
+           "free_bytes": free, "decision": refused,
+           "allocated_delta": torch.cuda.memory_allocated() - mem0,
+           "compiles": mx.compiled.compile_counts()["compiles"] - compiles}
+    check(refused is not None and not refused["admitted"]
+          and row["projected_bytes"] > free and row["allocated_delta"] == 0
+          and row["compiles"] == 0,
+          "admission of %d replicas: %s" % (replicas, row))
+    return row
+
+
+def phase_serving_bench(mx, sym_json, params, rate):
+    """27f: tools/serve_bench.py on the LM: a closed loop of 16 clients,
+    then open loops at fractions of its rate."""
+    from mxnet_tpu_torch.tools import serve_bench
+
+    def factory():
+        return serving_engine(mx, sym_json, params), "data", (SEQ,)
+
+    per_client = max(10, int(np.ceil(SERVE_BENCH_S * rate
+                                     / SERVE_BENCH_CLIENTS)))
+    runs = {"closed": serve_bench.bench_records(
+        clients=SERVE_BENCH_CLIENTS, requests_per_client=per_client,
+        mode="closed", engine_factory=factory)}
+    closed = {r["metric"]: r for r in runs["closed"]}
+    rps = closed["serving_closed_rps"]["value"]
+    for frac in SERVE_BENCH_OPEN:
+        runs["open %.1f" % frac] = serve_bench.bench_records(
+            qps=frac * rps, seconds=SERVE_BENCH_S, mode="open",
+            engine_factory=factory)
+    rows = {}
+    for key, recs in runs.items():
+        mode = key.split()[0]
+        by = {r["metric"]: r for r in recs}
+        rows[key] = {q: by["serving_%s_%s" % (mode, q)]["value"]
+                     for q in ("rps", "rows_per_sec", "p50_ms", "p95_ms",
+                               "p99_ms")}
+        rows[key].update(
+            verdict=by["serving_%s_p99_ms" % mode].get("verdict"),
+            p99_phases=by["serving_%s_p99_ms" % mode].get("phases"),
+            cold_compiles=by["serving_cold_compiles"]["value"],
+            warmup_compiles=by["serving_warmup_compiles"]["value"],
+            failed={m: r["value"] for m, r in by.items()
+                    if m.endswith("_total")})
+        log("phase 27f serve_bench %s %s" % (key, json.dumps(rows[key])))
+        check(all(np.isfinite(rows[key][q]) and rows[key][q] > 0
+                  for q in ("rps", "p50_ms", "p95_ms", "p99_ms"))
+              and rows[key]["cold_compiles"] == 0,
+              "serve_bench %s read %s" % (key, rows[key]))
+    rows["requests_per_client_closed"] = per_client
+    return rows
+
+
+def phase_serving_c_abi(mx, sym_json, params, tmp):
+    """27g: the MXPred* C client on device type 2 against the Python
+    Predictor on gpu(0), and its bad-argument exit (its failed calls,
+    which end in MXGetLastError's message, are held on the CPU by
+    tests/test_torch_c_predict.py)."""
+    from mxnet_tpu_torch import native
+    t0 = time.perf_counter()
+    client = native.predict_client()
+    build_s = time.perf_counter() - t0
+    sym_path = os.path.join(tmp, "lm-symbol.json")
+    par_path = os.path.join(tmp, "lm.params")
+    with open(sym_path, "w") as fh:
+        fh.write(sym_json)
+    mx.nd.save(par_path, params)
+    toks = tokens(np.random.RandomState(27), C_CLIENT_BATCH)
+    pred = mx.Predictor(sym_json, params, ctx=mx.gpu(0),
+                        input_shapes={"data": toks.shape})
+    pred.forward(data=toks)
+    want = pred.get_output(0)
+
+    def run(*args):
+        return subprocess.run([str(client), sym_path, par_path] + list(args),
+                              input=toks.tobytes(), capture_output=True,
+                              env=native.client_env(), timeout=300)
+
+    t0 = time.perf_counter()
+    out = run("data", "2", str(C_CLIENT_BATCH), str(SEQ))
+    client_s = time.perf_counter() - t0
+    check(out.returncode == 0, "the C client exited %d: %s"
+          % (out.returncode, out.stderr.decode()[-2000:]))
+    got = np.frombuffer(out.stdout, np.float32)
+    check(got.size == want.size, "the C client wrote %d values, want %d"
+          % (got.size, want.size))
+    got = got.reshape(want.shape)
+    err = float(np.abs(got - want).max())
+    check(np.allclose(got, want, rtol=C_CLIENT_RTOL, atol=C_CLIENT_ATOL),
+          "the C client's output differs from the Predictor's by %.3g" % err)
+    bad = run("data", "3", str(C_CLIENT_BATCH), str(SEQ))
+    row = {"build_s": build_s, "client_s": client_s, "max_abs_err": err,
+           "rtol": C_CLIENT_RTOL, "atol": C_CLIENT_ATOL,
+           "bad_argument_exit": bad.returncode,
+           "bad_argument_message": bad.stderr.decode()[-300:]}
+    check(bad.returncode == 2 and "bad device type" in
+          row["bad_argument_message"],
+          "the C client's bad-argument exit: %s" % row)
+    return row
+
+
+def phase_serving(mx, sym_json, host, ref, card):
+    """Phase 27 (run by ``serving_main``): the serving stack at the LM's
+    full width on gpu(0), every hook of the JAX engine on (see the module
+    docstring); returns K1's launches and the phase's rows."""
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(SEED + 27)
+    mx.telemetry.reset()          # /metrics counts from here
+    params = mx.params_from_numpy(host, mx.cpu())
+    counters = {"fused_lstm": mx.ops.fused_lstm,
+                "fused_lstm_train": mx.ops.fused_lstm_train,
+                "lstm_bwd_recurrence": mx.ops.lstm_bwd_recurrence,
+                "conv1x1_s2_dgrad": mx.ops.conv1x1_s2_dgrad,
+                "flash_attention": mx.ops.flash_attention,
+                "rtc": mx.rtc.Kernel,
+                "multi_tensor_update": mx.ops.multi_tensor_update,
+                "greedy_nms": mx.ops.greedy_nms,
+                "sparse_row_update": mx.ops.sparse_row_update}
+    for c in counters.values():           # the serving path starts here
+        c.launches = 0
+    rows = {"card": card}
+    # the CPU reference compiles its predictors (every request size of
+    # the phase) before the engine warms: the compile count is the
+    # process's, and nothing else may compile while the engine serves
+    for n in range(1, 9):
+        ref(tokens(rng, n))
+    engine = serving_engine(mx, sym_json, params, warmup=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            rows["a"] = phase_serving_compiles(mx, engine, ref, rng)
+            log("phase 27a compiles %s" % json.dumps(rows["a"]))
+            rows["b"] = phase_serving_anatomy(mx)
+            log("phase 27b anatomy %s" % json.dumps(rows["b"]))
+            rows["c"] = phase_serving_http(mx, engine, ref, rng)
+            log("phase 27c http %s" % json.dumps(rows["c"]))
+            rows["d"] = phase_serving_chaos(mx, engine, tmp)
+            log("phase 27d chaos %s" % json.dumps(rows["d"]))
+        finally:
+            engine.shutdown()
+        del engine
+        torch.cuda.empty_cache()
+        rows["e"] = phase_serving_admission(mx, sym_json, params)
+        log("phase 27e admission %s" % json.dumps(rows["e"]))
+        rows["f"] = phase_serving_bench(mx, sym_json, params,
+                                        rows["a"]["requests_per_s"])
+        rows["g"] = phase_serving_c_abi(mx, sym_json, params, tmp)
+        log("phase 27g C ABI %s" % json.dumps(rows["g"]))
+    launches = {k: c.launches for k, c in counters.items()}  # ... ends here
+    swallowed = telemetry_count(mx, "errors_swallowed_total")
+    log("phase 27 serving %s" % json.dumps({
+        "kernel_launches": launches, "errors_swallowed": swallowed,
+        "card": card, "seconds": time.perf_counter() - t_phase}))
+    check(launches["fused_lstm"] > 0
+          and not any(n for k, n in launches.items() if k != "fused_lstm"),
+          "the serving path launched %s: want K1 only" % launches)
+    check(swallowed == 0, "%d errors swallowed across phase 27" % swallowed)
+    return launches["fused_lstm"], rows
+
+
+SERVING_TIMEOUT_S = 600
+
+
+def serving_main():
+    """Phase 27 in a process of its own (a fresh tracer, registry and
+    allocator: late in the whole script the profiler's traces lose device
+    events, PERF.md §7); prints its lines, then one JSON line with K1's
+    launches."""
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = nvidia_smi()
+    sym_json = lm_symbol(mx).tojson()
+    host = lm_params(lm_symbol(mx), SEED)
+    ref = Reference(mx, sym_json, mx.params_from_numpy(host, mx.cpu()))
+    launches, _ = phase_serving(mx, sym_json, host, ref, card)
+    print(json.dumps({"phase": "27", "fused_lstm_launches": launches}),
+          flush=True)
+    return 0
+
+
+def phase_serving_process():
+    """Phase 27: ``serving_main`` in a process of its own; its lines are
+    logged, K1's launches returned."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--serving"],
+        capture_output=True, text=True, timeout=SERVING_TIMEOUT_S)
+    for line in out.stdout.splitlines():
+        if line.startswith("phase 27"):
+            log(line)
+    check(out.returncode == 0, "the serving process exited %d: %s"
+          % (out.returncode, out.stderr[-4000:]))
+    last = json.loads(out.stdout.splitlines()[-1])
+    log("phase 27 seconds %.1f" % (time.perf_counter() - t0))
+    return last["fused_lstm_launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs the port on the GPU",
@@ -6701,9 +7278,15 @@ def main():
           % (k2, k3, LAYERS * steps, LAYERS, steps))
     check(u1_lm == steps, "the LM's SGD (momentum 0, clip 0.25) launched "
           "U1 %d times in %d steps, want one a step" % (u1_lm, steps))
-    check(summary["k1_launches_by_score"] == LAYERS * EVAL_BATCHES,
-          "score launched fused_lstm %d times, want %d"
-          % (summary["k1_launches_by_score"], LAYERS * EVAL_BATCHES))
+    # score's inference forwards: a replay a batch, and each signature's
+    # capture runs the forward WARMUP_RUNS times before it
+    want = LAYERS * (EVAL_BATCHES + mx.compiled.WARMUP_RUNS
+                     * summary["score_compiles"])
+    check(summary["score_compiles"] == 1
+          and summary["k1_launches_by_score"] == want,
+          "score compiled %d signatures and launched fused_lstm %d times, "
+          "want 1 and %d" % (summary["score_compiles"],
+                             summary["k1_launches_by_score"], want))
     phase_train_profile(mod, rng, mx)
     del mod
 
@@ -6895,6 +7478,7 @@ def main():
     speech_launches, _ = phase_speech(
         mx, path, np.random.RandomState(SEED + 25))
     obs_launches = phase_observability(mx)
+    serving_launches = phase_serving_process()
 
     top = next(r for r in rows
                if (r["T"], r["B"]) == (SEQ, max(SERVED_BATCHES)))
@@ -6907,7 +7491,7 @@ def main():
         "name": "fused_lstm", "route": "cuda", "source": recurrence_src,
         "replaces": pallas + ":295",
         "launches": (launches + rnn_launches["fused_lstm"]
-                     + speech_launches["fused_lstm"]),
+                     + speech_launches["fused_lstm"] + serving_launches),
         "max_abs_err": worst,
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
@@ -7007,5 +7591,6 @@ def main():
 if __name__ == "__main__":
     sys.exit({"--speech-profile": speech_profile_main,
               "--observability": observability_main,
+              "--serving": serving_main,
               "--observability-telemetry": observability_telemetry_main,
               }.get(" ".join(sys.argv[1:]), main)())

@@ -16,7 +16,9 @@ fire ``N`` times (default 1) carrying ``value``; comma-separated
 entries.
 
 The port polls the ``memory.oom`` site, from memprof's dispatch hook
-(`memprof.on_dispatch`); the other sites of the registry keep their
+(`memprof.on_dispatch`), and the serving engine's
+``serving.slow_request`` and ``serving.worker_death`` sites before each
+batch (`serving/engine.py`); the other sites of the registry keep their
 names so that a spec written for the JAX package parses here too.
 """
 from __future__ import annotations

@@ -58,7 +58,10 @@ A call under ``autograd.record()`` has a signature of its own, counted
 like any other (one compile, then hits), which runs eagerly on the card
 too, with the tape on: a graph's replay returns clones that carry no
 ``grad_fn``, so it cannot be differentiated. Capturing the forward and
-backward of a training step is not ported yet.
+backward of a training step is not ported yet. The programs of the
+process are the compiled Gluon blocks (site ``gluon.hybrid_forward``)
+and the executors' inference forwards (site ``executor.forward``,
+`executor.py`), which serve the `Predictor` and the serving engine.
 
 A program whose function calls an op that runs Python on the host
 (``Custom``, ``CTCLoss``, which call :func:`note_host_op`) cannot be
@@ -94,8 +97,9 @@ Each call outside a capture is memprof's dispatch sample (and its
 ``memory.oom`` chaos poll); a CUDA out-of-memory error at a call or a
 compile is raised as ``memprof.DeviceOOMError``; with the profiler's
 aggregate mode on, each call is one entry of its table, named by the
-site. Not ported: ``shardprof``, the sharding-policy slot and buffer
-donation.
+site (unless the program is made with ``timed=False``: the executor
+times its forward as ``_executor_forward``, as the JAX package does).
+Not ported: ``shardprof``, the sharding-policy slot and buffer donation.
 """
 from __future__ import annotations
 
@@ -464,15 +468,17 @@ class CompiledProgram:
     ``key_argnums`` only seed random ops (a Gluon call's ``key``), so
     their scalars are keyed by type on CUDA too;
     ``arg_names`` maps an argument index to the names of its leaves, for
-    the retrace explanation. ``lineage`` scopes retrace detection as in
-    the JAX package: programs sharing ``(site, lineage)`` (the rebuilt
-    programs of one Gluon block) diff against each other; by default this
-    program only.
+    the retrace explanation; ``timed=False`` leaves the program's calls
+    out of the profiler's aggregate table (its caller times them).
+    ``lineage`` scopes retrace detection as in the JAX package: programs
+    sharing ``(site, lineage)`` (the rebuilt programs of one Gluon block)
+    diff against each other; by default this program only.
     """
 
     def __init__(self, fun, site, static_argnums=(), inplace_argnums=(),
-                 key_argnums=(), lineage=None, arg_names=None):
+                 key_argnums=(), lineage=None, arg_names=None, timed=True):
         self.site = site
+        self._timed = timed
         self._fun = fun
         self._lineage = (site, lineage if lineage is not None else id(self))
         self._static = frozenset(static_argnums)
@@ -540,7 +546,7 @@ class CompiledProgram:
             if oom is not None:
                 raise oom from exc
             raise
-        if profiler.aggregate_enabled():
+        if self._timed and profiler.aggregate_enabled():
             profiler.finish_timed(self.site, t0, out)
         return out
 

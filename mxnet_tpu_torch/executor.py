@@ -5,14 +5,23 @@ Counterpart of `mxnet_tpu/executor.py`: ``simple_bind`` (with
 reference's shared-buffer rebind for bucketing), ``bind``, ``forward``,
 ``backward``, ``forward_backward``, ``reshape`` and ``copy_params_from``,
 with auxiliary states (BatchNorm's moving statistics) in ``aux_dict``.
-The JAX package jits the whole graph into one XLA program and
-differentiates it with ``jax.vjp``; the port runs the ops eagerly in
-topological order, so there is no counterpart to `compiled.py` here and
-each op launches its own kernels. A training forward (``is_train=True``)
-records the graph with ``torch.autograd`` from leaf copies of the
-arguments that take a gradient, writes the new aux values back in place,
-and the following ``backward`` writes the gradients into ``grad_dict``;
-any other forward runs under ``torch.no_grad()``.
+The JAX package jits the whole graph into one XLA program per signature
+(site ``executor.forward``) and differentiates it with ``jax.vjp``. In
+the port an inference forward (``is_train=False``, no monitor) goes
+through one `compiled.CompiledProgram` at the same site: on the card one
+captured CUDA graph per signature, replayed with one ``cudaGraphLaunch``;
+on the CPU the same cache and counters, run eagerly. The bound argument
+and auxiliary tensors are the program's in-place arguments, so a replay
+reads them where they lie and needs no input copy, and an executor that
+``simple_bind(shared_exec=)`` or ``reshape`` makes over the same symbol
+shares its program (one signature a shape, one graph pool for all). A
+graph that would hold an op drawing random numbers, or one running on the
+host (``Custom``, ``CTCLoss``), is not captured (`compiled.note_host_op`)
+and runs eagerly, counted as ``uncaptured``. A training forward
+(``is_train=True``) runs the ops eagerly in topological order: it records
+the graph with ``torch.autograd`` from leaf copies of the arguments that
+take a gradient, writes the new aux values back in place, and the
+following ``backward`` writes the gradients into ``grad_dict``.
 
 Two graph passes of the JAX executor run at bind, on by default with the
 same switches, so both packages compute the same graph: the conv-bias ->
@@ -20,8 +29,9 @@ BatchNorm fold (``MXNET_FOLD_CONV_BIAS_BN=0`` skips it) and the relu ->
 max-pool fold (``MXNET_FOLD_RELU_POOL=0``).
 
 ``set_monitor_callback`` installs a monitor (`monitor.Monitor`): every
-forward then calls it on each node's output (``<node>_output``, or
-``<node>_output<i>`` for a node of several outputs) and, with
+forward then runs eagerly and calls it on each node's output
+(``<node>_output``, or ``<node>_output<i>`` for a node of several
+outputs) and, with
 ``monitor_all``, on each variable, as the JAX package's monitored
 evaluation does. The graph then runs without the two folds, so that
 each node's reported output is the node's own, as in the JAX package.
@@ -36,6 +46,7 @@ import time
 
 import torch
 
+from . import compiled
 from . import random as _random
 from .base import MXNetError
 from .ndarray.ndarray import NDArray, zeros as nd_zeros
@@ -166,6 +177,9 @@ def _build_eval(sym: Symbol, ctx, fold=True):
                 params["_is_train"] = is_train
             if op.need_rng:
                 params["_generator"] = generator
+                if op.draws(params):
+                    # a graph would replay the captured draws
+                    compiled.note_host_op(n.op)
             fold = folds.get(id(n))
             if fold is not None:
                 if fold[0] == "bypass":
@@ -213,9 +227,55 @@ def _norm_req(grad_req, arg_names):
     return req
 
 
+def _draws(sym: Symbol, ctx, is_train):
+    """Whether a forward of ``sym`` (training or not) calls an op that
+    draws random numbers."""
+    for n in sym._topo_nodes():
+        if n.is_var():
+            continue
+        op = get_op(n.op)
+        if not op.need_rng:
+            continue
+        params = {k: v for k, v in n.attrs.items() if k != "__attrs__"}
+        params["_ctx"] = ctx
+        if op.need_train_flag:
+            params["_is_train"] = is_train
+        if op.draws(params):
+            return True
+    return False
+
+
+def _inference_program(symbol, ctx, eval_fn):
+    """The compiled inference forward of ``symbol`` on ``ctx``:
+    ``program(arg tensors, aux tensors, seed)`` -> output tensors, the
+    tensors in ``list_arguments`` / ``list_auxiliary_states`` order and
+    read in place; ``seed`` seeds the forward's generator (None: no op of
+    the graph draws in inference, and a capture must not make one)."""
+    arg_names = symbol.list_arguments()
+    aux_names = symbol.list_auxiliary_states()
+    device = ctx.torch_device()
+
+    def forward(args, auxs, seed):
+        gen = None
+        if seed is not None:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed)
+        with torch.no_grad():
+            outs, _ = eval_fn(dict(zip(arg_names, args)),
+                              dict(zip(aux_names, auxs)), gen, False)
+        return outs
+
+    # a lineage token of its own: the id() of a collected symbol is
+    # reused by later objects
+    return compiled.CompiledProgram(
+        forward, "executor.forward", inplace_argnums=(0, 1),
+        key_argnums=(2,), lineage=object(),
+        arg_names={0: arg_names, 1: aux_names}, timed=False)
+
+
 class Executor:
     def __init__(self, symbol, ctx, arg_dict, grad_dict=None, grad_req=None,
-                 aux_dict=None):
+                 aux_dict=None, program=None):
         self._symbol = symbol
         self._ctx = ctx
         self._device = ctx.torch_device()
@@ -233,8 +293,11 @@ class Executor:
         self._grad_names = [n for n in self._arg_names
                             if self._grad_req.get(n, "null") != "null"]
         self._eval_fn = _build_eval(symbol, ctx)
+        self._program = program if program is not None else \
+            _inference_program(symbol, ctx, self._eval_fn)
         self._need_rng = any(get_op(n.op).need_rng
                              for n in symbol._topo_nodes() if not n.is_var())
+        self._infer_draws = _draws(symbol, ctx, False)
         # one generator seed per forward, from a per-executor base that
         # `random.seed` fixes
         self._seed = _random.executor_seed(ctx)
@@ -250,7 +313,8 @@ class Executor:
         moving statistics stay f32 under bf16 parameters), and a gradient
         buffer for each argument whose ``grad_req`` is not ``null``;
         arrays of ``shared_exec`` with the same name and shape are shared,
-        not copied."""
+        not copied, and so is its inference program when it is bound over
+        the same symbol on the same device."""
         arg_shapes, _ = _graph_infer(symbol, kwargs, type_dict=type_dict)
         type_dict = type_dict or {}
         req = _norm_req(grad_req, symbol.list_arguments())
@@ -283,7 +347,12 @@ class Executor:
             else:
                 aux_dict[name] = nd_zeros(shape, ctx=ctx,
                                           dtype=type_dict.get(name))
-        ex = Executor(symbol, ctx, arg_dict, grad_dict, req, aux_dict)
+        program = None
+        if shared_exec is not None and shared_exec._symbol is symbol \
+                and shared_exec._ctx == ctx:
+            program = shared_exec._program
+        ex = Executor(symbol, ctx, arg_dict, grad_dict, req, aux_dict,
+                      program=program)
         ex._type_dict = dict(type_dict)
         return ex
 
@@ -313,12 +382,21 @@ class Executor:
                                     type_dict=self._type_dict,
                                     shared_exec=self, **kwargs)
 
-    def _generator(self):
+    def _next_seed(self):
+        """The seed of this forward's generator, or None when no op of
+        the graph takes one."""
         if not self._need_rng:
             return None
-        gen = torch.Generator(device=self._device)
-        gen.manual_seed(self._seed)
+        seed = self._seed
         self._seed = (self._seed + 1) & ((1 << 63) - 1)
+        return seed
+
+    def _generator(self):
+        seed = self._next_seed()
+        if seed is None:
+            return None
+        gen = torch.Generator(device=self._device)
+        gen.manual_seed(seed)
         return gen
 
     def set_monitor_callback(self, callback, monitor_all=False):
@@ -342,10 +420,17 @@ class Executor:
         for k, v in kwargs.items():
             if k in self.arg_dict:
                 self.arg_dict[k][:] = v
+        self._recorded = None
+        if not is_train and self._monitor is None:
+            seed = self._next_seed()    # the sequence steps every forward
+            outs = self._program([a.data for a in self.arg_arrays],
+                                 [a.data for a in self.aux_arrays],
+                                 seed if self._infer_draws else None)
+            self.outputs = [NDArray(v, self._ctx) for v in outs]
+            return self.outputs
         gen = self._generator()
         arg_vals = {n: a.data for n, a in self.arg_dict.items()}
         aux_vals = {n: a.data for n, a in self.aux_dict.items()}
-        self._recorded = None
         if is_train and self._grad_names:
             leaves = {n: arg_vals[n].detach().requires_grad_(True)
                       for n in self._grad_names}

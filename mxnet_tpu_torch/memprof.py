@@ -33,8 +33,9 @@ labels and report keys, over the CUDA caching allocator:
 - **Headroom and admission**: ``memory_headroom_bytes{device=}``
   scrape-time gauges and :func:`admit` (``limit x MXNET_MEM_FRACTION``
   against allocated bytes; ``MemoryAdmissionError`` and
-  ``admission_rejections_total``). The serving engine's call comes with
-  the serving hooks.
+  ``admission_rejections_total``). The serving engine calls :func:`admit`
+  before any replica binds, samples the timeline after each batch
+  (``serving.batch``) and carries :func:`health` in ``/healthz``.
 - **Reports**: per-host ``memprof_host<h>_pid<p>.json`` snapshots on
   :func:`telemetry.write_host_json`, merged by
   ``python -m mxnet_tpu_torch.memprof report [path|dir]``.

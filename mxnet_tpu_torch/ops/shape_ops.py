@@ -217,9 +217,12 @@ def _take_range(x, axis, sl):
         idx = [slice(None)] * x.dim()
         idx[axis] = sl
         return x[tuple(idx)]
-    rows = list(range(*sl.indices(x.shape[axis])))
-    return x.index_select(axis, torch.tensor(rows, dtype=torch.long,
-                                             device=x.device))
+    rows = range(*sl.indices(x.shape[axis]))
+    # the indices made on the device: a CUDA graph can hold that, not a
+    # copy from the host
+    return x.index_select(axis, torch.arange(
+        rows.start, rows.stop, rows.step, dtype=torch.long,
+        device=x.device))
 
 
 @register("slice", aliases=("crop",))
@@ -304,15 +307,22 @@ def _diag(params, x):
                            dim2=int(params.get("axis2", 1))),)
 
 
+def _host_ints(values, device):
+    """An int64 vector of host ints, filled on ``device`` (a CUDA graph
+    can hold fills, not a copy from the host)."""
+    return torch.stack([torch.full((), int(v), dtype=torch.int64,
+                                   device=device) for v in values]) \
+        if values else torch.zeros(0, dtype=torch.int64, device=device)
+
+
 @register("shape_array")
 def _shape_array(params, x):
-    return (torch.tensor(tuple(x.shape), dtype=torch.int64,
-                         device=x.device),)
+    return (_host_ints(x.shape, x.device),)
 
 
 @register("size_array")
 def _size_array(params, x):
-    return (torch.tensor([x.numel()], dtype=torch.int64, device=x.device),)
+    return (_host_ints([x.numel()], x.device),)
 
 
 def _reversed_axes(x):

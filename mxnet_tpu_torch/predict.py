@@ -18,6 +18,18 @@ reference C function         :class:`Predictor` method
 ``MXPredFree``               ``Predictor.close`` / del
 ==========================  =================================
 
+The bound executor's inference forward is one compiled program
+(`executor.py` over `compiled.py`): on the card one captured CUDA graph
+per input-shape signature, so a repeated ``forward`` is one replay. A
+predictor, its ``reshape`` and its ``sibling``s share that program, so
+each shape is one signature and all their graphs share one graph pool;
+two predictors built separately (the serving engine's replicas) have a
+program each, so their replays never wait on each other's lock.
+
+The ``_c_*`` functions at the end are the boundary of the ``MXPred*`` C
+ABI (`csrc/c_predict_api.cc`, built by `native.py`), which embeds CPython
+and calls them.
+
 The device defaults to ``gpu(0)``; without that CUDA device the
 constructor raises unless the caller passes ``ctx=cpu()``.
 """
@@ -220,3 +232,35 @@ def _c_create(symbol_json, param_bytes, dev_type, dev_id, input_keys,
               for k, s in zip(input_keys, input_shapes)}
     return Predictor(symbol_json, param_bytes, ctx=ctx, input_shapes=shapes,
                      output_names=list(output_names) or None)
+
+
+def _c_set_input(pred, key, memview, size):
+    """MXPredSetInput: ``size`` float32 values from a C buffer."""
+    arr = np.frombuffer(memview, dtype=np.float32, count=int(size))
+    bound = pred._exec.arg_dict.get(key)
+    if bound is None or key not in pred._input_names():
+        raise MXNetError("no input named %r; inputs are %s"
+                         % (key, sorted(pred._input_names())))
+    if int(size) != int(np.prod(bound.shape)):
+        raise MXNetError("input %r size %d != bound size %d"
+                         % (key, int(size), int(np.prod(bound.shape))))
+    pred.set_input(key, arr.reshape(bound.shape))
+
+
+def _c_get_output_bytes(pred, index):
+    """MXPredGetOutput: the output as float32 bytes."""
+    out = np.ascontiguousarray(pred.get_output(int(index)),
+                               dtype=np.float32)
+    return out.tobytes()
+
+
+def _c_output_shape(pred, index):
+    return tuple(int(d) for d in pred.get_output_shape(int(index)))
+
+
+def _c_reshape(pred, input_keys, input_shapes):
+    """MXPredReshape: a NEW predictor sharing the loaded parameters' device
+    buffers (and the compiled program); the original handle keeps its
+    shapes, as in the reference's c_predict_api."""
+    return pred.sibling({k: tuple(int(d) for d in s)
+                         for k, s in zip(input_keys, input_shapes)})

@@ -14,8 +14,8 @@ and `src/profiler/`:
 - ``set_config(aggregate_stats=True)`` enables the in-process aggregate
   table (reference `src/profiler/aggregate_stats.cc`): every eager op
   dispatch (`ops/invoke.py`), every executor ``forward`` and
-  ``forward_backward`` and every `compiled.CompiledProgram` call (one
-  entry a call, a CUDA graph replay included) is timed and folded into a
+  ``forward_backward`` and every other `compiled.CompiledProgram` call
+  (one entry a call, a CUDA graph replay included) is timed and folded into a
   per-name count/total/min/max/avg table; ``dumps()`` returns it.
   Ops that run inside a program's function are not timed there: the
   program's call is the entry, as a JAX compiled call is.

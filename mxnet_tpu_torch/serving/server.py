@@ -9,11 +9,26 @@ exposing
   engine rejections map to 429 (shed), 504 (deadline expired) and 503
   (draining/closed), a bad request to 400, a compute error to 500;
 - ``GET /healthz`` -- 200 with the engine's `stats()` while it accepts
-  work and a replica worker is alive, 503 otherwise;
+  work and a replica worker is alive, 503 otherwise (a draining engine
+  fails its health check first, so a balancer stops routing to it before
+  shutdown). The body carries the saturation signals (``queue_depth``,
+  ``pending``, ``slo.burn_rate`` per window), the compile counts
+  (``warmup_compiles``, ``cold_compiles``) and memprof's headroom triple
+  (``headroom_bytes``, ``peak_fraction``, ``admission_rejections_total``);
+- ``GET /metrics`` -- the whole telemetry registry as Prometheus text
+  (`telemetry.dumps()`);
 - ``POST /shutdown`` -- only with ``allow_shutdown=True``: drains the
-  engine and stops the server.
+  engine and stops the server;
+- any other route -- 404.
 
-``/metrics`` and ``X-Request-Id`` propagation are not ported yet.
+Request tracing (`serving/reqtrace.py`): every request gets a trace id
+-- the ``X-Request-Id`` header when the client sent one (sanitized),
+minted otherwise -- propagated into the engine's per-request anatomy,
+echoed back as an ``X-Request-Id`` response header on every route, and
+embedded as ``request_id`` in error bodies, so a failing request can be
+joined to its ``serving.request`` span in the telemetry JSONL. Every
+route also feeds ``serving_http_requests_total{route=,code=}`` and
+``serving_http_seconds{route=}``.
 
 CLI::
 
@@ -29,12 +44,15 @@ import argparse
 import json
 import logging
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from .. import telemetry
 from ..base import MXNetError
 from ..context import cpu, gpu
+from . import reqtrace
 from .engine import EngineConfig, InferenceEngine, RequestRejected
 
 __all__ = ["serve", "ServingHTTPServer", "main"]
@@ -46,32 +64,80 @@ MAX_BODY_BYTES = 64 << 20
 
 _REJECT_HTTP = {"shed": 429, "expired": 504, "closed": 503}
 
+PROM_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+_ROUTES = ("/predict", "/healthz", "/metrics", "/shutdown")
+
 
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
 
+    # set per request in _handle before route dispatch
+    _rid = None
+    _code = 0
+
     def log_message(self, fmt, *args):   # stderr spam -> debug log
         logger.debug("http: " + fmt, *args)
 
-    def _send_json(self, code, doc):
-        body = json.dumps(doc).encode("utf-8")
+    def _send(self, code, body, content_type):
+        self._code = code
         self.send_response(code)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
+        if self._rid:
+            self.send_header("X-Request-Id", self._rid)
         self.end_headers()
         self.wfile.write(body)
 
+    def _send_json(self, code, doc):
+        self._send(code, json.dumps(doc).encode("utf-8"),
+                   "application/json")
+
+    def _send_error(self, code, doc):
+        """An error body, carrying the request's trace id."""
+        self._send_json(code, dict(doc, request_id=self._rid))
+
+    def _handle(self, dispatch):
+        """Route wrapper: resolve the trace id (the client's
+        ``X-Request-Id`` or a minted one) and feed the per-route
+        status/latency series whatever the route does."""
+        self._rid = reqtrace.clean_request_id(
+            self.headers.get("X-Request-Id"))
+        self._code = 0
+        route = self.path if self.path in _ROUTES else "other"
+        t0 = time.monotonic()
+        try:
+            dispatch()
+        finally:
+            telemetry.histogram(
+                "serving_http_seconds",
+                help="HTTP handler wall time by route",
+                route=route).observe(time.monotonic() - t0)
+            telemetry.counter(
+                "serving_http_requests_total",
+                help="HTTP requests by route and status code",
+                route=route, code=str(self._code)).inc()
+
     def do_GET(self):
+        self._handle(self._get)
+
+    def do_POST(self):
+        self._handle(self._post)
+
+    def _get(self):
         if self.path == "/healthz":
             st = self.server.engine.stats()
             healthy = (not st["closed"] and not st["draining"]
                        and st["workers_alive"] > 0)
             st["status"] = "ok" if healthy else "unhealthy"
             self._send_json(200 if healthy else 503, st)
+        elif self.path == "/metrics":
+            self._send(200, telemetry.dumps().encode("utf-8"),
+                       PROM_CONTENT_TYPE)
         else:
-            self._send_json(404, {"error": "no route %r" % self.path})
+            self._send_error(404, {"error": "no route %r" % self.path})
 
-    def do_POST(self):
+    def _post(self):
         if self.path == "/predict":
             self._predict()
         elif self.path == "/shutdown" and self.server.allow_shutdown:
@@ -80,7 +146,7 @@ class _Handler(BaseHTTPRequestHandler):
             # thread or serve_forever deadlocks waiting on this request
             threading.Thread(target=self.server.stop, daemon=True).start()
         else:
-            self._send_json(404, {"error": "no route %r" % self.path})
+            self._send_error(404, {"error": "no route %r" % self.path})
 
     def _predict(self):
         try:
@@ -88,34 +154,35 @@ class _Handler(BaseHTTPRequestHandler):
         except ValueError:
             length = -1
         if length <= 0:
-            return self._send_json(400, {"error": "a JSON body with "
-                                                  "Content-Length is "
-                                                  "required"})
+            return self._send_error(400, {"error": "a JSON body with "
+                                                   "Content-Length is "
+                                                   "required"})
         if length > MAX_BODY_BYTES:
-            return self._send_json(413, {"error": "body of %d bytes "
-                                         "exceeds the %d byte cap"
-                                         % (length, MAX_BODY_BYTES)})
+            return self._send_error(413, {"error": "body of %d bytes "
+                                          "exceeds the %d byte cap"
+                                          % (length, MAX_BODY_BYTES)})
         try:
             doc = json.loads(self.rfile.read(length).decode("utf-8"))
             arrays = {str(k): np.asarray(v)
                       for k, v in doc["inputs"].items()}
             deadline_ms = doc.get("deadline_ms")
         except (ValueError, KeyError, TypeError, AttributeError) as exc:
-            return self._send_json(400, {"error": "bad request body: %s"
-                                         % exc})
+            return self._send_error(400, {"error": "bad request body: %s"
+                                          % exc})
         try:
             outs = self.server.engine.predict(arrays,
-                                              deadline_ms=deadline_ms)
+                                              deadline_ms=deadline_ms,
+                                              rid=self._rid)
         except RequestRejected as exc:
-            return self._send_json(_REJECT_HTTP.get(exc.status, 503),
-                                   {"error": str(exc),
-                                    "status": exc.status})
+            return self._send_error(_REJECT_HTTP.get(exc.status, 503),
+                                    {"error": str(exc),
+                                     "status": exc.status})
         except MXNetError as exc:   # validation: client's fault
-            return self._send_json(400, {"error": str(exc)})
+            return self._send_error(400, {"error": str(exc)})
         except Exception as exc:    # compute/engine failure: ours
             logger.exception("predict failed")
-            return self._send_json(500, {"error": repr(exc),
-                                         "status": "error"})
+            return self._send_error(500, {"error": repr(exc),
+                                          "status": "error"})
         self._send_json(200, {"outputs": [o.tolist() for o in outs],
                               "shapes": [list(o.shape) for o in outs]})
 
@@ -150,6 +217,12 @@ class ServingHTTPServer(ThreadingHTTPServer):
         if self._thread is not None and \
                 self._thread is not threading.current_thread():
             self._thread.join(timeout=30)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self.stop()
 
     def join(self, timeout=None):
         """Wait for the serve thread to stop (after ``/shutdown`` or
@@ -224,6 +297,7 @@ def main(argv=None):
     print("SERVING %s" % json.dumps({
         "host": args.host, "port": server.port, "ctx": args.ctx,
         "buckets": engine.buckets,
+        "warmup_compiles": engine.warmup_compiles,
         "warmup_seconds": engine.warmup_seconds}), flush=True)
     try:
         server.serve_forever()

@@ -1940,3 +1940,174 @@ def test_peak_flops_of_the_card(cuda, monkeypatch):
         assert mxt.xla_stats.peak_flops_per_device("float32") > 0
     else:
         assert peak == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the serving stack: the executor's inference forward as one captured graph
+# a signature, shared by a Predictor's family; the C predict ABI on the
+# card. A small LM (vocab 50, widths 32, 2 layers, 6 steps), f32 with TF32
+# off, held against the same Predictor on the CPU to 1e-4 (K1 sums in its
+# own order).
+# ---------------------------------------------------------------------------
+SERVE_V, SERVE_W, SERVE_T = 50, 32, 6
+
+
+def _serve_lm():
+    data = mxt.sym.var("data")
+    x = mxt.sym.Embedding(data, input_dim=SERVE_V, output_dim=SERVE_W,
+                          name="embed")
+    x = mxt.sym.SwapAxis(x, dim1=0, dim2=1)
+    x = mxt.sym.RNN(x, state_size=SERVE_W, num_layers=2, mode="lstm",
+                    name="lstm")
+    x = mxt.sym.SwapAxis(x, dim1=0, dim2=1)
+    x = mxt.sym.FullyConnected(x, num_hidden=SERVE_V, flatten=False,
+                               name="decoder")
+    sym = mxt.sym.softmax(x, axis=-1)
+    shapes, _, _ = sym.infer_shape(data=(1, SERVE_T))
+    rng = np.random.RandomState(0)
+    params = {n: rng.uniform(-0.3, 0.3, s).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), shapes)
+              if n not in ("data", "lstm_state", "lstm_state_cell")}
+    return sym.tojson(), params
+
+
+def _serve_tokens(seed, rows):
+    return np.random.RandomState(seed).randint(
+        0, SERVE_V, (rows, SERVE_T)).astype(np.float32)
+
+
+def _serve_predictor(ctx, rows):
+    js, params = _serve_lm()
+    return mxt.Predictor(js, mxt.params_from_numpy(params, ctx), ctx=ctx,
+                         input_shapes={"data": (rows, SERVE_T)})
+
+
+def test_executor_inference_forward_is_one_replay(f32):
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch import compiled
+    pred = _serve_predictor(mxt.gpu(0), 4)
+    ref = _serve_predictor(mxt.cpu(), 4)
+    toks = _serve_tokens(1, 4)
+    before = compiled.compile_counts()
+    pred.forward(data=toks)                  # warm-ups, capture, a replay
+    first = pred.get_output(0)
+    k1 = fused_lstm.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pred.forward(data=toks)
+        torch.cuda.synchronize()
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.key.startswith("cuda")}
+    after = compiled.compile_counts()
+    assert after["compiles"] - before["compiles"] == 1
+    assert after["cache_hits"] - before["cache_hits"] == 1
+    assert after["uncaptured"] == before["uncaptured"]
+    (entry,) = pred._exec._program._cache.values()
+    assert isinstance(entry, compiled._Graph)
+    assert entry.launches == [(fused_lstm, "persistent")] * 2
+    assert fused_lstm.launches - k1 == 2
+    assert calls.get("cudaGraphLaunch") == 1
+    assert not any("LaunchKernel" in k for k in calls), calls
+    ref.forward(data=toks)
+    np.testing.assert_array_equal(pred.get_output(0), first)
+    np.testing.assert_allclose(first, ref.get_output(0), rtol=TOL, atol=TOL)
+
+
+def test_predictor_siblings_share_one_graph_pool(f32):
+    from mxnet_tpu_torch import compiled
+    base = _serve_predictor(mxt.gpu(0), 1)
+    sibs = {b: base.sibling({"data": (b, SERVE_T)}) for b in (2, 4)}
+    ref = _serve_predictor(mxt.cpu(), 1)
+    program = base._exec._program
+    for b, pred in sibs.items():
+        assert pred._exec._program is program
+        toks = _serve_tokens(b, b)
+        pred.forward(data=toks)
+        ref.reshape({"data": (b, SERVE_T)})
+        ref.forward(data=toks)
+        np.testing.assert_allclose(pred.get_output(0), ref.get_output(0),
+                                   rtol=TOL, atol=TOL)
+    assert len(program._cache) == 2
+    assert all(isinstance(e, compiled._Graph)
+               for e in program._cache.values())
+    assert program._pool is not None
+    other = _serve_predictor(mxt.gpu(0), 1)
+    assert other._exec._program is not program
+
+
+def test_moved_storage_retraces_under_load(f32):
+    """The control of ``cold_compiles``: after ``warm()`` it reads 0 under
+    load, and a bound weight whose storage moves is one recapture under
+    load, named by the retrace, whose replay reads the new storage."""
+    from mxnet_tpu_torch import compiled
+    js, params = _serve_lm()
+    eng = mxt.serving.InferenceEngine(
+        js, mxt.params_from_numpy(params, mxt.cpu()),
+        input_shapes={"data": (SERVE_T,)}, ctx=mxt.gpu(0),
+        config=mxt.serving.EngineConfig(max_batch_size=4))
+    ref = _serve_predictor(mxt.cpu(), 4)
+    try:
+        assert eng.warmup_compiles == len(eng.buckets)
+        toks = _serve_tokens(3, 4)
+        for _ in range(8):
+            eng.predict({"data": toks}, timeout=60)
+        assert eng.cold_compiles() == 0
+        w = eng._replicas[0].preds[4]._exec.arg_dict["decoder_weight"]
+        w._data = w._data.clone()
+        got = [eng.predict({"data": toks}, timeout=60)[0] for _ in range(4)]
+        assert eng.cold_compiles() == 1
+        reason = compiled.last_retrace()["reason"]
+        assert "decoder_weight" in reason and "storage moved" in reason
+        ref.forward(data=toks)
+        for out in got:
+            np.testing.assert_allclose(out, ref.get_output(0), rtol=TOL,
+                                       atol=TOL)
+    finally:
+        eng.shutdown()
+
+
+def test_c_client_on_the_card(cuda, tmp_path):
+    import subprocess
+    from mxnet_tpu_torch import native
+    js, params = _serve_lm()
+    sym_path, par_path = tmp_path / "lm.json", tmp_path / "lm.params"
+    sym_path.write_text(js)
+    mxt.nd.save(str(par_path), mxt.params_from_numpy(params, mxt.cpu()))
+    toks = _serve_tokens(4, 4)
+    pred = _serve_predictor(mxt.gpu(0), 4)
+    pred.forward(data=toks)
+    want = pred.get_output(0)
+    run = subprocess.run(
+        [str(native.predict_client()), str(sym_path), str(par_path), "data",
+         "2", "4", str(SERVE_T)], input=toks.tobytes(), capture_output=True,
+        env=native.client_env(), timeout=300)
+    assert run.returncode == 0, run.stderr.decode()[-2000:]
+    got = np.frombuffer(run.stdout, np.float32).reshape(want.shape)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_index_ops_built_on_the_device_capture(f32):
+    """``shape_array``, ``size_array`` and a negative-step slice made their
+    indices on the host and copied them over, which a capture refuses;
+    they fill them on the device, so an inference forward holding them is
+    one captured graph."""
+    from mxnet_tpu_torch import compiled
+    data = mxt.sym.var("data")
+    rev = mxt.sym.slice(data, begin=(None, None), end=(None, None),
+                        step=(1, -1))
+    out = mxt.sym.Group([rev, mxt.sym.shape_array(data),
+                         mxt.sym.size_array(data)])
+    x = np.random.RandomState(0).rand(3, 5).astype(np.float32)
+    got = {}
+    for ctx in (mxt.gpu(0), mxt.cpu()):
+        ex = out.simple_bind(ctx, grad_req="null", data=x.shape)
+        for _ in range(2):
+            outs = ex.forward(is_train=False, data=x)
+        got[ctx.device_type] = [o.asnumpy() for o in outs]
+        if ctx.device_type == "gpu":
+            (entry,) = ex._program._cache.values()
+            assert isinstance(entry, compiled._Graph)
+    for a, b in zip(got["gpu"], got["cpu"]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got["cpu"][0], x[:, ::-1])
+    assert list(got["cpu"][1]) == [3, 5] and list(got["cpu"][2]) == [15]

@@ -42,6 +42,8 @@ SPARSE = ["kvstore.py", "ndarray/sparse.py", "ops/compat_ops.py",
 OBSERVABILITY = ["threadsan.py", "telemetry.py", "chaos.py", "profiler.py",
                  "xplane.py", "monitor.py", "xla_stats.py", "stepprof.py",
                  "runprof.py", "memprof.py"]
+SERVING = ["serving/reqtrace.py", "serving/engine.py", "serving/server.py",
+           "native.py", "tools/serve_bench.py"]
 RNN = ["rnn/__init__.py", "rnn/rnn_cell.py", "rnn/io.py", "rnn/rnn.py",
        "module/bucketing_module.py", "gluon/rnn/__init__.py",
        "gluon/rnn/rnn_cell.py", "gluon/rnn/rnn_layer.py"]
@@ -56,6 +58,10 @@ def test_port_files_found():
     assert set(SPARSE) <= port
     assert set(RNN) <= port
     assert set(OBSERVABILITY) <= port
+    assert set(SERVING) <= port
+    for name in ("c_predict_api.cc", "error.cc", "error.h", "py_embed.h",
+                 "predict_client.c"):
+        assert (ROOT / "mxnet_tpu_torch" / "csrc" / name).exists(), name
     assert (ROOT / "mxnet_tpu_torch" / "csrc" /
             "sparse_row_update.cu").exists()
     from mxnet_tpu_torch.ops import _build
@@ -75,13 +81,13 @@ def test_no_finished_kernels(path):
         assert name not in text, "%s uses %s" % (_rel(path), name)
 
 
-@pytest.mark.parametrize("name", OBSERVABILITY)
+@pytest.mark.parametrize("name", OBSERVABILITY + SERVING)
 def test_observability_module_imports_no_jax(name):
-    """Each observability module, imported alone in a fresh process,
-    brings in neither JAX nor the JAX package."""
+    """Each observability and serving module, imported alone in a fresh
+    process, brings in neither JAX nor the JAX package."""
     import subprocess
     import sys
-    mod = "mxnet_tpu_torch." + name[:-3]
+    mod = "mxnet_tpu_torch." + name[:-3].replace("/", ".")
     code = ("import importlib, sys; importlib.import_module(%r); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu')]; print(bad); "
