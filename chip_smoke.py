@@ -196,14 +196,18 @@ the example's defaults (NCHW, f32, batch 32) with Adam at lr 1e-3, wd 1e-4,
 in one more:
 
 21. U1 against its plain version (a loop over `ops/optimizer_ops.py`) at
-    the shapes of ResNet-50's trainable parameters for each of its five
-    formulas (``sgd``, ``sgd_mom``, ``mp_sgd``, ``mp_sgd_mom``, ``adam``)
-    over f32
+    the shapes of ResNet-50's trainable parameters for each of its six
+    formulas (``sgd``, ``sgd_mom``, ``mp_sgd``, ``mp_sgd_mom``, ``adam``,
+    ``mp_adam``) over f32
     and bf16 weights, clipping off and on, ``rescale_grad`` 0.25,
-    per-tensor lrs and wds, 3 updates (f32 to rtol 1e-6, atol 1e-7; bf16
-    weights one bf16 step), 20 calls from the same inputs bit-identical,
+    per-tensor lrs and wds (0, 1 or 2 times 1e-4), 3 updates (f32 to rtol
+    1e-6, atol 1e-7; bf16 weights one bf16 step; the master-copy formulas'
+    weights and states bit for bit), 20 calls from the same inputs
+    bit-identical in weights and states,
     with kernel, plain and fused ``torch.optim`` times (the yardstick
-    only) and the bound, for (a)'s and (b)'s formulas; then phase 19's
+    only) and the bound, for (a)'s formula, (b)'s and ``mp_adam`` on bf16
+    weights (its yardstick fused ``torch.optim.Adam`` on the f32 masters
+    and a ``_foreach_copy_`` into the weights); then phase 19's
     card-vs-CPU check with (a)'s and with (b)'s optimizer (Adam at lr
     1e-4; phase 19's controls, and for Adam a third update without its
     bias correction, which must fail); the example's loop at full width
@@ -410,6 +414,42 @@ its own (``python3 chip_smoke.py --serving``), in one more:
     the ``Predictor`` on ``gpu(0)``, and its bad-argument exit code. Across
     the phase no error is swallowed.
 
+and then drives the breadth slice (Adam with ``multi_precision`` through
+U1's ``mp_adam`` formula, held against its plain function in phase 21,
+the model zoo, ``nd.linalg``, the rest of the compat ops, the file
+iterators, callbacks and ``FeedForward``), in a process of its own
+(``python3 chip_smoke.py --breadth``), in one more:
+
+28. ((a), U1's ``mp_adam`` against its plain function, runs in phase
+    21.) (b) ResNet-50 v1 through Gluon with ``Adam(multi_precision=True)`` in the image bench's
+    configuration (NHWC, bf16, batch 128, the gate on): phase 19's loop,
+    the loss falling, every weight's formula ``mp_adam``, U1 once and K5
+    6 times a step, a profiled step; 2 steps at batch 4 against
+    ``cpu()``, the CPU stepping from the card's gradients and states:
+    masters' updates and moments to GRAD_REL, every weight its master
+    rounded, Adam's bias-correction control failing; (c) each family's
+    flagship (AlexNet, VGG-16, SqueezeNet 1.1, MobileNet 1.0 and v2 1.0,
+    DenseNet-121 at 224, Inception-v3 at 299) served hybridized at batch
+    32, f32 NCHW: one compile, then replays, each one ``cudaGraphLaunch``
+    with no kernel launch; img/s; logits against eager on the card and
+    on ``cpu()`` at batch 2 to INFER_REL; (d) Inception-v3 and MobileNet
+    v2 trained through phase 19's loop (f32, batch 32, SGD momentum): the
+    loss falling, img/s, a profiled step; 2 steps at batch 4 against
+    ``cpu()`` on ZOO_CHECK_SEEDS seeds, each step's median leaf to
+    GRAD_REL and its worst to ZOO_GRAD_REL, beside the CPU's own floor
+    (its input moved one ulp), with a label-shifted and a momentum-less
+    control; (e) every linalg op at batch 64 of 128 x 128 against
+    ``cpu()``, forward and gradients, to LINALG_REL with a bf16-input
+    control; ``potrf``'s NaN on a non-PD entry; a hybridized Gaussian
+    log-likelihood captured or counted uncaptured, giving the eager
+    value; (f) the compat ops against ``cpu()``, the negative-binomial
+    samplers' moments over 2^20 draws; ``Module.fit`` fed by
+    ``CSVIter``, ``LibSVMIter``, ``MNISTIter``, ``PrefetchingIter`` and
+    ``ResizeIter`` against ``cpu()``; ``train_mnist.py --model-prefix``
+    through ``run_example`` under ``gpu(0)``, its checkpoints loaded by
+    ``model.load_checkpoint`` predicting alike on the card and the CPU;
+    ``FeedForward`` on ``gpu(0)`` against ``cpu()``.
+
 Phases 3-5 are the serving main path, phase 8 the LM training one,
 phase 11's gate-on steps on the card the ResNet one, phase 15's steps on
 the card the attention one, phase 16's first launches the rtc one,
@@ -421,8 +461,8 @@ check the optimizer one, phase 22's examples the detection one and phase
 checks (24d) the RNN one, phase 25's training, decoding, card-vs-CPU
 steps and examples (not its kernel and op checks) the speech one, and
 phase 26 (but 26b's CUDA-event timing of K5) the observability one,
-and phase 27 the serving stack's:
-every kernel's launch count is set to 0 before each and read after it.
+phase 27 the serving stack's, and phase 28 the breadth one: every kernel's launch count is set to 0 before each and
+read after it.
 The serving path must launch K1, every call by the persistent route; the
 LM training path must launch K2 and K3 exactly once per layer and step,
 and K1 once per layer and eval batch, K1, K2 and K3 by the persistent
@@ -440,27 +480,35 @@ and none of K1-K4 and K6; the detection path N1 and U1 in every example
 run and none of K1-K6; the sparse path S1 once a push and none of
 K1-K6 or N1; the RNN path K1, K2, K3 and U1, and no other; the speech
 path K1, K2, K3 and U1, and no other; the observability path K5 and U1,
-and no other; the serving stack's K1, and no other. A compiled inference
+and no other; the serving stack's K1, and no other; the breadth path K5
+(6 a gate-on step) and U1 (``mp_adam`` once a ResNet-50 step), and no
+other. A compiled inference
 forward counts K1 at each replay and at each of its capture's warm-up
 runs (`compiled.WARMUP_RUNS`), so the checks of a path that compiles
 add those. K5's launches in the kernels line are the ResNet path's,
-the Gluon path's and the observability path's; K1's, K2's and K3's add
-the RNN path's and the speech path's, and K1's the serving stack's;
-U1's are the optimizer path's, the RNN path's, the speech path's and
-the observability path's. Any failed check exits non-zero. The last lines
-are the card's name and power limit (``nvidia-smi``), one JSON line with
-every ported kernel's numbers, and the result line
-``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
-repository, it exits non-zero and prints no result.
+the Gluon path's, the observability path's and the breadth path's; K1's,
+K2's and K3's add the RNN path's and the speech path's, and K1's the
+serving stack's;
+U1's are the optimizer path's, the RNN path's, the speech path's, the
+observability path's and the breadth path's, and the line holds
+``mp_adam`` as an entry of its own (phase 21's numbers, 28b's
+launches). Any
+failed check exits non-zero. The last lines are the card's name and
+power limit (``nvidia-smi``), one JSON line with every ported kernel's
+numbers, and the result line ``{"ok": true, "device": {...}}``. Without
+a CUDA device, or outside the repository, it exits non-zero and prints
+no result.
 """
 from __future__ import annotations
 
 import contextlib
+import gzip
 import io
 import json
 import logging
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -671,11 +719,13 @@ OPT_B_CHECK = dict(OPT_B, learning_rate=1e-4)
 U1_RTOL, U1_ATOL = 1e-6, 1e-7
 U1_CALLS = 20
 # bytes a value and f32 operations a value of each U1 formula, by the
-# weight's (and gradient's) bytes: what it must read and write once
+# weight's (and gradient's) bytes: what it must read and write once (a
+# master-copy formula reads the f32 master, never the weight)
 U1_BYTES = {"sgd": lambda b: 3 * b, "sgd_mom": lambda b: 3 * b + 8,
             "mp_sgd": lambda b: 2 * b + 8, "mp_sgd_mom": lambda b: 2 * b + 16,
-            "adam": lambda b: 3 * b + 16}
-U1_OPS = {"sgd": 5, "sgd_mom": 7, "mp_sgd": 5, "mp_sgd_mom": 7, "adam": 14}
+            "adam": lambda b: 3 * b + 16, "mp_adam": lambda b: 2 * b + 24}
+U1_OPS = {"sgd": 5, "sgd_mom": 7, "mp_sgd": 5, "mp_sgd_mom": 7, "adam": 14,
+          "mp_adam": 14}
 # the five Adam examples at the arguments of tests/test_examples.py and the
 # line each of those tests asserts
 ADAM_EXAMPLES = [
@@ -3685,8 +3735,23 @@ def u1_bound(formula, dtype, values):
 
 
 def library_optimizer(formula, lists):
-    """One PyTorch call computing the update over the same tensors (fused
-    ``torch.optim.SGD`` or ``Adam``; never on the port's path), or None."""
+    """A step of PyTorch's library computing the update over the same
+    tensors (never on the port's path): fused ``torch.optim.SGD`` or
+    ``Adam``; for ``mp_adam`` fused ``Adam`` over the f32 masters, then
+    ``torch._foreach_copy_`` of the masters into the bf16 weights."""
+    if formula == "mp_adam":
+        params = [st[-1].clone().requires_grad_() for _, _, st in lists]
+        for p, (_, g, _) in zip(params, lists):
+            p.grad = g.float()
+        weights = [w.clone() for w, _, _ in lists]
+        opt = torch.optim.Adam(params, lr=1e-3, weight_decay=1e-4,
+                               fused=True)
+
+        def step():
+            opt.step()
+            with torch.no_grad():
+                torch._foreach_copy_(weights, params)
+        return step
     params = []
     for w, g, _ in lists:
         p = w.clone().requires_grad_()
@@ -3694,17 +3759,19 @@ def library_optimizer(formula, lists):
         params.append(p)
     if formula == "adam":
         return torch.optim.Adam(params, lr=1e-3, weight_decay=1e-4,
-                                fused=True)
+                                fused=True).step
     return torch.optim.SGD(params, lr=0.1, momentum=0.9, weight_decay=1e-4,
-                           fused=True)
+                           fused=True).step
 
 
 def phase_u1(shapes):
     """Phase 21a: U1 against its plain version on the card at ResNet-50's
     parameter shapes, for every formula and weight dtype, clipping off and
-    on, rescale_grad 0.25, per-tensor lrs and wds, 3 updates each; U1_CALLS
-    calls from the same inputs bit-identical for (a)'s and (b)'s formulas;
-    their kernel, plain and fused-torch.optim times and the bound."""
+    on, rescale_grad 0.25, per-tensor lrs and wds, 3 updates each (a
+    master-copy formula's weights and states bit for bit); U1_CALLS calls
+    from the same inputs bit-identical in weights and states for (a)'s
+    formula, (b)'s and mp_adam on bf16 weights; their kernel, plain and
+    library times and the bound."""
     from mxnet_tpu_torch.ops.multi_tensor import (
         FORMULAS, UpdateBuffers, multi_tensor_update,
         multi_tensor_update_plain)
@@ -3729,21 +3796,29 @@ def phase_u1(shapes):
                                               wds, clip_gradient=clip, **kw)
                 torch.cuda.synchronize()
                 err, bad = u1_readings(got, want, dtype)
+                differ = sum(int((a != b).sum())
+                             for (w, _, st), (w0, _, st0) in zip(got, want)
+                             for a, b in zip((w,) + st, (w0,) + st0))
                 worst = max(worst, err)
                 rows.append({"formula": formula, "dtype": str(dtype)[6:],
                              "clip": clip, "max_abs_err": err,
-                             "over_tolerance": bad})
+                             "over_tolerance": bad,
+                             "values_differing": differ})
                 if bad:
                     fails.append("%s %s clip %s: %d values" % (
                         formula, dtype, clip, bad))
+                if differ and formula.startswith("mp_"):
+                    fails.append("%s %s clip %s: %d values not bit for bit"
+                                 % (formula, dtype, clip, differ))
                 del got, want
     timed = {}
     for key, formula, dtype in (("a", "mp_sgd_mom", torch.bfloat16),
-                                ("b", "adam", torch.float32)):
+                                ("b", "adam", torch.float32),
+                                ("c", "mp_adam", torch.bfloat16)):
         start = u1_lists(formula, dtype, shapes, SEED + 211)
         lists = u1_clone(start)
         buffers = UpdateBuffers()
-        outs = []
+        first, same = None, True
         for _ in range(U1_CALLS):
             for (w, _, st), (w0, _, st0) in zip(lists, start):
                 w.copy_(w0)
@@ -3751,10 +3826,13 @@ def phase_u1(shapes):
                     a.copy_(b)
             multi_tensor_update(formula, *u1_args(lists), lrs, wds,
                                 clip_gradient=1.0, buffers=buffers, **kw)
-            outs.append(torch.cat([w.float().flatten() for w, _, _ in
-                                   lists]))
-        same = all(torch.equal(o, outs[0]) for o in outs)
-        del outs
+            out = torch.cat([t.float().flatten() for w, _, st in lists
+                             for t in (w,) + st])
+            if first is None:
+                first = out
+            else:
+                same = same and torch.equal(out, first)
+        del first, out
 
         def kernel():
             multi_tensor_update(formula, *u1_args(lists), lrs, wds,
@@ -3787,11 +3865,13 @@ def phase_u1(shapes):
             count, ms, timed_by = 0, queued_call_ms(kernel, 5), "events"
         timed[key] = {"formula": formula, "dtype": str(dtype)[6:],
                       "tensors": n, "values": values,
+                      "bytes_a_value": U1_BYTES[formula](
+                          2 if dtype == torch.bfloat16 else 4),
                       "bit_identical_calls": same, "ms": ms,
                       "timed_by": timed_by, "profiled_launches": count,
                       "call_wall_ms": call_ms,
                       "plain_ms": time_ms(plain, 3),
-                      "library_ms": time_ms(library.step, 20),
+                      "library_ms": time_ms(library, 20),
                       "bound_ms": bound, "bound_by": by}
         if not same:
             fails.append("%s: %d calls from the same inputs differ"
@@ -3799,6 +3879,9 @@ def phase_u1(shapes):
         del start, lists, library
     summary = {"shapes": n, "values": values, "checks": rows,
                "max_abs_err": worst, "timed": timed,
+               "max_abs_err_by_formula": {
+                   f: max(r["max_abs_err"] for r in rows
+                          if r["formula"] == f) for f in FORMULAS},
                "rtol": U1_RTOL, "atol": U1_ATOL}
     log("phase 21 U1 vs plain %s" % json.dumps(summary))
     check(not fails, "U1 against its plain version: " + "; ".join(fails))
@@ -6047,10 +6130,11 @@ def phase_speech(mx, counters, rng):
 # count the step's FLOPs; OBS_STAGED staged batches, reused in turn
 OBS_WARMUP, OBS_STEPS, OBS_SYNC_EVERY, OBS_STAGED = 3, 20, 5, 4
 # the stack's cost at sync-every 5, as the on run's extra wall over the off
-# run's. A sampled step holds the card 1.5x a step's host time h and then
-# runs its busy time b after it, so the cost is about (0.5 h + b) / 5 h,
-# 0.24 at h = 90 ms, b = 66 ms; read 0.162-0.327 (H100 80GB HBM3, 700 W);
-# the limit above those
+# run's. A sampled step once held the card 1.5x a step's host time h and
+# ran its busy time b after it, about (0.5 h + b) / 5 h: 0.24 at h = 90
+# ms, b = 66 ms; read 0.162-0.327 (H100 80GB HBM3, 700 W); the limit above
+# those. The segmented holds (module._Holds) keep the card at most a
+# hold behind the host, and cost less
 OBS_OVERHEAD_LIMIT = 0.5
 # the sampled device_compute p50 against the traced step's busy time
 OBS_DEVICE_REL = 0.15
@@ -6209,6 +6293,7 @@ def phase_obs_stack(mx, mod, batches, counters):
         "shares": shares, "shares_sum": sum(shares.values()),
         "verdict": verdict, "hint": hint,
         "device_samples_ms": [s * 1e3 for s in samples],
+        "samples_dropped": mod.samples_dropped,
         "sampled_device_compute_p50_ms": sampled_ms,
         "traced_busy_ms": busy, "traced_wall_ms": traced["step_wall_ms"],
         "overlap": mx.stepprof.overlap(),
@@ -7198,6 +7283,1015 @@ def phase_serving_process():
     return last["fused_lstm_launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the breadth slice (`python3 chip_smoke.py --breadth`): Adam with
+# multi_precision through U1's mp_adam, the model zoo served and trained,
+# linalg, the compat ops, the file iterators, callbacks and FeedForward
+# ---------------------------------------------------------------------------
+BREADTH_TIMEOUT_S = 600
+# (b)'s Adam of phase 21 with an f32 master copy of each bf16 weight, in
+# the image bench's configuration (NHWC, bf16, batch 128, the gate on); its
+# card-vs-CPU check at phase 21's Adam check lr
+MP_ADAM_OPT = dict(OPT_B, multi_precision=True)
+MP_ADAM_CHECK_OPT = dict(MP_ADAM_OPT, learning_rate=OPT_B_CHECK[
+    "learning_rate"])
+# each zoo family's flagship served hybridized (f32, NCHW, TF32 off) at
+# batch 32 after its one capture, against eager on the card and on cpu()
+# at batch 2 (INFER_REL, phase 18's limit)
+ZOO_SERVED = (("alexnet", 224), ("vgg16", 224), ("squeezenet1.1", 224),
+              ("mobilenet1.0", 224), ("mobilenetv2_1.0", 224),
+              ("densenet121", 224), ("inceptionv3", 299))
+ZOO_BATCH, ZOO_CHECK_BATCH, ZOO_REPLAYS = 32, 2, 20
+# two families trained through phase 19's Gluon loop, f32 NCHW batch 32,
+# SGD momentum 0.9; their card-vs-CPU check at batch 4 on ZOO_CHECK_SEEDS
+# seeds (weights and data), each parameter's gradient and update by
+# relative norm. At batch 4 these gradients are ill-conditioned: a
+# training-mode BatchNorm's f32 statistics (E[x^2] - mean^2, as in the
+# JAX package), ReLU's and ReLU6's kinks and the sums' order turn f32
+# rounding into leaf errors of 0.03-0.33 (H100, 700 W). The check prints
+# a floor of that amplification: the CPU against itself with each input
+# value moved one unit in the last place, which read a quarter to a third
+# of the card-vs-CPU medians on every net and seed. The median leaf is
+# held to GRAD_REL (sound medians at most 0.149; the controls, a
+# label-shifted step and an update without momentum, at least 0.667),
+# the worst leaf to ZOO_GRAD_REL (sound at most 0.331), about the
+# geometric mean of 0.331 and the 1.0 of a leaf whose gradient is lost.
+ZOO_TRAINED = (("inceptionv3", 299), ("mobilenetv2_1.0", 224))
+ZOO_CHECK_SEEDS = 3
+ZOO_GRAD_REL = 0.6
+ZOO_OPT = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
+ZOO_CHECK_OPT = dict(ZOO_OPT, learning_rate=GLUON_CHECK_OPT["learning_rate"])
+# linalg on the card against cpu(): batches of 64 of 128 x 128 f32
+# matrices (gelqf 128 x 256), the largest difference over the largest
+# magnitude of the CPU's value, forward and input gradients; the control
+# (the inputs rounded to bf16 on the card) must fail LINALG_REL
+LINALG_BATCH, LINALG_N = 64, 128
+LINALG_REL = 1e-4
+# syevd's eigenvectors carry eps * |A| / gap of error: with eigenvalues
+# 1..128 one apart, about 1e-5 of entries near 0.09, which two
+# eigensolvers (cuSOLVER's, LAPACK's) place differently; on an H100 at
+# 700 W its sound readings were 2.2e-4 (rows squared) and 1.5e-4
+# (gradient), its control 0.047: the limit is about their geometric mean
+LINALG_LIMITS = {"syevd": 3e-3}
+# the negative-binomial samplers' draws a parameter on the card
+NB_DRAWS = 1 << 20
+BREADTH_FIT_EPOCHS = 2
+MNIST_ARGS = ["--ctx", "tpu", "--num-epochs", "2", "--num-examples", "600",
+              "--batch-size", "50"]
+
+
+def host_states(mx, states):
+    """An updater's states copied onto cpu(), tuples kept."""
+    if isinstance(states, tuple):
+        return tuple(host_states(mx, s) for s in states)
+    if states is None:
+        return None
+    return mx.nd.array(states.asnumpy(), ctx=mx.cpu(), dtype=states.dtype)
+
+
+def phase_mp_adam_check(mx, rng):
+    """Phase 28b, part 2: 2 steps at batch 4 of the bf16 NHWC ResNet-50
+    with ``Adam(multi_precision=True)`` on gpu(0) and on cpu(), the gate
+    on. Before each step the CPU net takes the card's weights, and the
+    CPU Trainer steps from the card's gradients and optimizer states
+    (phase 21's rule for Adam): each parameter's master update, mean and
+    var by relative norm to GRAD_REL, and every bf16 weight the rounding
+    of its master on both sides. The control, a third step whose update
+    on the card skips the bias correction, must fail GRAD_REL. Returns
+    the readings and the U1 launches of the card's steps."""
+    from mxnet_tpu_torch.ops.multi_tensor import multi_tensor_update
+    shape = gluon_shape("NHWC", GLUON_CHECK_BATCH)
+    card = gluon_net(mx, mx.gpu(0), "NHWC")
+    card(mx.nd.zeros(shape, ctx=mx.gpu(0)))
+    card.cast("bfloat16")
+    card.hybridize()
+    host = gluon_net(mx, mx.cpu(), "NHWC", prefix=card.prefix)
+    host.cast("bfloat16")
+    mx.set_block_params(host, gluon_values(card))
+    trainers = [gluon_trainer(mx, n, MP_ADAM_CHECK_OPT, "adam")
+                for n in (card, host)]
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    names = [p.name for p in trainers[0]._params]
+
+    def states(t):
+        """{name: (master, mean, var)} as f32 numpy."""
+        return {names[i]: (m.asnumpy(), mean.asnumpy(), var.asnumpy())
+                for i, (m, (mean, var)) in t._updaters[0].states.items()}
+
+    def card_step(correct=True):
+        x = mx.nd.array(rng.rand(*shape).astype(np.float32), ctx=mx.gpu(0),
+                        dtype="bfloat16")
+        y = mx.nd.array(rng.randint(0, CLASSES, GLUON_CHECK_BATCH).astype(
+            np.float32), ctx=mx.gpu(0))
+        mx.set_block_params(host, gluon_values(card))
+        gluon_record(mx, card, loss_fn, x, y)
+        host_params = host.collect_params()
+        for n, p in card.collect_params().items():
+            if p.grad_req != "null":
+                host_params[n].grad()[:] = p.grad().asnumpy()
+        src, dst = (t._updaters[0] for t in trainers)
+        if src.states:
+            dst.states = {i: host_states(mx, st)
+                          for i, st in src.states.items()}
+            dst.states_synced = dict.fromkeys(dst.states, True)
+        # the masters before the step: a first step makes them from the
+        # bf16 weights
+        before = states(trainers[0]) if src.states else {
+            n: (v,) for n, v in gluon_values(card).items()}
+        adam = trainers[0]._optimizer
+        if not correct:
+            adam._corrected_lr = lambda index, lr: lr
+        try:
+            trainers[0].step(GLUON_CHECK_BATCH)
+        finally:
+            if not correct:
+                del adam._corrected_lr
+        trainers[1].step(GLUON_CHECK_BATCH)
+        got, want = states(trainers[0]), states(trainers[1])
+        row = {k: leaf_errs({n: v[j] - (before[n][0] if j == 0 else 0)
+                             for n, v in got.items()},
+                            {n: v[j] - (before[n][0] if j == 0 else 0)
+                             for n, v in want.items()})
+               for j, k in enumerate(("master_update_rel", "mean_rel",
+                                      "var_rel"))}
+        rounded = []
+        for net, st in ((card, got), (host, want)):
+            params = net.collect_params()
+            rounded.append(all(np.array_equal(
+                params[n].data().asnumpy(),
+                mx.nd.array(v[0], ctx=mx.cpu(), dtype="bfloat16")
+                .asnumpy()) for n, v in st.items()))
+        row["weights_are_masters_rounded"] = rounded
+        return row
+
+    u1_0 = multi_tensor_update.launches
+    steps = [card_step() for _ in range(2)]
+    control = card_step(correct=False)
+    launches = multi_tensor_update.launches - u1_0
+    summary = {"batch": GLUON_CHECK_BATCH, "opt": MP_ADAM_CHECK_OPT,
+               "grad_rel_limit": GRAD_REL, "steps": steps,
+               "control_adam_without_bias_correction": control,
+               "u1_launches": launches}
+    log("phase 28b mp_adam card vs cpu %s" % json.dumps(summary))
+    fails = ["step %d %s of %s: %.3g" % (k, key, row[key]["worst"],
+                                        row[key]["max"])
+             for k, row in enumerate(steps)
+             for key in ("master_update_rel", "mean_rel", "var_rel")
+             if not row[key]["max"] <= GRAD_REL]
+    fails += ["step %d: a weight is not its master rounded" % k
+              for k, row in enumerate(steps + [control])
+              if not all(row["weights_are_masters_rounded"])]
+    if control["master_update_rel"]["max"] <= GRAD_REL:
+        fails.append("the control passes the limit: %.3g"
+                     % control["master_update_rel"]["max"])
+    check(launches == 3, "the card's 3 Trainer steps launched U1 %d times"
+          % launches)
+    check(not fails, "mp_adam card vs cpu: " + "; ".join(fails))
+    del card, host, trainers
+    return summary
+
+
+def phase_mp_adam_resnet(mx, rng):
+    """Phase 28b: ResNet-50 v1 through Gluon with
+    ``Adam(multi_precision=True)`` in the image bench's configuration
+    (NHWC, bf16, batch 128, the gate on): phase 19's loop (2 warm-up and
+    10 timed steps on one fixed batch, the loss falling), every weight's
+    formula ``mp_adam``, U1 exactly once and K5 exactly 6 times a step;
+    one profiled step; then the card-vs-CPU check."""
+    from mxnet_tpu_torch.ops.multi_tensor import multi_tensor_update
+    os.environ["MXNET_CONV1X1_PALLAS"] = "1"
+    k5 = mx.ops.conv1x1_s2_dgrad
+    u1_0, k5_0 = multi_tensor_update.launches, k5.launches
+    u1_start = u1_0
+    net, step, row = gluon_loop(mx, "NHWC", "bfloat16", GLUON_BF16_BATCH,
+                                rng, opt_name="adam", opt=MP_ADAM_OPT)
+    steps = GLUON_WARMUP + GLUON_STEPS
+    fused = step.trainer._fused
+    formulas = sorted({fused.formula(step.trainer._params[i].data(), st)
+                       for i, st in fused.updater.states.items()})
+    row.update(u1_launches=multi_tensor_update.launches - u1_0,
+               k5_launches=k5.launches - k5_0, formulas=formulas)
+    check(formulas == ["mp_adam"], "the bf16 net's Adam formulas %s, want "
+          "mp_adam only" % formulas)
+    check(row["u1_launches"] == steps and row["k5_launches"]
+          == K5_PER_STEP * steps,
+          "%d steps launched U1 %d and K5 %d times, want 1 and %d a step"
+          % (steps, row["u1_launches"], row["k5_launches"], K5_PER_STEP))
+    with ranged_ops([(step.trainer, "_update")]):
+        prof = profiled_step(step)
+    u1 = prof["classes"].get("U1 multi_tensor_update",
+                             {"launches": 0, "ms": 0.0})
+    k5p = prof["classes"].get("K5 conv1x1_s2_dgrad",
+                              {"launches": 0, "ms": 0.0})
+    row["profile"] = {
+        "step_wall_ms": prof["step_wall_ms"],
+        "device_busy_ms": prof["device_busy_ms"],
+        "device_idle_share": prof["device_idle_share"],
+        "u1": {"launches": u1["launches"], "ms": u1["ms"]},
+        "k5": {"launches": k5p["launches"], "ms": k5p["ms"]},
+        "update_host_ms": prof["update_host_ms"],
+        "classes": {k: {"launches": v["launches"], "ms": v["ms"]}
+                    for k, v in prof["classes"].items()}}
+    log("phase 28b resnet50 mp_adam loop %s" % json.dumps(row))
+    check(u1["launches"] == 1 and k5p["launches"] == K5_PER_STEP,
+          "the profiled step shows U1 %d and K5 %d launches, want 1 and %d"
+          % (u1["launches"], k5p["launches"], K5_PER_STEP))
+    del net, step
+    torch.cuda.empty_cache()
+    check_row = phase_mp_adam_check(mx, rng)
+    torch.cuda.empty_cache()
+    # every U1 launch of this phase is mp_adam's: one bf16 group
+    return {"loop": row, "check": check_row,
+            "mp_adam_launches": multi_tensor_update.launches - u1_start}
+
+
+def zoo_net(mx, name, ctx, **extra):
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    net = vision.get_model(name, **extra)
+    net.initialize(mx.init.Xavier(magnitude=2), ctx=ctx)
+    return net
+
+
+def phase_zoo_serve(mx, rng, card):
+    """Phase 28c: each family's flagship served as the bench serves
+    ResNet-50 (f32, NCHW, TF32 off, batch 32): one compile, then
+    ZOO_REPLAYS cache hits; one call under the profiler, one
+    ``cudaGraphLaunch`` and no kernel launch; img/s over the replays,
+    bracketed by ``synchronize``; the hybridized logits against the eager
+    call on the card and against the eager net on cpu() at batch 2 from
+    the same weights, by relative norm to INFER_REL."""
+    from mxnet_tpu_torch import compiled
+    rows, fails = {}, []
+    for name, size in ZOO_SERVED:
+        t0 = time.perf_counter()
+        ctx = mx.gpu(0)
+        net = zoo_net(mx, name, ctx)
+        x = mx.nd.array(rng.rand(ZOO_BATCH, 3, size, size).astype(
+            np.float32), ctx=ctx)
+        eager = net(x).asnumpy()                # finishes deferred init
+        net.hybridize()
+        before = compiled.compile_counts()
+        hybrid = net(x).asnumpy()
+        first = compiled.compile_counts()
+        for _ in range(ZOO_REPLAYS):
+            out = net(x)
+        timed = compiled.compile_counts()
+        counts = {"first_call": {k: first[k] - before[k] for k in first},
+                  "replays": {k: timed[k] - first[k] for k in timed}}
+        prof = call_profile(lambda: net(x))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(ZOO_REPLAYS):
+            out = net(x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        host = zoo_net(mx, name, mx.cpu(), prefix=net.prefix)
+        mx.set_block_params(host, gluon_values(net))
+        on_cpu = host(mx.nd.array(x.asnumpy()[:ZOO_CHECK_BATCH],
+                                  ctx=mx.cpu())).asnumpy()
+        row = {"size": size, "batch": ZOO_BATCH,
+               "imgs_per_s": ZOO_REPLAYS * ZOO_BATCH / wall,
+               "call_ms": wall * 1e3 / ZOO_REPLAYS,
+               "macs_per_image": resnet_macs(net, (1, 3, size, size)),
+               "vs_eager_on_card": rel_err(hybrid, eager),
+               "vs_eager_on_cpu": rel_err(hybrid[:ZOO_CHECK_BATCH], on_cpu),
+               "replay_equal": bool(np.array_equal(out.asnumpy(), hybrid)),
+               "compile_counts": counts,
+               "profile": {k: prof[k] for k in (
+                   "wall_ms", "device_busy_ms", "device_idle_share",
+                   "runtime_calls", "top")},
+               "card": card, "seconds": time.perf_counter() - t0}
+        log("phase 28c %s served %s" % (name, json.dumps(row)))
+        rows[name] = row
+        if counts != {"first_call": {"compiles": 1, "cache_hits": 0,
+                                     "retraces": 0, "uncaptured": 0},
+                      "replays": {"compiles": 0, "cache_hits": ZOO_REPLAYS,
+                                  "retraces": 0, "uncaptured": 0}}:
+            fails.append("%s compile counts %s" % (name, counts))
+        calls = prof["runtime_calls"]
+        if calls.get("cudaGraphLaunch") != 1 or any(
+                "LaunchKernel" in k for k in calls):
+            fails.append("%s: a served call made host calls %s" % (name,
+                                                                  calls))
+        if not (bool(np.isfinite(hybrid).all()) and row["replay_equal"]
+                and row["vs_eager_on_card"] <= INFER_REL
+                and row["vs_eager_on_cpu"] <= INFER_REL):
+            fails.append("%s logits: %s" % (name, {k: row[k] for k in (
+                "replay_equal", "vs_eager_on_card", "vs_eager_on_cpu")}))
+        del net, host, x
+        torch.cuda.empty_cache()
+    check(not fails, "the zoo served (limit %.3g): %s" % (INFER_REL,
+                                                          "; ".join(fails)))
+    return rows
+
+
+def without_dropout(mx, block):
+    """Every Dropout of ``block`` at rate 0: the card and the CPU draw
+    different masks, so a card-vs-CPU check keeps none."""
+    for child in block._children.values():
+        if isinstance(child, mx.gluon.nn.Dropout):
+            child._rate = 0.0
+        without_dropout(mx, child)
+
+
+def rounding_level(got, want, suffix, partner, scale=lambda v: v):
+    """Split off the entries of ``want`` ending in ``suffix`` whose exact
+    value is 0 and whose computed value is rounding: those whose norm is
+    below BIAS_NOISE of their partner's (the same name ending in
+    ``partner``, through ``scale``) on the CPU's side. They are removed
+    from both dicts; returns {name: the larger ratio of the two sides}.
+    A BatchNorm's beta whose output reaches the loss only through a
+    convolution into another training-mode BatchNorm, which subtracts the
+    batch mean, has gradient 0; that second BatchNorm's moving mean then
+    tracks a batch mean of 0 (MobileNet v2's linear bottlenecks)."""
+    out = {}
+    for n in [n for n in want if n.endswith(suffix)]:
+        ref = n[:-len(suffix)] + partner
+        if ref not in want:
+            continue
+        ratios = [float(np.linalg.norm(d[n])
+                        / (np.linalg.norm(scale(d[ref])) or 1.0))
+                  for d in (want, got)]
+        if ratios[0] < BIAS_NOISE:
+            out[n] = max(ratios)
+            del got[n], want[n]
+    return out
+
+
+def noise_summary(noise):
+    if not noise:
+        return {"count": 0}
+    worst = max(noise, key=noise.get)
+    return {"count": len(noise), "max": noise[worst], "worst": worst}
+
+
+def phase_zoo_check(mx, name, size, seed):
+    """Phase 28d's check on one seed of weights and data: 2 f32 steps at
+    batch 4 (NCHW, TF32 off, SGD momentum 0.9 at lr 0.005, no dropout) of
+    ``name`` on gpu(0) against cpu(), each from the card's weights, held
+    as phase 19 holds ResNet-50: output probabilities and losses
+    elementwise to RESNET_RTOL/ATOL; each step's gradients and updates by
+    their median leaf's relative norm to GRAD_REL and their worst leaf's
+    to ZOO_GRAD_REL; the gradients (and so the updates) and moving means
+    whose exact value is 0, split off by ``rounding_level``, instead below
+    BIAS_NOISE of their partners' on both sides, as phase 19 holds conv
+    biases; the other moving statistics by relative norm to RESNET_RTOL
+    (Inception's late moving means lie near 0 beside activations in the
+    hundreds, so an elementwise tolerance reads the rounding of their
+    sums: 7e-5 to 8e-5 apart on an H100 at 700 W). The rounding floor:
+    the CPU's step-0 gradients from the input moved one ulp against its
+    own. Controls whose median leaf must fail GRAD_REL: the card's
+    gradients from the batch's labels shifted by one class; the second
+    update without its momentum term. Returns (summary, fails)."""
+    mx.random.seed(seed)
+    rng = np.random.RandomState(seed)
+    shape = (GLUON_CHECK_BATCH, 3, size, size)
+    card = zoo_net(mx, name, mx.gpu(0))
+    card(mx.nd.zeros(shape, ctx=mx.gpu(0)))
+    host = zoo_net(mx, name, mx.cpu(), prefix=card.prefix)
+    mx.set_block_params(host, gluon_values(card))
+    for net in (card, host):
+        without_dropout(mx, net)
+        net.hybridize()
+    trainers = [gluon_trainer(mx, n, ZOO_CHECK_OPT) for n in (card, host)]
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    data = [(rng.rand(*shape).astype(np.float32),
+             rng.randint(0, CLASSES, GLUON_CHECK_BATCH).astype(np.float32))
+            for _ in range(3)]
+    steps, fails = [], []
+    for k, (x, y) in enumerate(data[:2]):
+        mx.set_block_params(host, gluon_values(card))
+        if k == 0:
+            gluon_record(mx, host, loss_fn, mx.nd.array(
+                np.nextafter(x, np.float32(2)), ctx=mx.cpu()),
+                mx.nd.array(y, ctx=mx.cpu()))
+            moved_input = gluon_grads(host)
+            mx.set_block_params(host, gluon_values(card))
+        before = gluon_values(host)
+        (out, loss), (out_ref, loss_ref) = (
+            gluon_record(mx, n, loss_fn, mx.nd.array(x, ctx=ctx),
+                         mx.nd.array(y, ctx=ctx))
+            for n, ctx in ((card, mx.gpu(0)), (host, mx.cpu())))
+        got, want = (o.data.detach().softmax(-1).cpu().numpy()
+                     for o in (out, out_ref))
+        stats, stats_ref = ({n: v for n, v in gluon_values(m).items()
+                             if "running" in n} for m in (card, host))
+        for what, a, b in (("outputs", got, want),
+                           ("losses", loss.asnumpy(), loss_ref.asnumpy())):
+            if not np.allclose(a, b, rtol=RESNET_RTOL, atol=RESNET_ATOL):
+                fails.append("seed %d step %d %s" % (seed, k, what))
+        stat_err = max_abs(stats, stats_ref)
+        mean_noise = rounding_level(stats, stats_ref, "running_mean",
+                                    "running_var", np.sqrt)
+        stat_rel = leaf_errs(stats, stats_ref)
+        if not stat_rel["max"] <= RESNET_RTOL:
+            fails.append("seed %d step %d moving statistic %s: %.3g"
+                         % (seed, k, stat_rel["worst"], stat_rel["max"]))
+        grads, grads_ref = gluon_grads(card), gluon_grads(host)
+        grad_noise = rounding_level(grads, grads_ref, "beta", "gamma")
+        fails += ["seed %d step %d %s at rounding level reads %.3g of its "
+                  "partner" % (seed, k, n, r) for n, r in
+                  list(mean_noise.items()) + list(grad_noise.items())
+                  if r > BIAS_NOISE]
+        for t in trainers:
+            t.step(GLUON_CHECK_BATCH)
+        moved, moved_ref = ({n: v - before[n] for n, v in
+                             gluon_values(m).items() if n in grads}
+                            for m in (card, host))
+        row = {"output_max_abs_err": float(np.abs(got - want).max()),
+               "loss": [float(v) for v in loss.asnumpy()],
+               "moving_stat_max_abs_err": stat_err,
+               "moving_stat_rel": stat_rel,
+               "at_rounding_level": {
+                   "moving_means": noise_summary(mean_noise),
+                   "beta_gradients": noise_summary(grad_noise)},
+               "grad_rel": leaf_errs(grads, grads_ref),
+               "update_rel": leaf_errs(moved, moved_ref)}
+        if k == 0:
+            row["floor_input_one_ulp_rel"] = leaf_errs(
+                {n: moved_input[n] for n in grads_ref}, grads_ref)
+        if k == 1:
+            lr, wd = ZOO_CHECK_OPT["learning_rate"], ZOO_CHECK_OPT["wd"]
+            plain = {n: -lr * (g / GLUON_CHECK_BATCH + wd * before[n])
+                     for n, g in grads.items()}
+            row["control_update_without_momentum_rel"] = leaf_errs(
+                plain, moved_ref)
+        steps.append(row)
+    mx.set_block_params(host, gluon_values(card))
+    x, y = data[2]
+    gluon_record(mx, card, loss_fn, mx.nd.array(x, ctx=mx.gpu(0)),
+                 mx.nd.array((y + 1) % CLASSES, ctx=mx.gpu(0)))
+    gluon_record(mx, host, loss_fn, mx.nd.array(x, ctx=mx.cpu()),
+                 mx.nd.array(y, ctx=mx.cpu()))
+    controls = {
+        "labels shifted on the card": leaf_errs(gluon_grads(card),
+                                               gluon_grads(host)),
+        "update without momentum":
+            steps[1]["control_update_without_momentum_rel"]}
+    summary = {"net": name, "seed": seed, "batch": GLUON_CHECK_BATCH,
+               "opt": ZOO_CHECK_OPT, "median_limit": GRAD_REL,
+               "worst_limit": ZOO_GRAD_REL, "steps": steps,
+               "controls": controls}
+    log("phase 28d %s f32 vs cpu %s" % (name, json.dumps(summary)))
+    for k, row in enumerate(steps):
+        for kind in ("grad_rel", "update_rel"):
+            if not row[kind]["median"] <= GRAD_REL:
+                fails.append("seed %d step %d %s median leaf: %.3g" % (
+                    seed, k, kind, row[kind]["median"]))
+            if not row[kind]["max"] <= ZOO_GRAD_REL:
+                fails.append("seed %d step %d %s of %s: %.3g" % (
+                    seed, k, kind, row[kind]["worst"], row[kind]["max"]))
+    fails += ["seed %d control %s passes the median limit: %.3g"
+              % (seed, what, reading["median"])
+              for what, reading in controls.items()
+              if reading["median"] <= GRAD_REL]
+    return summary, fails
+
+
+def phase_zoo_train(mx, rng, card):
+    """Phase 28d: Inception-v3 (299) and MobileNet v2 (224) trained
+    through phase 19's Gluon loop (f32, NCHW, batch 32, TF32 off, SGD
+    momentum 0.9, hybridized): 2 warm-up and 10 timed steps on one fixed
+    batch, whose loss must fall; img/s; one profiled step (busy, wall,
+    idle share, device time by kernel class); then the card-vs-CPU
+    check on ZOO_CHECK_SEEDS seeds, every net's and seed's fails
+    reported together."""
+    rows, fails = {}, []
+    for name, size in ZOO_TRAINED:
+        ctx = mx.gpu(0)
+        net = zoo_net(mx, name, ctx)
+        net.hybridize()
+        trainer = gluon_trainer(mx, net, ZOO_OPT)
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        x = mx.nd.array(rng.rand(ZOO_BATCH, 3, size, size).astype(
+            np.float32), ctx=ctx)
+        y = mx.nd.array(rng.randint(0, CLASSES, ZOO_BATCH).astype(
+            np.float32), ctx=ctx)
+
+        def step():
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(ZOO_BATCH)
+            return loss
+
+        step.trainer = trainer
+        warm = [step() for _ in range(GLUON_WARMUP)]
+        row = timed_gluon_steps(step, ZOO_BATCH)
+        means = [float(v.data.detach().float().mean()) for v in warm] \
+            + row["losses"]
+        with ranged_ops([(trainer, "_update")]):
+            prof = profiled_step(step)
+        row.update(size=size, losses=means, card=card,
+                   profile={k: prof[k] for k in (
+                       "step_wall_ms", "device_busy_ms",
+                       "device_idle_share", "kernels")},
+                   classes={k: {"launches": v["launches"], "ms": v["ms"]}
+                            for k, v in prof["classes"].items()},
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+        log("phase 28d %s trained %s" % (name, json.dumps(row)))
+        check(means[-1] < means[0], "%s: the loss did not fall: %s"
+              % (name, means))
+        del net, trainer, step, x, y
+        torch.cuda.empty_cache()
+        row["check"] = []
+        for seed in range(SEED + 282, SEED + 282 + ZOO_CHECK_SEEDS):
+            summary, bad = phase_zoo_check(mx, name, size, seed)
+            row["check"].append(summary)
+            fails += ["%s %s" % (name, f) for f in bad]
+            torch.cuda.empty_cache()
+        rows[name] = row
+    check(not fails, "zoo card vs cpu: " + "; ".join(fails))
+    return rows
+
+
+def linalg_inputs(rng):
+    """{kind: f32 array}: SPD (A Aᵀ + n I), its lower Cholesky factor,
+    SPD with eigenvalues 1..n (distinct, spaced 1 apart), plain, wide
+    (n x 2n) and near-identity (I + G / (2 sqrt n), whose determinant is
+    finite in f32) batches."""
+    b, n = LINALG_BATCH, LINALG_N
+    a = rng.randn(b, n, n)
+    spd = a @ a.transpose(0, 2, 1) + n * np.eye(n)
+    q = np.linalg.qr(rng.randn(b, n, n))[0]
+    eig = (q * np.arange(1.0, n + 1)) @ q.transpose(0, 2, 1)
+    return {"spd": spd.astype(np.float32),
+            "chol": np.linalg.cholesky(spd).astype(np.float32),
+            "eig": eig.astype(np.float32),
+            "plain": rng.randn(b, n, n).astype(np.float32),
+            "plain2": rng.randn(b, n, n).astype(np.float32),
+            "wide": rng.randn(b, n, 2 * n).astype(np.float32),
+            "near_eye": (np.eye(n) + rng.randn(b, n, n) / (2 * np.sqrt(n)))
+            .astype(np.float32)}
+
+
+LINALG_CARD_CASES = [
+    ("gemm", {"alpha": 0.5, "beta": 2.0}, ("plain", "plain2", "spd")),
+    ("gemm2", {"transpose_b": True}, ("plain", "plain2")),
+    ("potrf", {}, ("spd",)),
+    ("potri", {}, ("chol",)),
+    ("trsm", {"alpha": 2.0}, ("chol", "plain")),
+    ("trmm", {"rightside": True}, ("plain", "plain2")),
+    ("sumlogdiag", {}, ("chol",)),
+    ("syrk", {"alpha": 0.25}, ("plain",)),
+    ("gelqf", {}, ("wide",)),
+    ("syevd", {}, ("eig",)),
+    ("inverse", {}, ("spd",)),
+    ("det", {}, ("near_eye",)),
+]
+
+
+def linalg_run(mx, ctx, name, params, arrays, cots):
+    """The op through ``nd.linalg`` on ``ctx`` under the tape: its outputs
+    and its inputs' gradients of sum(cot * out) (``syevd``'s rows squared:
+    eigenvectors are defined up to sign)."""
+    xs = [mx.nd.array(a, ctx=ctx) for a in arrays]
+    for x in xs:
+        x.attach_grad()
+    with mx.autograd.record():
+        outs = getattr(mx.nd.linalg, name)(*xs, **params)
+        outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+        loss = None
+        for k, (o, c) in enumerate(zip(outs, cots)):
+            term = ((o * o) if name == "syevd" and k == 0 else o) \
+                * mx.nd.array(c, ctx=ctx)
+            loss = term.sum() if loss is None else loss + term.sum()
+    loss.backward()
+    return [o.asnumpy() for o in outs], [x.grad.asnumpy() for x in xs]
+
+
+def linalg_reading(got, want):
+    """max |got - want| / max |want| over the finite values of ``want``
+    (NaN positions must agree)."""
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        return float("inf")
+    keep = ~np.isnan(want)
+    scale = float(np.abs(want[keep]).max()) if keep.any() else 0.0
+    diff = float(np.abs(got[keep] - want[keep]).max()) if keep.any() \
+        else 0.0
+    return diff / scale if scale else diff
+
+
+def gaussian_loglik(mx):
+    """A HybridBlock of the Gaussian log-likelihood of ``x`` under the
+    covariance ``sigma`` (up to its constant): ``potrf`` -> ``trsm`` ->
+    ``sumlogdiag``."""
+    class LogLik(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, sigma, x):
+            L = F.linalg.potrf(sigma)
+            z = F.linalg.trsm(L, x)
+            return -0.5 * F.sum(z * z, axis=(1, 2)) \
+                - F.linalg.sumlogdiag(L)
+    return LogLik()
+
+
+def phase_linalg_card(mx, rng):
+    """Phase 28e: every linalg op on gpu(0) against cpu(), forward and input
+    gradients, by the largest difference over the largest magnitude
+    (LINALG_REL; syevd LINALG_LIMITS's), eigenvectors compared squared; the
+    control (the inputs rounded to bf16 on the card) must fail it.
+    ``potrf`` of a batch with one matrix that is not positive definite
+    reads NaN there, as on the CPU. A hybridized Gaussian log-likelihood
+    (potrf -> trsm -> sumlogdiag) is captured or counted uncaptured, and
+    its calls give the eager value."""
+    from mxnet_tpu_torch import compiled
+    inputs = linalg_inputs(rng)
+    rows, fails = {}, []
+    for name, params, kinds in LINALG_CARD_CASES:
+        arrays = [inputs[k] for k in kinds]
+        outs, _ = linalg_run(mx, mx.cpu(), name, params, arrays,
+                             [np.zeros(1, np.float32)] * 2)
+        cots = [rng.randn(*o.shape).astype(np.float32) for o in outs]
+        want, want_g = linalg_run(mx, mx.cpu(), name, params, arrays, cots)
+        got, got_g = linalg_run(mx, mx.gpu(0), name, params, arrays, cots)
+        rounded = [a.astype(np.float32) for a in (
+            mx.nd.array(a, ctx=mx.gpu(0), dtype="bfloat16").asnumpy()
+            for a in arrays)]
+        ctl, ctl_g = linalg_run(mx, mx.gpu(0), name, params, rounded, cots)
+        if name == "syevd":     # the rows' signs are free: compare squares
+            got[0], want[0], ctl[0] = (u * u for u in (got[0], want[0],
+                                                       ctl[0]))
+        row = {"forward": max(linalg_reading(a, b)
+                              for a, b in zip(got, want)),
+               "gradient": max(linalg_reading(a, b)
+                               for a, b in zip(got_g, want_g)),
+               "control": max([linalg_reading(a, b)
+                               for a, b in zip(ctl, want)]
+                              + [linalg_reading(a, b)
+                                 for a, b in zip(ctl_g, want_g)])}
+        limit = LINALG_LIMITS.get(name, LINALG_REL)
+        row["limit"] = limit
+        rows[name] = row
+        if not (row["forward"] <= limit and row["gradient"] <= limit):
+            fails.append("%s %s" % (name, row))
+        if row["control"] <= limit:
+            fails.append("%s: the control passes the limit (%.3g)"
+                         % (name, row["control"]))
+    bad = inputs["spd"][:4].copy()
+    bad[1] = np.diag(np.r_[np.ones(LINALG_N - 1), -1.0]).astype(np.float32)
+    nan_card, nan_cpu = (mx.nd.linalg.potrf(mx.nd.array(bad, ctx=c))
+                         .asnumpy() for c in (mx.gpu(0), mx.cpu()))
+    nan_row = {"nan_entries_card": int(np.isnan(nan_card).any((1, 2))
+                                       .sum()),
+               "reading": linalg_reading(nan_card, nan_cpu)}
+    if not (nan_row["nan_entries_card"] == 1
+            and np.isnan(nan_card[1]).any()
+            and nan_row["reading"] <= LINALG_REL):
+        fails.append("potrf of a non-PD entry: %s" % nan_row)
+    block = gaussian_loglik(mx)
+    sigma = mx.nd.array(inputs["spd"], ctx=mx.gpu(0))
+    x = mx.nd.array(inputs["plain"], ctx=mx.gpu(0))
+    eager = block(sigma, x).asnumpy()
+    block.hybridize()
+    before = compiled.compile_counts()
+    calls = [block(sigma, x).asnumpy() for _ in range(3)]
+    after = compiled.compile_counts()
+    counts = {k: after[k] - before[k] for k in after}
+    on_cpu = block(mx.nd.array(inputs["spd"], ctx=mx.cpu()),
+                   mx.nd.array(inputs["plain"], ctx=mx.cpu())).asnumpy()
+    loglik = {"compile_counts": counts,
+              "calls_vs_eager": max(rel_err(c, eager) for c in calls),
+              "vs_cpu": linalg_reading(calls[-1], on_cpu)}
+    if not (counts["compiles"] == 1 and counts["cache_hits"] == 2
+            and loglik["calls_vs_eager"] <= 1e-6
+            and loglik["vs_cpu"] <= LINALG_REL):
+        fails.append("the hybridized log-likelihood: %s" % loglik)
+    summary = {"ops": rows, "potrf_not_pd": nan_row,
+               "gaussian_loglik": loglik, "limit": LINALG_REL}
+    log("phase 28e linalg card vs cpu %s" % json.dumps(summary))
+    check(not fails, "linalg on the card: " + "; ".join(fails))
+    return summary
+
+
+def compat_card_cases(rng):
+    """(name, params, inputs) of the compat ops held on the card."""
+    x = rng.randn(8, 12).astype(np.float32)
+    img = rng.randint(0, 256, (32, 32, 3)).astype(np.uint8)
+    return [
+        ("_copyto", {}, [x]), ("_CrossDeviceCopy", {}, [x]),
+        ("_grad_add", {}, [x, rng.randn(8, 12).astype(np.float32)]),
+        ("_slice_assign", {"begin": (1, 0), "end": (5, 12),
+                           "step": (2, 3)},
+         [x, rng.randn(2, 4).astype(np.float32)]),
+        ("_crop_assign", {"begin": (7, None), "end": (0, None),
+                          "step": (-2, None)},
+         [x, rng.randn(4, 12).astype(np.float32)]),
+        ("_slice_assign_scalar", {"begin": (2,), "end": (6,),
+                                  "scalar": 3.5}, [x]),
+        ("_crop_assign_scalar", {"begin": (None, -4), "end": (None, None),
+                                 "scalar": -1.0}, [x]),
+        ("_image_to_tensor", {}, [img]),
+        ("image_to_tensor", {}, [rng.uniform(0, 255, (4, 32, 32, 3))
+                                 .astype(np.float32)]),
+        ("_image_normalize", {"mean": (0.4, 0.5, 0.6),
+                              "std": (0.2, 0.3, 0.5)},
+         [rng.rand(3, 32, 32).astype(np.float32)]),
+        ("image_normalize", {"mean": (0.4, 0.5, 0.6),
+                             "std": (0.2, 0.3, 0.5)},
+         [rng.rand(4, 3, 32, 32).astype(np.float32)]),
+    ]
+
+
+def phase_compat_card(mx, rng):
+    """Phase 28f, part 1: the compat ops on gpu(0) against cpu() (the
+    copies, the add and the assignments bit for bit, the image ops to
+    1e-6 of the largest magnitude); IdentityAttachKLSparseReg's output,
+    moving average and gradient in training; the two negative-binomial
+    samplers' means and variances over NB_DRAWS draws a parameter within
+    4 standard errors of their formulas."""
+    rows, fails = {}, []
+    for name, params, inputs in compat_card_cases(rng):
+        got, want = (getattr(mx.nd, name)(*[mx.nd.array(
+            a, ctx=c, dtype=a.dtype) for a in inputs], **params).asnumpy()
+            for c in (mx.gpu(0), mx.cpu()))
+        reading = linalg_reading(got.astype(np.float64),
+                                 want.astype(np.float64))
+        exact = not name.endswith("normalize")
+        rows[name] = reading
+        if got.shape != want.shape or reading > (0.0 if exact else 1e-6):
+            fails.append("%s: %.3g" % (name, reading))
+    data = rng.uniform(0.05, 0.95, (64, 32)).astype(np.float32)
+    cot = rng.randn(64, 32).astype(np.float32)
+    kl = {}
+    for c in (mx.gpu(0), mx.cpu()):
+        d = mx.nd.array(data, ctx=c)
+        avg = mx.nd.array(np.full(32, 0.3, np.float32), ctx=c)
+        d.attach_grad()
+        with mx.autograd.record(train_mode=True):
+            out = mx.nd.IdentityAttachKLSparseReg(d, avg, penalty=0.01)
+            (out * mx.nd.array(cot, ctx=c)).sum().backward()
+        kl[str(c)] = (out.asnumpy(), avg.asnumpy(), d.grad.asnumpy())
+    (o, a, g), (o0, a0, g0) = kl[str(mx.gpu(0))], kl[str(mx.cpu())]
+    rows["IdentityAttachKLSparseReg"] = max(
+        linalg_reading(o, o0), linalg_reading(a, a0), linalg_reading(g, g0))
+    if rows["IdentityAttachKLSparseReg"] > 1e-6:
+        fails.append("IdentityAttachKLSparseReg: %.3g"
+                     % rows["IdentityAttachKLSparseReg"])
+    samplers = {}
+    for name, p0, p1, mean, var in (
+            ("_sample_negative_binomial", np.array([2.0, 7.0]),
+             np.array([0.3, 0.6]), lambda k, p: k * (1 - p) / p,
+             lambda k, p: k * (1 - p) / p ** 2),
+            ("_sample_generalized_negative_binomial", np.array([3.0, 10.0]),
+             np.array([0.5, 0.1]), lambda mu, al: mu,
+             lambda mu, al: mu + al * mu ** 2)):
+        mx.random.seed(SEED + 286)
+        draws = getattr(mx.nd, name)(
+            mx.nd.array(p0.astype(np.float32), ctx=mx.gpu(0)),
+            mx.nd.array(p1.astype(np.float32), ctx=mx.gpu(0)),
+            shape=(NB_DRAWS,))
+        check(str(draws.data.device) == "cuda:0",
+              "%s drew on %s" % (name, draws.data.device))
+        d = draws.asnumpy().astype(np.float64)
+        m, v = d.mean(1), d.var(1)
+        m4 = ((d - m[:, None]) ** 4).mean(1)
+        want_m, want_v = mean(p0, p1), var(p0, p1)
+        sigmas = {"mean": (np.abs(m - want_m)
+                           / np.sqrt(want_v / NB_DRAWS)).tolist(),
+                  "var": (np.abs(v - want_v)
+                          / np.sqrt((m4 - v ** 2) / NB_DRAWS)).tolist()}
+        samplers[name] = {"mean": m.tolist(), "var": v.tolist(),
+                          "want_mean": want_m.tolist(),
+                          "want_var": want_v.tolist(), "sigmas": sigmas}
+        if max(sigmas["mean"] + sigmas["var"]) > 4:
+            fails.append("%s moments %s" % (name, sigmas))
+    summary = {"readings": rows, "samplers": samplers}
+    log("phase 28f compat ops %s" % json.dumps(summary))
+    check(not fails, "compat ops on the card: " + "; ".join(fails))
+    return summary
+
+
+def breadth_mlp(mx):
+    data = mx.sym.var("data")
+    h = mx.sym.Activation(mx.sym.FullyConnected(
+        mx.sym.Flatten(data), num_hidden=32, name="fc1"), act_type="relu")
+    return mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        h, num_hidden=10, name="fc2"), name="softmax")
+
+
+def write_idx(path, arr):
+    with gzip.open(path, "wb") as f:
+        f.write(struct.pack(">I", 0x0800 | arr.ndim))
+        f.write(struct.pack(">" + "I" * arr.ndim, *arr.shape))
+        f.write(arr.astype(np.uint8).tobytes())
+
+
+def breadth_iterators(mx, tmp, rng):
+    """{name: a function making the iterator}: over files written here
+    (CSV, libsvm, gzipped idx) and arrays, 96 examples of 10 classes."""
+    n, dim = 96, 64
+    x = rng.rand(n, dim).astype(np.float32)
+    y = rng.randint(0, 10, n)
+    csv_x, csv_y = os.path.join(tmp, "x.csv"), os.path.join(tmp, "y.csv")
+    np.savetxt(csv_x, x, delimiter=",")
+    np.savetxt(csv_y, y, delimiter=",")
+    svm = os.path.join(tmp, "x.libsvm")
+    with open(svm, "w") as f:
+        for row, label in zip(x, y):
+            f.write("%d %s\n" % (label, " ".join(
+                "%d:%.6f" % (j, v) for j, v in enumerate(row) if v > 0.5)))
+    img, lbl = os.path.join(tmp, "img-idx3.gz"), os.path.join(tmp,
+                                                              "lbl-idx1.gz")
+    write_idx(img, (x.reshape(n, 8, 8) * 255).astype(np.uint8))
+    write_idx(lbl, y)
+    return {
+        "CSVIter": lambda: mx.io.CSVIter(data_csv=csv_x, data_shape=(dim,),
+                                         label_csv=csv_y, batch_size=16),
+        "LibSVMIter": lambda: mx.io.LibSVMIter(data_libsvm=svm,
+                                               data_shape=(dim,),
+                                               batch_size=16),
+        "MNISTIter": lambda: mx.io.MNISTIter(image=img, label=lbl,
+                                             batch_size=16, shuffle=True,
+                                             flat=True),
+        "PrefetchingIter": lambda: mx.io.PrefetchingIter(mx.io.NDArrayIter(
+            x, y.astype(np.float32), batch_size=16, shuffle=True)),
+        "ResizeIter": lambda: mx.io.ResizeIter(mx.io.NDArrayIter(
+            x, y.astype(np.float32), batch_size=16, shuffle=True), 4)}
+
+
+def breadth_fit(mx, ctx, make_iter, arg_params):
+    np.random.seed(SEED + 287)
+    it = make_iter()
+    mod = mx.mod.Module(breadth_mlp(mx), context=ctx)
+    mod.fit(it, num_epoch=BREADTH_FIT_EPOCHS, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+            arg_params={k: mx.nd.array(v, ctx=ctx)
+                        for k, v in arg_params.items()},
+            initializer=mx.init.Xavier())
+    it.reset()
+    out = mod.predict(it)
+    args, _ = mod.get_params()
+    return out.asnumpy(), {k: v.asnumpy() for k, v in args.items()}
+
+
+def phase_breadth_rest(mx, rng, tmp, counters):
+    """Phase 28f, part 2: ``Module.fit`` on gpu(0) fed by each file,
+    prefetching and resizing iterator against the same fit on cpu()
+    (outputs and parameters to PARAM_RTOL/ATOL); train_mnist.py through
+    ``run_example`` under gpu(0) with ``--model-prefix``, its checkpoints
+    loaded back through ``model.load_checkpoint`` and predicting the same
+    on the card and on cpu(); ``FeedForward.fit``/``predict`` on gpu(0)
+    against cpu()."""
+    dim = 64
+    r = np.random.RandomState(SEED + 288)
+    arg_params = {"fc1_weight": (r.randn(32, dim) * 0.1).astype(np.float32),
+                  "fc1_bias": np.zeros(32, np.float32),
+                  "fc2_weight": (r.randn(10, 32) * 0.1).astype(np.float32),
+                  "fc2_bias": np.zeros(10, np.float32)}
+    rows, fails = {}, []
+    for name, make in breadth_iterators(mx, tmp, rng).items():
+        (out, args), (out0, args0) = (breadth_fit(mx, c, make, arg_params)
+                                      for c in (mx.gpu(0), mx.cpu()))
+        row = {"outputs_rel": rel_err(out, out0),
+               "params_rel": max(rel_err(args[k], v)
+                                 for k, v in args0.items()),
+               "moved": max(rel_err(args0[k], v)
+                            for k, v in arg_params.items())}
+        rows[name] = row
+        if not (np.allclose(out, out0, rtol=PARAM_RTOL, atol=PARAM_ATOL)
+                and all(np.allclose(args[k], v, rtol=PARAM_RTOL,
+                                    atol=PARAM_ATOL)
+                        for k, v in args0.items()) and row["moved"] > 0):
+            fails.append("Module.fit over %s: %s" % (name, row))
+    prefix = os.path.join(tmp, "mnist")
+    u1 = counters["multi_tensor_update"].launches
+    run = run_example_captured(mx, "image-classification/train_mnist.py",
+                               MNIST_ARGS + ["--model-prefix", prefix], "gpu")
+    example = {"line": [ln for ln in run["lines"]
+                        if "final validation" in ln][:1],
+               "u1_launches": counters["multi_tensor_update"].launches - u1,
+               "seconds": run["seconds"],
+               "files": sorted(f for f in os.listdir(tmp)
+                               if f.startswith("mnist"))}
+    check(example["line"] and example["u1_launches"] > 0
+          and example["files"] == ["mnist-0001.params", "mnist-0002.params",
+                                   "mnist-symbol.json"],
+          "train_mnist.py --model-prefix on gpu(0): %s" % example)
+    x = rng.rand(40, 1, 28, 28).astype(np.float32)
+    preds = {}
+    for c in (mx.gpu(0), mx.cpu()):
+        sym, arg, aux = mx.model.load_checkpoint(prefix, 2)
+        mod = mx.mod.Module(sym, context=c)
+        mod.bind([("data", (20, 1, 28, 28))], for_training=False)
+        mod.set_params(arg, aux)
+        preds[str(c)] = mod.predict(mx.io.NDArrayIter(x, batch_size=20)) \
+            .asnumpy()
+    first = mx.model.load_checkpoint(prefix, 1)[1]
+    second = mx.model.load_checkpoint(prefix, 2)[1]
+    example["checkpoint_predictions_rel"] = rel_err(preds[str(mx.gpu(0))],
+                                                    preds[str(mx.cpu())])
+    example["epoch_2_vs_1"] = max(rel_err(second[k].asnumpy(),
+                                          v.asnumpy())
+                                  for k, v in first.items())
+    if not (example["checkpoint_predictions_rel"] <= INFER_REL
+            and example["epoch_2_vs_1"] > 0):
+        fails.append("train_mnist.py checkpoints: %s" % example)
+    ff = {}
+    xs = rng.rand(60, dim).astype(np.float32)
+    ys = rng.randint(0, 10, 60).astype(np.float32)
+    for c in (mx.gpu(0), mx.cpu()):
+        model = mx.FeedForward(breadth_mlp(mx), ctx=c, num_epoch=2,
+                               numpy_batch_size=20,
+                               arg_params={k: mx.nd.array(v, ctx=c)
+                                           for k, v in arg_params.items()},
+                               aux_params={},
+                               optimizer_params=(("learning_rate", 0.1),))
+        np.random.seed(SEED + 289)
+        model.fit(xs, ys)
+        ff[str(c)] = (model.predict(xs), {k: v.asnumpy() for k, v in
+                                          model.arg_params.items()})
+    (p, a), (p0, a0) = ff[str(mx.gpu(0))], ff[str(mx.cpu())]
+    feedforward = {"predict_rel": rel_err(p, p0),
+                   "params_rel": max(rel_err(a[k], v)
+                                     for k, v in a0.items())}
+    if not (np.allclose(p, p0, rtol=PARAM_RTOL, atol=PARAM_ATOL)
+            and all(np.allclose(a[k], v, rtol=PARAM_RTOL, atol=PARAM_ATOL)
+                    for k, v in a0.items())):
+        fails.append("FeedForward: %s" % feedforward)
+    summary = {"module_fit": rows, "train_mnist": example,
+               "feedforward": feedforward}
+    log("phase 28f iterators, callbacks, FeedForward %s"
+        % json.dumps(summary))
+    check(not fails, "phase 28f: " + "; ".join(fails))
+    return summary
+
+
+def breadth_main():
+    """Phase 28 in a process of its own (a fresh allocator and tracer):
+    every kernel's count is set to 0, 28b-28f run (ResNet-50 with
+    multi-precision Adam, the zoo served and trained, linalg, the compat
+    ops, iterators, callbacks and FeedForward), and the counts are read.
+    Prints its lines, then one JSON line with the launches (mp_adam's of
+    28b apart)."""
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = nvidia_smi()
+    t0 = time.perf_counter()
+    ops = mx.ops
+    counters = {"fused_lstm": ops.fused_lstm,
+                "fused_lstm_train": ops.fused_lstm_train,
+                "lstm_bwd_recurrence": ops.lstm_bwd_recurrence,
+                "conv1x1_s2_dgrad": ops.conv1x1_s2_dgrad,
+                "flash_attention": ops.flash_attention, "rtc": mx.rtc.Kernel,
+                "multi_tensor_update": ops.multi_tensor_update,
+                "greedy_nms": ops.greedy_nms,
+                "sparse_row_update": ops.sparse_row_update}
+    rng = np.random.RandomState(SEED + 28)
+    seconds = {}
+    for c in counters.values():               # the path starts here
+        c.launches = 0
+    t = time.perf_counter()
+    resnet = phase_mp_adam_resnet(mx, rng)
+    seconds["28b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    phase_zoo_serve(mx, rng, card)
+    seconds["28c"] = time.perf_counter() - t
+    t = time.perf_counter()
+    phase_zoo_train(mx, rng, card)
+    seconds["28d"] = time.perf_counter() - t
+    t = time.perf_counter()
+    phase_linalg_card(mx, rng)
+    seconds["28e"] = time.perf_counter() - t
+    t = time.perf_counter()
+    phase_compat_card(mx, rng)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_breadth_rest(mx, rng, tmp, counters)
+    seconds["28f"] = time.perf_counter() - t
+    launches = launches_of(counters)          # ... and ends here
+    print(json.dumps({"phase": "28", "kernel_launches": launches,
+                      "mp_adam_launches": resnet["mp_adam_launches"],
+                      "seconds": seconds, "card": card,
+                      "total_seconds": time.perf_counter() - t0}),
+          flush=True)
+    check(launches["conv1x1_s2_dgrad"] > 0
+          and launches["multi_tensor_update"] > 0
+          and not any(n for k, n in launches.items()
+                      if k not in ("conv1x1_s2_dgrad",
+                                   "multi_tensor_update")),
+          "the breadth path launched %s: want K5 and U1 only" % launches)
+    return 0
+
+
+def phase_breadth_process():
+    """Phase 28: ``breadth_main`` in a process of its own; its lines are
+    logged, its launches and mp_adam's row returned."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--breadth"],
+        capture_output=True, text=True, timeout=BREADTH_TIMEOUT_S)
+    for line in out.stdout.splitlines():
+        if line.startswith("phase 28"):
+            log(line)
+    check(out.returncode == 0, "the breadth process exited %d: %s"
+          % (out.returncode, out.stderr[-4000:]))
+    last = json.loads(out.stdout.splitlines()[-1])
+    log("phase 28 seconds %.1f" % (time.perf_counter() - t0))
+    return last
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs the port on the GPU",
@@ -7479,6 +8573,8 @@ def main():
         mx, path, np.random.RandomState(SEED + 25))
     obs_launches = phase_observability(mx)
     serving_launches = phase_serving_process()
+    breadth = phase_breadth_process()
+    breadth_launches = breadth["kernel_launches"]
 
     top = next(r for r in rows
                if (r["T"], r["B"]) == (SEQ, max(SERVED_BATCHES)))
@@ -7523,7 +8619,8 @@ def main():
         "source": "mxnet_tpu_torch/csrc/dgrad_wgmma.cuh",
         "replaces": "mxnet_tpu/ops/conv_kernels.py:66",
         "launches": (k5_launches + gluon_k5
-                     + obs_launches["conv1x1_s2_dgrad"]),
+                     + obs_launches["conv1x1_s2_dgrad"]
+                     + breadth_launches["conv1x1_s2_dgrad"]),
         "max_abs_err": max(r["max_abs_err"] for r in k5_rows),
         **{key: sum(r[key] for r in step_rows)
            for key in ("ms", "plain_ms", "library_ms")},
@@ -7554,9 +8651,22 @@ def main():
         "launches": (opt_launches["multi_tensor_update"]
                      + rnn_launches["multi_tensor_update"]
                      + speech_launches["multi_tensor_update"]
-                     + obs_launches["multi_tensor_update"]),
+                     + obs_launches["multi_tensor_update"]
+                     + breadth_launches["multi_tensor_update"]),
         "max_abs_err": u1_summary["max_abs_err"],
         **{key: u1_a[key] for key in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}})
+    # U1's sixth formula, mp_adam: one update of ResNet-50's bf16 weights
+    # with f32 masters (phase 21a); its launches are the breadth path's
+    # ResNet-50 steps (28b)
+    u1_c = u1_summary["timed"]["c"]
+    kernels.append({
+        "name": "multi_tensor_update.mp_adam", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/multi_tensor_update.cu",
+        "replaces": "mxnet_tpu/optimizer.py:666",
+        "launches": breadth["mp_adam_launches"],
+        "max_abs_err": u1_summary["max_abs_err_by_formula"]["mp_adam"],
+        **{key: u1_c[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}})
     # N1: Proposal at Faster-RCNN's defaults (one image, 6000 boxes)
     n1_main = n1_rows[0]
@@ -7593,4 +8703,5 @@ if __name__ == "__main__":
               "--observability": observability_main,
               "--serving": serving_main,
               "--observability-telemetry": observability_telemetry_main,
+              "--breadth": breadth_main,
               }.get(" ".join(sys.argv[1:]), main)())

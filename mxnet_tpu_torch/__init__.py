@@ -57,7 +57,13 @@ so far:
   paths above.
 
 ``rtc`` compiles and launches user CUDA kernels at runtime (NVRTC and
-``libcuda``), the reference's ``mx.rtc.CudaModule``.
+``libcuda``), the reference's ``mx.rtc.CudaModule``. Beside the paths
+stand the rest of the JAX package's surface: ``nd.linalg`` and
+``sym.linalg``, the file and prefetching iterators of ``io``, the
+callbacks, ``FeedForward``, ``AttrScope``, the model zoo's families
+(every name of ``gluon.model_zoo.vision.get_model``) and
+``gluon.contrib.nn``; ``Adam(multi_precision=True)`` on bf16 weights
+updates through the same multi-tensor kernel as SGD.
 
 Entry points run on ``gpu(0)`` (``cuda:0``) unless the caller passes
 ``cpu()``; without a CUDA device they raise rather than fall back.
@@ -77,7 +83,7 @@ and MFU against the card's peak, the flight recorder), ``xplane`` (the
 trace's per-kernel device-time table) and ``monitor`` (per-node tensor
 statistics).
 """
-from .base import MXNetError
+from .base import MXNetError, __version__
 from . import threadsan
 from . import telemetry  # metrics/spans; inert unless MXNET_TELEMETRY_DIR
 from . import stepprof  # step-time anatomy; verbose layer needs MXNET_STEPPROF
@@ -88,16 +94,20 @@ from .context import (Context, cpu, gpu, tpu, cpu_pinned, current_context,
                       num_gpus, num_tpus)
 from . import context
 from . import random
+from .random import seed
 from . import autograd
 from . import ndarray
 from . import ndarray as nd
 from . import ops
 from . import symbol
 from . import symbol as sym
+from .symbol import Symbol
 from .executor import Executor
 from . import initializer
 from . import initializer as init
+from .initializer import Xavier
 from . import optimizer
+from .optimizer import Optimizer
 from . import kvstore
 from . import kvstore as kv
 from .kvstore import create as kvstore_create
@@ -108,6 +118,7 @@ from . import metric
 from . import module
 from . import module as mod
 from . import model
+from .model import FeedForward
 from . import rnn
 from . import callback
 from . import name
@@ -124,6 +135,8 @@ from .weights import (params_from_numpy, params_to_numpy,
 from . import serving
 from . import rtc
 from . import operator
+from .attribute import AttrScope
+from .name import NameManager
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "cpu_pinned",
            "current_context", "num_gpus", "num_tpus", "context", "random",
@@ -135,4 +148,6 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "cpu_pinned",
            "autograd", "Predictor", "params_from_numpy", "params_to_numpy",
            "set_block_params", "serving", "rtc", "operator", "telemetry",
            "stepprof", "runprof", "memprof", "chaos", "threadsan",
-           "profiler", "xla_stats", "xplane", "monitor", "Monitor"]
+           "profiler", "xla_stats", "xplane", "monitor", "Monitor", "seed",
+           "Xavier", "Optimizer", "Symbol", "FeedForward", "AttrScope",
+           "NameManager"]

@@ -11,7 +11,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "dtype_np", "torch_dtype", "numpy_dtype"]
+__all__ = ["MXNetError", "dtype_np", "torch_dtype", "numpy_dtype",
+           "__version__"]
+
+#: the MXNet API version the package follows, as the JAX package's
+#: ``1.2.1+tpu0``, with the port's local tag
+__version__ = "1.2.1+torch0"
 
 
 class MXNetError(Exception):

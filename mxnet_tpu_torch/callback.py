@@ -1,11 +1,17 @@
 """Training callbacks.
 
 Counterpart of `mxnet_tpu/callback.py` (reference
-`python/mxnet/callback.py`), cut to ``Speedometer``: every ``frequent``
-batches it logs samples/s over the batches since its last log, and the
-metric values. As in the JAX package, the speed comes from the telemetry
-registry (``fit_samples_total``, counted per batch by ``Module.fit``), so
-the printed number and the exported metrics cannot disagree; outside an
+`python/mxnet/callback.py`): the epoch-end checkpoints
+``module_checkpoint`` and ``do_checkpoint``, the batch-end loggers
+``log_train_metric``, ``Speedometer`` and ``ProgressBar``, and
+``LogValidationMetricsCallback``. ``elastic_checkpoint`` waits for the
+port's elastic training (ROADMAP A.10).
+
+Every ``frequent`` batches ``Speedometer`` logs samples/s over the
+batches since its last log, and the metric values. As in the JAX
+package, the speed comes from the telemetry registry
+(``fit_samples_total``, counted per batch by ``Module.fit``), so the
+printed number and the exported metrics cannot disagree; outside an
 instrumented fit loop (the counter not advancing) it falls back to the
 reference's ``frequent * batch_size / elapsed``. Each log line also
 publishes goodput and MFU (`xla_stats.goodput`: the ``mfu`` and
@@ -16,11 +22,49 @@ window and runprof's productive share.
 from __future__ import annotations
 
 import logging
+import math
 import time
 
 from . import runprof, stepprof, telemetry, xla_stats
 
-__all__ = ["Speedometer"]
+__all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
+           "Speedometer", "ProgressBar", "LogValidationMetricsCallback"]
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+    """Epoch-end callback saving ``mod``'s checkpoint every ``period``
+    epochs."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
+    return _callback
+
+
+def do_checkpoint(prefix, period=1):
+    """Epoch-end callback saving the symbol and parameters it is handed
+    every ``period`` epochs (`model.save_checkpoint`)."""
+    from .model import save_checkpoint
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+    return _callback
+
+
+def log_train_metric(period, auto_reset=False):
+    """Batch-end callback logging the training metric every ``period``
+    batches."""
+    def _callback(param):
+        if param.nbatch % period == 0 and param.eval_metric is not None:
+            for name, value in param.eval_metric.get_name_value():
+                logging.info("Iter[%d] Batch[%d] Train-%s=%f",
+                             param.epoch, param.nbatch, name, value)
+            if auto_reset:
+                param.eval_metric.reset()
+    return _callback
 
 
 class Speedometer:
@@ -139,3 +183,29 @@ class Speedometer:
             logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec%s%s",
                          param.epoch, count, speed, goodput, phases)
         self._mark()
+
+
+class ProgressBar:
+    """Batch-end callback logging a bar of the epoch's progress."""
+
+    def __init__(self, total, length=80):
+        self.bar_len = length
+        self.total = total
+
+    def __call__(self, param):
+        count = param.nbatch
+        filled_len = int(round(self.bar_len * count / float(self.total)))
+        percents = math.ceil(100.0 * count / float(self.total))
+        prog_bar = "=" * filled_len + "-" * (self.bar_len - filled_len)
+        logging.info("[%s] %s%s\r", prog_bar, percents, "%")
+
+
+class LogValidationMetricsCallback:
+    """Eval-end callback logging each validation metric."""
+
+    def __call__(self, param):
+        if not param.eval_metric:
+            return
+        for name, value in param.eval_metric.get_name_value():
+            logging.info("Epoch[%d] Validation-%s=%f", param.epoch, name,
+                         value)

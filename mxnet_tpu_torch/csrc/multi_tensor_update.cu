@@ -10,6 +10,7 @@
 //   3 mp_sgd_mom  mom = momentum*mom - lr*g';  w32 = w32 + mom;  w = round(w32)
 //   4 adam        m = b1*m + (1-b1)*g';  v = b2*v + (1-b2)*g'^2;
 //                 w = w - lr*m / (sqrt(v) + eps)
+//   5 mp_adam     adam on the f32 master copy w32;  w = round(w32)
 // with g' = clip(rescale * float(g)) + wd * w (w32 for the mp formulas), all
 // in f32 and in that order, the new weight rounded once to its dtype (f32 or
 // bf16, round to nearest even). lr and wd are per tensor and come from a
@@ -28,7 +29,8 @@
 // above, so the launch can be captured in a CUDA graph.
 //
 // What bounds it: bytes. Each value is read and written once (sgd f32: 8 B
-// read, 4 written; mp_sgd_mom bf16: 10 and 10; adam f32: 16 and 12), at far
+// read, 4 written; mp_sgd_mom bf16: 10 and 10; adam f32: 16 and 12; mp_adam
+// bf16: 14 and 14, the master read in place of the weight), at far
 // below one operation a byte. A block streams its chunk with 16-byte loads
 // (8-byte for bf16 weights and gradients) where the tensor's pointers allow,
 // elementwise otherwise.
@@ -38,7 +40,14 @@
 
 namespace {
 
-enum Formula { kSgd = 0, kSgdMom = 1, kMpSgd = 2, kMpSgdMom = 3, kAdam = 4 };
+enum Formula {
+  kSgd = 0,
+  kSgdMom = 1,
+  kMpSgd = 2,
+  kMpSgdMom = 3,
+  kAdam = 4,
+  kMpAdam = 5
+};
 
 // One tensor of the list, as ops/multi_tensor.py packs it: six int64s.
 struct Entry {
@@ -89,11 +98,13 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
 }
 
 // The moments a formula carries (mom; or Adam's mean and var) and whether it
-// keeps an f32 master copy of the weight.
+// keeps an f32 master copy of the weight, which is its last state.
 template <int F> struct Traits {
-  static constexpr int kMoments =
-      (F == kSgdMom || F == kMpSgdMom) ? 1 : (F == kAdam ? 2 : 0);
-  static constexpr bool kMaster = F == kMpSgd || F == kMpSgdMom;
+  static constexpr int kMoments = (F == kSgdMom || F == kMpSgdMom)
+                                      ? 1
+                                      : ((F == kAdam || F == kMpAdam) ? 2 : 0);
+  static constexpr bool kMaster = F == kMpSgd || F == kMpSgdMom ||
+                                  F == kMpAdam;
 };
 
 // The new weight (f32) from the old one, the raw gradient and the moments,
@@ -132,7 +143,9 @@ __global__ void __launch_bounds__(kThreads)
   W* w = static_cast<W*>(e.w);
   const W* g = static_cast<const W*>(e.g);
   float* mom[2] = {e.s0, e.s1};
-  float* master = T::kMaster ? (F == kMpSgd ? e.s0 : e.s1) : nullptr;
+  float* master = T::kMaster
+                      ? (F == kMpSgd ? e.s0 : (F == kMpSgdMom ? e.s1 : e.s2))
+                      : nullptr;
   const long long begin = static_cast<long long>(c.y) * chunk;
   const long long end = min(e.n, begin + chunk);
 
@@ -201,6 +214,10 @@ int launch(int formula, const Entry* table, const int2* chunks, int n_chunks,
       multi_tensor_kernel<kAdam, W><<<grid, block, 0, s>>>(
           table, chunks, lrwd, chunk, h);
       break;
+    case kMpAdam:
+      multi_tensor_kernel<kMpAdam, W><<<grid, block, 0, s>>>(
+          table, chunks, lrwd, chunk, h);
+      break;
     default:
       return -2;
   }
@@ -209,7 +226,7 @@ int launch(int formula, const Entry* table, const int2* chunks, int n_chunks,
 
 }  // namespace
 
-// formula: 0-4 as above; wdtype: 0 f32, 1 bf16 (weights and gradients);
+// formula: 0-5 as above; wdtype: 0 f32, 1 bf16 (weights and gradients);
 // table: n tensors' Entry records; chunks: n_chunks (tensor, chunk) int32
 // pairs; lrwd: 2n f32 (lr, wd of each tensor); chunk: elements a chunk, a
 // multiple of 4. All pointers are device pointers. Returns 0, a negative

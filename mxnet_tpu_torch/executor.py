@@ -21,7 +21,11 @@ and runs eagerly, counted as ``uncaptured``. A training forward
 (``is_train=True``) runs the ops eagerly in topological order: it records
 the graph with ``torch.autograd`` from leaf copies of the arguments that
 take a gradient, writes the new aux values back in place, and the
-following ``backward`` writes the gradients into ``grad_dict``.
+following ``backward`` writes the gradients into ``grad_dict``. A sampled
+step of `module.Module` sets ``_hold`` (a `module._Holds`) for one
+training forward and backward: the forward calls it after each node with
+the node's outputs and the gradient copies call it after each gradient,
+so that the step's device time is read in segments.
 
 Two graph passes of the JAX executor run at bind, on by default with the
 same switches, so both packages compute the same graph: the conv-bias ->
@@ -158,7 +162,8 @@ def _build_eval(sym: Symbol, ctx, fold=True):
         folds = _plan_conv_bias_bn_fold(sym, nodes)
         _plan_relu_pool_fold(sym, nodes, folds)
 
-    def eval_fn(arg_vals, aux_vals, generator, is_train, monitor=None):
+    def eval_fn(arg_vals, aux_vals, generator, is_train, monitor=None,
+                hold=None):
         env = {}
         aux_updates = {}
         for n in nodes:
@@ -205,6 +210,8 @@ def _build_eval(sym: Symbol, ctx, fold=True):
                     monitor[0]("%s_output%d" % (n.name, i) if n_out > 1
                                else n.name + "_output",
                                NDArray(o.detach(), ctx))
+            if hold is not None:
+                hold.node(env[id(n)])
         return [env[nid][i] for nid, i in out_index], aux_updates
 
     return eval_fn
@@ -303,6 +310,7 @@ class Executor:
         self._seed = _random.executor_seed(ctx)
         self._recorded = None   # (outputs, leaves) of a training forward
         self._monitor = None    # (callback, monitor_all)
+        self._hold = None       # a sampled step's module._Holds
         self.outputs = []
 
     @staticmethod
@@ -437,13 +445,14 @@ class Executor:
             arg_vals.update(leaves)
             with torch.enable_grad():
                 outs, aux_up = self._eval_fn(arg_vals, aux_vals, gen, True,
-                                             self._monitor)
+                                             self._monitor, self._hold)
             self._recorded = (outs, leaves)
             outs = [o.detach() for o in outs]
         else:
             with torch.no_grad():
                 outs, aux_up = self._eval_fn(arg_vals, aux_vals, gen,
-                                             bool(is_train), self._monitor)
+                                             bool(is_train), self._monitor,
+                                             self._hold)
         if is_train:
             with torch.no_grad():
                 for name, val in aux_up.items():
@@ -489,6 +498,8 @@ class Executor:
                     dst.zero_()
                 else:
                     dst.copy_(g)
+                if self._hold is not None:
+                    self._hold.tick()
 
     def forward_backward(self, out_grads=None, **kwargs):
         """One training forward and its backward."""

@@ -2,14 +2,14 @@
 
 Counterpart of `mxnet_tpu/module/base_module.py` (reference
 `python/mxnet/module/base_module.py`): ``forward_backward``, ``_step``,
-``score``, ``fit`` and its loop, cut to what a one-device run without a
-kvstore needs. The loop is the reference's: per batch a train step, then
-``update_metric``, then the batch callbacks; at the end of an epoch the
-epoch callbacks and ``score`` on the eval data. ``fit(...,
-batches_per_dispatch=K)`` hands K batches at a time to ``_step_scan``;
-``fit(..., monitor=)`` installs a `monitor.Monitor` and brackets each
-batch with its ``tic`` and ``toc_print`` (and then steps batch by batch,
-as the JAX package does).
+``score``, ``iter_predict``, ``predict``, ``fit`` and its loop, cut to what
+a one-device run without a kvstore needs. The loop is the reference's: per
+batch a train step, then ``update_metric``, then the batch callbacks; at
+the end of an epoch the epoch callbacks and ``score`` on the eval data.
+``fit(..., batches_per_dispatch=K)`` hands K batches at a time to
+``_step_scan``; ``fit(..., monitor=)`` installs a `monitor.Monitor` and
+brackets each batch with its ``tic`` and ``toc_print`` (and then steps
+batch by batch, as the JAX package does).
 
 The loop carries the JAX package's observability: each iteration is one
 stepprof step (``data_wait`` while the iterator blocks, the step's own
@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import logging
 import time
+
+import numpy as np
 
 from .. import metric as metric_mod
 from .. import runprof, stepprof, telemetry, xla_stats
@@ -124,6 +126,50 @@ class BaseModule:
             callback(BatchEndParam(epoch=epoch, nbatch=actual_num_batch,
                                    eval_metric=eval_metric, locals=locals()))
         return eval_metric.get_name_value()
+
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Yield (outputs without the batch's pad, batch index, batch)
+        for each batch of ``eval_data``."""
+        if not (self.binded and self.params_initialized):
+            raise RuntimeError("iter_predict needs a bound, initialized "
+                               "module")
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            yield ([out[0:out.shape[0] - pad]
+                    for out in self.get_outputs()], nbatch, eval_batch)
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False):
+        """The outputs over ``eval_data`` (a DataIter, or one array taken
+        as a single batch), the pad of each batch cut off; merged along
+        the batch axis with ``merge_batches``, one array when the module
+        has one output unless ``always_output_list``."""
+        if not (self.binded and self.params_initialized):
+            raise RuntimeError("predict needs a bound, initialized module")
+        from .. import io as io_mod
+        from ..ndarray import NDArray, concatenate
+        if isinstance(eval_data, (NDArray, np.ndarray)):
+            eval_data = io_mod.NDArrayIter(eval_data,
+                                           batch_size=eval_data.shape[0])
+        output_list = [[out.copy() for out in outputs] for outputs, _, _
+                       in self.iter_predict(eval_data, num_batch, reset)]
+        if not output_list or not merge_batches:
+            return output_list
+        num_outputs = len(output_list[0])
+        if any(len(out) != num_outputs for out in output_list):
+            raise ValueError("Cannot merge batches, as num of outputs is not "
+                             "the same in mini-batches. Maybe bucketing is "
+                             "used?")
+        merged = [concatenate([out[i] for out in output_list])
+                  for i in range(num_outputs)]
+        if num_outputs == 1 and not always_output_list:
+            return merged[0]
+        return merged
 
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None,

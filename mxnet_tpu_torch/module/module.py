@@ -90,6 +90,85 @@ def _norm_shapes(shapes):
     return [(s[0], tuple(s[1])) for s in shapes]
 
 
+class _Holds:
+    """The device time of a sampled step, read in windows the host cannot
+    stretch. An eager step launches thousands of kernels (a ResNet-50
+    step about 3,400), the host issues them slower than the card runs
+    them, and the card's launch queue takes about a thousand: a step
+    timed by two events holds the card's waits for the host. So the step
+    is cut into segments the queue takes whole. Before each, the card
+    sleeps ``MARGIN`` times the host time of the segment before (of
+    ``SEGMENT_S`` for the first) while the host issues the segment behind
+    the sleep, unless the card has not begun the last sleep yet (it then
+    lags the host by that sleep at least, and sleeping again would only
+    add to the step); an event after the sleep and one after the segment
+    bound its window. A segment closes at the first point (`tick`: after
+    a node of the forward, a node's gradient in the backward, a
+    gradient's copy, the update's start) where the host has issued it for
+    ``SEGMENT_S``. If the card had passed a segment's start event when
+    the host closed it, the card may have waited inside the window, and
+    the sample is unclean."""
+
+    #: host seconds a segment is issued for: a few hundred launches
+    SEGMENT_S = 0.004
+    MARGIN = 1.5
+    #: the card's clock for the sleeps, cycles a second (the H100's boost
+    #: clock; a slower card sleeps longer, which is harmless)
+    CYCLES_PER_S = 1.98e9
+
+    def __init__(self, dev):
+        self.stream = torch.cuda.current_stream(dev)
+        self.windows = []       # (start, end) events
+        self.clean = True
+        self._slept = None      # an event just before the last sleep
+        self._open(self.SEGMENT_S)
+
+    def _event(self):
+        evt = torch.cuda.Event(enable_timing=True)
+        evt.record(self.stream)
+        return evt
+
+    def _open(self, host_s):
+        if self._slept is None or self._slept.query():
+            self._slept = self._event()
+            with torch.cuda.stream(self.stream):    # also autograd's thread
+                torch.cuda._sleep(int(self.MARGIN * host_s *
+                                      self.CYCLES_PER_S))
+        self._start = self._event()
+        self._t0 = time.perf_counter()
+
+    def close(self):
+        """Close the open segment; its end event."""
+        end = self._event()
+        if self._start.query():
+            self.clean = False
+        self.windows.append((self._start, end))
+        return end
+
+    def tick(self, *_):
+        """Close the open segment and open the next, once the host has
+        issued it for ``SEGMENT_S`` (also a gradient hook)."""
+        host_s = time.perf_counter() - self._t0
+        if host_s >= self.SEGMENT_S:
+            self.close()
+            self._open(host_s)
+
+    def node(self, outs):
+        """After a forward node: tick, and tick again in the backward when
+        each output's gradient is ready."""
+        for o in outs:
+            if getattr(o, "requires_grad", False):
+                o.register_hook(self.tick)
+        self.tick()
+
+    def seconds(self):
+        """The windows' device time, once the last has ended; None when
+        the sample is unclean."""
+        if not self.clean:
+            return None
+        return sum(s.elapsed_time(e) for s, e in self.windows) / 1e3
+
+
 class Module(BaseModule):
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
@@ -139,7 +218,8 @@ class Module(BaseModule):
         self._monitor = None
         self._step_flops = {}       # step signature -> model FLOPs
         self._opt_bytes_noted = False
-        self._host_step_s = None    # the last step's host time, seconds
+        self._holds = None          # a sampled step's _Holds
+        self.samples_dropped = 0    # sampled steps with a gap in a window
 
     @staticmethod
     def load(prefix, epoch, load_optimizer_states=False, **kwargs):
@@ -553,7 +633,6 @@ class Module(BaseModule):
         self._check_ready(optimizer=True)
         try:
             memprof.on_dispatch("module.step")
-            t0 = time.perf_counter()
             sample = stepprof.should_sync() and self._card()
             if sample:
                 self._hold_card()
@@ -564,15 +643,18 @@ class Module(BaseModule):
                 self._step_flops[key] = fc.total
             else:
                 self.forward_backward(data_batch)
+            if sample:
+                self._holds.tick()
             self.update()
         except Exception as exc:
+            if self._holds is not None:
+                self._release_card()
             oom = memprof.maybe_oom_error(exc, site="module.step")
             if oom is not None:
                 raise oom from exc
             raise
         xla_stats.note_train_step(self._step_flops.get(key, 0), batches=1,
                                   dtype=self._compute_dtype())
-        self._host_step_s = time.perf_counter() - t0
         if sample:
             self._sampled_sync()
 
@@ -584,47 +666,44 @@ class Module(BaseModule):
             return None
         return dev
 
-    #: the card's clock for the sampled sync's hold, cycles a second (the
-    #: H100's boost clock; a slower card holds longer, which is harmless)
-    HOLD_CYCLES_PER_S = 1.98e9
-
     def _hold_card(self):
-        """Start a sampled step: the card sleeps, as long as the last
-        step's host time (else 50 ms) and half again, while the host
-        queues the step's kernels behind it, and an event marks the end
-        of the sleep. The kernels then run back to back, so the span
-        from that event to the step's end is the step's device time,
-        where a plain synchronize after an eager step would time only the
-        tail the host left. The card's launch queue holds about a
-        thousand launches, fewer than a ResNet-50 step's, so the host
-        still feeds the queue after the sleep: Python's collector is off
-        until the step ends, so that no collection stalls the host there
-        (a stall would show as device time)."""
+        """Start a sampled step: Python's collector is off until the step
+        ends (a collection would stall the host inside a segment), the
+        card finishes what it was given, and a `_Holds` on the executor
+        opens the step's first segment."""
         dev = self._card()
-        host_s = self._host_step_s or 0.05
         self._collecting = gc.isenabled()
         gc.disable()
         torch.cuda.synchronize(dev)
-        torch.cuda._sleep(int(1.5 * host_s * self.HOLD_CYCLES_PER_S))
-        self._held = torch.cuda.Event(enable_timing=True)
-        self._held.record(torch.cuda.current_stream(dev))
+        self._holds = _Holds(dev)
+        self._exec._hold = self._holds
+
+    def _release_card(self):
+        """The executor's hold off and the collector back; the holds."""
+        holds, self._holds = self._holds, None
+        self._exec._hold = None
+        if self._collecting:
+            gc.enable()
+        return holds
 
     def _sampled_sync(self, batches=1):
         """End a sampled step: the device_compute phase waits for the
-        card, and the device time since :meth:`_hold_card`'s event is the
-        step's device sample."""
-        dev = self._card()
-        end = torch.cuda.Event(enable_timing=True)
-        end.record(torch.cuda.current_stream(dev))
-        if self._collecting:
-            gc.enable()
+        card, and the sum of the step's windows is its device sample. A
+        step with a window the card may have waited in is dropped and
+        counted in ``samples_dropped``."""
+        holds = self._release_card()
+        end = holds.close()
         if threadsan.ARMED:
             threadsan.note_dispatch("module._step.sampled_sync",
                                     kind="sync")
         with stepprof.phase("device_compute", synced=True):
             end.synchronize()
+        seconds = holds.seconds()
+        if seconds is None:
+            self.samples_dropped += 1
+            return
         stepprof.note_device_sample(
-            self._held.elapsed_time(end) / 1e3, batches=batches,
+            seconds, batches=batches,
             flops_per_batch=xla_stats.flops_per_batch())
 
     def install_monitor(self, mon):

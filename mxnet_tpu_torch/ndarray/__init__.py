@@ -36,5 +36,6 @@ def _with_scalar(op, scalar_op):
 maximum = _with_scalar(globals()["maximum"], "_maximum_scalar")
 minimum = _with_scalar(globals()["minimum"], "_minimum_scalar")
 from . import contrib  # noqa: E402,F401
+from . import linalg  # noqa: E402,F401
 from . import random  # noqa: E402,F401
 from . import sparse  # noqa: E402,F401

@@ -10,6 +10,7 @@ from . import detection  # noqa: F401  (registers ops)
 from . import random_ops  # noqa: F401  (registers ops)
 from . import optimizer_ops  # noqa: F401  (registers ops)
 from . import compat_ops  # noqa: F401  (registers ops)
+from . import linalg_ops  # noqa: F401  (registers ops)
 from .attention_kernel import (FlashAttention, dense_attention_plain,
                                flash_attention, flash_attention_plain)
 from .conv_kernel import conv1x1_s2_dgrad, conv1x1_s2_dgrad_plain

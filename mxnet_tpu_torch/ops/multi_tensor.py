@@ -3,7 +3,7 @@
 U1 is the counterpart of the one compiled program that
 `mxnet_tpu/optimizer.py`'s ``FusedApplier`` traces over every parameter
 (an XLA program; no TPU kernel of the repository). ``multi_tensor_update``
-applies one of five formulas of `ops/optimizer_ops.py` (``FORMULAS``) to
+applies one of six formulas of `ops/optimizer_ops.py` (``FORMULAS``) to
 lists of weights, gradients and f32 states, with a learning rate and a
 weight decay per tensor. On CUDA tensors it launches
 ``csrc/multi_tensor_update.cu`` once for the whole list; on CPU tensors it
@@ -38,8 +38,8 @@ from torch.autograd.graph import increment_version
 from ..base import MXNetError
 from . import _build
 from .launch_count import count
-from .optimizer_ops import (adam_update, mp_sgd_mom_update, mp_sgd_update,
-                            sgd_mom_update, sgd_update)
+from .optimizer_ops import (adam_update, mp_adam_update, mp_sgd_mom_update,
+                            mp_sgd_update, sgd_mom_update, sgd_update)
 
 __all__ = ["FORMULAS", "multi_tensor_update", "multi_tensor_update_plain",
            "UpdateBuffers", "CHUNK"]
@@ -51,6 +51,7 @@ FORMULAS = {
     "mp_sgd": (2, mp_sgd_update, 1, ()),
     "mp_sgd_mom": (3, mp_sgd_mom_update, 2, ("momentum",)),
     "adam": (4, adam_update, 2, ("beta1", "beta2", "epsilon")),
+    "mp_adam": (5, mp_adam_update, 3, ("beta1", "beta2", "epsilon")),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: elements of a tensor one block updates

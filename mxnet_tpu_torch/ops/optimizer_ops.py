@@ -102,6 +102,22 @@ def adam_update(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,
     return weight
 
 
+def mp_adam_update(weight, grad, mean, var, weight32, lr, beta1=0.9,
+                   beta2=0.999, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                   clip_gradient=-1.0):
+    """Adam on the f32 master copy ``weight32`` from the gradient in f32;
+    the (bf16/f16) weight is its rounding. What the optimizer's
+    ``update_multi_precision`` does for Adam; not a registered op (the JAX
+    package has no ``mp_adam_update``), only the multi-tensor update's
+    plain version."""
+    with torch.no_grad():
+        adam_update(weight32, grad.float(), mean, var, lr, beta1=beta1,
+                    beta2=beta2, epsilon=epsilon, wd=wd,
+                    rescale_grad=rescale_grad, clip_gradient=clip_gradient)
+        weight.copy_(weight32)
+    return weight
+
+
 def rmsprop_update(weight, grad, n, lr, gamma1=0.95, epsilon=1e-8, wd=0.0,
                    rescale_grad=1.0, clip_gradient=-1.0):
     with torch.no_grad():

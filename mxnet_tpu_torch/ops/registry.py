@@ -26,7 +26,7 @@ from __future__ import annotations
 
 from ..base import MXNetError
 
-__all__ = ["Operator", "register", "get_op", "populate_contrib"]
+__all__ = ["Operator", "register", "get_op", "populate_prefixed"]
 
 _OPS = {}
 
@@ -91,9 +91,14 @@ def get_op(name) -> Operator:
         raise MXNetError("Operator %s is not registered" % name) from None
 
 
-def populate_contrib(namespace, make_fn):
-    """Fill an ``nd.contrib`` / ``sym.contrib`` namespace: every registered
-    ``_contrib_Foo`` op as ``Foo``, built by ``make_fn(name)``."""
+def populate_prefixed(namespace, make_fn, prefix):
+    """Fill a namespace of ops by short name: every registered
+    ``<prefix>Foo`` op as ``Foo``, built by ``make_fn(name)``; returns the
+    short names added (the namespace's ``__all__``)."""
+    names = []
     for name in list(_OPS):
-        if name.startswith("_contrib_"):
-            namespace.setdefault(name[len("_contrib_"):], make_fn(name))
+        short = name[len(prefix):]
+        if name.startswith(prefix) and short not in namespace:
+            namespace[short] = make_fn(name)
+            names.append(short)
+    return names

@@ -645,9 +645,10 @@ class FusedApplier:
     function on the CPU. The learning rates and weight decays (Adam's
     bias correction folded into the lr, in double precision) go to the
     kernel as a vector filled each step, as the JAX package feeds them to
-    its program as traced inputs. Every other optimizer, and Adam's
-    ``multi_precision`` on a bf16/f16 weight off the card, is applied
-    index by index through its ``update_multi_precision`` inside the same
+    its program as traced inputs. Adam's ``multi_precision`` on a
+    bf16/f16 weight is the ``mp_adam`` formula: Adam on the f32 master
+    copy, the weight its rounding. Every other optimizer is applied index
+    by index through its ``update_multi_precision`` inside the same
     call. Each index's update count moves once a call. States are the
     wrapped ``Updater``'s, so its state files hold them.
     """
@@ -682,20 +683,25 @@ class FusedApplier:
         if not self.supports(opt):
             return None
         if type(opt) is Adam:
-            return None if _is_master(opt, weight, state) else "adam"
+            return "mp_adam" if _is_master(opt, weight, state) else "adam"
         if _is_master(opt, weight, state):
             return "mp_sgd" if state[1] is None else "mp_sgd_mom"
         return "sgd" if state is None else "sgd_mom"
 
     def _kernel_states(self, index):
         """The index's states in the order of its formula's function in
-        `ops/optimizer_ops.py` (``mp_sgd_mom``: momentum, then master)."""
+        `ops/optimizer_ops.py`: the master copy last (``mp_sgd_mom``:
+        momentum, master; ``mp_adam``: mean, var, master)."""
         s = self.updater.states[index]
         if s is None:
             return ()
         if isinstance(s, tuple) and isinstance(self.optimizer, SGD):
             master, mom = s
             return (master,) if mom is None else (mom, master)
+        if isinstance(s, tuple) and len(s) == 2 \
+                and isinstance(s[1], tuple):
+            master, (mean, var) = s
+            return (mean, var, master)
         return s if isinstance(s, tuple) else (s,)
 
     def prepare(self, indices, weights):

@@ -48,7 +48,10 @@ device time but drains the queue, so it is off by default.
 every Nth step while ``MXNET_STEPPROF=1``; `Module._step` and
 `_step_scan` honour it, never while a stream is capturing a CUDA graph,
 and cross-check the measured rate against the step's FLOP count
-(``step_device_flops_per_second``, comparable to ``mfu``).
+(``step_device_flops_per_second``, comparable to ``mfu``). An eager step
+outgrows the card's launch queue, so `Module._step` times it in
+segments, each held back until the host has issued it (`module._Holds`),
+and drops a sample the card may have waited in.
 
 Recording is always on and costs a dict lookup and two clock reads a
 phase; ``MXNET_STEPPROF=1`` also arms the `callback.Speedometer` phase

@@ -5,3 +5,4 @@ from .register import populate as _populate
 
 _populate(globals())
 from . import contrib  # noqa: E402,F401
+from . import linalg  # noqa: E402,F401

@@ -60,6 +60,8 @@ def _make_fn(name):
         for k, v in kwargs.items():
             if isinstance(v, Symbol):
                 inputs.append(v)
+            elif k == "attr" and isinstance(v, dict):
+                attrs.setdefault("__attrs__", {}).update(v)
             else:
                 attrs[k] = v
         return create(name, inputs, attrs, name=sym_name)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError, torch_dtype
+from ..attribute import AttrScope
 from ..name import NameManager
 from ..ops.registry import _OPS, get_op
 from . import infer as _infer
@@ -265,6 +266,10 @@ def _op_input_names(op_name, attrs):
 def create(op_name, input_syms, attrs, name=None):
     """Create a Symbol applying ``op_name`` over input symbols."""
     name = NameManager.current().get(name, op_name.lower().lstrip("_"))
+    attrs = dict(attrs)
+    scope_attrs = AttrScope.current().get(None)
+    if scope_attrs:
+        attrs["__attrs__"] = dict(scope_attrs)
     inputs = []
     for s in input_syms:
         if not isinstance(s, Symbol):
@@ -285,7 +290,7 @@ def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None,
     """Create a free variable (reference symbol.var)."""
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
-    meta = dict(attr or {})
+    meta = dict(AttrScope.current().get(attr))
     if shape is not None:
         meta["__shape__"] = str(tuple(shape))
     if lr_mult is not None:

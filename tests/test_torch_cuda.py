@@ -1266,7 +1266,7 @@ def _u1_lists(formula, dtype, device, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("formula", ["sgd", "sgd_mom", "mp_sgd",
-                                     "mp_sgd_mom", "adam"])
+                                     "mp_sgd_mom", "adam", "mp_adam"])
 @pytest.mark.parametrize("clip", [-1.0, 1.5])
 def test_u1_matches_plain(cuda, formula, dtype, clip):
     from mxnet_tpu_torch.ops.multi_tensor import (
@@ -1288,6 +1288,11 @@ def test_u1_matches_plain(cuda, formula, dtype, clip):
     torch.cuda.synchronize()
     assert multi_tensor_update.launches - before == 3
     for (w, _, st), (w_ref, _, st_ref) in zip(got, want):
+        if formula.startswith("mp_"):
+            # the master copy rounds where the plain function rounds, and
+            # the weight is its one rounding: both bit for bit
+            assert torch.equal(w, w_ref)
+            assert all(torch.equal(s, s_ref) for s, s_ref in zip(st, st_ref))
         if dtype == torch.float32:
             torch.testing.assert_close(w, w_ref, rtol=1e-6, atol=1e-7)
         else:
@@ -1874,7 +1879,9 @@ def test_profiler_aggregate_of_a_captured_call(cuda):
 
 def test_stepprof_sampled_sync_stays_off_a_capture(cuda):
     """A Module step with the sampled sync on measures the step's device
-    time; a hybridized call made in the same loop still captures once."""
+    time (after a first step, whose one-time host work, such as counting
+    the FLOPs, may stall the host inside a window and drop its sample);
+    a hybridized call made in the same loop still captures once."""
     net, x = _captured_dense(cuda)
     data = mxt.sym.Variable("data")
     out = mxt.sym.SoftmaxOutput(mxt.sym.FullyConnected(data, num_hidden=4),
@@ -1886,6 +1893,7 @@ def test_stepprof_sampled_sync_stays_off_a_capture(cuda):
     mod.init_optimizer()
     batch = mxt.io.DataBatch(data=[mxt.nd.ones((8, 12), ctx=mxt.gpu(0))],
                              label=[mxt.nd.zeros((8,), ctx=mxt.gpu(0))])
+    mod._step(batch)    # the first step's one-time host work is not timed
     mxt.stepprof.enable(sync_every=1)
     try:
         prof = mxt.stepprof.profiler
@@ -1902,6 +1910,46 @@ def test_stepprof_sampled_sync_stays_off_a_capture(cuda):
         mxt.stepprof.disable()
     counts = mxt.compiled.compile_counts()
     assert counts["uncaptured"] == 0
+
+
+def test_sampled_sync_reads_device_time_past_the_launch_queue(cuda):
+    """A step of about 2,700 launches, more than the card's launch queue
+    takes, each a small kernel the host issues slower than the card runs
+    it: the sampled device time is the card's, not the host's (a step
+    timed by two events around one hold read the host's tail)."""
+    import time
+    x = data = mxt.sym.Variable("data")
+    for i in range(300):
+        x = mxt.sym.Activation(mxt.sym.FullyConnected(
+            x, num_hidden=64, name="fc%d" % i), act_type="relu")
+    mod = mxt.mod.Module(mxt.sym.SoftmaxOutput(x, name="softmax"),
+                         context=mxt.gpu(0))
+    mod.bind(data_shapes=[("data", (32, 64))],
+             label_shapes=[("softmax_label", (32,))])
+    mod.init_params()
+    mod.init_optimizer()
+    batch = mxt.io.DataBatch(data=[mxt.nd.ones((32, 64), ctx=mxt.gpu(0))],
+                             label=[mxt.nd.zeros((32,), ctx=mxt.gpu(0))])
+    host = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod._step(batch)
+        host.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    mxt.stepprof.enable(sync_every=1)
+    try:
+        prof = mxt.stepprof.profiler
+        n = len(prof._device_samples)
+        for _ in range(4):
+            with mxt.stepprof.step():
+                mod._step(batch)
+        samples = list(prof._device_samples)[n:]
+    finally:
+        mxt.stepprof.disable()
+    assert len(samples) + mod.samples_dropped == 4 and len(samples) >= 2
+    issue_s = float(np.median(host[1:]))
+    assert 0 < max(samples) < 0.5 * issue_s, (samples, issue_s)
 
 
 def test_real_over_allocation_is_a_device_oom_error(cuda, tmp_path,
@@ -2111,3 +2159,85 @@ def test_index_ops_built_on_the_device_capture(f32):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(got["cpu"][0], x[:, ::-1])
     assert list(got["cpu"][1]) == [3, 5] and list(got["cpu"][2]) == [15]
+
+
+# -- the breadth slice: mp Adam in a Trainer, linalg captured, the zoo -------
+def test_adam_multi_precision_trains_on_the_card(cuda):
+    """A bf16 MLP under ``Adam(multi_precision=True)``: one U1 launch a
+    Trainer step (one mp_adam group), weights the masters rounded."""
+    from mxnet_tpu_torch.ops.multi_tensor import multi_tensor_update
+    net = mxt.gluon.nn.HybridSequential()
+    net.add(mxt.gluon.nn.Dense(16, activation="relu", in_units=8),
+            mxt.gluon.nn.Dense(4, in_units=16))
+    net.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0))
+    net.cast("bfloat16")
+    trainer = mxt.gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": 0.01,
+                                 "multi_precision": True})
+    x = mxt.nd.array(np.random.RandomState(0).rand(8, 8), ctx=mxt.gpu(0),
+                     dtype="bfloat16")
+    before = multi_tensor_update.launches
+    for _ in range(3):
+        with mxt.autograd.record():
+            loss = (net(x).astype("float32") ** 2).mean()
+        loss.backward()
+        trainer.step(8)
+    assert multi_tensor_update.launches - before == 3
+    for i, (master, _) in trainer._updaters[0].states.items():
+        assert torch.equal(trainer._params[i].data().data,
+                           master.data.to(torch.bfloat16))
+
+
+def test_hybridized_linalg_block_on_the_card(cuda):
+    """A Gaussian log-likelihood (potrf -> trsm -> sumlogdiag) hybridized
+    on the card: one compile, then hits, captured or counted uncaptured,
+    every call the eager value, and the CPU's within 1e-5."""
+    from mxnet_tpu_torch import compiled
+
+    class LogLik(mxt.gluon.HybridBlock):
+        def hybrid_forward(self, F, sigma, x):
+            L = F.linalg.potrf(sigma)
+            z = F.linalg.trsm(L, x)
+            return -0.5 * F.sum(z * z, axis=(1, 2)) \
+                - F.linalg.sumlogdiag(L)
+
+    rng = np.random.RandomState(0)
+    a = rng.randn(8, 32, 32)
+    sigma = (a @ a.transpose(0, 2, 1) + 32 * np.eye(32)).astype(np.float32)
+    x = rng.randn(8, 32, 4).astype(np.float32)
+    block = LogLik()
+    args = [mxt.nd.array(v, ctx=mxt.gpu(0)) for v in (sigma, x)]
+    eager = block(*args).asnumpy()
+    block.hybridize()
+    before = compiled.compile_counts()
+    calls = [block(*args).asnumpy() for _ in range(3)]
+    after = compiled.compile_counts()
+    assert after["compiles"] - before["compiles"] == 1
+    assert after["cache_hits"] - before["cache_hits"] == 2
+    for c in calls:
+        np.testing.assert_allclose(c, eager, rtol=1e-6, atol=1e-6)
+    host = block(*[mxt.nd.array(v, ctx=mxt.cpu()) for v in (sigma, x)])
+    np.testing.assert_allclose(calls[-1], host.asnumpy(), rtol=1e-5)
+
+
+def test_zoo_net_replay_matches_eager(cuda, monkeypatch):
+    """MobileNet v2 0.25 hybridized on the card: one capture, replays
+    equal to each other and to the eager call (INFER_REL's 2.5e-4 by
+    relative norm), TF32 off."""
+    from mxnet_tpu_torch import compiled
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    net = vision.get_model("mobilenetv2_0.25")
+    net.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0))
+    x = mxt.nd.array(np.random.RandomState(1).rand(4, 3, 224, 224),
+                     ctx=mxt.gpu(0))
+    eager = net(x).asnumpy()
+    net.hybridize()
+    before = compiled.compile_counts()
+    first = net(x).asnumpy()
+    second = net(x).asnumpy()
+    after = compiled.compile_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "compiles": 1, "cache_hits": 1, "retraces": 0, "uncaptured": 0}
+    np.testing.assert_array_equal(first, second)
+    assert np.linalg.norm(first - eager) <= 2.5e-4 * np.linalg.norm(eager)

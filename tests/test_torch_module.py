@@ -354,6 +354,40 @@ def test_speedometer_logs_every_frequent_batches(caplog):
     assert "Speed" in caplog.text and "loss" in caplog.text
 
 
+def test_executor_calls_a_hold_at_every_node_and_gradient():
+    """The sampled step's hold points (`module._Holds`): the training
+    forward calls ``node`` after each op node with its outputs, each
+    output's gradient ticks in the backward, and each gradient's copy
+    ticks; the gradients are those of a step without a hold."""
+    class Recording:
+        def __init__(self):
+            self.nodes, self.ticks = 0, 0
+
+        def node(self, outs):
+            self.nodes += 1
+            for o in outs:
+                if o.requires_grad:
+                    o.register_hook(self.tick)
+
+        def tick(self, *_):
+            self.ticks += 1
+
+    mod = module(mxt)
+    grads = []
+    for hold in (None, Recording()):
+        mod._exec._hold = hold
+        mod.forward_backward(batches(mxt, 1)[0])
+        mod._exec._hold = None
+        grads.append({n: a.asnumpy() for n, a in
+                      mod._exec.grad_dict.items()})
+    ops = [n for n in lm(mxt)._topo_nodes() if not n.is_var()]
+    assert hold.nodes == len(ops)
+    # one tick a gradient copy, at least one a node reached backwards
+    assert hold.ticks >= len(mod._exec._grad_names) + 3
+    for name, g in grads[0].items():
+        np.testing.assert_array_equal(grads[1][name], g)
+
+
 @pytest.mark.parametrize("pkg", [mx, mxt], ids=["jax", "torch"])
 def test_asnumpy_is_a_snapshot(pkg):
     """``asnumpy`` returns the values as they are when it is called (the
