@@ -450,6 +450,44 @@ iterators, callbacks and ``FeedForward``), in a process of its own
     ``model.load_checkpoint`` predicting alike on the card and the CPU;
     ``FeedForward`` on ``gpu(0)`` against ``cpu()``.
 
+and then drives the deployment path of a Gluon user (parameter files,
+``pretrained=True`` from a local file, ``export`` and ``SymbolBlock``),
+``gluon.contrib.rnn``, the vision and WikiText datasets and
+``contrib.autograd``, in a process of its own (``python3 chip_smoke.py
+--gluon-files``), in one more:
+
+29. (a) ResNet-50 v1 in the image bench's configuration (NHWC, bf16,
+    batch 128, SGD lr 0.05 momentum 0.9, the gate on): a seeded net saved
+    with ``save_parameters`` under a temporary ``root`` and built again by
+    ``resnet50_v1(pretrained=True, root=...)``, its parameters and
+    forward bit-equal; 1 + 3 fine-tune steps under ``record()`` and
+    ``Trainer`` (img/s; K5 6 and U1 once a step, no other); the trained
+    net through ``save_parameters``/``load_parameters`` and
+    ``save_params``/``load_params``, bit-equal; ``export`` then
+    ``SymbolBlock.imports`` served at batch 32 and 8: one capture a
+    signature, none in 20 more calls of each, a call one
+    ``cudaGraphLaunch`` and no kernel launch, its logits against the
+    trained net's own hybridized forward to FILES_SERVE_REL with a
+    control (the last BatchNorm's moving variance at 1) that must fail it;
+    the exported pair through ``Predictor`` (the f32 block's
+    probabilities) and ``Module`` (refused, as in the JAX package); the
+    file sizes; (b) a ``Conv2DLSTMCell`` at input (16, 64, 32, 32), 64
+    hidden channels, 10 steps, and an ``LSTMPCell(650, 200)`` over 35
+    steps at batch 32: 2 recorded SGD steps on the card against ``cpu()``
+    from the same weights, gradients and updates per parameter to
+    CONTRIB_RNN_REL with a control (the second update against the first);
+    ``VariationalDropoutCell``: one mask at every step, its keep rate
+    within 4 sigma; (c) MNIST and CIFAR-10 files written from a seed
+    through ``vision`` + ``transforms`` + ``DataLoader``, equal to numpy;
+    a WikiText-2 token file through ``WikiText2`` + ``IntervalSampler``
+    into one step of the 2x650 LM as ``gluon.rnn.LSTM`` (K2 and K3 once a
+    layer, U1 once); ``contrib.autograd.grad_and_loss`` on the card equal
+    to ``autograd``.
+
+Phase 13 also holds K4 at head dims 160 and 256 (the CUDA-core route);
+phase 24c's profiles (a training step, a graph replay) run in a process
+of their own (``python3 chip_smoke.py --lstm-profile``).
+
 Phases 3-5 are the serving main path, phase 8 the LM training one,
 phase 11's gate-on steps on the card the ResNet one, phase 15's steps on
 the card the attention one, phase 16's first launches the rtc one,
@@ -461,8 +499,9 @@ check the optimizer one, phase 22's examples the detection one and phase
 checks (24d) the RNN one, phase 25's training, decoding, card-vs-CPU
 steps and examples (not its kernel and op checks) the speech one, and
 phase 26 (but 26b's CUDA-event timing of K5) the observability one,
-phase 27 the serving stack's, and phase 28 the breadth one: every kernel's launch count is set to 0 before each and
-read after it.
+phase 27 the serving stack's, phase 28 the breadth one and phase 29
+the Gluon files one: every kernel's launch count is set to 0 before
+each and read after it.
 The serving path must launch K1, every call by the persistent route; the
 LM training path must launch K2 and K3 exactly once per layer and step,
 and K1 once per layer and eval batch, K1, K2 and K3 by the persistent
@@ -482,15 +521,18 @@ K1-K6 or N1; the RNN path K1, K2, K3 and U1, and no other; the speech
 path K1, K2, K3 and U1, and no other; the observability path K5 and U1,
 and no other; the serving stack's K1, and no other; the breadth path K5
 (6 a gate-on step) and U1 (``mp_adam`` once a ResNet-50 step), and no
-other. A compiled inference
+other; the Gluon files path K5 (6 a fine-tune step), U1, K2 and K3 (the
+WikiText step) and K1 (the LM's deferred-init forward), and no other. A
+compiled inference
 forward counts K1 at each replay and at each of its capture's warm-up
 runs (`compiled.WARMUP_RUNS`), so the checks of a path that compiles
 add those. K5's launches in the kernels line are the ResNet path's,
-the Gluon path's, the observability path's and the breadth path's; K1's,
-K2's and K3's add the RNN path's and the speech path's, and K1's the
-serving stack's;
+the Gluon path's, the observability path's, the breadth path's and the
+Gluon files path's; K1's, K2's and K3's add the RNN path's, the speech
+path's and the Gluon files path's, and K1's the serving stack's;
 U1's are the optimizer path's, the RNN path's, the speech path's, the
-observability path's and the breadth path's, and the line holds
+observability path's, the breadth path's and the Gluon files path's,
+and the line holds
 ``mp_adam`` as an entry of its own (phase 21's numbers, 28b's
 launches). Any
 failed check exits non-zero. The last lines are the card's name and
@@ -624,7 +666,12 @@ K4_CASES = ([(1, t, t, 8, 128, True, torch.bfloat16)
                (1, 4096, 4096, 8, 128, False, torch.float32)]
             + [(1, tq, tk, 8, 64, True, dt) for tq, tk in ((1000, 1500),
                                                            (1500, 1000))
-               for dt in (torch.bfloat16, torch.float32)])
+               for dt in (torch.bfloat16, torch.float32)]
+            # head dims above 128 (ROADMAP C.15): the CUDA-core route
+            + [(1, 4096, 4096, 8, 256, True, torch.bfloat16),
+               (1, 4096, 4096, 8, 256, False, torch.float32),
+               (1, 1000, 1500, 8, 160, True, torch.bfloat16),
+               (1, 1500, 1000, 8, 160, False, torch.float32)])
 # K4 vs plain: f32 both sides (the reference's 2e-5); in bf16 both compute
 # in f32 and round once to bf16, so a value may land one bf16 step (2^-7
 # relative) apart where the two f32 sums straddle a rounding boundary
@@ -956,6 +1003,26 @@ def log(msg):
 def check(cond, msg):
     if not cond:
         raise RuntimeError("chip_smoke check failed: " + msg)
+
+
+def run_own_process(flag, timeout, log_prefix=None, log_as="%s", env=None):
+    """This script again, as ``python3 chip_smoke.py <flag>``, in a
+    process of its own (a fresh tracer, registry and allocator), after a
+    synchronize and ``empty_cache`` here. Its standard-output lines that
+    start with ``log_prefix`` are logged through ``log_as``; it must exit
+    0; returns its last line's JSON."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
+                         capture_output=True, text=True, timeout=timeout,
+                         env=env)
+    if log_prefix is not None:
+        for line in out.stdout.splitlines():
+            if line.startswith(log_prefix):
+                log(log_as % line)
+    check(out.returncode == 0, "the %s process exited %d: %s"
+          % (flag, out.returncode, out.stderr[-4000:]))
+    return json.loads(out.stdout.splitlines()[-1])
 
 
 def nvidia_smi():
@@ -5311,17 +5378,10 @@ def phase_gluon_lstm(mx, counters, rng):
     wall = time.perf_counter() - t0
     timed = launched(counters, before)
     losses.append(float(loss.mean().asscalar()))
-    prof_wall, kern = device_profile(
-        lambda: gluon_lm_step(mx, card, trainers[0], loss_fn, *batches[-1]))
-    busy = sum(ms for _, ms in kern.values())
     train = {"steps": GLUON_LM_STEPS,
              "tokens_per_s": GLUON_LM_STEPS * SEQ * TRAIN_BATCH / wall,
              "step_ms": wall * 1e3 / GLUON_LM_STEPS, "losses": losses,
-             "launches": timed, "profiled_step_wall_ms": prof_wall,
-             "device_busy_ms": busy,
-             "device_idle_share": (1 - busy / prof_wall) if kern else None,
-             "k2": kernel_share(kern, K2_KERNELS, busy),
-             "k3": kernel_share(kern, K3_KERNELS, busy)}
+             "launches": timed}
     log("phase 24c gluon LSTM training %s" % json.dumps(train))
     check(timed["fused_lstm_train"] == LAYERS * GLUON_LM_STEPS
           and timed["lstm_bwd_recurrence"] == LAYERS * GLUON_LM_STEPS,
@@ -5349,20 +5409,17 @@ def phase_gluon_lstm(mx, counters, rng):
                 if type(e).__name__ == "_Graph"] or [None]
     recorded = None if entry is None else [
         "fused_lstm" if w is k1 else w.__name__ for w, _ in entry.launches]
-    replay = call_profile(lambda: card(x))
-    counted = []
-
-    def profiled_replay():
-        n = k1.launches
-        card(x)
-        counted.append(k1.launches - n)
-    _, replay_kern = device_profile(
-        profiled_replay, complete=lambda k: any(f in n for n in k
-                                                for f in K1_KERNELS))
     host = gluon_lm(mx, mx.cpu(), prefix=card.prefix)
     mx.set_block_params(host, values(card))
     want = host(mx.nd.array(x.asnumpy(), ctx=mx.cpu())).asnumpy()
-    k1_in_graph = kernel_share(replay_kern, K1_KERNELS, 1.0)["launches"]
+    # the profiles: a training step and a replay, in a fresh process
+    prof = lstm_profile()
+    train.update(prof["train"])
+    log("phase 24c gluon LSTM training profile %s" % json.dumps(
+        prof["train"]))
+    replay = prof["replay"]
+    counted = [prof["k1_counted_profiled_replay"]]
+    k1_in_graph = prof["k1_kernels_in_a_replay"]
     infer = {"compile_counts": counts,
              "captured": entry is not None,
              "launches_recorded_at_capture": recorded,
@@ -5402,6 +5459,69 @@ def phase_gluon_lstm(mx, counters, rng):
     del card, host
     torch.cuda.empty_cache()
     return summary
+
+
+LSTM_PROFILE_TIMEOUT_S = 300
+
+
+def lstm_profile():
+    """Phase 24c's profiles, run by ``chip_smoke.py --lstm-profile`` in a
+    process of its own (``lstm_profile_main``); returns its JSON line.
+    Late in this script's process six traces of a graph replay held no K1
+    kernel, though the counter and the ``cudaGraphLaunch`` saw it; the
+    later phases' profiles already run in fresh processes."""
+    return run_own_process("--lstm-profile", LSTM_PROFILE_TIMEOUT_S)
+
+
+def lstm_profile_main():
+    """The Gluon LSTM LM of phase 24c on gpu(0) (TF32 off): two recorded
+    SGD steps, then one profiled (wall and busy ms, the idle share, K2's
+    and K3's kernels); then the hybridized call outside ``record()``,
+    captured, with one replay's runtime calls (``call_profile``) and one
+    replay's device kernels, K1's counter read around it. Prints one JSON
+    line."""
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(SEED + 24)
+    card = gluon_lm(mx, mx.gpu(0))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(card.collect_params(), "sgd", dict(TRAIN_OPT))
+    batches = [(mx.nd.array(rng.randint(0, VOCAB, (SEQ, TRAIN_BATCH)),
+                            ctx=mx.gpu(0), dtype=np.float32),
+                mx.nd.array(rng.randint(0, VOCAB, (SEQ, TRAIN_BATCH)),
+                            ctx=mx.gpu(0), dtype=np.float32))
+               for _ in range(2)]
+    for b in batches:
+        gluon_lm_step(mx, card, trainer, loss_fn, *b)
+    prof_wall, kern = device_profile(
+        lambda: gluon_lm_step(mx, card, trainer, loss_fn, *batches[-1]))
+    busy = sum(ms for _, ms in kern.values())
+    train = {"profiled_step_wall_ms": prof_wall, "device_busy_ms": busy,
+             "device_idle_share": (1 - busy / prof_wall) if kern else None,
+             "k2": kernel_share(kern, K2_KERNELS, busy),
+             "k3": kernel_share(kern, K3_KERNELS, busy)}
+    x = batches[0][0]
+    card(x)                      # warm-up runs, the capture, a replay
+    card(x)
+    k1 = mx.ops.fused_lstm
+    replay = call_profile(lambda: card(x))
+    counted = []
+
+    def profiled_replay():
+        n = k1.launches
+        card(x)
+        counted.append(k1.launches - n)
+    _, replay_kern = device_profile(
+        profiled_replay, complete=lambda k: any(f in n for n in k
+                                                for f in K1_KERNELS))
+    print(json.dumps({
+        "train": train, "replay": replay,
+        "k1_counted_profiled_replay": counted[-1],
+        "k1_kernels_in_a_replay": kernel_share(replay_kern, K1_KERNELS,
+                                               1.0)["launches"]}),
+        flush=True)
+    return 0
 
 
 def phase_rnn_modes(mx, counters, device):
@@ -5709,14 +5829,7 @@ def speech_profile():
     Late in this script's long process the tracer has lost kernels that
     the counters saw (K2 in six traces of a row, CTC's kernels in every
     trace, on an H100 at 700 W), while a fresh process traced them all."""
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    out = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--speech-profile"],
-        capture_output=True, text=True, timeout=SPEECH_PROFILE_TIMEOUT_S)
-    check(out.returncode == 0, "the speech profile's process exited %d: %s"
-          % (out.returncode, out.stderr[-3000:]))
-    return json.loads(out.stdout.splitlines()[-1])
+    return run_own_process("--speech-profile", SPEECH_PROFILE_TIMEOUT_S)
 
 
 def speech_profile_main():
@@ -6346,8 +6459,12 @@ def phase_obs_trace(mx, mod, batches, counters, tmp):
     table: K5's launches against the counter, its time against CUDA
     events, the table's total against the trace's busy time. A trace
     that lost K5 launches is taken again (PROFILE_ATTEMPTS); the table is
-    never filled in from the counters."""
+    never filled in from the counters. CUDA events around the traced
+    steps, the host's clock and the SM clock before and after each trace
+    are printed beside the trace's durations (ROADMAP C.16: one trace
+    read every duration at 0.476x; these say which clock moved)."""
     k5 = counters["conv1x1_s2_dgrad"]
+    clocks = []
     for attempt in range(PROFILE_ATTEMPTS):
         if attempt:
             time.sleep(PROFILE_PAUSE_S * attempt)
@@ -6355,11 +6472,21 @@ def phase_obs_trace(mx, mod, batches, counters, tmp):
         mx.profiler.set_config(filename=logdir + ".json")
         torch.cuda.synchronize()
         before = k5.launches
+        sm_before = sm_clock_mhz()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
         mx.profiler.set_state("run")
+        t0 = time.perf_counter()
+        start.record()
         for b in batches[:OBS_TRACED_STEPS]:
             mod._step(b)
+        end.record()
         torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
         mx.profiler.set_state("stop")
+        clocks.append({"attempt": attempt,
+                       "steps_event_ms": start.elapsed_time(end),
+                       "steps_host_ms": host_ms,
+                       "sm_clock_mhz": [sm_before, sm_clock_mhz()]})
         counted = k5.launches - before
         table = mx.xplane.op_table(logdir + "_trace")
         k5_rows = {k: v for k, v in table.items() if K5_TRACE_KERNEL in k}
@@ -6375,6 +6502,9 @@ def phase_obs_trace(mx, mod, batches, counters, tmp):
            "k5_counted_launches": counted, "k5_kernels": sorted(k5_rows),
            "k5_trace_ms": k5_trace_ms, "k5_events_ms": events_ms,
            "table_total_ms": total_ms, "trace_busy_ms": busy_ms,
+           "traced_steps_clocks": clocks,
+           "trace_busy_over_steps_events": busy_ms / clocks[-1][
+               "steps_event_ms"],
            "table": dumps.splitlines()[:14]}
     print(json.dumps({"phase": "26b", **row}), flush=True)
     check(traced == counted == K5_PER_STEP * OBS_TRACED_STEPS,
@@ -6387,6 +6517,18 @@ def phase_obs_trace(mx, mod, batches, counters, tmp):
           "the table's total %.3f ms vs the trace's busy %.3f ms"
           % (total_ms, busy_ms))
     return row
+
+
+def sm_clock_mhz():
+    """The card's SM clock now, by ``nvidia-smi`` (None where it does not
+    answer)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+             "nounits", "--id=0"], capture_output=True, text=True, timeout=30)
+        return float(out.stdout.strip().splitlines()[0])
+    except (OSError, ValueError, IndexError, subprocess.TimeoutExpired):
+        return None
 
 
 def phase_obs_mfu(mx, mod, row_a, card):
@@ -6674,13 +6816,8 @@ def phase_obs_telemetry(mx, tmp):
     trace with one step span set a step; the witness's reports."""
     out_dir = os.path.join(tmp, "telemetry")
     env = dict(os.environ, MXNET_TELEMETRY_DIR=out_dir, MXNET_THREADSAN="1")
-    out = subprocess.run(
-        [sys.executable, os.path.abspath(__file__),
-         "--observability-telemetry"], capture_output=True, text=True,
-        timeout=OBS_TIMEOUT_S, env=env)
-    check(out.returncode == 0, "the telemetry process exited %d: %s"
-          % (out.returncode, out.stderr[-3000:]))
-    sub = json.loads(out.stdout.splitlines()[-1])
+    sub = run_own_process("--observability-telemetry", OBS_TIMEOUT_S,
+                          env=env)
     files = sorted(os.listdir(out_dir))
     trace = mx.telemetry.merge(out_dir, out=os.path.join(tmp, "merged.json"))
     names = {}
@@ -6786,18 +6923,9 @@ def phase_observability(mx):
     """Phase 26: ``observability_main`` in a process of its own (a fresh
     tracer, registry and ledger); its lines are logged, its launches
     returned."""
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    out = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--observability"],
-        capture_output=True, text=True, timeout=OBS_TIMEOUT_S)
-    for line in out.stdout.splitlines():
-        if line.startswith("{"):
-            log("phase %s" % line)
-    check(out.returncode == 0, "the observability process exited %d: %s"
-          % (out.returncode, out.stderr[-4000:]))
-    last = json.loads(out.stdout.splitlines()[-1])
+    last = run_own_process("--observability", OBS_TIMEOUT_S,
+                           log_prefix="{", log_as="phase %s")
     log("phase 26 seconds %.1f" % (time.perf_counter() - t0))
     return last["kernel_launches"]
 
@@ -7012,7 +7140,6 @@ def phase_serving_http(mx, engine, ref, rng):
 def phase_serving_chaos(mx, engine, tmp):
     """27d: one worker death fails only its batch and respawns; a slow
     request's stall lands in batch_wait."""
-    tel = mx.telemetry
     os.environ["MXNET_TELEMETRY_DIR"] = tmp
     try:
         deaths = telemetry_count(mx, "serving_worker_deaths_total",
@@ -7038,8 +7165,10 @@ def phase_serving_chaos(mx, engine, tmp):
         respawns = telemetry_count(mx, "serving_worker_respawns_total")
         errors = telemetry_count(mx, "serving_requests_total",
                                  status="error") - errors
-        dump = os.path.join(tmp, "flightrecorder-host%d.json"
-                            % tel.host_id())
+        # the death's own post-mortem, after the requests that follow it
+        # (a leak-sentinel trip among them writes the newest dump,
+        # flightrecorder-host<h>.json, under its own reason)
+        dump = mx.xla_stats.reason_dump_path(tmp, "serving.worker_death")
         reason = json.load(open(dump))["reason"] if os.path.exists(dump) \
             else None
     finally:
@@ -7267,18 +7396,9 @@ def serving_main():
 def phase_serving_process():
     """Phase 27: ``serving_main`` in a process of its own; its lines are
     logged, K1's launches returned."""
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    out = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--serving"],
-        capture_output=True, text=True, timeout=SERVING_TIMEOUT_S)
-    for line in out.stdout.splitlines():
-        if line.startswith("phase 27"):
-            log(line)
-    check(out.returncode == 0, "the serving process exited %d: %s"
-          % (out.returncode, out.stderr[-4000:]))
-    last = json.loads(out.stdout.splitlines()[-1])
+    last = run_own_process("--serving", SERVING_TIMEOUT_S,
+                           log_prefix="phase 27")
     log("phase 27 seconds %.1f" % (time.perf_counter() - t0))
     return last["fused_lstm_launches"]
 
@@ -8276,19 +8396,603 @@ def breadth_main():
 def phase_breadth_process():
     """Phase 28: ``breadth_main`` in a process of its own; its lines are
     logged, its launches and mp_adam's row returned."""
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    out = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--breadth"],
-        capture_output=True, text=True, timeout=BREADTH_TIMEOUT_S)
-    for line in out.stdout.splitlines():
-        if line.startswith("phase 28"):
-            log(line)
-    check(out.returncode == 0, "the breadth process exited %d: %s"
-          % (out.returncode, out.stderr[-4000:]))
-    last = json.loads(out.stdout.splitlines()[-1])
+    last = run_own_process("--breadth", BREADTH_TIMEOUT_S,
+                           log_prefix="phase 28")
     log("phase 28 seconds %.1f" % (time.perf_counter() - t0))
+    return last
+
+
+# ---------------------------------------------------------------------------
+# Phase 29: Gluon files, hooks, export and SymbolBlock; gluon.contrib.rnn;
+# the vision and WikiText datasets; contrib.autograd (a process of its own)
+# ---------------------------------------------------------------------------
+GLUON_FILES_TIMEOUT_S = 600
+# 29a: ResNet-50 v1 from a weights file to a served SymbolBlock, at the
+# image bench's configuration (tools/bench_all.py:91-97: NHWC, bf16, batch
+# 128, SGD lr 0.05 with momentum 0.9, the K5 gate on)
+FILES_OPT = {"learning_rate": RESNET_LR, "momentum": 0.9}
+FILES_STEPS = 3                 # fine-tune steps after one warm-up step
+FILES_SERVE_BATCHES = (32, 8)   # one signature each
+FILES_SERVE_CALLS = 20
+# the imported block's logits against the trained net's own hybridized
+# forward, by relative norm: the same bf16 ops through the executor's
+# graph, which rounds in other places (1.30e-3 at batch 32 and 1.39e-3 at
+# batch 8 on an H100; PERF.md, phase 29). The control, the last
+# BatchNorm's moving variance left at its initial value (what a loader
+# that drops one layer's auxiliary state serves), read 6.8e-3 and must
+# exceed it: the limit is about the geometric mean of 1.39e-3 and 6.8e-3
+FILES_SERVE_REL = 3e-3
+# 29b: gluon.contrib.rnn at full width
+CONV_LSTM_INPUT = (16, 64, 32, 32)     # N, C, H, W
+CONV_LSTM_HIDDEN, CONV_LSTM_STEPS = 64, 10
+LSTMP_SHAPE = (32, 35, 650)            # N, T, input
+LSTMP_HIDDEN, LSTMP_PROJ = 650, 200
+CONTRIB_OPT = {"learning_rate": 0.1}
+# card against cpu() from the same weights, f32 with TF32 off on both;
+# relative norm per parameter (gradients and updates): sound readings up
+# to 9.0e-5 (the conv cell's updates), controls 3.8e-3 (conv) and 0.114
+# (LSTMP) on an H100 (PERF.md, phase 29)
+CONTRIB_RNN_REL = 1e-3
+VARDROP_P, VARDROP_WIDTH, VARDROP_STEPS = 0.5, 1 << 16, 8
+# 29c: files in, batches out
+MNIST_FILE_IMAGES, CIFAR_FILE_ROWS = 2048, 512    # a CIFAR batch file's
+FILES_LOADER_BATCH = 128
+WIKI_VOCAB, WIKI_LINES = 9000, 4000
+
+
+def files_net(mx, ctx, **extra):
+    """ResNet-50 v1 NHWC (``vision.resnet50_v1``) on ``ctx``."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    return vision.resnet50_v1(classes=CLASSES, layout="NHWC", ctx=ctx,
+                              **extra)
+
+
+def bit_equal_params(a, b):
+    """Names of the parameters whose values or dtypes differ."""
+    pa, pb = a.collect_params(), b.collect_params()
+    return [n for (n, p), q in zip(pa.items(), pb.values())
+            if p.data().data.dtype != q.data().data.dtype
+            or not torch.equal(p.data().data, q.data().data)]
+
+
+def phase_files_resnet(mx, rng, tmp, counters):
+    """29a: a seeded net saved and loaded through
+    ``pretrained=True`` (bit-equal), 3 fine-tune steps (K5 6 and U1 1 a
+    step), the file round trips (bit-equal), ``export`` ->
+    ``SymbolBlock.imports`` served at two batch sizes (one capture a
+    signature, none under load, one ``cudaGraphLaunch`` a call, logits
+    against the net's own hybridized forward with a control), and the
+    pair through ``Predictor`` (the same probabilities) and ``Module``
+    (refused, as the JAX package refuses it)."""
+    ctx = mx.gpu(0)
+    os.environ["MXNET_CONV1X1_PALLAS"] = "1"
+    batch = RESNET_BATCH
+    x = mx.nd.array(rng.rand(*gluon_shape("NHWC", batch)), ctx=ctx,
+                    dtype="bfloat16")
+    y = mx.nd.array(rng.randint(0, CLASSES, batch), ctx=ctx,
+                    dtype=np.float32)
+    # 1-2: a seeded net saved under root, loaded by pretrained=True
+    mx.random.seed(SEED + 29)
+    seeded = gluon_net(mx, ctx, "NHWC")
+    seeded.cast("bfloat16")
+    with mx.autograd.pause():
+        want = seeded(x).data.clone()
+    root = os.path.join(tmp, "models")
+    os.makedirs(root)
+    seeded.save_parameters(os.path.join(root, "resnet50_v1.params"))
+    net = files_net(mx, ctx, pretrained=True, root=root)
+    loaded_dtypes = sorted({str(p.data().data.dtype)
+                            for p in net.collect_params().values()})
+    net.cast("bfloat16")
+    with mx.autograd.pause():
+        got = net(x).data.clone()
+    pretrained = {"loaded_dtypes": loaded_dtypes,
+                  "params_differing": bit_equal_params(net, seeded),
+                  "forward_bit_equal": bool(torch.equal(got, want))}
+    log("phase 29a pretrained %s" % json.dumps(pretrained))
+    check(not pretrained["params_differing"]
+          and pretrained["forward_bit_equal"],
+          "pretrained=True did not give the saved net: %s" % pretrained)
+    del seeded, want, got
+    # 3: fine-tune under record() and Trainer, hybridized
+    net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(FILES_OPT),
+                               kvstore="device")
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(batch)
+        return loss
+    before = launches_of(counters)
+    losses = [float(step().data.detach().float().mean())]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(FILES_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = losses[:1] + [float(v.data.detach().float().mean())
+                           for v in losses[1:]]
+    tuned = launched(counters, before)
+    steps = FILES_STEPS + 1
+    finetune = {"steps": steps, "imgs_per_s": FILES_STEPS * batch / wall,
+                "step_ms": wall * 1e3 / FILES_STEPS, "losses": losses,
+                "launches": {k: n for k, n in tuned.items() if n}}
+    log("phase 29a fine-tune %s" % json.dumps(finetune))
+    check(tuned["conv1x1_s2_dgrad"] == K5_PER_STEP * steps
+          and tuned["multi_tensor_update"] == steps
+          and not any(n for k, n in tuned.items()
+                      if k not in ("conv1x1_s2_dgrad",
+                                   "multi_tensor_update")),
+          "the fine-tune launched %s in %d steps: want K5 %d and U1 1 a "
+          "step, no other" % (tuned, steps, K5_PER_STEP))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "the fine-tune's loss did not fall: %s" % losses)
+    # 4: the file round trips
+    sizes = {}
+    trips = {}
+    with mx.autograd.pause():
+        want = net(x).data.clone()
+    for save, load in (("save_parameters", "load_parameters"),
+                       ("save_params", "load_params")):
+        path = os.path.join(tmp, "tuned_%s.params" % save)
+        getattr(net, save)(path)
+        sizes[save] = os.path.getsize(path)
+        again = files_net(mx, ctx, prefix=net.prefix)
+        getattr(again, load)(path, ctx=ctx)
+        again.cast("bfloat16")
+        again.hybridize()
+        with mx.autograd.pause():
+            out = again(x).data
+        trips[save] = {"params_differing": bit_equal_params(again, net),
+                       "forward_bit_equal": bool(torch.equal(out, want))}
+        del again, out
+    log("phase 29a round trips %s" % json.dumps(trips))
+    check(all(not t["params_differing"] and t["forward_bit_equal"]
+              for t in trips.values()),
+          "a file round trip changed the net: %s" % trips)
+    # 5-6: export, SymbolBlock.imports, served
+    prefix = os.path.join(tmp, "resnet50_v1_tuned")
+    net.export(prefix)
+    sizes["symbol_json"] = os.path.getsize(prefix + "-symbol.json")
+    sizes["export_params"] = os.path.getsize(prefix + "-0000.params")
+    block = mx.gluon.SymbolBlock.imports(prefix + "-symbol.json", "data",
+                                         prefix + "-0000.params", ctx=ctx)
+    block.cast("bfloat16")
+    mx.compiled.reset()
+    inputs = {b: mx.nd.array(rng.rand(*gluon_shape("NHWC", b)), ctx=ctx,
+                             dtype="bfloat16")
+              for b in FILES_SERVE_BATCHES}
+    with mx.autograd.pause():
+        for b, xb in inputs.items():
+            block(xb)
+        warm = mx.compiled.compile_counts()
+        for _ in range(FILES_SERVE_CALLS):
+            for xb in inputs.values():
+                block(xb)
+        torch.cuda.synchronize()
+        after = mx.compiled.compile_counts()
+        xs = inputs[FILES_SERVE_BATCHES[0]]
+        served = block(xs).data.double()     # f64: no norm overflows
+        own = net(xs).data.double()
+        profile = call_profile(lambda: block(xs))
+        reading = rel_err(served.cpu().numpy(), own.cpu().numpy())
+        # the control: the last BatchNorm's moving variance at its
+        # initial value; every other BatchNorm's is read too, to print
+        # how many such faults the limit catches
+        one_bn = []
+        for n, p in block.collect_params().items():
+            if n.endswith("running_var"):
+                saved = p.data().data.clone()
+                p.data().data.fill_(1.0)
+                r = rel_err(block(xs).data.double().cpu().numpy(),
+                            own.cpu().numpy())
+                one_bn.append(r if np.isfinite(r) else float("inf"))
+                p.data().data.copy_(saved)
+        control = one_bn[-1]
+        readings = [reading] + [rel_err(
+            block(xb).data.double().cpu().numpy(),
+            net(xb).data.double().cpu().numpy())
+            for xb in list(inputs.values())[1:]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FILES_SERVE_CALLS):
+            block(xs)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3 / FILES_SERVE_CALLS
+    serve = {"batches": list(FILES_SERVE_BATCHES),
+             "compile_counts_after_warmup": warm,
+             "compile_counts_after_calls": after,
+             "rel_vs_gluon_hybridized": readings, "control_rel": control,
+             "one_batchnorm_faults": {
+                 "count": len(one_bn),
+                 "caught": sum(r > FILES_SERVE_REL for r in one_bn),
+                 "min": min(one_bn), "median": float(np.median(one_bn)),
+                 "max": max(one_bn)},
+             "limit": FILES_SERVE_REL, "call_wall_ms": call_ms,
+             "profiled_wall_ms": profile["wall_ms"],
+             "device_busy_ms": profile["device_busy_ms"],
+             "runtime_calls": profile["runtime_calls"]}
+    log("phase 29a served SymbolBlock %s" % json.dumps(serve))
+    check(warm["compiles"] == len(FILES_SERVE_BATCHES)
+          and warm["uncaptured"] == 0
+          and after["compiles"] == warm["compiles"]
+          and after["retraces"] == 0,
+          "the SymbolBlock compiled %s after warm-up and %s after %d calls: "
+          "want one capture a signature, none under load"
+          % (warm, after, FILES_SERVE_CALLS))
+    check(profile["runtime_calls"].get("cudaGraphLaunch") == 1
+          and not profile["runtime_calls"].get("cudaLaunchKernel"),
+          "a served call made %s runtime calls: want one cudaGraphLaunch "
+          "and no kernel launch" % profile["runtime_calls"])
+    check(max(readings) < FILES_SERVE_REL < control,
+          "the imported block read %s against the Gluon net and its "
+          "control %.4g (limit %g)" % (readings, control, FILES_SERVE_REL))
+    # 7: the pair through the Predictor and Module
+    with open(prefix + "-symbol.json") as f:
+        sym_json = f.read()
+    with open(prefix + "-0000.params", "rb") as f:
+        blob = f.read()
+    pred = mx.Predictor(sym_json, blob, ctx=ctx,
+                        input_shapes={"data": tuple(xs.shape)})
+    # the Predictor binds f32 arguments: feed the f32 widening of the same
+    # bf16 images, and compare with the SymbolBlock served in f32
+    f32_block = mx.gluon.SymbolBlock.imports(
+        prefix + "-symbol.json", "data", prefix + "-0000.params", ctx=ctx)
+    xs32 = xs.astype("float32")
+    with mx.autograd.pause():
+        want32 = f32_block(xs32).data.float()
+    pred.forward(data=xs32.asnumpy())
+    probs = mx.nd.softmax(mx.nd.array(pred.get_output(0), ctx=ctx)).data
+    want_probs = torch.softmax(want32, dim=-1)
+    predictor = {"max_abs_prob_diff": float((probs - want_probs).abs()
+                                            .max()),
+                 "top1_agree": float((probs.argmax(1) == want_probs
+                                      .argmax(1)).float().mean())}
+    sym, arg, aux = mx.model.load_checkpoint(prefix, 0)
+    mod = mx.mod.Module(sym, data_names=["data"], label_names=None,
+                        context=ctx)
+    mod.bind(data_shapes=[("data", tuple(xs.shape))], for_training=False)
+    try:
+        mod.set_params(arg, aux)
+        predictor["module"] = "loaded"
+    except RuntimeError as e:
+        predictor["module"] = "refused: %s" % str(e)[:80]
+    log("phase 29a predictor and module %s" % json.dumps(predictor))
+    check(predictor["max_abs_prob_diff"] < 1e-5
+          and predictor["top1_agree"] == 1.0,
+          "the Predictor's probabilities differ from the SymbolBlock's: %s"
+          % predictor)
+    check(predictor["module"].startswith("refused"),
+          "Module.set_params took the exported pair, which the JAX "
+          "package refuses: %s" % predictor["module"])
+    log("phase 29a file sizes %s" % json.dumps(sizes))
+    del net, block, f32_block, pred, mod
+    torch.cuda.empty_cache()
+    return {"pretrained": pretrained, "finetune": finetune,
+            "round_trips": trips, "serve": serve, "predictor": predictor,
+            "file_bytes": sizes}
+
+
+def contrib_rnn_steps(mx, make, x_np, name):
+    """2 recorded SGD steps of the cell ``make(prefix)`` unrolled over
+    ``x_np`` (NTC) on gpu(0) and cpu() from the same weights; per step the
+    gradients and the updates by relative norm per parameter, and the
+    control (the card's second update against the CPU's first)."""
+    nets = {}
+    for dev, ctx in (("card", mx.gpu(0)), ("host", mx.cpu())):
+        cell = make("crnn_%s_" % name)
+        mx.random.seed(SEED + 29)
+        cell.initialize(mx.init.Xavier(), ctx=ctx)
+        nets[dev] = (cell, ctx, mx.gluon.Trainer(
+            cell.collect_params(), "sgd", dict(CONTRIB_OPT)))
+    steps = x_np.shape[1]
+    r = np.random.RandomState(SEED + 290).randn(
+        *x_np.shape[:2]).astype(np.float32)
+
+    def backward(cell, ctx):
+        x = mx.nd.array(x_np, ctx=ctx)
+        with mx.autograd.record():
+            out, _ = cell.unroll(steps, x, layout="NTC", merge_outputs=True)
+            flat = out.reshape((x_np.shape[0], steps, -1))
+            loss = (flat.mean(axis=2) * mx.nd.array(r, ctx=ctx)).sum() \
+                + (flat * flat).mean()
+        loss.backward()
+
+    card_cell, host_cell = nets["card"][0], nets["host"][0]
+    rows, prev = [], None
+    for _ in range(2):
+        start = gluon_values(card_cell)
+        mx.set_block_params(host_cell, start)
+        for cell, ctx, trainer in nets.values():
+            backward(cell, ctx)
+        got, want = gluon_grads(card_cell), gluon_grads(host_cell)
+        for _, _, trainer in nets.values():
+            trainer.step(x_np.shape[0])
+        moved = {n: v - start[n] for n, v in gluon_values(card_cell).items()}
+        moved_ref = {n: v - start[n]
+                     for n, v in gluon_values(host_cell).items()}
+        row = {"grad_rel": leaf_errs(got, want),
+               "update_rel": leaf_errs(moved, moved_ref)}
+        if prev is not None:
+            row["control_second_vs_first"] = max(
+                rel_err(moved[n], prev[n]) for n in moved)
+        prev = moved_ref
+        rows.append(row)
+    return rows
+
+
+def phase_files_contrib_rnn(mx, counters):
+    """29b: a Conv2DLSTMCell and an LSTMPCell trained 2 steps on the card
+    against the CPU (no hand kernel but the Trainer's U1: their
+    convolutions and products are library calls), and
+    VariationalDropoutCell's masks on the card."""
+    rng = np.random.RandomState(SEED + 291)
+    before = launches_of(counters)
+    n, c, h, w = CONV_LSTM_INPUT
+    conv_x = rng.randn(n, CONV_LSTM_STEPS, c, h, w).astype(np.float32)
+    conv = contrib_rnn_steps(mx, lambda prefix: mx.gluon.contrib.rnn
+                             .Conv2DLSTMCell((c, h, w), CONV_LSTM_HIDDEN, 3,
+                                             3, i2h_pad=1, prefix=prefix),
+                             conv_x, "conv2dlstm")
+    lstmp_x = rng.randn(*LSTMP_SHAPE).astype(np.float32)
+    lstmp = contrib_rnn_steps(mx, lambda prefix: mx.gluon.contrib.rnn
+                              .LSTMPCell(LSTMP_HIDDEN, LSTMP_PROJ,
+                                         input_size=LSTMP_SHAPE[2],
+                                         prefix=prefix),
+                              lstmp_x, "lstmp")
+    rows = {"conv2d_lstm": conv, "lstmp": lstmp, "limit": CONTRIB_RNN_REL}
+    log("phase 29b contrib.rnn vs cpu %s" % json.dumps(rows))
+    for name in ("conv2d_lstm", "lstmp"):
+        check(all(r[k]["max"] < CONTRIB_RNN_REL for r in rows[name]
+                  for k in ("grad_rel", "update_rel")),
+              "%s: a gradient or update differs from the CPU's beyond %g"
+              % (name, CONTRIB_RNN_REL))
+        check(rows[name][1]["control_second_vs_first"] > CONTRIB_RNN_REL,
+              "%s: the control passed the limit %g" % (name,
+                                                       CONTRIB_RNN_REL))
+
+    class Echo(mx.gluon.rnn.HybridRecurrentCell):
+        """Output = input: a dropped input shows its mask."""
+
+        def state_info(self, batch_size=0):
+            return [{"shape": (batch_size, VARDROP_WIDTH),
+                     "__layout__": "NC"}]
+
+        def hybrid_forward(self, F, inputs, states):
+            return inputs, states
+    cell = mx.gluon.contrib.rnn.VariationalDropoutCell(
+        Echo(prefix="echo_"), drop_inputs=VARDROP_P)
+    ones = mx.nd.ones((2, VARDROP_STEPS, VARDROP_WIDTH), ctx=mx.gpu(0))
+    with mx.autograd.record():
+        out, _ = cell.unroll(VARDROP_STEPS, ones, layout="NTC",
+                             merge_outputs=True)
+    m = out.data
+    kept = float((m[:, 0] != 0).float().mean())
+    sigma = float(np.sqrt(VARDROP_P * (1 - VARDROP_P) / m[:, 0].numel()))
+    vardrop = {"device": str(m.device), "keep_rate": kept,
+               "want": 1 - VARDROP_P, "sigma": sigma,
+               "same_mask_every_step": bool(all(
+                   torch.equal(m[:, t], m[:, 0])
+                   for t in range(VARDROP_STEPS))),
+               "values": sorted({round(float(v), 6)
+                                 for v in torch.unique(m).tolist()})}
+    log("phase 29b variational dropout %s" % json.dumps(vardrop))
+    check(m.is_cuda and vardrop["same_mask_every_step"]
+          and abs(kept - (1 - VARDROP_P)) <= 4 * sigma
+          and vardrop["values"] == [0.0, round(1 / (1 - VARDROP_P), 6)],
+          "VariationalDropoutCell's mask on the card: %s" % vardrop)
+    launches = launched(counters, before)
+    # the cells' ops are library calls; the card's Trainer steps are U1,
+    # one a step of each cell
+    check(launches["multi_tensor_update"] == 4
+          and not any(n for k, n in launches.items()
+                      if k != "multi_tensor_update"),
+          "gluon.contrib.rnn launched %s: want U1 once a card step (4) "
+          "and no other kernel" % launches)
+    return {"vs_cpu": rows, "variational_dropout": vardrop}
+
+
+def wiki_tokens(rng):
+    """A WikiText-format file's text: headings and lines of words drawn
+    from a WIKI_VOCAB-word vocabulary (with ``<unk>`` in it)."""
+    words = ["w%d" % i for i in range(WIKI_VOCAB - 1)] + ["<unk>"]
+    lines = []
+    for i in range(WIKI_LINES):
+        if i % 50 == 0:
+            lines += ["", " = Heading %d = " % (i // 50), ""]
+        n = rng.randint(5, 30)
+        lines.append(" " + " ".join(words[j] for j in rng.randint(
+            0, len(words), n)) + " . ")
+    return "\n".join(lines) + "\n"
+
+
+def phase_files_data(mx, tmp, counters):
+    """29c: MNIST and CIFAR-10 files through ``vision`` + ``transforms`` +
+    ``DataLoader`` (batches equal numpy's), a WikiText-2 token file
+    through ``WikiText2`` + ``IntervalSampler`` into one step of the 2x650
+    LM as ``gluon.rnn.LSTM`` (K2 and K3 2 each, U1 1), and
+    ``contrib.autograd.grad_and_loss`` on the card against ``autograd``."""
+    rng = np.random.RandomState(SEED + 292)
+    vision = mx.gluon.data.vision
+    t = vision.transforms
+    # MNIST
+    mroot = os.path.join(tmp, "mnist")
+    os.makedirs(mroot)
+    images = rng.randint(0, 256, (MNIST_FILE_IMAGES, 28, 28)).astype(np.uint8)
+    labels = rng.randint(0, 10, MNIST_FILE_IMAGES).astype(np.uint8)
+    write_idx(os.path.join(mroot, "train-images-idx3-ubyte.gz"), images)
+    write_idx(os.path.join(mroot, "train-labels-idx1-ubyte.gz"), labels)
+    tf = t.ToTensor()
+    mnist = vision.MNIST(root=mroot, transform=lambda x, y: (tf(x), y))
+    loader = mx.gluon.data.DataLoader(mnist, batch_size=FILES_LOADER_BATCH)
+    mnist_ok, n_batches = True, 0
+    for k, (xb, yb) in enumerate(loader):
+        lo = k * FILES_LOADER_BATCH
+        want = images[lo:lo + FILES_LOADER_BATCH, None].astype(np.float32) \
+            / 255.0
+        mnist_ok &= bool(np.array_equal(xb.asnumpy(), want)
+                         and np.array_equal(yb.asnumpy(),
+                                            labels[lo:lo + len(want)]))
+        n_batches += 1
+    # CIFAR-10, the batches normalised and moved to the card
+    croot = os.path.join(tmp, "cifar", "cifar-10-batches-bin")
+    os.makedirs(croot)
+    rows, cif = [], []
+    for i in range(1, 6):
+        lab = rng.randint(0, 10, (CIFAR_FILE_ROWS, 1)).astype(np.uint8)
+        img = rng.randint(0, 256, (CIFAR_FILE_ROWS, 3072)).astype(np.uint8)
+        with open(os.path.join(croot, "data_batch_%d.bin" % i), "wb") as f:
+            f.write(np.concatenate([lab, img], axis=1).tobytes())
+        rows.append(lab[:, 0])
+        cif.append(img.reshape(-1, 3, 32, 32))
+    cif, rows = np.concatenate(cif), np.concatenate(rows)
+    mean = np.array([0.4914, 0.4822, 0.4465], np.float32)
+    std = np.array([0.247, 0.243, 0.261], np.float32)
+    norm = t.Compose([t.Cast("float32"), t.ToTensor(),
+                      t.Normalize(mean, std)])
+    cifar = vision.CIFAR10(root=os.path.dirname(croot),
+                           transform=lambda x, y: (norm(x), y))
+    loader = mx.gluon.data.DataLoader(cifar, batch_size=FILES_LOADER_BATCH,
+                                      shuffle=False)
+    cifar_err, cifar_labels_ok = 0.0, True
+    for k, (xb, yb) in enumerate(loader):
+        lo = k * FILES_LOADER_BATCH
+        on_card = xb.as_in_context(mx.gpu(0))
+        want = (cif[lo:lo + FILES_LOADER_BATCH].astype(np.float32) / 255.0
+                - mean[:, None, None]) / std[:, None, None]
+        cifar_err = max(cifar_err, float(np.abs(on_card.asnumpy()
+                                                - want).max()))
+        cifar_labels_ok &= bool(np.array_equal(yb.asnumpy(),
+                                               rows[lo:lo + len(want)]))
+    data_row = {"mnist_batches": n_batches, "mnist_equal": mnist_ok,
+                "cifar_images": len(cifar), "cifar_max_abs_err": cifar_err,
+                "cifar_labels_equal": cifar_labels_ok}
+    log("phase 29c vision %s" % json.dumps(data_row))
+    check(mnist_ok and cifar_labels_ok and cifar_err <= 1e-6
+          and len(cifar) == 5 * CIFAR_FILE_ROWS,
+          "the vision datasets' batches differ from numpy's: %s" % data_row)
+    # WikiText-2 into one step of the 2x650 LM
+    wroot = os.path.join(tmp, "wikitext-2")
+    os.makedirs(wroot)
+    with open(os.path.join(wroot, "wiki.train.tokens"), "w") as f:
+        f.write(wiki_tokens(rng))
+    wiki = mx.gluon.contrib.data.WikiText2(root=wroot, seq_len=SEQ)
+    vocab = len(wiki.vocabulary)
+    sampler = mx.gluon.contrib.data.IntervalSampler(len(wiki), TRAIN_BATCH)
+    loader = mx.gluon.data.DataLoader(wiki, batch_size=TRAIN_BATCH,
+                                      sampler=sampler, last_batch="discard")
+    xb, yb = next(iter(loader))
+    card = gluon_lm(mx, mx.gpu(0))
+    trainer = mx.gluon.Trainer(card.collect_params(), "sgd", dict(TRAIN_OPT))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    x = xb.as_in_context(mx.gpu(0)).astype("float32").T
+    y = yb.as_in_context(mx.gpu(0)).astype("float32").T
+    before = launches_of(counters)
+    loss = gluon_lm_step(mx, card, trainer, loss_fn, x, y)
+    torch.cuda.synchronize()
+    lm = {"vocabulary": vocab, "windows": len(wiki),
+          "first_batch_rows": [int(i) for i in list(sampler)[:3]],
+          "loss": float(loss.mean().asscalar()),
+          "launches": {k: n for k, n in launched(counters, before).items()
+                       if n}}
+    log("phase 29c wikitext LM step %s" % json.dumps(lm))
+    check(vocab <= VOCAB and lm["launches"] == {
+        "fused_lstm_train": LAYERS, "lstm_bwd_recurrence": LAYERS,
+        "multi_tensor_update": 1} and np.isfinite(lm["loss"]),
+          "the WikiText step launched %s (vocabulary %d): want K2 and K3 "
+          "%d each and U1 once" % (lm["launches"], vocab, LAYERS))
+    del card
+    # contrib.autograd on the card against autograd
+    a = mx.nd.array(rng.randn(4096).astype(np.float32), ctx=mx.gpu(0))
+    b = mx.nd.array(rng.randn(4096).astype(np.float32), ctx=mx.gpu(0))
+
+    def f(p, q):
+        return (p * p * q + mx.nd.sin(p)).sum()
+    (ga, gb), value = mx.contrib.autograd.grad_and_loss(f)(a, b)
+    a2, b2 = a.copy(), b.copy()
+    a2.attach_grad()
+    b2.attach_grad()
+    with mx.autograd.record():
+        v2 = f(a2, b2)
+    v2.backward()
+    ag = {"device": str(ga.data.device),
+          "grad_max_abs_diff": max(
+              float((ga.data - a2.grad.data).abs().max()),
+              float((gb.data - b2.grad.data).abs().max())),
+          "loss_diff": abs(float(value.asscalar()) - float(v2.asscalar()))}
+    log("phase 29c contrib.autograd %s" % json.dumps(ag))
+    check(ga.data.is_cuda and ag["grad_max_abs_diff"] == 0.0
+          and ag["loss_diff"] == 0.0,
+          "contrib.autograd on the card differs from autograd: %s" % ag)
+    return {"vision": data_row, "wikitext": lm, "autograd": ag}
+
+
+def gluon_files_main():
+    """Phase 29 in a process of its own: every kernel's count is set to
+    0, 29a-29c run, and the counts are read. Prints its lines, then one
+    JSON line with the launches."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    card = nvidia_smi()
+    t0 = time.perf_counter()
+    ops = mx.ops
+    counters = {"fused_lstm": ops.fused_lstm,
+                "fused_lstm_train": ops.fused_lstm_train,
+                "lstm_bwd_recurrence": ops.lstm_bwd_recurrence,
+                "conv1x1_s2_dgrad": ops.conv1x1_s2_dgrad,
+                "flash_attention": ops.flash_attention, "rtc": mx.rtc.Kernel,
+                "multi_tensor_update": ops.multi_tensor_update,
+                "greedy_nms": ops.greedy_nms,
+                "sparse_row_update": ops.sparse_row_update}
+    rng = np.random.RandomState(SEED + 29)
+    seconds = {}
+    for c in counters.values():               # the path starts here
+        c.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        resnet = phase_files_resnet(mx, rng, tmp, counters)
+        seconds["29a"] = time.perf_counter() - t
+        t = time.perf_counter()
+        phase_files_contrib_rnn(mx, counters)
+        seconds["29b"] = time.perf_counter() - t
+        t = time.perf_counter()
+        phase_files_data(mx, tmp, counters)
+        seconds["29c"] = time.perf_counter() - t
+    launches = launches_of(counters)          # ... and ends here
+    print(json.dumps({"phase": "29", "kernel_launches": launches,
+                      "finetune_imgs_per_s": resnet["finetune"][
+                          "imgs_per_s"],
+                      "served_call_ms": resnet["serve"]["call_wall_ms"],
+                      "seconds": seconds, "card": card,
+                      "total_seconds": time.perf_counter() - t0}),
+          flush=True)
+    check(launches["conv1x1_s2_dgrad"] > 0
+          and launches["multi_tensor_update"] > 0
+          and launches["fused_lstm_train"] > 0
+          and launches["lstm_bwd_recurrence"] > 0
+          and not any(n for k, n in launches.items()
+                      if k not in ("conv1x1_s2_dgrad", "multi_tensor_update",
+                                   "fused_lstm_train", "lstm_bwd_recurrence",
+                                   "fused_lstm")),
+          "the Gluon files path launched %s: want K5, U1, K2 and K3 (K1 at "
+          "the LM's deferred-init forward)" % launches)
+    return 0
+
+
+def phase_gluon_files_process():
+    """Phase 29: ``gluon_files_main`` in a process of its own; its lines
+    are logged, its JSON line returned."""
+    t0 = time.perf_counter()
+    last = run_own_process("--gluon-files", GLUON_FILES_TIMEOUT_S,
+                           log_prefix="phase 29")
+    log("phase 29 seconds %.1f" % (time.perf_counter() - t0))
     return last
 
 
@@ -8575,6 +9279,7 @@ def main():
     serving_launches = phase_serving_process()
     breadth = phase_breadth_process()
     breadth_launches = breadth["kernel_launches"]
+    files_launches = phase_gluon_files_process()["kernel_launches"]
 
     top = next(r for r in rows
                if (r["T"], r["B"]) == (SEQ, max(SERVED_BATCHES)))
@@ -8587,7 +9292,8 @@ def main():
         "name": "fused_lstm", "route": "cuda", "source": recurrence_src,
         "replaces": pallas + ":295",
         "launches": (launches + rnn_launches["fused_lstm"]
-                     + speech_launches["fused_lstm"] + serving_launches),
+                     + speech_launches["fused_lstm"] + serving_launches
+                     + files_launches["fused_lstm"]),
         "max_abs_err": worst,
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
@@ -8596,7 +9302,8 @@ def main():
         "source": recurrence_src,
         "replaces": pallas + ":348",
         "launches": (k2 + rnn_launches["fused_lstm_train"]
-                     + speech_launches["fused_lstm_train"]),
+                     + speech_launches["fused_lstm_train"]
+                     + files_launches["fused_lstm_train"]),
         "max_abs_err": train_worst, "ms": train["k2_ms"],
         "plain_ms": train["k2_plain_ms"], "bound_ms": train["k2_bound_ms"],
         "bound_by": train["k2_bound_by"],
@@ -8604,7 +9311,8 @@ def main():
         "name": "lstm_bwd_recurrence", "route": "cuda", "source": k3_src,
         "replaces": pallas + ":382",
         "launches": (k3 + rnn_launches["lstm_bwd_recurrence"]
-                     + speech_launches["lstm_bwd_recurrence"]),
+                     + speech_launches["lstm_bwd_recurrence"]
+                     + files_launches["lstm_bwd_recurrence"]),
         "max_abs_err": train_worst, "ms": train["k3_ms"],
         "plain_ms": train["k3_plain_ms"], "bound_ms": train["k3_bound_ms"],
         "bound_by": train["k3_bound_by"],
@@ -8620,7 +9328,8 @@ def main():
         "replaces": "mxnet_tpu/ops/conv_kernels.py:66",
         "launches": (k5_launches + gluon_k5
                      + obs_launches["conv1x1_s2_dgrad"]
-                     + breadth_launches["conv1x1_s2_dgrad"]),
+                     + breadth_launches["conv1x1_s2_dgrad"]
+                     + files_launches["conv1x1_s2_dgrad"]),
         "max_abs_err": max(r["max_abs_err"] for r in k5_rows),
         **{key: sum(r[key] for r in step_rows)
            for key in ("ms", "plain_ms", "library_ms")},
@@ -8652,7 +9361,8 @@ def main():
                      + rnn_launches["multi_tensor_update"]
                      + speech_launches["multi_tensor_update"]
                      + obs_launches["multi_tensor_update"]
-                     + breadth_launches["multi_tensor_update"]),
+                     + breadth_launches["multi_tensor_update"]
+                     + files_launches["multi_tensor_update"]),
         "max_abs_err": u1_summary["max_abs_err"],
         **{key: u1_a[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}})
@@ -8700,6 +9410,8 @@ def main():
 
 if __name__ == "__main__":
     sys.exit({"--speech-profile": speech_profile_main,
+              "--lstm-profile": lstm_profile_main,
+              "--gluon-files": gluon_files_main,
               "--observability": observability_main,
               "--serving": serving_main,
               "--observability-telemetry": observability_telemetry_main,

@@ -123,6 +123,7 @@ from . import rnn
 from . import callback
 from . import name
 from . import gluon
+from . import contrib
 from . import profiler
 from . import xla_stats  # compile accounting / memory ledger / MFU / flight recorder
 from . import compiled
@@ -144,7 +145,8 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "cpu_pinned",
            "Executor", "init", "initializer", "optimizer", "kv", "kvstore",
            "kvstore_create", "lr_scheduler",
            "misc", "io", "metric",
-           "mod", "module", "model", "rnn", "callback", "name", "gluon", "compiled",
+           "mod", "module", "model", "rnn", "callback", "name", "gluon",
+           "contrib", "compiled",
            "autograd", "Predictor", "params_from_numpy", "params_to_numpy",
            "set_block_params", "serving", "rtc", "operator", "telemetry",
            "stepprof", "runprof", "memprof", "chaos", "threadsan",

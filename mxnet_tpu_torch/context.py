@@ -65,6 +65,15 @@ class Context:
     def __exit__(self, ptype, value, trace):
         Context._default_ctx.value = self._old_ctx
 
+    def empty_cache(self):
+        """Release the cached blocks of PyTorch's allocator on this
+        context's CUDA device (the JAX package's is a no-op: XLA keeps its
+        own pools). Nothing to do on the CPU."""
+        if self.device_type in ("cpu", "cpu_pinned"):
+            return
+        with torch.cuda.device(self.torch_device()):
+            torch.cuda.empty_cache()
+
     def torch_device(self) -> torch.device:
         """The ``torch.device`` of this context; raises for a GPU context
         whose CUDA device is not present."""

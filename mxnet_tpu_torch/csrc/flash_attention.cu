@@ -72,7 +72,8 @@
 // - Epilogue: O / l once, rounded to bf16, stored as bf16 pairs for rows
 //   below Tq and columns below D.
 // - Shared memory at D=128: Q 32 KB + 2 stages x (K 32 KB + V 32 KB) =
-//   160 KB plus barriers (D <= 64: 80 KB). D up to 128; the TMA maps need
+//   160 KB plus barriers (D <= 64: 80 KB). D up to 128 (above it bf16
+//   takes the CUDA-core kernel below); the TMA maps need
 //   a global stride of a multiple of 16 bytes and 16-byte aligned bases,
 //   so the wrapper pads D to a multiple of 8 and copies unaligned inputs.
 // - Left for later: ping-pong of the two consumer warpgroups and the
@@ -81,7 +82,11 @@
 //
 // f32: 256 threads on CUDA-core FMAs, 32 q rows and 64 keys a step, exact
 // f32 (no TF32), for the f32 path and the references that run TF32 off;
-// 89 KB of dynamic shared memory at D=128. D may be anything up to 128.
+// 89 KB of dynamic shared memory at D=128, 172.5 KB at D=256. D may be
+// anything up to 256. bf16 with D in (128, 256] takes the same kernel,
+// widening q, k and v to f32 as it stages them: a simple route, far from
+// the tensor cores' rate (the wgmma kernel's 64-row Q tile and two stages
+// of 128-key K and V tiles would need 320 KB of shared memory at D=256).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -482,16 +487,28 @@ flash_fwd_bf16(__grid_constant__ const CUtensorMap map_q,
   }
 }
 
-// ----------------------------------------------------------------- f32 path
+// ------------------------------------------------------- CUDA-core path
+// f32 at every head dim, and bf16 above 128 (where the wgmma kernel's
+// tiles do not fit): q, k and v are widened to f32 in shared memory, the
+// scores, softmax and P.V are f32 on the CUDA cores, and o is rounded
+// once to its type. At kD = 256 a block holds 32 q rows, 64 keys and 64
+// values in f32 with P: 172.5 KB of its 227 KB.
 constexpr int kFM = 32;         // q rows per block
 constexpr int kFN = 64;         // keys per step
 constexpr int kFThreads = 256;  // 8 threads a row
 
-template <int kD>
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
+__device__ __forceinline__ void narrow(bf16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+template <typename T, int kD>
 __global__ void __launch_bounds__(kFThreads)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int Tq,
-              int Tk, int H, int D, float scale, int causal) {
+flash_fwd_cc(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, T* __restrict__ o, int Tq, int Tk,
+             int H, int D, float scale, int causal) {
   constexpr int kLdQ = kD + 1;  // odd strides: no bank conflicts
   constexpr int kLdP = kFN + 1;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -506,10 +523,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kFM;
   const size_t rs = static_cast<size_t>(H) * D;
   const size_t head = static_cast<size_t>(h) * D;
-  const float* qb = q + static_cast<size_t>(b) * Tq * rs + head;
-  const float* kb = k + static_cast<size_t>(b) * Tk * rs + head;
-  const float* vb = v + static_cast<size_t>(b) * Tk * rs + head;
-  float* ob = o + static_cast<size_t>(b) * Tq * rs + head;
+  const T* qb = q + static_cast<size_t>(b) * Tq * rs + head;
+  const T* kb = k + static_cast<size_t>(b) * Tk * rs + head;
+  const T* vb = v + static_cast<size_t>(b) * Tk * rs + head;
+  T* ob = o + static_cast<size_t>(b) * Tq * rs + head;
 
   const int tid = threadIdx.x;
   const int r = tid / 8;   // this thread's q row in the tile
@@ -519,7 +536,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int e = tid; e < kFM * kD; e += kFThreads) {
     const int rr = e / kD, d = e % kD, t = q0 + rr;
     Qs[rr * kLdQ + d] =
-        (t < Tq && d < D) ? qb[static_cast<size_t>(t) * rs + d] : 0.f;
+        (t < Tq && d < D) ? widen(qb[static_cast<size_t>(t) * rs + d]) : 0.f;
   }
   float m = kNeg, l = 0.f;
   float acc[kD / 8];
@@ -535,8 +552,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       const int rr = e / kD, d = e % kD, t = k0 + rr;
       const bool ok = t < Tk && d < D;
       const size_t at = static_cast<size_t>(t) * rs + d;
-      Ks[rr * kLdQ + d] = ok ? kb[at] : 0.f;
-      Vs[rr * kD + d] = ok ? vb[at] : 0.f;
+      Ks[rr * kLdQ + d] = ok ? widen(kb[at]) : 0.f;
+      Vs[rr * kD + d] = ok ? widen(vb[at]) : 0.f;
     }
     __syncthreads();
 
@@ -593,27 +610,28 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kD / 8; ++j) {
       const int d = c8 + 8 * j;
-      if (d < D) ob[static_cast<size_t>(row) * rs + d] = acc[j] * inv;
+      if (d < D) narrow(&ob[static_cast<size_t>(row) * rs + d], acc[j] * inv);
     }
   }
 }
 
-template <int kD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int Tq, int Tk, int H, int D, float scale, int causal,
-               cudaStream_t s) {
+template <typename T, int kD>
+int launch_cc(const void* q, const void* k, const void* v, void* o, int B,
+              int Tq, int Tk, int H, int D, float scale, int causal,
+              cudaStream_t s) {
   constexpr size_t smem =
       (static_cast<size_t>(kFM + kFN) * (kD + 1) + kFN * kD + kFM * (kFN + 1)) *
       sizeof(float);
+  static_assert(smem <= 227 * 1024, "a block's shared memory");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_cc<T, kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Tq + kFM - 1) / kFM, B * H);
-  flash_fwd_f32<kD><<<grid, kFThreads, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Tq, Tk, H, D,
-      scale, causal);
+  flash_fwd_cc<T, kD><<<grid, kFThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), Tq, Tk, H, D, scale,
+      causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -694,8 +712,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q [B, Tq, H, D], k and v [B, Tk, H, D] read, o [B, Tq, H, D] written;
-// contiguous, on one device, dtype 0 = f32, 1 = bf16; 1 <= D <= 128,
-// Tk >= 1; for bf16 D a multiple of 8 and every pointer 16-byte aligned.
+// contiguous, on one device, dtype 0 = f32, 1 = bf16; 1 <= D <= 256,
+// Tk >= 1; for bf16 with D <= 128 (the wgmma route) D a multiple of 8 and
+// every pointer 16-byte aligned.
 // Launches one kernel on `stream` and returns 0 when it was accepted, else
 // the reason it was refused: -1 an unknown dtype, -2 D out of range, -3 a
 // bf16 D or pointer that TMA cannot address, -4 no cuTensorMapEncodeTiled
@@ -706,30 +725,36 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    int D, float scale, int causal, int dtype,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D < 1 || D > 128) return -2;
+  if (D < 1 || D > 256) return -2;
   if (dtype == 1) {
     if (D <= 64) return launch_bf16<64>(q, k, v, o, B, Tq, Tk, H, D, scale,
                                         causal, s);
-    return launch_bf16<128>(q, k, v, o, B, Tq, Tk, H, D, scale, causal, s);
+    if (D <= 128) return launch_bf16<128>(q, k, v, o, B, Tq, Tk, H, D, scale,
+                                          causal, s);
+    return launch_cc<bf16, 256>(q, k, v, o, B, Tq, Tk, H, D, scale, causal,
+                                s);
   }
   if (dtype == 0) {
-    if (D <= 32) return launch_f32<32>(q, k, v, o, B, Tq, Tk, H, D, scale,
-                                       causal, s);
-    if (D <= 64) return launch_f32<64>(q, k, v, o, B, Tq, Tk, H, D, scale,
-                                       causal, s);
-    return launch_f32<128>(q, k, v, o, B, Tq, Tk, H, D, scale, causal, s);
+    if (D <= 32) return launch_cc<float, 32>(q, k, v, o, B, Tq, Tk, H, D,
+                                             scale, causal, s);
+    if (D <= 64) return launch_cc<float, 64>(q, k, v, o, B, Tq, Tk, H, D,
+                                             scale, causal, s);
+    if (D <= 128) return launch_cc<float, 128>(q, k, v, o, B, Tq, Tk, H, D,
+                                               scale, causal, s);
+    return launch_cc<float, 256>(q, k, v, o, B, Tq, Tk, H, D, scale, causal,
+                                 s);
   }
   return -1;
 }
 
-// dynamic shared memory of one bf16 block for head dim D (1..128)
+// dynamic shared memory of one bf16 wgmma block for head dim D (1..128)
 extern "C" int flash_attention_bf16_smem(int D) {
   return D <= 64 ? Smem<64>::kBytes : Smem<128>::kBytes;
 }
 
 extern "C" const char* flash_attention_error_name(int err) {
   if (err == -1) return "unsupported dtype";
-  if (err == -2) return "head dim out of range (1..128)";
+  if (err == -2) return "head dim out of range (1..256)";
   if (err == -3) return "bf16 needs D a multiple of 8 and 16-byte aligned "
                         "q, k, v and o for its TMA maps";
   if (err == -4) return "the CUDA driver has no cuTensorMapEncodeTiled";

@@ -525,6 +525,11 @@ class Executor:
     def aux_arrays(self):
         return [self.aux_dict[n] for n in self._aux_names]
 
+    @property
+    def output_dict(self):
+        """``{output name: NDArray}`` of the last forward."""
+        return dict(zip(self._output_names, self.outputs))
+
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False):
         """Copy ``{name: NDArray or numpy}`` into the bound arguments and

@@ -7,7 +7,7 @@ of ``rnn``; ``contrib.nn`` (``Concurrent``, ``HybridConcurrent``,
 ``Identity``), and the model zoo's vision families."""
 from .parameter import (Parameter, Constant, ParameterDict,
                         DeferredInitializationError)
-from .block import Block, HybridBlock
+from .block import Block, HybridBlock, SymbolBlock
 from .trainer import Trainer
 from . import nn
 from . import loss
@@ -19,6 +19,7 @@ from . import contrib
 from .utils import split_and_load
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
-           "DeferredInitializationError", "Block", "HybridBlock", "Trainer",
+           "DeferredInitializationError", "Block", "HybridBlock", "SymbolBlock",
+           "Trainer",
            "nn", "loss", "data", "utils", "model_zoo", "rnn", "contrib",
            "split_and_load"]

@@ -28,8 +28,21 @@ recomputes the activations in the backward pass instead of keeping them
 (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``): the
 recompute runs with the aux write-back suppressed, so BatchNorm steps
 once, and from the call's random key, so it draws the same bits.
-``SymbolBlock``, forward hooks, ``summary`` and parameter files are not
-ported yet.
+Parameter files: ``save_parameters`` writes each parameter under its
+structural name (``features.0.weight``, the attribute path from this
+block), ``load_parameters`` reads that form or the prefixed names of
+``save_params`` (the legacy form), in either package's ``.params``
+container. Forward hooks (``register_forward_pre_hook``,
+``register_forward_hook``) run around ``forward`` in ``Block.__call__``,
+so a hybridized call fires them too; ``apply`` and ``summary`` walk the
+children. ``export`` writes ``_trace_symbol()`` as ``<path>-symbol.json``
+and every parameter, the moving statistics included, as ``arg:<name>``
+in ``<path>-%04d.params``. ``SymbolBlock`` runs a Symbol (``imports``
+reads ``export``'s pair) as an inference forward: one bound
+`executor.Executor` a signature (input shapes, dtypes, context), which
+reads the parameters' current tensors, so on the card each signature is
+one captured CUDA graph and a call one ``cudaGraphLaunch``. As in the JAX
+package it runs ``is_train=False`` and is not differentiable.
 """
 from __future__ import annotations
 
@@ -39,6 +52,7 @@ import re
 import threading
 from collections import OrderedDict
 
+import numpy as np
 import torch
 
 from .. import autograd
@@ -46,13 +60,14 @@ from .. import compiled as compiled_mod
 from .. import ndarray as nd_mod
 from .. import random as _random
 from .. import symbol as sym_mod
+from ..base import MXNetError
 from ..context import cpu, gpu
 from ..name import NameManager, Prefix
 from ..ndarray.ndarray import NDArray
 from ..ops.invoke import suppress_aux_writeback
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 
 class _BlockScope:
@@ -115,6 +130,8 @@ class Block:
         self._scope = _BlockScope(self)
         self._children = OrderedDict()
         self._reg_params = {}
+        self._forward_hooks = OrderedDict()
+        self._forward_pre_hooks = OrderedDict()
 
     def __setattr__(self, name, value):
         if isinstance(value, Block):
@@ -158,6 +175,84 @@ class Block:
     def register_child(self, block, name=None):
         self._children[name or str(len(self._children))] = block
 
+    # -- parameter files -------------------------------------------------
+    def _collect_params_with_prefix(self, prefix=""):
+        """``{structural name: Parameter}``: the attribute path from this
+        block, dot-separated (``features.0.weight``)."""
+        if prefix:
+            prefix += "."
+        ret = {prefix + k: v for k, v in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def save_parameters(self, filename):
+        """Write every parameter under its structural name."""
+        from ..ndarray.utils import save as nd_save
+        nd_save(filename, {k: v.data() for k, v in
+                           self._collect_params_with_prefix().items()})
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False):
+        """Load a file of ``save_parameters`` (structural names), or of
+        ``save_params`` (prefixed names, read through
+        ``collect_params().load``). Parameters not yet initialised take
+        the loaded values on ``ctx`` (see `parameter.py`)."""
+        from ..ndarray.utils import load as nd_load
+        loaded = nd_load(filename, ctx=cpu())      # read on the host
+        params = self._collect_params_with_prefix()
+        if not loaded and not params:
+            return
+        if not any("." in k for k in loaded):
+            del loaded
+            self.collect_params().load(filename, ctx, allow_missing,
+                                       ignore_extra, self.prefix)
+            return
+        if not allow_missing:
+            for name in params:
+                if name not in loaded:
+                    raise MXNetError("Parameter '%s' is missing in file '%s'"
+                                     % (name, filename))
+        for name, value in loaded.items():
+            if name not in params:
+                if not ignore_extra:
+                    raise ValueError(
+                        "Parameter '%s' loaded from file '%s' is not present "
+                        "in this block" % (name, filename))
+                continue
+            params[name]._load_init(value, ctx)
+
+    def save_params(self, filename):
+        """The legacy form: every parameter under its prefixed name with
+        this block's prefix stripped."""
+        self.collect_params().save(filename, strip_prefix=self.prefix)
+
+    def load_params(self, filename, ctx=None, allow_missing=False,
+                    ignore_extra=False):
+        """Read a file of ``save_params``."""
+        self.collect_params().load(filename, ctx, allow_missing,
+                                   ignore_extra, self.prefix)
+
+    # -- hooks and inspection --------------------------------------------
+    def register_forward_pre_hook(self, hook):
+        """Call ``hook(block, inputs)`` before each forward."""
+        handle = _HookHandle(self._forward_pre_hooks)
+        self._forward_pre_hooks[handle.id] = hook
+        return handle
+
+    def register_forward_hook(self, hook):
+        """Call ``hook(block, inputs, outputs)`` after each forward."""
+        handle = _HookHandle(self._forward_hooks)
+        self._forward_hooks[handle.id] = hook
+        return handle
+
+    def apply(self, fn):
+        """``fn(block)`` on every child, recursively, then on this block."""
+        for child in self._children.values():
+            child.apply(fn)
+        fn(self)
+        return self
+
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False):
         """Initialise every parameter on ``ctx`` (by default the enclosing
@@ -180,10 +275,79 @@ class Block:
             param.cast(dtype)
 
     def __call__(self, *args):
-        return self.forward(*args)
+        for hook in self._forward_pre_hooks.values():
+            hook(self, args)
+        out = self.forward(*args)
+        for hook in self._forward_hooks.values():
+            hook(self, args, out)
+        return out
 
     def forward(self, *args):
         raise NotImplementedError
+
+    def summary(self, *inputs):
+        """Run ``inputs`` through the block and print, for each block
+        called, its output shapes and parameter counts (the JAX package's
+        table, line for line)."""
+        summary = OrderedDict()
+        hooks = []
+
+        def shape_str(args):
+            def flatten(args):
+                if not isinstance(args, (list, tuple)):
+                    return [args]
+                return [x for a in args for x in flatten(a)]
+            return str([x.shape if isinstance(x, NDArray) else None
+                        for x in flatten(args)])
+
+        def register(block):
+            def hook(block, inputs, outputs):
+                key = "%s-%i" % (block.__class__.__name__, len(summary))
+                row = summary[key] = OrderedDict()
+                row["output_shape"] = shape_str(outputs)
+                params = trainable = 0
+                for p in block.params.values():
+                    size = int(np.prod(p.shape)) if p.shape else 0
+                    params += size
+                    trainable += 0 if p.grad_req == "null" else size
+                row["trainable"] = trainable
+                row["n_params"] = params
+            hooks.append(block.register_forward_hook(hook))
+
+        try:
+            self.apply(register)
+            self(*inputs)
+            line_format = "{:>20}  {:>42} {:>15}"
+            print("-" * 80)
+            print(line_format.format("Layer (type)", "Output Shape",
+                                     "Param #"))
+            print("=" * 80)
+            total_params = trainable_params = 0
+            for layer, row in summary.items():
+                print(line_format.format(layer, str(row["output_shape"]),
+                                         row["n_params"]))
+                total_params += row["n_params"]
+                trainable_params += row["trainable"]
+            print("=" * 80)
+            print("Total params: " + str(total_params))
+            print("Trainable params: " + str(trainable_params))
+            print("-" * 80)
+        finally:
+            for h in hooks:
+                h.detach()
+
+
+class _HookHandle:
+    """Detaches one hook from its block."""
+    _counter = [0]
+
+    def __init__(self, hooks_dict):
+        _HookHandle._counter[0] += 1
+        self.id = _HookHandle._counter[0]
+        self._hooks_dict = hooks_dict
+
+    def detach(self):
+        self._hooks_dict.pop(self.id, None)
 
 
 def _remat_contexts():
@@ -253,6 +417,10 @@ class HybridBlock(Block):
         # the lineage of this block's programs: a token of its own, since
         # the id() of a collected block is reused by later objects
         self._lineage = object()
+
+    def infer_shape(self, *args):
+        """Nothing, as in the JAX package: deferred shapes are filled by
+        the first forward (each leaf layer's ``_infer_shapes``)."""
 
     def register_child(self, block, name=None):
         if not isinstance(block, HybridBlock):
@@ -374,6 +542,16 @@ class HybridBlock(Block):
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
 
+    def export(self, path, epoch=0):
+        """Write ``<path>-symbol.json`` (``_trace_symbol()``) and
+        ``<path>-%04d.params``: every parameter, the moving statistics
+        too, as ``arg:<name>``, as the JAX package writes them."""
+        from ..ndarray.utils import save as nd_save
+        self._trace_symbol().save("%s-symbol.json" % path)
+        nd_save("%s-%04d.params" % (path, epoch),
+                {"arg:%s" % name: param.data()
+                 for name, param in self.collect_params().items()})
+
     def _trace_symbol(self):
         """The block's graph over a ``data`` variable."""
         out = self._symbolic_forward(sym_mod.var("data"))
@@ -387,3 +565,79 @@ class HybridBlock(Block):
         through ``_forward_impl``."""
         params = {k: v.var() for k, v in self._reg_params.items()}
         return self.hybrid_forward(sym_mod, *args, **params)
+
+
+class SymbolBlock(HybridBlock):
+    """A Block over a Symbol (reference ``gluon.SymbolBlock``): the
+    symbol's free variables other than ``inputs`` are its parameters,
+    named exactly as in the symbol (no prefix); auxiliary states take no
+    gradient. ``params`` shares parameters with another block. The
+    forward is an inference forward (``is_train=False``), not
+    differentiable, through one bound executor a signature (see the
+    module docstring)."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix=None, params=params)
+        if isinstance(inputs, sym_mod.Symbol):
+            inputs = [inputs]
+        if isinstance(outputs, (list, tuple)):
+            outputs = sym_mod.Group(list(outputs))
+        self._symbol = outputs
+        self._input_names = [i.name for i in inputs]
+        self._aux_names = set(outputs.list_auxiliary_states())
+        self._executors = {}
+        for name in outputs.list_inputs():
+            if name in self._input_names:
+                continue
+            if self.params._get_impl(name) is None:
+                self.params._params[name] = Parameter(
+                    name, allow_deferred_init=True,
+                    grad_req="null" if name in self._aux_names else "write")
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock over ``symbol_file`` (``export``'s JSON) with
+        ``input_names`` as inputs and, when given, the values of
+        ``param_file`` (``arg:``/``aux:`` tags dropped) on ``ctx``."""
+        from ..ndarray.utils import load as nd_load
+        sym = sym_mod.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        ret = SymbolBlock(sym, [sym_mod.var(i) for i in input_names])
+        if param_file is not None:
+            for key, value in nd_load(param_file, ctx=cpu()).items():
+                name = key.split(":", 1)[-1]
+                if name in ret.params.keys():
+                    ret.params[name]._load_init(value, ctx)
+        return ret
+
+    def _clear_cached_op(self):
+        super()._clear_cached_op()
+        self._executors = {}
+
+    def forward(self, x, *args):
+        from ..executor import Executor
+        inputs = (x,) + args
+        ctx = x.context
+        key = (ctx,) + tuple((tuple(a.shape), a.data.dtype) for a in inputs)
+        exe = self._executors.get(key)
+        if exe is None:
+            args_d = {name: NDArray(torch.empty_like(a.data), ctx)
+                      for name, a in zip(self._input_names, inputs)}
+            aux_d = {}
+            for name, p in self.params.items():
+                (aux_d if name in self._aux_names else args_d)[name] = \
+                    p.data()
+            exe = self._executors[key] = Executor.bind(
+                self._symbol, ctx, args_d, aux_states=aux_d)
+        for name, p in self.params.items():
+            # the parameters' current tensors (a cast or reset_ctx makes
+            # new ones); in place, a changed one is one recapture
+            (exe.aux_dict if name in self._aux_names else exe.arg_dict)[
+                name] = p.data()
+        outs = exe.forward(is_train=False, **dict(zip(self._input_names,
+                                                      inputs)))
+        return outs[0] if len(outs) == 1 else outs
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError

@@ -1,5 +1,7 @@
 """Gluon model zoo of the port (reference
-`python/mxnet/gluon/model_zoo/`)."""
+`python/mxnet/gluon/model_zoo/`): the vision families and the local
+weights store behind ``pretrained=True``."""
+from . import model_store
 from . import vision
 
-__all__ = ["vision"]
+__all__ = ["model_store", "vision"]

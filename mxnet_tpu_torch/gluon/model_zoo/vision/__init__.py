@@ -3,8 +3,9 @@
 `python/mxnet/gluon/model_zoo/vision/__init__.py`): ResNet v1 and v2,
 AlexNet, VGG (with the ``_bn`` variants), SqueezeNet, MobileNet v1 and v2,
 DenseNet and Inception-v3, the JAX package's 34 names through
-``get_model``, with its parameter names. There are no weight files in
-the repository, so ``pretrained=True`` raises."""
+``get_model``, with its parameter names. ``pretrained=True`` loads the
+model's weights file from ``root`` or ``$MXNET_TPU_MODEL_DIR``
+(`model_store`), and raises where there is none."""
 from .resnet import *  # noqa: F401,F403
 from .alexnet import *  # noqa: F401,F403
 from .vgg import *  # noqa: F401,F403

@@ -1,11 +1,10 @@
 """AlexNet (counterpart of `mxnet_tpu/gluon/model_zoo/vision/alexnet.py`,
 reference `python/mxnet/gluon/model_zoo/vision/alexnet.py`). There are no
-weight files in the repository, so ``pretrained=True`` raises."""
+``pretrained=True`` loads ``alexnet.params`` from ``root`` (`model_store`)."""
 from __future__ import annotations
 
 from ...block import HybridBlock
 from ... import nn
-from ....base import MXNetError
 
 __all__ = ["AlexNet", "alexnet"]
 
@@ -43,8 +42,9 @@ class AlexNet(HybridBlock):
 
 
 def alexnet(pretrained=False, ctx=None, root=None, **kwargs):
-    if pretrained:
-        raise MXNetError("pretrained weights are not available: the "
-                         "repository holds no weight files")
     net = AlexNet(**kwargs)
+    if pretrained:
+        from ..model_store import get_model_file
+        net.load_parameters(get_model_file(
+            "alexnet", root=root), ctx=ctx)
     return net

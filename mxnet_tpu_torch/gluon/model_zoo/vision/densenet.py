@@ -7,7 +7,6 @@ from __future__ import annotations
 
 from ...block import HybridBlock
 from ... import nn
-from ....base import MXNetError
 
 __all__ = ["DenseNet", "densenet121", "densenet161", "densenet169",
            "densenet201", "get_densenet"]
@@ -90,11 +89,12 @@ densenet_spec = {121: (64, 32, [6, 12, 24, 16]),
 
 def get_densenet(num_layers, pretrained=False, ctx=None, root=None,
                  **kwargs):
-    if pretrained:
-        raise MXNetError("pretrained weights are not available: the "
-                         "repository holds no weight files")
     num_init_features, growth_rate, block_config = densenet_spec[num_layers]
     net = DenseNet(num_init_features, growth_rate, block_config, **kwargs)
+    if pretrained:
+        from ..model_store import get_model_file
+        net.load_parameters(get_model_file(
+            "densenet%d" % num_layers, root=root), ctx=ctx)
     return net
 
 

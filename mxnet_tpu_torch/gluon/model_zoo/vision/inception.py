@@ -7,7 +7,6 @@ from __future__ import annotations
 from ...block import HybridBlock
 from ...contrib.nn import HybridConcurrent
 from ... import nn
-from ....base import MXNetError
 
 __all__ = ["Inception3", "inception_v3"]
 
@@ -151,8 +150,9 @@ class Inception3(HybridBlock):
 
 
 def inception_v3(pretrained=False, ctx=None, root=None, **kwargs):
-    if pretrained:
-        raise MXNetError("pretrained weights are not available: the "
-                         "repository holds no weight files")
     net = Inception3(**kwargs)
+    if pretrained:
+        from ..model_store import get_model_file
+        net.load_parameters(get_model_file(
+            "inceptionv3", root=root), ctx=ctx)
     return net

@@ -5,7 +5,6 @@ from __future__ import annotations
 
 from ...block import HybridBlock
 from ... import nn
-from ....base import MXNetError
 
 __all__ = ["MobileNet", "MobileNetV2", "mobilenet1_0", "mobilenet0_75",
            "mobilenet0_5", "mobilenet0_25", "mobilenet_v2_1_0",
@@ -119,21 +118,29 @@ class MobileNetV2(HybridBlock):
         return x
 
 
+def _suffix(multiplier):
+    """The weight file's width tag: ``1.0``, ``0.5``, ``0.75``, ``0.25``."""
+    tag = "{0:.2f}".format(multiplier)
+    return tag[:-1] if tag in ("1.00", "0.50") else tag
+
+
 def get_mobilenet(multiplier, pretrained=False, ctx=None, root=None,
                   **kwargs):
-    if pretrained:
-        raise MXNetError("pretrained weights are not available: the "
-                         "repository holds no weight files")
     net = MobileNet(multiplier, **kwargs)
+    if pretrained:
+        from ..model_store import get_model_file
+        net.load_parameters(get_model_file(
+            "mobilenet%s" % _suffix(multiplier), root=root), ctx=ctx)
     return net
 
 
 def get_mobilenet_v2(multiplier, pretrained=False, ctx=None, root=None,
                      **kwargs):
-    if pretrained:
-        raise MXNetError("pretrained weights are not available: the "
-                         "repository holds no weight files")
     net = MobileNetV2(multiplier, **kwargs)
+    if pretrained:
+        from ..model_store import get_model_file
+        net.load_parameters(get_model_file(
+            "mobilenetv2_%s" % _suffix(multiplier), root=root), ctx=ctx)
     return net
 
 

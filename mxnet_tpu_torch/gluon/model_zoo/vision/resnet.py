@@ -2,8 +2,8 @@
 
 Counterpart of `mxnet_tpu/gluon/model_zoo/vision/resnet.py`:
 resnet18/34/50/101/152 in both versions, NCHW or NHWC (``layout=``;
-channel-last BatchNorms normalise axis 3). There are no weight files in
-the repository, so ``pretrained=True`` raises.
+channel-last BatchNorms normalise axis 3). ``pretrained=True`` loads
+``resnet<N>_v<V>.params`` from ``root`` through ``model_store``.
 """
 from __future__ import annotations
 
@@ -268,13 +268,15 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
     if version not in (1, 2):
         raise MXNetError("Invalid resnet version: %d. Options are 1 and 2."
                          % version)
-    if pretrained:
-        raise MXNetError("pretrained weights are not available: the "
-                         "repository holds no weight files")
     block_type, layers, channels = resnet_spec[num_layers]
     resnet_class = resnet_net_versions[version - 1]
     block_class = resnet_block_versions[version - 1][block_type]
-    return resnet_class(block_class, layers, channels, **kwargs)
+    net = resnet_class(block_class, layers, channels, **kwargs)
+    if pretrained:
+        from ..model_store import get_model_file
+        net.load_parameters(get_model_file(
+            "resnet%d_v%d" % (num_layers, version), root=root), ctx=ctx)
+    return net
 
 
 def resnet18_v1(**kwargs):

@@ -5,7 +5,6 @@ from __future__ import annotations
 
 from ...block import HybridBlock
 from ... import nn
-from ....base import MXNetError
 
 __all__ = ["SqueezeNet", "squeezenet1_0", "squeezenet1_1", "get_squeezenet"]
 
@@ -93,10 +92,11 @@ class SqueezeNet(HybridBlock):
 
 def get_squeezenet(version, pretrained=False, ctx=None, root=None,
                    **kwargs):
-    if pretrained:
-        raise MXNetError("pretrained weights are not available: the "
-                         "repository holds no weight files")
     net = SqueezeNet(version, **kwargs)
+    if pretrained:
+        from ..model_store import get_model_file
+        net.load_parameters(get_model_file(
+            "squeezenet%s" % version, root=root), ctx=ctx)
     return net
 
 

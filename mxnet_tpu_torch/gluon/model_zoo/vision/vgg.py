@@ -4,7 +4,6 @@ from __future__ import annotations
 
 from ...block import HybridBlock
 from ... import nn
-from ....base import MXNetError
 from ....initializer import Xavier
 
 __all__ = ["VGG", "vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn", "vgg13_bn",
@@ -58,11 +57,13 @@ vgg_spec = {11: ([1, 1, 2, 2, 2], [64, 128, 256, 512, 512]),
 
 def get_vgg(num_layers, pretrained=False, ctx=None, root=None,
             **kwargs):
-    if pretrained:
-        raise MXNetError("pretrained weights are not available: the "
-                         "repository holds no weight files")
     layers, filters = vgg_spec[num_layers]
     net = VGG(layers, filters, **kwargs)
+    if pretrained:
+        from ..model_store import get_model_file
+        suffix = "_bn" if kwargs.get("batch_norm") else ""
+        net.load_parameters(get_model_file(
+            "vgg%d%s" % (num_layers, suffix), root=root), ctx=ctx)
     return net
 
 

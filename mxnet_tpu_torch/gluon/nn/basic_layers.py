@@ -117,9 +117,12 @@ class Dense(HybridBlock):
             self.weight.shape = (self._units, in_units)
 
     def hybrid_forward(self, F, x, weight, bias=None):
+        # no_bias only where it is true, so the traced graph's attributes
+        # are the JAX package's
+        extra = {"no_bias": True} if bias is None else {}
         args = (x, weight) if bias is None else (x, weight, bias)
-        out = F.FullyConnected(*args, no_bias=bias is None,
-                               num_hidden=self._units, flatten=self._flatten)
+        out = F.FullyConnected(*args, num_hidden=self._units,
+                               flatten=self._flatten, **extra)
         return out if self.act is None else self.act._forward_impl(out)
 
 

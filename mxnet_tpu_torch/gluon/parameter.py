@@ -15,8 +15,14 @@ buffer is made with the data, in its dtype, and again by ``cast``. A
 parameter lives on one device: the context ``initialize`` is given,
 else that of the enclosing ``with ctx:`` scope, else ``gpu(0)``; without
 that CUDA device it raises, as ``Module`` does. ``Constant`` is a
-parameter with a fixed value and no gradient. Multi-device contexts and
-``save``/``load`` are not ported yet.
+parameter with a fixed value and no gradient. ``ParameterDict.save`` /
+``load`` read and write the ``.params`` container of either package
+(names with a prefix stripped or restored, ``arg:``/``aux:`` tags
+dropped on load); a loaded value fills an uninitialised parameter on the
+given context (else the deferred one's, else the enclosing scope's, else
+``gpu(0)``) or is copied into an initialised one, cast to the
+parameter's dtype. ``reset_ctx`` moves a parameter to another device.
+Multi-device contexts are not ported (ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ import torch
 
 from .. import autograd
 from ..base import MXNetError, torch_dtype
-from ..context import Context, gpu, scope_context
+from ..context import Context, cpu, gpu, scope_context
 from .. import initializer as init_mod
 from ..ndarray.ndarray import NDArray, array as nd_array, zeros as nd_zeros
 
@@ -194,9 +200,65 @@ class Parameter:
             return
         self._data[:] = data
 
+    def _load_init(self, data, ctx):
+        """Take a loaded value (an NDArray): its shape must agree with the
+        known dimensions; it is cast to this parameter's dtype, and fills
+        the parameter on ``ctx`` (see the module docstring) or is copied
+        into the initialised one."""
+        if self.shape:
+            if len(self.shape) != len(data.shape) or any(
+                    d not in (0, e) for d, e in zip(self.shape, data.shape)):
+                raise MXNetError(
+                    "Failed loading Parameter '%s' from saved params: "
+                    "shape incompatibility, expected %s vs saved %s"
+                    % (self.name, self.shape, data.shape))
+        self.shape = data.shape
+        tensor = data.data.detach()
+        dt = torch_dtype(self.dtype)
+        if self._data is not None:
+            with torch.no_grad():
+                self._data.data.copy_(tensor.to(dt))
+            self._data._wrote()
+            return
+        if ctx is None and self._deferred_init:
+            ctx = self._deferred_init[1]
+        ctx = _one_context(ctx)
+        self._deferred_init = ()
+        self._data = NDArray(tensor.to(device=ctx.torch_device(), dtype=dt,
+                                       copy=True), ctx)
+        self._ctx = ctx
+        self._init_grad()
+
     def data(self, ctx=None):
         self._check_initialized()
         return self._data
+
+    def list_data(self):
+        self._check_initialized()
+        return [self._data]
+
+    def list_ctx(self):
+        """The parameter's context as a one-element list (the deferred
+        one before a deferred initialisation finishes)."""
+        if self._data is None:
+            if self._deferred_init:
+                return [self._deferred_init[1]]
+            raise RuntimeError("Parameter '%s' has not been initialized"
+                               % self.name)
+        return [self._ctx]
+
+    def reset_ctx(self, ctx):
+        """Move the data (and a new zero gradient buffer) to ``ctx``; a
+        deferred parameter will initialise there."""
+        ctx = _one_context(ctx)
+        if self._data is not None:
+            self._data = NDArray(self._data.data.detach().to(
+                ctx.torch_device(), copy=True), ctx)
+            self._ctx = ctx
+            self._init_grad()
+        elif self._deferred_init:
+            init, _, default_init, data = self._deferred_init
+            self._deferred_init = (init, ctx, default_init, data)
 
     def grad(self, ctx=None):
         """The gradient buffer; raises for ``grad_req`` null."""
@@ -332,12 +394,72 @@ class ParameterDict:
                                  "name '%s'" % k)
             self._params[k] = v
 
+    def get_constant(self, name, value=None):
+        """The constant ``prefix + name``, made from ``value`` when it
+        does not exist yet."""
+        name = self._prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            if value is None:
+                raise KeyError("No constant named '%s'. Please specify "
+                               "value if you want to create a new constant."
+                               % name)
+            param = Constant(name, value)
+            self._params[name] = param
+        return param
+
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False):
         if init is None:
             init = init_mod.Uniform()
         for param in self.values():
             param.initialize(None, ctx, init, force_reinit=force_reinit)
+
+    def reset_ctx(self, ctx):
+        for param in self.values():
+            param.reset_ctx(ctx)
+
+    def save(self, filename, strip_prefix=""):
+        """Write every parameter's data to ``filename`` (the ``.params``
+        container), named without ``strip_prefix``."""
+        from ..ndarray.utils import save as nd_save
+        arg_dict = {}
+        for param in self.values():
+            if not param.name.startswith(strip_prefix):
+                raise ValueError(
+                    "Prefix '%s' is to be striped before saving, but "
+                    "Parameter's name '%s' does not start with it"
+                    % (strip_prefix, param.name))
+            arg_dict[param.name[len(strip_prefix):]] = param.data()
+        nd_save(filename, arg_dict)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Load ``filename`` into these parameters, each saved name (an
+        ``arg:``/``aux:`` tag dropped) with ``restore_prefix`` put back."""
+        from ..ndarray.utils import load as nd_load
+        for name in self.keys():
+            if not name.startswith(restore_prefix):
+                raise MXNetError("restore_prefix is '%s' but Parameter name "
+                                 "'%s' does not start with it"
+                                 % (restore_prefix, name))
+        lprefix = len(restore_prefix)
+        loaded = nd_load(filename, ctx=cpu())   # read on the host
+        arg_dict = {restore_prefix + k.split(":", 1)[-1]: v
+                    for k, v in loaded.items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in arg_dict:
+                    raise MXNetError("Parameter '%s' is missing in file '%s'"
+                                     % (name[lprefix:], filename))
+        for name, value in arg_dict.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise MXNetError(
+                        "Parameter '%s' loaded from file '%s' is not present "
+                        "in ParameterDict" % (name[lprefix:], filename))
+                continue
+            self[name]._load_init(value, ctx)
 
     def zero_grad(self):
         for param in self.values():

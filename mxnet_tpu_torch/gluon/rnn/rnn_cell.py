@@ -27,7 +27,10 @@ def _cells_begin_state(cells, **kwargs):
 
 def _get_begin_state(cell, F, begin_state, inputs, batch_size):
     if begin_state is None:
-        ctx = inputs.ctx if hasattr(inputs, "ctx") else None
+        # the inputs' device (a list of steps: the first one's), not the
+        # current context's
+        first = inputs[0] if isinstance(inputs, (list, tuple)) else inputs
+        ctx = getattr(first, "ctx", None)
         from ... import ndarray as nd
 
         def zeros_fn(**kwargs):

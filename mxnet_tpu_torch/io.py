@@ -44,6 +44,13 @@ class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
         return "DataDesc[%s,%s,%s,%s]" % (self.name, self.shape, self.dtype,
                                           self.layout)
 
+    @staticmethod
+    def get_batch_axis(layout):
+        """The axis of ``N`` in ``layout`` (0 when there is no layout)."""
+        if layout is None:
+            return 0
+        return layout.find("N")
+
 
 class DataBatch:
     def __init__(self, data, label=None, pad=None, index=None,
@@ -137,6 +144,15 @@ class NDArrayIter(DataIter):
     def provide_label(self):
         return [DataDesc(k, tuple([self.batch_size] + list(v.shape[1:])),
                          v.dtype) for k, v in self.label]
+
+    def hard_reset(self):
+        """``reset`` that also drops a ``roll_over`` epoch's cached tail,
+        so the next epoch starts from the first sample."""
+        if self.shuffle:
+            np.random.shuffle(self.idx)
+        self._cache_data = None
+        self._cache_label = None
+        self.cursor = -self.batch_size
 
     def reset(self):
         if self.shuffle:

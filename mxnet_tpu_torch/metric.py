@@ -43,11 +43,21 @@ def check_label_shapes(labels, preds):
 
 
 class EvalMetric:
-    def __init__(self, name, output_names=None, label_names=None):
+    def __init__(self, name, output_names=None, label_names=None, **kwargs):
         self.name = str(name)
         self.output_names = output_names
         self.label_names = label_names
+        self._kwargs = kwargs
         self.reset()
+
+    def get_config(self):
+        """The metric's constructor arguments with its class, name and
+        output and label names (reference ``EvalMetric.get_config``)."""
+        config = self._kwargs.copy()
+        config.update({"metric": self.__class__.__name__, "name": self.name,
+                       "output_names": self.output_names,
+                       "label_names": self.label_names})
+        return config
 
     def __str__(self):
         return "EvalMetric: {}".format(dict(self.get_name_value()))
@@ -123,7 +133,7 @@ class CompositeEvalMetric(EvalMetric):
 class Accuracy(EvalMetric):
     def __init__(self, axis=1, name="accuracy", output_names=None,
                  label_names=None):
-        super().__init__(name, output_names, label_names)
+        super().__init__(name, output_names, label_names, axis=axis)
         self.axis = axis
 
     def update(self, labels, preds):
@@ -149,7 +159,7 @@ class TopKAccuracy(EvalMetric):
 
     def __init__(self, top_k=1, name="top_k_accuracy", output_names=None,
                  label_names=None):
-        super().__init__(name, output_names, label_names)
+        super().__init__(name, output_names, label_names, top_k=top_k)
         self.top_k = top_k
         if self.top_k <= 1:
             raise ValueError("Please use Accuracy if top_k is no more "
@@ -223,7 +233,8 @@ class F1(EvalMetric):
 class Perplexity(EvalMetric):
     def __init__(self, ignore_label=None, axis=-1, name="perplexity",
                  output_names=None, label_names=None):
-        super().__init__(name, output_names, label_names)
+        super().__init__(name, output_names, label_names,
+                         ignore_label=ignore_label)
         self.ignore_label = ignore_label
         self.axis = axis
 
@@ -307,7 +318,7 @@ class RMSE(_Regression):
 class CrossEntropy(EvalMetric):
     def __init__(self, eps=1e-12, name="cross-entropy", output_names=None,
                  label_names=None):
-        super().__init__(name, output_names, label_names)
+        super().__init__(name, output_names, label_names, eps=eps)
         self.eps = eps
 
     def update(self, labels, preds):
@@ -377,7 +388,8 @@ class CustomMetric(EvalMetric):
             name = feval.__name__
             if "<" in name:
                 name = "custom(%s)" % name
-        super().__init__(name, output_names, label_names)
+        super().__init__(name, output_names, label_names, feval=feval,
+                         allow_extra_outputs=allow_extra_outputs)
         self._feval = feval
         self._allow_extra_outputs = allow_extra_outputs
 

@@ -11,7 +11,9 @@ so it is aligned at the top left when ``Tq != Tk``.
 ``flash_attention`` runs :func:`flash_attention_plain` on a CPU tensor,
 returns an empty tensor of the output's shape for a ``meta`` tensor (the
 port's shape inference), launches ``csrc/flash_attention.cu`` on a CUDA
-tensor (f32 or bf16, ``D <= 128``), and raises on anything else.
+tensor (f32 or bf16, ``D <= 256``: bf16 up to 128 on the TMA + ``wgmma``
+kernel, above it and f32 on a CUDA-core kernel), and raises on anything
+else.
 ``flash_attention.launches`` counts the calls that launched the kernel.
 The bf16 kernel reads q, k and v through TMA maps, which need a head dim
 that is a multiple of 8 and 16-byte aligned tensors: :func:`tma_operands`
@@ -39,7 +41,7 @@ __all__ = ["flash_attention", "flash_attention_plain",
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 _lock = threading.Lock()
 
 
@@ -132,7 +134,7 @@ def flash_attention(q, k, v, scale=None, causal=False, block_q=512,
     ``block_q`` and ``block_k`` are the TPU kernel's tile sizes: they are
     accepted for the same signature and change nothing here (the CUDA
     kernel picks its own tiles). CPU tensors take the plain version;
-    CUDA tensors (f32 or bf16, one dtype, one device, ``D <= 128``) the
+    CUDA tensors (f32 or bf16, one dtype, one device, ``D <= 256``) the
     kernel."""
     del block_q, block_k
     if q.device.type == "meta":

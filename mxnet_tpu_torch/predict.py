@@ -108,11 +108,14 @@ class Predictor:
         ex = self._symbol.simple_bind(self._ctx, grad_req="null",
                                       shared_exec=shared_exec, **shapes)
         for name, arr in self._params.items():
-            dst = ex.arg_dict.get(name)
+            # an argument, else an auxiliary state (BatchNorm's moving
+            # statistics, which `export` writes as arg:)
+            dst = ex.arg_dict.get(name, ex.aux_dict.get(name))
             if dst is None:
                 continue
             if shared_exec is not None and \
-                    dst is shared_exec.arg_dict.get(name):
+                    (dst is shared_exec.arg_dict.get(name)
+                     or dst is shared_exec.aux_dict.get(name)):
                 continue   # same device buffer: already holds the weight
             dst[:] = arr
         self._exec = ex

@@ -8,8 +8,12 @@ dtypes, no data) where the JAX package uses ``jax.eval_shape``; a meta
 tensor is not on a CUDA device, so no hand kernel is launched for it.
 Variables consumed at an op's ``mutate_aux`` positions (BatchNorm's moving
 statistics) are auxiliary states, not arguments, and only an op's visible
-outputs take part in composition. Arithmetic operators build
-``broadcast_*`` and scalar nodes.
+outputs take part in composition. Arithmetic and comparison operators
+build ``broadcast_*`` and scalar nodes (so ``==`` gives a Symbol, and a
+Symbol hashes by identity), and the tensor methods (``reshape``,
+``astype``, ``sum``, ...) build their ops, as in the JAX package.
+``infer_type`` is the JAX package's: the given argument types, f32 for
+the rest and for every output. ``eval`` binds on ``cpu()`` by default.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import json
 import numpy as np
 import torch
 
-from ..base import MXNetError, torch_dtype
+from ..base import MXNetError, dtype_np, torch_dtype
 from ..attribute import AttrScope
 from ..name import NameManager
 from ..ops.registry import _OPS, get_op
@@ -76,6 +80,12 @@ class Symbol:
         return Symbol([(n, i) for n in self._topo_nodes()
                        for i in range(n.num_outputs)])
 
+    def get_children(self):
+        """The inputs of the first output's node as one Symbol (None for
+        a variable)."""
+        node, _ = self._outputs[0]
+        return Symbol(list(node.inputs)) if node.inputs else None
+
     # -- graph walk ------------------------------------------------------
     def _topo_nodes(self):
         seen = set()
@@ -116,6 +126,17 @@ class Symbol:
         return [n.name for n in self._topo_nodes()
                 if n.is_var() and n._aux_mark]
 
+    def list_inputs(self):
+        """Every variable, arguments and auxiliary states, in graph
+        order."""
+        return [n.name for n in self._topo_nodes() if n.is_var()]
+
+    def attr(self, key):
+        """The attribute ``key`` of the first output's node, as a string,
+        else None."""
+        v = self._outputs[0][0].attrs.get("__attrs__", {}).get(key)
+        return None if v is None else str(v)
+
     def attr_dict(self):
         """{variable or node name: {attribute: str}} of the attributes set
         on variables (``__lr_mult__``, ``__wd_mult__``, ``__init__``...)."""
@@ -141,14 +162,34 @@ class Symbol:
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes) from the given argument
         shapes, by name or in ``list_arguments()`` order."""
+        return self._infer_shape_impl(False, *args, **kwargs)
+
+    def infer_shape_partial(self, *args, **kwargs):
+        """``infer_shape`` that leaves None where a shape cannot be
+        inferred instead of raising."""
+        return self._infer_shape_impl(True, *args, **kwargs)
+
+    def _infer_shape_impl(self, partial, *args, **kwargs):
         arg_names = self.list_arguments()
         known = dict(kwargs)
         for n, s in zip(arg_names, args):
             if s is not None:
                 known[n] = s
-        shapes, out_shapes = _graph_infer(self, known)
+        shapes, out_shapes = _graph_infer(self, known, partial=partial)
         return ([shapes.get(n) for n in arg_names], out_shapes,
                 [shapes.get(n) for n in self.list_auxiliary_states()])
+
+    def infer_type(self, *args, **kwargs):
+        """(arg_types, out_types, aux_types): the given argument types, by
+        name or in ``list_arguments()`` order, f32 for every other
+        argument, output and auxiliary state (the JAX package's rule)."""
+        arg_names = self.list_arguments()
+        given = {n: t for n, t in zip(arg_names, args) if t is not None}
+        given.update(kwargs)
+        f32 = np.dtype(np.float32)
+        return ([_np_type(given.get(n, f32)) for n in arg_names],
+                [f32] * len(self._outputs),
+                [f32] * len(self.list_auxiliary_states()))
 
     # -- serialization (reference JSON graph format) --------------------
     def tojson(self):
@@ -171,6 +212,18 @@ class Symbol:
     def save(self, fname):
         with open(fname, "w") as f:
             f.write(self.tojson())
+
+    def debug_str(self):
+        """One line a node: ``Variable:<name>`` or ``Op:<op>, Name=<name>,
+        Inputs=[...]``."""
+        lines = []
+        for n in self._topo_nodes():
+            if n.is_var():
+                lines.append("Variable:%s" % n.name)
+            else:
+                lines.append("Op:%s, Name=%s, Inputs=[%s]" % (
+                    n.op, n.name, ", ".join(src.name for src, _ in n.inputs)))
+        return "\n".join(lines)
 
     def __repr__(self):
         name = self.name
@@ -199,8 +252,79 @@ class Symbol:
     def __rtruediv__(self, other):
         return _sym_binary(self, other, "broadcast_div", "_rdiv_scalar")
 
+    def __pow__(self, other):
+        return _sym_binary(self, other, "broadcast_power", "_power_scalar")
+
+    def __rpow__(self, other):
+        return _sym_binary(self, other, "broadcast_power",
+                           "_rpower_scalar")
+
     def __neg__(self):
         return create("negative", [self], {})
+
+    def __eq__(self, other):
+        return _sym_binary(self, other, "broadcast_equal", "_equal_scalar")
+
+    def __ne__(self, other):
+        return _sym_binary(self, other, "broadcast_not_equal",
+                           "_not_equal_scalar")
+
+    def __gt__(self, other):
+        return _sym_binary(self, other, "broadcast_greater",
+                           "_greater_scalar")
+
+    def __ge__(self, other):
+        return _sym_binary(self, other, "broadcast_greater_equal",
+                           "_greater_equal_scalar")
+
+    def __lt__(self, other):
+        return _sym_binary(self, other, "broadcast_lesser",
+                           "_lesser_scalar")
+
+    def __le__(self, other):
+        return _sym_binary(self, other, "broadcast_lesser_equal",
+                           "_lesser_equal_scalar")
+
+    def __hash__(self):
+        return id(self)
+
+    # -- tensor methods as ops -------------------------------------------
+    def reshape(self, *shape, **kwargs):
+        if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
+            shape = tuple(shape[0])
+        if not shape:
+            shape = kwargs.get("shape", ())
+        return create("Reshape", [self], {"shape": tuple(shape)})
+
+    def astype(self, dtype):
+        return create("Cast", [self], {"dtype": dtype})
+
+    def transpose(self, *axes):
+        if len(axes) == 1 and isinstance(axes[0], (list, tuple)):
+            axes = tuple(axes[0])
+        return create("transpose", [self], {"axes": axes or None})
+
+    def flatten(self):
+        return create("Flatten", [self], {})
+
+    def sum(self, axis=None, keepdims=False):
+        return create("sum", [self], {"axis": axis, "keepdims": keepdims})
+
+    def mean(self, axis=None, keepdims=False):
+        return create("mean", [self], {"axis": axis, "keepdims": keepdims})
+
+    def softmax(self, axis=-1):
+        return create("softmax", [self], {"axis": axis})
+
+    def slice_axis(self, axis, begin, end):
+        return create("slice_axis", [self],
+                      {"axis": axis, "begin": begin, "end": end})
+
+    def expand_dims(self, axis):
+        return create("expand_dims", [self], {"axis": axis})
+
+    def squeeze(self, axis=None):
+        return create("squeeze", [self], {"axis": axis})
 
     # -- binding ---------------------------------------------------------
     def simple_bind(self, ctx, grad_req="write", type_dict=None,
@@ -216,6 +340,16 @@ class Symbol:
         return Executor.bind(self, ctx, args, args_grad=args_grad,
                              grad_req=grad_req, aux_states=aux_states)
 
+    def eval(self, ctx=None, **kwargs):
+        """Bind the given arrays on ``ctx`` and run one inference forward:
+        the outputs. Without ``ctx``, the arrays' own context, else the
+        enclosing ``with ctx:`` scope's, else ``gpu(0)``."""
+        from ..context import gpu, scope_context
+        if ctx is None:
+            ctx = next((v.context for v in kwargs.values()
+                        if hasattr(v, "context")), None)
+        return self.bind(ctx or scope_context() or gpu(0), kwargs).forward()
+
 
 def _output_name(node, idx):
     # multi-output ops name their outputs <name><index>, as the JAX package
@@ -229,6 +363,14 @@ def _sym_binary(lhs, rhs, op, scalar_op):
     if isinstance(rhs, (int, float)):
         return create(scalar_op, [lhs], {"scalar": float(rhs)})
     raise TypeError("type %s not supported" % str(type(rhs)))
+
+
+def _np_type(dtype):
+    """A dtype spelling as numpy's, ``"bfloat16"`` kept as that string
+    (numpy has no bf16)."""
+    if str(dtype).endswith("bfloat16"):
+        return "bfloat16"
+    return dtype_np(dtype)
 
 
 def _json_attrs(attrs):
@@ -352,8 +494,10 @@ def _meta(shape, dtype):
                        device="meta")
 
 
-def _graph_infer(sym, known_shapes, type_dict=None):
-    """Returns (arg shapes by name, output shapes)."""
+def _graph_infer(sym, known_shapes, type_dict=None, partial=False):
+    """Returns (arg shapes by name, output shapes). With ``partial`` a
+    shape that cannot be inferred is None (and so is every output that
+    depends on it) instead of an error."""
     type_dict = type_dict or {}
     var_shape = {}
     var_dtype = {}
@@ -377,21 +521,32 @@ def _graph_infer(sym, known_shapes, type_dict=None):
         ins = [metas[id(src)][oi] for src, oi in n.inputs]
         unknown = [i for i, m in enumerate(ins) if m is None]
         if unknown:
-            filled = _infer.fill_param_shapes(
-                n.op, _clean_attrs(n.attrs),
-                [None if m is None else tuple(m.shape) for m in ins])
+            try:
+                filled = _infer.fill_param_shapes(
+                    n.op, _clean_attrs(n.attrs),
+                    [None if m is None else tuple(m.shape) for m in ins])
+            except MXNetError:
+                if not partial:
+                    raise
+                filled = [None] * len(ins)
             ref = next((m.dtype for m in ins if m is not None),
                        torch.float32)
             for i in unknown:
                 src, _ = n.inputs[i]
                 if filled[i] is None or not src.is_var():
+                    if partial:
+                        continue
                     raise MXNetError("cannot infer shape of input %d to %s"
                                      % (i, n.name))
                 var_shape[src.name] = tuple(filled[i])
                 ins[i] = _meta(filled[i], var_dtype[src.name] or ref)
                 metas[id(src)] = [ins[i]]
+        if any(m is None for m in ins):
+            metas[id(n)] = [None] * n.num_outputs
+            continue
         metas[id(n)] = list(op.fcompute(_eval_params(n, op), *ins))
-    out_shapes = [tuple(metas[id(node)][idx].shape)
+    out_shapes = [None if metas[id(node)][idx] is None
+                  else tuple(metas[id(node)][idx].shape)
                   for node, idx in sym._outputs]
     return var_shape, out_shapes
 

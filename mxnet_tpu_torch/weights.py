@@ -10,8 +10,13 @@ take the numpy dict as it is. A Gluon net's parameters cross the same
 way: ``params_to_numpy({k: v.data() for k, v in
 net.collect_params().items()})`` reads either package's net, and
 ``set_block_params`` fills a port net from such a dict, deferred
-parameters included. Both packages read and write the same ``.params``
-container (`ndarray/utils.py`), which is the other way across.
+parameters included; that covers every Gluon block, the contrib cells of
+``gluon.contrib.rnn`` (conv cells, ``LSTMPCell``) too, since both
+packages name their parameters alike. Both packages read and write the
+same ``.params`` container (`ndarray/utils.py`), which is the other way
+across: a file of ``save_parameters``, ``save_params`` or ``export``
+written by one loads into the other (``load_parameters``,
+``load_params``, ``SymbolBlock.imports``).
 
 Recurrent models cross the same way: a Gluon ``rnn.RNN``/``LSTM``/``GRU``
 layer's per-(layer, direction) parameters by name, and a

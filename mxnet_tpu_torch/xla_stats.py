@@ -39,7 +39,10 @@ The port has no XLA: what this module reads is what the port runs.
 4. **Flight recorder**: a bounded ring of recent telemetry events (fed
    by a `telemetry` tap) plus last-compile/last-step metadata, dumped as
    ``MXNET_TELEMETRY_DIR/flightrecorder-host<h>.json`` by ``Module.fit``
-   on an exception, by the health sentinels and by OOM forensics.
+   on an exception, by the health sentinels and by OOM forensics. Each
+   dump is also kept as ``flightrecorder-host<h>-<reason>.json``, so a
+   later dump of another reason (a leak-sentinel trip after a serving
+   worker's death) does not overwrite the earlier post-mortem.
 
 ``MXNET_XLA_STATS=0`` turns the compile-time FLOP counting and the
 ledger bookings off (the compile counters of `compiled.py` stay).
@@ -478,8 +481,11 @@ class FlightRecorder:
     def dump(self, reason="", path=None, error=None):
         """Write the post-mortem JSON; returns the path, or None when no
         destination exists (no telemetry dir and no explicit path) or the
-        write failed: a crash path must never crash harder."""
+        write failed: a crash path must never crash harder. Without
+        ``path`` it goes to the telemetry dir, as the newest post-mortem
+        and under a name of its reason's own."""
         try:
+            paths = [path]
             if path is None:
                 d = telemetry.configured_dir() or \
                     os.environ.get("MXNET_TELEMETRY_DIR")
@@ -487,6 +493,9 @@ class FlightRecorder:
                     return None
                 path = os.path.join(
                     d, "flightrecorder-host%d.json" % telemetry.host_id())
+                paths = [path]
+                if reason:
+                    paths.append(reason_dump_path(d, reason))
             doc = {
                 "host": telemetry.host_id(),
                 "pid": os.getpid(),
@@ -501,10 +510,12 @@ class FlightRecorder:
             }
             os.makedirs(os.path.dirname(os.path.abspath(path)),
                         exist_ok=True)
-            tmp = "%s.tmp%d" % (path, os.getpid())
-            with open(tmp, "w", encoding="utf-8") as fh:
-                json.dump(doc, fh, default=str)
-            os.replace(tmp, path)
+            text = json.dumps(doc, default=str)
+            for p in paths:
+                tmp = "%s.tmp%d" % (p, os.getpid())
+                with open(tmp, "w", encoding="utf-8") as fh:
+                    fh.write(text)
+                os.replace(tmp, p)
             self.dumps_written += 1
             telemetry.counter("flightrecorder_dumps_total",
                               help="flight-recorder post-mortem dumps "
@@ -513,6 +524,15 @@ class FlightRecorder:
         except Exception as exc:   # pragma: no cover - bad disk
             telemetry.swallowed("xla_stats.flight_recorder", exc)
             return None
+
+
+def reason_dump_path(directory, reason):
+    """``<directory>/flightrecorder-host<h>-<reason>.json``: the newest
+    post-mortem of one reason (characters outside ``[A-Za-z0-9_.-]``
+    become ``_``)."""
+    safe = "".join(c if c.isalnum() or c in "_.-" else "_" for c in reason)
+    return os.path.join(directory, "flightrecorder-host%d-%s.json"
+                        % (telemetry.host_id(), safe))
 
 
 flight_recorder = FlightRecorder()

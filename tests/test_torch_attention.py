@@ -84,6 +84,35 @@ def test_forward_matches_pallas(shape, causal, dtype):
                                    rtol=BF16_RTOL, atol=BF16_ATOL)
 
 
+# head dims above 128 (ROADMAP C.15: the card's kernel now takes D up to
+# 256; its plain version is held here, the kernel on the card). Above 128
+# the Pallas kernel takes multiples of 128 only: D = 160 raises there.
+WIDE_SHAPES = [(1, 24, 40, 2, 256), (2, 40, 24, 1, 256)]
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_matches_pallas_above_head_dim_128(shape, causal, dtype):
+    test_forward_matches_pallas(shape, causal, dtype)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dim_160_the_pallas_kernel_refuses(causal):
+    """The JAX kernel refuses D = 160; the port's plain version computes
+    it, equal to the dense f32 attention (the card's kernel takes it too,
+    `tests/test_torch_cuda.py`)."""
+    arrays = _qkv(2, 40, 24, 1, 160)
+    with pytest.raises(NotImplementedError, match="multiple of 128"):
+        _jax_flash(arrays, "float32", causal=causal)
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    got = flash_attention(q, k, v, causal=causal)
+    want = dense_attention_plain(q.double(), k.double(), v.double(),
+                                 causal=causal)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=FWD_TOL,
+                               atol=FWD_TOL)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_given_scale_matches_pallas(causal):
     arrays = _qkv(*SHAPES[1], seed=1)

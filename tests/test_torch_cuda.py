@@ -590,6 +590,20 @@ def test_k4_matches_plain(cuda, shape, dtype, causal):
                                atol=atol)
 
 
+# head dims above 128 (ROADMAP C.15): the CUDA-core kernel at kD = 256
+# for f32 and bf16, Tq and Tk across its 32-row and 64-key tiles, both ways
+K4_WIDE_SHAPES = [(1, 128, 128, 2, 160), (2, 200, 300, 2, 256),
+                  (1, 300, 200, 2, 256), (1, 33, 65, 3, 160),
+                  (1, 1, 129, 1, 256), (1, 129, 1, 1, 136)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K4_WIDE_SHAPES)
+def test_k4_matches_plain_above_head_dim_128(cuda, shape, dtype, causal):
+    test_k4_matches_plain(cuda, shape, dtype, causal)
+
+
 def test_k4_given_scale_and_strided_inputs(cuda):
     from mxnet_tpu_torch.ops.attention_kernel import (flash_attention,
                                                       flash_attention_plain)
@@ -628,8 +642,8 @@ def test_k4_unaligned_bf16_inputs(cuda, causal):
 
 def test_k4_refuses_what_it_cannot_launch(cuda):
     from mxnet_tpu_torch.ops.attention_kernel import _library, flash_attention
-    q = torch.zeros(1, 4, 1, 256, device=cuda)
-    with pytest.raises(mxt.MXNetError, match="head dims up to 128"):
+    q = torch.zeros(1, 4, 1, 257, device=cuda)
+    with pytest.raises(mxt.MXNetError, match="head dims up to 256"):
         flash_attention(q, q, q)
     h = torch.zeros(1, 4, 1, 8, device=cuda, dtype=torch.float16)
     with pytest.raises(mxt.MXNetError, match="f32 or bf16"):
@@ -2241,3 +2255,70 @@ def test_zoo_net_replay_matches_eager(cuda, monkeypatch):
         "compiles": 1, "cache_hits": 1, "retraces": 0, "uncaptured": 0}
     np.testing.assert_array_equal(first, second)
     assert np.linalg.norm(first - eager) <= 2.5e-4 * np.linalg.norm(eager)
+
+
+def test_symbol_block_is_one_capture_a_signature(cuda, monkeypatch,
+                                                 tmp_path):
+    """MobileNet v2 0.25 exported and imported as a ``SymbolBlock`` on the
+    card: one capture for each of two input shapes, none in 10 more calls
+    of each, the calls equal to each other and to the exporting net's
+    hybridized forward (INFER_REL's 2.5e-4 by relative norm), TF32 off;
+    a moving statistic changed by ``set_data`` is seen by the next call
+    without a capture."""
+    from mxnet_tpu_torch import compiled
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    net = vision.get_model("mobilenetv2_0.25")
+    net.initialize(mxt.init.Xavier(), ctx=mxt.gpu(0))
+    rs = np.random.RandomState(2)
+    xs = [mxt.nd.array(rs.rand(b, 3, 224, 224), ctx=mxt.gpu(0))
+          for b in (4, 2)]
+    net.hybridize()
+    want = [net(x).asnumpy() for x in xs]
+    prefix = str(tmp_path / "m")
+    net.export(prefix)
+    block = mxt.gluon.SymbolBlock.imports(prefix + "-symbol.json", "data",
+                                          prefix + "-0000.params",
+                                          ctx=mxt.gpu(0))
+    before = compiled.compile_counts()
+    first = [block(x).asnumpy() for x in xs]
+    warm = compiled.compile_counts()
+    for _ in range(10):
+        again = [block(x).asnumpy() for x in xs]
+    after = compiled.compile_counts()
+    assert warm["compiles"] - before["compiles"] == 2
+    assert warm["uncaptured"] == before["uncaptured"]
+    assert after["compiles"] == warm["compiles"]
+    assert after["cache_hits"] - warm["cache_hits"] == 20
+    for f, a, w in zip(first, again, want):
+        np.testing.assert_array_equal(f, a)
+        assert np.linalg.norm(f - w) <= 2.5e-4 * np.linalg.norm(w)
+    var = [p for n, p in block.collect_params().items()
+           if n.endswith("running_var")][-1]
+    var.set_data(var.data().asnumpy() * 4.0)
+    moved = block(xs[0]).asnumpy()
+    assert compiled.compile_counts()["compiles"] == after["compiles"]
+    assert not np.array_equal(moved, first[0])
+
+
+def test_symbol_eval_binds_on_its_arrays_card(cuda):
+    """``Symbol.eval`` with card arrays and no ``ctx`` binds on ``gpu(0)``:
+    the outputs lie on the card and say so (ROADMAP C.12)."""
+    x = mxt.sym.var("x")
+    g = mxt.sym.Group([x * 2.0, x.sum()])
+    out = g.eval(x=mxt.nd.array([1.0, 2.0], ctx=mxt.gpu(0)))
+    assert [o.context for o in out] == [mxt.gpu(0)] * 2
+    assert all(o.data.is_cuda for o in out)
+    np.testing.assert_array_equal(out[0].asnumpy(), [2.0, 4.0])
+    np.testing.assert_array_equal(out[1].asnumpy(), [3.0])
+
+
+def test_context_empty_cache_releases_cached_blocks(cuda):
+    """``Context.empty_cache`` on the card hands PyTorch's cached blocks
+    back (ROADMAP C.13; the JAX package's is a no-op)."""
+    nbytes = 256 << 20
+    x = torch.empty(nbytes // 4, device=cuda)
+    del x
+    before = torch.cuda.memory_reserved(cuda)
+    mxt.gpu(0).empty_cache()
+    assert torch.cuda.memory_reserved(cuda) <= before - nbytes

@@ -165,6 +165,23 @@ def test_fit_exception_dumps_flight_recorder(fresh):
     assert "injected callback failure" in doc["error"]
 
 
+def test_flight_recorder_keeps_each_reasons_post_mortem(fresh):
+    """A later dump of another reason (a leak-sentinel trip after a
+    serving worker's death) replaces the newest post-mortem but leaves
+    the death's own file."""
+    xla_stats.dump_flight_recorder("serving.worker_death", error="boom")
+    xla_stats.dump_flight_recorder("runprof.memory_leak")
+    newest = json.load(open(os.path.join(
+        fresh, "flightrecorder-host%d.json" % telemetry.host_id())))
+    assert newest["reason"] == "runprof.memory_leak"
+    death = json.load(open(xla_stats.reason_dump_path(
+        fresh, "serving.worker_death")))
+    assert (death["reason"], death["error"]) == ("serving.worker_death",
+                                                 "boom")
+    assert os.path.basename(xla_stats.reason_dump_path(fresh, "a/b c")) \
+        == "flightrecorder-host%d-a_b_c.json" % telemetry.host_id()
+
+
 def test_instrumentation_adds_zero_compiles(fresh, monkeypatch):
     """tests/test_memprof.py::test_instrumentation_adds_zero_compiles."""
     monkeypatch.delenv("MXNET_MEM_LIMIT_BYTES", raising=False)
